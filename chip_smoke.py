@@ -9,18 +9,29 @@ Phases, one output line each:
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power limit;
 2. build of the hand-written CUDA kernels from ``partitionedarrays_tpu_torch/
    csrc`` (nvcc, sm_90a), with its time;
-3. each kernel (K1 dia_spmv, K4 ax_core, K3 gs_sweeps) against its plain
-   PyTorch version on the card, at the shapes of the 128^3 fine level, in
-   float32 and float64: largest difference, tolerance, and the time of each
-   (CUDA events);
-4. the HPCG benchmark through the port on one part, 4 MG levels, 50 CG
-   iterations: at 128^3 in float32 and float64, and at 64^3 in float64;
-   each also checks the standard-order operator (K1) against the
-   de-interleaved one (K4) and runs the generic CG, which applies A through
-   K1.  The relative residuals are held to the limits of ``HPCG_RUNS``;
-5. the kernels' launch counts over phase 4, each required > 0;
+3. each kernel against its plain PyTorch version on the card, in float32
+   and float64: K1 dia_spmv, K4 ax_core and K3 gs_sweeps at the shapes of
+   the 128^3 one-part fine level, K5 ghost_spmv and K2 dia_spmv_strided at
+   those of the (2,2,2) x 64^3 fine level; largest difference, tolerance,
+   and the time of each (CUDA events);
+4. the HPCG benchmark through the port, 4 MG levels, 50 CG iterations, on
+   two paths, each with its kernels' launch counts set to 0 just before it
+   and read just after:
+   a. one part: 128^3 in float32 and float64, 64^3 in float64; each also
+      checks the standard-order operator (K1) against the de-interleaved
+      one (K4) and runs the generic CG, which applies A through K1;
+   b. (2,2,2) parts of 64^3 (the same 128^3 global problem) in float32 and
+      float64 through the ghosted flat CG; each also checks the
+      standard-order ``spmv`` (exchange, K1, K5) against the core product
+      (K4) plus the ghost contribution, runs the generic CG, and holds the
+      standalone colored sweep (K2 per color) against the smoother's sweep
+      sequence (K3) with a real ghost contribution;
+   the relative residuals are held to the limits of ``HPCG_RUNS`` and
+   ``GHOSTED_RUNS``;
+5. the launch counts of each path, each kernel of a path required > 0;
 6. the whole port on the card against the whole port on the CPU (plain
-   versions) at 32^3, 3 levels, float64: residual histories to rtol 1e-10.
+   versions), float64, residual histories to rtol 1e-10: 32^3 on one part
+   and (2,2,2) parts of 8^3, 3 levels, flat and generic CG.
 
 Then the card's name and power limit, a JSON line of per-kernel results,
 and last a JSON line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -51,7 +62,18 @@ HPCG_RUNS = (
     (LOCAL, "float64", 2e-6),
     ((64, 64, 64), "float64", 1e-8),
 )
-CROSS_SHAPE = (32, 32, 32)
+# (2,2,2) parts of 64^3: the 128^3 global problem, the largest per-part
+# box at which the reference's own-ghost block still takes its slot kernel
+# (K5).  The limits are sanity bounds: the reference has no measurement of
+# this partition on a chip.
+GHOST_PARTS = (2, 2, 2)
+GHOST_LOCAL = (64, 64, 64)
+GHOSTED_RUNS = (
+    (GHOST_LOCAL, "float32", 1e-5),
+    (GHOST_LOCAL, "float64", 1e-5),
+)
+# (local shape, parts per direction) of the cuda-vs-cpu comparison
+CROSS_CASES = (((32, 32, 32), (1, 1, 1)), ((8, 8, 8), GHOST_PARTS))
 CROSS_LEVELS = 3
 CROSS_ITERATIONS = 10
 CROSS_RTOL = 1e-10
@@ -71,6 +93,19 @@ KERNELS = {
         "partitionedarrays_tpu_torch/csrc/gs_dia.cu",
         "partitionedarrays_tpu/ops/gs_pallas.py:244",
     ),
+    "dia_spmv_strided": (
+        "partitionedarrays_tpu_torch/csrc/dia_spmv.cu",
+        "partitionedarrays_tpu/ops/spmv_pallas.py:276",
+    ),
+    "ghost_spmv": (
+        "partitionedarrays_tpu_torch/csrc/ghost_spmv.cu",
+        "partitionedarrays_tpu/ops/slot_spmv.py:363",
+    ),
+}
+# the kernels each path of phase 4 must launch
+PATH_KERNELS = {
+    "one_part": ("dia_spmv", "ax_core", "gs_sweeps"),
+    "ghosted": tuple(KERNELS),
 }
 
 
@@ -146,14 +181,38 @@ def phase_build():
     emit("2 build", {"seconds": round(seconds, 3), "library": path.name, "registers": regs})
 
 
+def _hold(results, kname, dtype_name, kernel, plain, timed=None) -> None:
+    """Run ``kernel`` and ``plain`` on the same inputs, hold the largest
+    difference to the tolerance relative to the largest plain entry, and
+    time both (or the pair ``timed``, calls without the set-up copies)."""
+    import torch
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    max_abs = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = KERNEL_RTOL[dtype_name] * scale
+    if not (max_abs <= tol):
+        raise AssertionError(f"{kname} {dtype_name}: max |kernel - plain| {max_abs} > {tol}")
+    results.append({
+        "kernel": kname, "dtype": dtype_name, "max_abs_err": max_abs,
+        "max_rel_err": max_abs / scale, "tol_rel": KERNEL_RTOL[dtype_name],
+    })
+    k_t, p_t = timed if timed is not None else (kernel, plain)
+    results[-1].update(ms=time_ms(k_t, 20), plain_ms=time_ms(p_t, 5))
+
+
 def phase_kernels(device):
-    """Each kernel against its plain version at the 128^3 fine-level shapes."""
+    """Each kernel against its plain version: K1, K4, K3 at the 128^3
+    one-part fine-level shapes, K5 and K2 at the (2,2,2) x 64^3 ones."""
     import torch
 
     from partitionedarrays_tpu_torch.backends import SerialBackend
     from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
     from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
-    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv
+    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_strided
+    from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv, ghost_spmv_plain
     from partitionedarrays_tpu_torch.ops.gs_dia_kernels import (
         ax_core, ax_core_plain, gs_sweeps, gs_sweeps_plain,
     )
@@ -171,35 +230,38 @@ def phase_kernels(device):
         x_core = torch.randn(1, col.m, col.Lq, generator=g, dtype=dtype).to(device)
         bd = gs.make_bd(b)
         order = gs._order_seq()
-        cases = {
-            "dia_spmv": (
-                lambda: dia_spmv(oo.offsets, oo.vals, x_std),
-                lambda: dia_spmv_plain(oo.offsets, oo.vals, x_std),
-            ),
-            "ax_core": (
-                lambda: ax_core(col.vals_d, x_core, col.taps),
-                lambda: ax_core_plain(col.vals_d, x_core, col.taps),
-            ),
-            "gs_sweeps": (
-                lambda: gs_sweeps(col.vals_d, bd, col.invd_d, x_core, col.taps, order),
-                lambda: gs_sweeps_plain(col.vals_d, bd, col.invd_d, x_core, col.taps, order),
-            ),
-        }
-        for kname, (kernel, plain) in cases.items():
-            got = kernel()
-            torch.cuda.synchronize()
-            want = plain()
-            max_abs = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            tol = KERNEL_RTOL[name] * scale
-            if not (max_abs <= tol):
-                raise AssertionError(f"{kname} {name}: max |kernel - plain| {max_abs} > {tol}")
-            results.append({
-                "kernel": kname, "dtype": name, "max_abs_err": max_abs,
-                "max_rel_err": max_abs / scale, "tol_rel": KERNEL_RTOL[name],
-                "ms": time_ms(kernel, 20), "plain_ms": time_ms(plain, 5),
-            })
-        del A, b, gs, col, oo, x_std, x_core, bd, cases
+        _hold(results, "dia_spmv", name,
+              lambda: dia_spmv(oo.offsets, oo.vals, x_std),
+              lambda: dia_spmv_plain(oo.offsets, oo.vals, x_std))
+        _hold(results, "ax_core", name,
+              lambda: ax_core(col.vals_d, x_core, col.taps),
+              lambda: ax_core_plain(col.vals_d, x_core, col.taps))
+        _hold(results, "gs_sweeps", name,
+              lambda: gs_sweeps(col.vals_d, bd, col.invd_d, x_core, col.taps, order),
+              lambda: gs_sweeps_plain(col.vals_d, bd, col.invd_d, x_core, col.taps, order))
+        del A, b, gs, col, oo, x_std, x_core, bd
+        torch.cuda.empty_cache()
+
+        P = 8
+        A, _ = build_hpcg_problem(GHOST_LOCAL, GHOST_PARTS, SerialBackend(P), dtype=dtype, device=device)
+        oh = A.device().oh
+        col = GaussSeidel(A).colored
+        g_vals = torch.randn(P, A.col_layout().n_ghost_pad, generator=g, dtype=dtype).to(device)
+        y0 = torch.randn(P, oh.n_rows, generator=g, dtype=dtype).to(device)
+        core = torch.randn(P, col.m * col.Lq, generator=g, dtype=dtype).to(device)
+        c = col.m // 2  # a middle color: its taps reach both neighbouring rows
+        taps, vals_c = col.taps.host[c], col.vals_d[:, c]
+        # K5 accumulates into y: compared on copies of y0, timed in place
+        y_t = y0.clone()
+        _hold(results, "ghost_spmv", name,
+              lambda: ghost_spmv(oh.rows, oh.cols, oh.vals, g_vals, y0.clone()),
+              lambda: ghost_spmv_plain(oh.rows, oh.cols, oh.vals, g_vals, y0.clone()),
+              timed=(lambda: ghost_spmv(oh.rows, oh.cols, oh.vals, g_vals, y_t),
+                     lambda: ghost_spmv_plain(oh.rows, oh.cols, oh.vals, g_vals, y_t)))
+        _hold(results, "dia_spmv_strided", name,
+              lambda: dia_spmv_strided(taps, vals_c, core),
+              lambda: dia_spmv_plain(taps, vals_c, core))
+        del y_t, A, oh, col, g_vals, y0, core, vals_c
         torch.cuda.empty_cache()
     emit("3 kernels", results)
     return results
@@ -267,11 +329,108 @@ def phase_hpcg(device):
             failures.append(f"{key}: standard vs de-interleaved operator differ by {op_err}")
         if not (s["final_relres"] <= limit and generic_relres <= limit):
             failures.append(f"{key}: relres {s['final_relres']} / {generic_relres} > {limit}")
-        if not s["validation_passed"]:
-            failures.append(f"{key}: HPCG validation failed")
+        if not (s["validation_passed"] and s["chain_consistent"]):
+            failures.append(f"{key}: HPCG validation or chain consistency failed")
         del mg, report, A, gs, x, y_std, y_core, norms
         torch.cuda.empty_cache()
-    emit("4 hpcg", out)
+    emit("4a hpcg one part", out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def phase_hpcg_ghosted(device):
+    """The benchmark on (2,2,2) parts through the ghosted flat CG, plus the
+    standard-order ``spmv`` (exchange, K1, K5) against the core product (K4)
+    plus the ghost contribution, the generic CG, and the standalone colored
+    sweep (K2) against the smoother's sweep sequence (K3)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg
+    from partitionedarrays_tpu_torch.models.hpcg.driver import cg_route, hpcg_benchmark
+    from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
+    from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv
+    from partitionedarrays_tpu_torch.psparse import spmv
+    from partitionedarrays_tpu_torch.pvector import PVector
+
+    P = int(np.prod(GHOST_PARTS))
+    out, failures = {}, []
+    for shape, dtype, limit in GHOSTED_RUNS:
+        name = np.dtype(dtype).name
+        key = f"{name}@{GHOST_PARTS}x{shape[0]}^3"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mg = HPCGMGPreconditioner(
+            shape, GHOST_PARTS, SerialBackend(P), n_levels=LEVELS, dtype=dtype, device=device
+        )
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        route = cg_route(mg)
+        k5_before = ghost_spmv.launches
+        report = hpcg_benchmark(
+            None, local_shape=shape, parts_per_dir=GHOST_PARTS, n_levels=LEVELS,
+            iterations=ITERATIONS, ref_sets=1, timed_sets=3, dtype=dtype,
+            mg=mg, setup_time=setup, device=device,
+        )
+        k5_in_benchmark = ghost_spmv.launches - k5_before
+        s = report.summary()
+        A, gs = mg.A, mg.gss[-1]
+        col = gs.colored
+        lay = A.row_layout()
+        g = torch.Generator().manual_seed(98)
+        x = torch.zeros(P, lay.n_own_pad, dtype=A.dtype)
+        x[:, : int(lay.n_own[0])] = torch.randn(P, int(lay.n_own[0]), generator=g, dtype=A.dtype)
+        x = x.to(device)
+        # standard order (exchange, K1, K5) against core (K4) + ghosts (K5)
+        y_std = spmv(A, PVector(x, x.new_zeros(P, lay.n_ghost_pad), lay, A.backend)).own
+        y_core = gs.flat_interleave(gs.flat_ax(gs.flat_deinterleave(x))) + gs.ghost_contrib(x)
+        op_err = (y_std - y_core).abs().max().item() / y_std.abs().max().item()
+        # the standalone sweep (K2 per color) against the sweep sequence (K3)
+        gc = gs.ghost_contrib(x)
+        order = gs._order_seq()
+        via_k2 = col.sweep(x, mg.b.own, gc, col.vals_d, col.invd_d, order)
+        via_k3 = gs.flat_interleave(col.sweeps_core(
+            gs.flat_deinterleave(x), gs.flat_deinterleave(mg.b.own - gc),
+            col.vals_d, col.invd_d, order,
+        ))
+        sweep_err = (via_k2 - via_k3).abs().max().item() / via_k3.abs().max().item()
+        _, norms = hpcg_cg(A, mg.b, M=mg, iterations=ITERATIONS)
+        generic_relres = (norms[-1] / norms[0]).item()
+        gf = report.gflops()
+        out[key] = {
+            "cg_route": route,
+            "ghost_spmv_launches_in_benchmark": k5_in_benchmark,
+            "raw_gflops": gf["raw"],
+            "rated_gflops": gf["rated"],
+            "final_relres": s["final_relres"],
+            "relres_limit": limit,
+            "generic_cg_relres": generic_relres,
+            "validation_passed": s["validation_passed"],
+            "chain_consistent": s["chain_consistent"],
+            "seconds_per_set": report.time_solve / report.n_sets,
+            "setup_s": setup,
+            "spmv_rel_err": op_err,
+            "sweep_k2_vs_k3_rel_err": sweep_err,
+            "n_ghost_pad": A.col_layout().n_ghost_pad,
+            "exchange_rounds": A.col_layout().consistent_plan.n_rounds,
+            "nrow": s["nrow"],
+            "nnz": s["nnz"],
+        }
+        if route != "flat_g" or k5_in_benchmark <= 0:
+            failures.append(f"{key}: the benchmark did not take the ghosted flat CG ({route})")
+        if not op_err <= KERNEL_RTOL[name]:
+            failures.append(f"{key}: spmv vs core product + ghosts differ by {op_err}")
+        if not sweep_err <= KERNEL_RTOL[name]:
+            failures.append(f"{key}: sweep (K2) vs sweeps_core (K3) differ by {sweep_err}")
+        if not (s["final_relres"] <= limit and generic_relres <= limit):
+            failures.append(f"{key}: relres {s['final_relres']} / {generic_relres} > {limit}")
+        if not (s["validation_passed"] and s["chain_consistent"]):
+            failures.append(f"{key}: HPCG validation or chain consistency failed")
+        del mg, report, A, gs, col, x, y_std, y_core, gc, via_k2, via_k3, norms
+        torch.cuda.empty_cache()
+    emit("4b hpcg ghosted", out)
     if failures:
         raise AssertionError("; ".join(failures))
     return out
@@ -283,28 +442,34 @@ def phase_cross(device):
     import torch
 
     from partitionedarrays_tpu_torch.backends import SerialBackend
-    from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg, hpcg_cg_flat
+    from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg, hpcg_cg_flat, hpcg_cg_flat_g
+    from partitionedarrays_tpu_torch.models.hpcg.driver import cg_route
     from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
 
-    hist = {}
-    for dev in (device, torch.device("cpu")):
-        mg = HPCGMGPreconditioner(
-            CROSS_SHAPE, (1, 1, 1), SerialBackend(1), n_levels=CROSS_LEVELS,
-            dtype=np.float64, device=dev,
-        )
-        _, flat = hpcg_cg_flat(mg, mg.b, iterations=CROSS_ITERATIONS)
-        _, generic = hpcg_cg(mg.A, mg.b, M=mg, iterations=CROSS_ITERATIONS)
-        hist[dev.type] = (flat.cpu().numpy(), generic.cpu().numpy())
-    errs = {}
-    for i, kind in enumerate(("flat", "generic")):
-        a, b = hist["cuda"][i], hist["cpu"][i]
-        errs[kind] = float(np.max(np.abs(a - b) / np.abs(b)))
-        if not errs[kind] <= CROSS_RTOL:
-            raise AssertionError(f"{kind} CG: cuda vs cpu histories differ by {errs[kind]}")
+    out = {}
+    for shape, parts in CROSS_CASES:
+        hist = {}
+        for dev in (device, torch.device("cpu")):
+            mg = HPCGMGPreconditioner(
+                shape, parts, SerialBackend(int(np.prod(parts))), n_levels=CROSS_LEVELS,
+                dtype=np.float64, device=dev,
+            )
+            flat_cg = hpcg_cg_flat if cg_route(mg) == "flat" else hpcg_cg_flat_g
+            _, flat = flat_cg(mg, mg.b, iterations=CROSS_ITERATIONS)
+            _, generic = hpcg_cg(mg.A, mg.b, M=mg, iterations=CROSS_ITERATIONS)
+            hist[dev.type] = (flat.cpu().numpy(), generic.cpu().numpy())
+        errs = {}
+        for i, kind in enumerate((flat_cg.__name__, "hpcg_cg")):
+            a, b = hist["cuda"][i], hist["cpu"][i]
+            errs[kind] = float(np.max(np.abs(a - b) / np.abs(b)))
+            if not errs[kind] <= CROSS_RTOL:
+                raise AssertionError(f"{kind} {parts}x{shape}: cuda vs cpu differ by {errs[kind]}")
+        out[f"{parts}x{shape[0]}^3"] = {
+            "max_rel_diff": errs,
+            "final_relres": float(hist["cpu"][0][-1] / hist["cpu"][0][0]),
+        }
     emit("6 cuda-vs-cpu", {
-        "shape": list(CROSS_SHAPE), "levels": CROSS_LEVELS, "iterations": CROSS_ITERATIONS,
-        "max_rel_diff": errs, "rtol": CROSS_RTOL,
-        "final_relres": float(hist["cpu"][0][-1] / hist["cpu"][0][0]),
+        "levels": CROSS_LEVELS, "iterations": CROSS_ITERATIONS, "rtol": CROSS_RTOL, "cases": out,
     })
 
 
@@ -318,7 +483,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     try:
-        from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv
+        from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_strided
+        from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv
         from partitionedarrays_tpu_torch.ops.gs_dia_kernels import ax_core, gs_sweeps
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable from here: {exc}", file=sys.stderr)
@@ -330,15 +496,23 @@ def main() -> int:
     phase_build()
     kernel_results = phase_kernels(device)
 
-    counters = {"dia_spmv": dia_spmv, "ax_core": ax_core, "gs_sweeps": gs_sweeps}
-    for fn in counters.values():
-        fn.launches = 0
-    phase_hpcg(device)
-    launches = {k: fn.launches for k, fn in counters.items()}
+    counters = {
+        "dia_spmv": dia_spmv, "ax_core": ax_core, "gs_sweeps": gs_sweeps,
+        "dia_spmv_strided": dia_spmv_strided, "ghost_spmv": ghost_spmv,
+    }
+    launches = {}
+    for path, run_path in (("one_part", phase_hpcg), ("ghosted", phase_hpcg_ghosted)):
+        for fn in counters.values():
+            fn.launches = 0
+        run_path(device)
+        launches[path] = {k: fn.launches for k, fn in counters.items()}
     emit("5 launches", launches)
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [
+        f"{path}:{k}" for path, names in PATH_KERNELS.items() for k in names
+        if launches[path][k] <= 0
+    ]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on their path: {missing}")
 
     phase_cross(device)
 
@@ -347,7 +521,7 @@ def main() -> int:
         r = next(r for r in kernel_results if r["kernel"] == kname and r["dtype"] == "float32")
         rows.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": r["max_abs_err"],
+            "launches": launches["ghosted"][kname], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
         })
     print(card_line())

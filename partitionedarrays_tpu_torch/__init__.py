@@ -8,7 +8,8 @@ explicit ``device``, and the TPU kernels on the ported path are CUDA
 kernels written for Hopper (``csrc/``), built with ``nvcc`` on first use.
 A CPU tensor runs each kernel's plain PyTorch version instead.
 
-So far the port covers the HPCG benchmark on one part; see ROADMAP.md.
+So far the port covers the HPCG benchmark on one part and on many parts
+stacked on one device (ghost exchange, own-ghost block); see ROADMAP.md.
 """
 from . import config
 from .backends import SerialBackend

@@ -41,6 +41,12 @@ _I64 = ctypes.c_longlong
 _SIGNATURES = {
     # vals, x, y, offsets (host int array), n_off, R, n_cols, P, stream
     "pat_dia_spmv": [_VP, _VP, _VP, ctypes.POINTER(_INT), _INT, _I64, _I64, _INT, _VP],
+    # as pat_dia_spmv, then the values' and x's part strides
+    "pat_dia_spmv_strided": [
+        _VP, _VP, _VP, ctypes.POINTER(_INT), _INT, _I64, _I64, _INT, _I64, _I64, _VP,
+    ],
+    # rows, cols, vals, x, y, Nr, K, n_cols, R, P, stream
+    "pat_ghost_spmv": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _I64, _I64, _INT, _VP],
     # vals, x, out, tap (device int [m, n_off]), P, m, n_off, Lq, stream
     "pat_ax_core": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _I64, _VP],
     # vals, bd, invd, x, tap (device int [m, n_off]), c, P, m, n_off, Lq, stream

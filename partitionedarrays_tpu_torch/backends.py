@@ -4,16 +4,12 @@ Counterpart of ``partitionedarrays_tpu/backends.py::SerialBackend``.  The
 JAX package drives per-part functions through ``vmap`` over a stacked part
 axis; here the part axis is simply dim 0 of every tensor (``[P, ...]``) and
 code is written over the stacked tensors directly.  A reduction over parts
-(``psum``) is a sum over dim 0.
-
-Only one part is supported so far: many parts need ghost exchange rounds,
-which come with the ghosted HPCG slice.
+(``psum``) is a sum over dim 0, and a halo exchange is an index along dim 0
+(``parallel/exchange_plan.py``).
 """
 from __future__ import annotations
 
 import torch
-
-GHOSTED_PARTS = "ghosted parts: ROADMAP slice B"
 
 
 class SerialBackend:

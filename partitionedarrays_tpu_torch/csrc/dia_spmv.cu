@@ -1,19 +1,29 @@
-// K1: standard-order DIA SpMV for Hopper (sm_90a).
+// K1 and K2: DIA SpMV for Hopper (sm_90a).
 //
-// Replaces the TPU kernel partitionedarrays_tpu/ops/spmv_pallas.py::
-// dia_spmv_pallas_flat (_dia_spmv_pallas_flat, body _dia_kernel_flat).
-// It computes, for every part p and row i,
+// K1 replaces the TPU kernel partitionedarrays_tpu/ops/spmv_pallas.py::
+// dia_spmv_pallas_flat (_dia_spmv_pallas_flat, body _dia_kernel_flat), the
+// standard-order SpMV behind DeviceBlock.spmv.  It computes, for every part
+// p and row i,
 //
 //     y[p, i] = sum_d vals[p, d, i] * x[p, i + off[d]]
 //
 // with x read as zero outside [0, n_cols).  Plain PyTorch version:
 // ops/dia.py::dia_spmv_plain; wrapper: ops/dia_spmv.py::dia_spmv.
 //
+// K2 replaces partitionedarrays_tpu/ops/spmv_pallas.py::dia_spmv_pallas
+// (_dia_spmv_pallas, body _dia_kernel), the same SpMV over one color's
+// [n_off, Lq] values inside the colored Gauss-Seidel's de-interleaved core
+// (ColoredDIAGS.sweep_flat).  It is K1's row loop with the values and x of
+// part p read at a per-part stride: one color's values vals_d[:, c] are a
+// [P, n_off, Lq] view whose parts lie m * n_off * Lq apart, so no copy of
+// the color is made.  Wrapper: ops/dia_spmv.py::dia_spmv_strided; its plain
+// version is dia_spmv_plain on the same views.
+//
 // Bound: device-memory bandwidth.  The product does 2 flops per value and
 // must read every value once (n_off * R words), x once and write y once;
 // at the 27-point stencil the values are ~93% of the bytes.  The design
 // keeps the traffic at that minimum:
-//   - values are stored [P, n_off, R], so for each diagonal neighbouring
+//   - values are stored [.., n_off, R], so for each diagonal neighbouring
 //     threads read neighbouring addresses (fully coalesced streams);
 //   - x is read through the read-only path (__ldg).  The 27 taps of a warp
 //     fall in at most 9 short runs of x that the L1/L2 caches serve, so
@@ -36,6 +46,22 @@ struct DiaOffsets {
   int off[kMaxDiags];
 };
 
+// one output row: vp points at the row's value of diagonal 0, xp at the
+// part's x
+template <typename T>
+__device__ __forceinline__ T dia_row(const T* __restrict__ vp,
+                                     const T* __restrict__ xp,
+                                     const DiaOffsets& offs, long long i,
+                                     long long R, long long n_cols) {
+  T acc = T(0);
+  for (int d = 0; d < offs.n; ++d) {
+    const long long j = i + offs.off[d];
+    const T xv = (j >= 0 && j < n_cols) ? __ldg(xp + j) : T(0);
+    acc += vp[d * R] * xv;
+  }
+  return acc;
+}
+
 template <typename T>
 __global__ void dia_spmv_kernel(const T* __restrict__ vals,
                                 const T* __restrict__ x, T* __restrict__ y,
@@ -47,15 +73,29 @@ __global__ void dia_spmv_kernel(const T* __restrict__ vals,
        t < total; t += stride) {
     const long long p = t / R;
     const long long i = t - p * R;
-    const T* vp = vals + p * offs.n * R + i;
-    const T* xp = x + p * n_cols;
-    T acc = T(0);
-    for (int d = 0; d < offs.n; ++d) {
-      const long long j = i + offs.off[d];
-      const T xv = (j >= 0 && j < n_cols) ? __ldg(xp + j) : T(0);
-      acc += vp[d * R] * xv;
-    }
-    y[t] = acc;
+    y[t] = dia_row(vals + p * offs.n * R + i, x + p * n_cols, offs, i, R,
+                   n_cols);
+  }
+}
+
+// K2: as K1, the values of part p start at p * vals_stride and its x at
+// p * x_stride; y is [P, R] contiguous
+template <typename T>
+__global__ void dia_spmv_strided_kernel(const T* __restrict__ vals,
+                                        const T* __restrict__ x,
+                                        T* __restrict__ y,
+                                        const DiaOffsets offs, long long R,
+                                        long long n_cols, int P,
+                                        long long vals_stride,
+                                        long long x_stride) {
+  const long long total = (long long)P * R;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < total; t += stride) {
+    const long long p = t / R;
+    const long long i = t - p * R;
+    y[t] = dia_row(vals + p * vals_stride + i, x + p * x_stride, offs, i, R,
+                   n_cols);
   }
 }
 
@@ -66,16 +106,36 @@ int blocks_for(long long work) {
   return b < 1 ? 1 : (int)b;
 }
 
+bool load_offsets(DiaOffsets* offs, const int* offsets, int n_off) {
+  if (n_off < 0 || n_off > kMaxDiags) return false;
+  offs->n = n_off;
+  for (int d = 0; d < n_off; ++d) offs->off[d] = offsets[d];
+  return true;
+}
+
 template <typename T>
 int launch(const T* vals, const T* x, T* y, const int* offsets, int n_off,
            long long R, long long n_cols, int P, cudaStream_t stream) {
-  if (n_off < 0 || n_off > kMaxDiags) return (int)cudaErrorInvalidValue;
   DiaOffsets offs;
-  offs.n = n_off;
-  for (int d = 0; d < n_off; ++d) offs.off[d] = offsets[d];
+  if (!load_offsets(&offs, offsets, n_off)) return (int)cudaErrorInvalidValue;
   if ((long long)P * R > 0) {
     dia_spmv_kernel<T><<<blocks_for((long long)P * R), kThreads, 0, stream>>>(
         vals, x, y, offs, R, n_cols, P);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_strided(const T* vals, const T* x, T* y, const int* offsets,
+                   int n_off, long long R, long long n_cols, int P,
+                   long long vals_stride, long long x_stride,
+                   cudaStream_t stream) {
+  DiaOffsets offs;
+  if (!load_offsets(&offs, offsets, n_off)) return (int)cudaErrorInvalidValue;
+  if ((long long)P * R > 0) {
+    dia_spmv_strided_kernel<T>
+        <<<blocks_for((long long)P * R), kThreads, 0, stream>>>(
+            vals, x, y, offs, R, n_cols, P, vals_stride, x_stride);
   }
   return (int)cudaGetLastError();
 }
@@ -96,6 +156,24 @@ int pat_dia_spmv_f64(const void* vals, const void* x, void* y,
                      long long n_cols, int P, void* stream) {
   return launch<double>((const double*)vals, (const double*)x, (double*)y,
                         offsets, n_off, R, n_cols, P, (cudaStream_t)stream);
+}
+
+int pat_dia_spmv_strided_f32(const void* vals, const void* x, void* y,
+                             const int* offsets, int n_off, long long R,
+                             long long n_cols, int P, long long vals_stride,
+                             long long x_stride, void* stream) {
+  return launch_strided<float>((const float*)vals, (const float*)x, (float*)y,
+                               offsets, n_off, R, n_cols, P, vals_stride,
+                               x_stride, (cudaStream_t)stream);
+}
+
+int pat_dia_spmv_strided_f64(const void* vals, const void* x, void* y,
+                             const int* offsets, int n_off, long long R,
+                             long long n_cols, int P, long long vals_stride,
+                             long long x_stride, void* stream) {
+  return launch_strided<double>((const double*)vals, (const double*)x,
+                                (double*)y, offsets, n_off, R, n_cols, P,
+                                vals_stride, x_stride, (cudaStream_t)stream);
 }
 
 }  // extern "C"

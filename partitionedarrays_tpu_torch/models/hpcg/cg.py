@@ -2,7 +2,7 @@
 history.
 
 Counterpart of ``partitionedarrays_tpu/models/hpcg/cg.py`` (``hpcg_cg``
-:22-60 and ``hpcg_cg_flat`` :130-186).  The loop runs eagerly; the residual
+:22-60, ``hpcg_cg_flat_g`` :63-127 and ``hpcg_cg_flat`` :130-186).  The loop runs eagerly; the residual
 norms stay in a device tensor (``norms[k + 1] = ...``) and nothing is copied
 to the host inside the loop, so the host only enqueues work.
 """
@@ -62,6 +62,54 @@ def hpcg_cg(
     return x, norms
 
 
+def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Dot product of two cores over all parts, as a 0-d device tensor."""
+    return torch.vdot(u.reshape(-1), v.reshape(-1))
+
+
+def hpcg_cg_flat_g(mg, b: PVector, iterations: int = 50):
+    """PCG in the core layout for an operator with ghost columns (many
+    parts).  Vectors, dots and axpys live in the finest level's core, as in
+    ``hpcg_cg_flat``; the A-apply is the core SpMV (K4) plus the
+    ghost-column contribution (one exchange and K5, in standard order);
+    the preconditioner is the ghosted V-cycle.  Standard order appears at
+    the exchange and the level transfers."""
+    gs = mg.gss[-1]
+    lay = b.layout
+
+    def a_apply(p):
+        gc = gs.ghost_contrib(gs.flat_interleave(p))
+        return gs.flat_ax(p) + gs.flat_deinterleave(gc)
+
+    def m_apply(r):
+        r_std = gs.flat_interleave(r)
+        rv = PVector(r_std, r_std.new_zeros((r_std.shape[0], lay.n_ghost_pad)), lay, b.backend)
+        return mg._cycle_flat_g(mg.n_levels - 1, rv)
+
+    bf = gs.make_bd(b)
+    x = torch.zeros_like(bf)
+    r = bf
+    norms = bf.new_zeros(iterations + 1)
+    norms[0] = torch.sqrt(_dot(r, r))
+    z = m_apply(r)
+    p = z
+    rz = _dot(r, z)
+    for k in range(iterations):
+        Ap = a_apply(p)
+        alpha = rz / _dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = m_apply(r)
+        rz_new = _dot(r, z)
+        beta = rz_new / rz
+        p = z + beta * p
+        rz = rz_new
+        norms[k + 1] = torch.sqrt(_dot(r, r))
+    x_own = gs.flat_interleave(x)
+    xv = PVector(x_own, x_own.new_zeros((x_own.shape[0], lay.n_ghost_pad)), lay, b.backend)
+    return xv, norms
+
+
 def hpcg_cg_flat(mg, b: PVector, iterations: int = 50):
     """PCG with every vector in the de-interleaved core layout of the
     finest level's Gauss-Seidel (one part, no ghosts): the A-apply is the
@@ -72,28 +120,25 @@ def hpcg_cg_flat(mg, b: PVector, iterations: int = 50):
     gs = mg.gss[-1]
     lay = b.layout
 
-    def dot(u, v):
-        return torch.vdot(u.reshape(-1), v.reshape(-1))
-
     bf = gs.make_bd(b)
     x = torch.zeros_like(bf)
     r = bf
     norms = bf.new_zeros(iterations + 1)
-    norms[0] = torch.sqrt(dot(r, r))
+    norms[0] = torch.sqrt(_dot(r, r))
     z = mg.apply_flat(r)
     p = z
-    rz = dot(r, z)
+    rz = _dot(r, z)
     for k in range(iterations):
         Ap = gs.flat_ax(p)
-        alpha = rz / dot(p, Ap)
+        alpha = rz / _dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = mg.apply_flat(r)
-        rz_new = dot(r, z)
+        rz_new = _dot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
-        norms[k + 1] = torch.sqrt(dot(r, r))
+        norms[k + 1] = torch.sqrt(_dot(r, r))
     x_own = gs.flat_interleave(x)
     xv = PVector(x_own, x_own.new_zeros((x_own.shape[0], lay.n_ghost_pad)), lay, b.backend)
     return xv, norms

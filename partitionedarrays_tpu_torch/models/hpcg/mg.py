@@ -8,7 +8,9 @@ the coarsest level.
 
 Within a level, x and the smoothing stay in the de-interleaved core layout
 of the colored Gauss-Seidel; standard order appears only for the level
-transfers.  Restriction is a stride-2 slice of the C-ordered box and
+transfers.  With ghost columns (many parts) the frozen ghost contribution
+of each smoother application is folded into the core rhs
+(``_cycle_flat_g``).  Restriction is a stride-2 slice of the C-ordered box and
 prolongation writes the coarse values at the even points of a zero box:
 the reference's selection matmul and dilated pad were TPU layout devices.
 """
@@ -19,7 +21,6 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...backends import GHOSTED_PARTS
 from ...psparse import PSparseMatrix
 from ...pvector import PVector
 from ...solvers.smoothers import GaussSeidel
@@ -115,17 +116,43 @@ class HPCGMGPreconditioner:
         gs = self.gss[l]
         if l == 0:
             return gs(b)  # coarsest: smoothing is the solve
-        if not gs.flat_viable():
-            return self._cycle_flat_g(l, b)
-        x_own = gs.flat_interleave(self._cycle_flat_bd(l, gs.make_bd(b)))
-        ghost = x_own.new_zeros((x_own.shape[0], b.layout.n_ghost_pad))
-        return PVector(x_own, ghost, self.As[l].row_layout(), self.backend)
+        if gs.flat_viable():
+            xflat = self._cycle_flat_bd(l, gs.make_bd(b))
+        else:
+            xflat = self._cycle_flat_g(l, b)
+        x_own = gs.flat_interleave(xflat)
+        rlay = self.As[l].row_layout()
+        ghost = x_own.new_zeros((x_own.shape[0], rlay.n_ghost_pad))
+        return PVector(x_own, ghost, rlay, self.backend)
 
     def _cycle_flat_g(self, l: int, b: PVector) -> torch.Tensor:
-        raise NotImplementedError(GHOSTED_PARTS)
+        """Ghosted V-cycle level with the level state in the core layout.
+        The frozen ghost contribution is folded into the core rhs per
+        smoother application (hybrid GS, as the generic path).  Two
+        exchanges per level per cycle: the pre-smooth starts from a zero
+        guess whose ghosts are zero, so it needs none."""
+        gs = self.gss[l]
+        bd0 = gs.make_bd(b)
+        xflat = gs.smooth_bd(None, bd0)  # pre-smooth
+        # the true level residual r = b - A_oo x - A_oh g, with fresh ghosts
+        gc = gs.ghost_contrib(gs.flat_interleave(xflat))
+        r_std = gs.flat_interleave(gs.flat_residual(xflat, bd0)) - gc
+        rc = self._restrict(l, r_std)
+        xc = self._cycle(l - 1, rc)
+        corr = self._prolong(l, xc.own, r_std.shape[1])
+        xflat = gs.flat_add_std(xflat, corr)
+        # post-smooth with refreshed frozen ghosts
+        gc2 = gs.ghost_contrib(gs.flat_interleave(xflat))
+        return gs.smooth_bd(xflat, gs.flat_deinterleave(b.own - gc2))
 
     def flat_viable(self) -> bool:
+        """True when the finest level smooths without ghost exchanges."""
         return self.gss[-1].flat_viable()
+
+    def flat_viable_ghosted(self) -> bool:
+        """True when the finest level can run the ghosted flat pipeline
+        (every level of the port smooths with the colored sweep)."""
+        return self.n_levels >= 2
 
     def apply_flat(self, bd: torch.Tensor) -> torch.Tensor:
         """The preconditioner in the de-interleaved layout: residual core

@@ -1,39 +1,130 @@
 """Per-block device storage of a partitioned matrix.
 
 Counterpart of ``partitionedarrays_tpu/ops/blocks.py`` (``DeviceBlock``
-:22-130, ``make_dia_block`` :152-173), DIA kind only.  The values are kept
-in the logical layout ``[P, n_off, R]``, which is also what the CUDA kernel
-streams: the reference's segment-major ``vflat`` copy existed only to avoid
-TPU sublane padding and does not carry over.  ELL and slot blocks come
-with the ghosted and generic slices.
+:22-130, ``make_dia_block`` :152-173, ``freeze_block`` :176-250).  A block
+freezes into one of two kinds:
+
+- "dia": a banded block, values ``[P, n_off, R]`` on static ``offsets``; the
+  SpMV is kernel K1.  The reference's segment-major ``vflat`` copy existed
+  only to avoid TPU sublane padding and does not carry over.
+- "ell": any other block, as a compressed-row ELL that keeps only the rows
+  with nonzeros (``stack_rows``); the SpMV is kernel K5.  The reference
+  stores a padded ``[P, R, K]`` ELL plus the TPU slot format; neither is
+  mirrored (``ops/ghost_spmv.py``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
+import numpy as np
+import scipy.sparse as sp
 import torch
 
+from .dia import MAX_DIAGS, dia_viable, stack_dia
 from .dia_spmv import dia_spmv
+from .ghost_spmv import ghost_spmv
 
 
 class DeviceBlock:
-    """kind "dia": ``vals[P, n_off, R]`` on static ``offsets``; the block
-    has ``n_cols_pad`` columns."""
+    """kind "dia": ``vals[P, n_off, R]`` on static ``offsets``; kind "ell":
+    ``rows[P, Nr]``, ``cols[P, K, Nr]``, ``vals[P, K, Nr]`` of the rows with
+    nonzeros.  The block has ``n_rows`` (padded) rows and ``n_cols_pad``
+    columns."""
 
-    def __init__(self, kind: str, offsets: Tuple[int, ...], n_cols_pad: int, vals: torch.Tensor):
-        if kind != "dia":
-            raise NotImplementedError(f"{kind} blocks: ROADMAP slice B/C")
+    def __init__(
+        self, kind: str, offsets, n_rows: int, n_cols_pad: int, vals: torch.Tensor,
+        rows: torch.Tensor = None, cols: torch.Tensor = None,
+    ):
+        if kind not in ("dia", "ell"):
+            raise ValueError(f"unknown block kind {kind!r}")
         self.kind = kind
         self.offsets = offsets
-        self.n_cols_pad = n_cols_pad
+        self.n_rows = int(n_rows)
+        self.n_cols_pad = int(n_cols_pad)
         self.vals = vals
+        self.rows = rows
+        self.cols = cols
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        """Per-part SpMV: x [P, n_cols_pad] -> [P, R] (kernel K1)."""
-        return dia_spmv(self.offsets, self.vals, x.contiguous())
+        """Per-part SpMV: x [P, n_cols_pad] -> [P, n_rows] (K1 or K5)."""
+        if self.kind == "dia":
+            return dia_spmv(self.offsets, self.vals, x.contiguous())
+        y = x.new_zeros((x.shape[0], self.n_rows))
+        return ghost_spmv(self.rows, self.cols, self.vals, x.contiguous(), y)
+
+    def spmv_add(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``y + block @ x``.  An "ell" block accumulates into y in place
+        (K5): each row gets one sum added, so the rounding is that of adding
+        the two products."""
+        if self.kind == "dia":
+            return y + self.spmv(x)
+        return ghost_spmv(self.rows, self.cols, self.vals, x.contiguous(), y)
 
 
 def make_dia_block(offsets, n_cols_pad: int, vals: torch.Tensor) -> DeviceBlock:
     """DIA block from device values ``[P, n_off, R]``."""
     offsets = tuple(int(o) for o in offsets)
-    return DeviceBlock("dia", offsets, int(n_cols_pad), vals.contiguous())
+    return DeviceBlock("dia", offsets, vals.shape[2], int(n_cols_pad), vals.contiguous())
+
+
+def stack_rows(blocks: Sequence[sp.spmatrix], n_cols: int):
+    """Per-part CSR blocks -> the compressed-row ELL host arrays ``rows[P,
+    Nr]``, ``cols[P, K, Nr]``, ``vals[P, K, Nr]`` with Nr (a multiple of 8)
+    and K common to all parts.  Lanes keep each row's CSR order; padding
+    lanes hold column -1 and value 0, padding rows hold row -1."""
+    csrs = [b.tocsr() for b in blocks]
+    live = [np.flatnonzero(np.diff(b.indptr)) for b in csrs]
+    Nr = max((r.size for r in live), default=0)
+    Nr = ((Nr + 7) // 8) * 8
+    K = max((int(np.diff(b.indptr).max()) if b.nnz else 0 for b in csrs), default=0)
+    dtype = csrs[0].dtype if csrs else np.float32
+    P = len(csrs)
+    rows = np.full((P, Nr), -1, dtype=np.int32)
+    cols = np.full((P, K, Nr), -1, dtype=np.int32)
+    vals = np.zeros((P, K, Nr), dtype=dtype)
+    for p, (b, r) in enumerate(zip(csrs, live)):
+        if b.nnz == 0:
+            continue
+        if b.indices.max() >= n_cols:
+            raise ValueError(f"part {p}: a column index >= {n_cols}")
+        rows[p, : r.size] = r
+        counts = np.diff(b.indptr)[r]
+        i = np.repeat(np.arange(r.size), counts)  # compressed row of each entry
+        k = np.arange(b.nnz) - np.repeat(b.indptr[r], counts)  # lane in its row
+        cols[p, k, i] = b.indices
+        vals[p, k, i] = b.data
+    return rows, cols, vals
+
+
+def freeze_block(
+    blocks: Sequence[sp.spmatrix],
+    n_rows_pad: int,
+    n_cols_pad: int,
+    device="cpu",
+    prefer_dia: bool = True,
+) -> DeviceBlock:
+    """Per-part host blocks -> one DeviceBlock on ``device``: DIA when
+    every part block is banded with a small common diagonal set and the
+    dense-diagonal storage does not exceed the ELL footprint (the
+    reference's rule), else the compressed-row ELL.  The common diagonal
+    set is capped at ``MAX_DIAGS``, the most K1 takes (the reference's
+    cap is 128)."""
+    csrs = [b.tocsr() for b in blocks]
+    for b in csrs:
+        b.sort_indices()
+    if prefer_dia:
+        offsets = dia_viable(csrs, max_diags=MAX_DIAGS)
+        if offsets is not None and offsets.size:
+            kmax = max((int(np.diff(b.indptr).max()) if b.nnz else 0) for b in csrs)
+            # DIA stores n_off*R values; ELL stores K*R values + K*R int32
+            if offsets.size <= max(2 * kmax, 4):
+                vals = stack_dia(csrs, n_rows_pad, offsets)
+                return make_dia_block(
+                    tuple(int(o) for o in offsets), n_cols_pad,
+                    torch.from_numpy(vals).to(device),
+                )
+    rows, cols, vals = stack_rows(csrs, n_cols_pad)
+    return DeviceBlock(
+        "ell", None, n_rows_pad, n_cols_pad, torch.from_numpy(vals).to(device),
+        rows=torch.from_numpy(rows).to(device), cols=torch.from_numpy(cols).to(device),
+    )

@@ -32,6 +32,17 @@ def csr_diagonals(A: sp.spmatrix) -> np.ndarray:
     return np.unique(coo.col.astype(np.int64) - coo.row.astype(np.int64))
 
 
+def dia_viable(blocks: Sequence[sp.spmatrix], max_diags: int = MAX_DIAGS):
+    """The union of the blocks' diagonal offsets when it has at most
+    ``max_diags`` entries, else None (as the reference's ``dia_viable``)."""
+    offs = set()
+    for b in blocks:
+        offs.update(csr_diagonals(b.tocsr()).tolist())
+        if len(offs) > max_diags:
+            return None
+    return np.array(sorted(offs), dtype=np.int64)
+
+
 def stack_dia(
     blocks: Sequence[sp.spmatrix], n_rows_pad: int, offsets: np.ndarray
 ) -> np.ndarray:

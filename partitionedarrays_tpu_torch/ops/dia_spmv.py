@@ -1,12 +1,16 @@
-"""K1: the standard-order DIA SpMV, kernel wrapper and plain version.
+"""K1 and K2: the DIA SpMV kernels, wrappers and plain version.
 
-Replaces ``partitionedarrays_tpu/ops/spmv_pallas.py::dia_spmv_pallas_flat``
-(the TPU kernel behind ``DeviceBlock.spmv``).  The CUDA kernel is
-``csrc/dia_spmv.cu``; its source note says what bounds it (device-memory
+K1 ``dia_spmv`` replaces ``partitionedarrays_tpu/ops/spmv_pallas.py::
+dia_spmv_pallas_flat`` (the TPU kernel behind ``DeviceBlock.spmv``).  K2
+``dia_spmv_strided`` replaces ``partitionedarrays_tpu/ops/spmv_pallas.py::
+dia_spmv_pallas`` (the per-color SpMV of ``ColoredDIAGS.sweep_flat``): the
+same product over values and x whose parts lie at any stride, so that one
+color of the de-interleaved values is read in place.  The CUDA kernels are
+``csrc/dia_spmv.cu``; its source note says what bounds them (device-memory
 bandwidth: one pass over the values plus x) and how the design meets that.
-``dia_spmv_plain`` (``ops/dia.py``) is the plain PyTorch version: the
-wrapper runs it for CPU tensors, and the tests and ``chip_smoke.py`` hold
-the kernel against it.
+``dia_spmv_plain`` (``ops/dia.py``) is the plain PyTorch version of both:
+the wrappers run it for CPU tensors, and the tests and ``chip_smoke.py``
+hold the kernels against it.
 
 The TPU kernel keeps x resident in VMEM, walks 1024-aligned windows and
 stores the values segment-major to dodge sublane padding; none of that
@@ -23,40 +27,51 @@ import torch
 from .. import _build
 from .dia import MAX_DIAGS, dia_spmv_plain
 
-__all__ = ["dia_spmv", "dia_spmv_plain"]
+__all__ = ["dia_spmv", "dia_spmv_plain", "dia_spmv_strided"]
 
 _DTYPES = (torch.float32, torch.float64)
 
 
+def _check(name, offsets, vals, x) -> bool:
+    """Validate the operands; True when they go to the kernel."""
+    if vals.dim() != 3 or x.dim() != 2 or vals.shape[0] != x.shape[0]:
+        raise ValueError(f"{name}: vals {tuple(vals.shape)} and x {tuple(x.shape)}")
+    if vals.shape[1] != len(offsets) and len(offsets) > 0:
+        raise ValueError(f"{name}: {len(offsets)} offsets for {vals.shape[1]} diagonals")
+    if vals.dtype != x.dtype:
+        raise TypeError(f"{name}: values {vals.dtype} and x {x.dtype} differ")
+    if vals.device != x.device:
+        raise ValueError(f"{name}: values on {vals.device}, x on {x.device}")
+    if vals.device.type == "cpu":
+        return False
+    if vals.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {vals.device}")
+    if vals.dtype not in _DTYPES:
+        raise TypeError(f"{name}: no kernel for {vals.dtype}")
+    if len(offsets) > MAX_DIAGS:
+        raise ValueError(f"{name}: {len(offsets)} diagonals > {MAX_DIAGS}")
+    return True
+
+
+def _offsets_arg(offsets):
+    return (ctypes.c_int * max(len(offsets), 1))(*(int(o) for o in offsets))
+
+
 def dia_spmv(offsets: Tuple[int, ...], vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y[p, i] = sum_d vals[p, d, i] * x[p, i + offsets[d]], x zero outside
-    ``[0, n_cols)``.  vals: [P, n_off, R]; x: [P, n_cols]; returns [P, R].
+    """K1.  y[p, i] = sum_d vals[p, d, i] * x[p, i + offsets[d]], x zero
+    outside ``[0, n_cols)``.  vals: [P, n_off, R]; x: [P, n_cols]; returns
+    [P, R].
 
     A CPU tensor goes to ``dia_spmv_plain``; a CUDA tensor goes to the
     kernel, or the call raises."""
-    if vals.dim() != 3 or x.dim() != 2 or vals.shape[0] != x.shape[0]:
-        raise ValueError(f"dia_spmv: vals {tuple(vals.shape)} and x {tuple(x.shape)}")
-    if vals.shape[1] != len(offsets) and len(offsets) > 0:
-        raise ValueError(f"dia_spmv: {len(offsets)} offsets for {vals.shape[1]} diagonals")
-    if vals.dtype != x.dtype:
-        raise TypeError(f"dia_spmv: values {vals.dtype} and x {x.dtype} differ")
-    if vals.device != x.device:
-        raise ValueError(f"dia_spmv: values on {vals.device}, x on {x.device}")
-    if vals.device.type == "cpu":
+    if not _check("dia_spmv", offsets, vals, x):
         return dia_spmv_plain(offsets, vals, x)
-    if vals.device.type != "cuda":
-        raise ValueError(f"dia_spmv: no kernel for device {vals.device}")
-    if vals.dtype not in _DTYPES:
-        raise TypeError(f"dia_spmv: no kernel for {vals.dtype}")
     if not (vals.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_spmv: vals and x must be contiguous")
-    if len(offsets) > MAX_DIAGS:
-        raise ValueError(f"dia_spmv: {len(offsets)} diagonals > {MAX_DIAGS}")
     P, _, R = vals.shape
     y = torch.empty((P, R), dtype=vals.dtype, device=vals.device)
-    offs = (ctypes.c_int * max(len(offsets), 1))(*(int(o) for o in offsets))
     code = _build.entry("pat_dia_spmv", vals.dtype)(
-        vals.data_ptr(), x.data_ptr(), y.data_ptr(), offs, len(offsets),
+        vals.data_ptr(), x.data_ptr(), y.data_ptr(), _offsets_arg(offsets), len(offsets),
         R, x.shape[1], P, _build.stream_of(vals),
     )
     dia_spmv.launches += 1
@@ -65,3 +80,37 @@ def dia_spmv(offsets: Tuple[int, ...], vals: torch.Tensor, x: torch.Tensor) -> t
 
 
 dia_spmv.launches = 0
+
+
+def dia_spmv_strided(
+    offsets: Tuple[int, ...], vals: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """K2.  The product of ``dia_spmv`` on views: vals [P, n_off, R] and
+    x [P, n_cols] may have any part stride (dim 0), while each part's
+    values are ``[n_off, R]`` contiguous and each part's x is contiguous
+    (e.g. one color ``vals_d[:, c]`` of the de-interleaved values).
+    Returns a contiguous [P, R].
+
+    A CPU tensor goes to ``dia_spmv_plain``; a CUDA tensor goes to the
+    kernel, or the call raises."""
+    if not _check("dia_spmv_strided", offsets, vals, x):
+        return dia_spmv_plain(offsets, vals, x)
+    P, n_off, R = vals.shape
+    if (n_off > 1 and vals.stride(1) != R) or (R > 1 and vals.stride(2) != 1) or (
+        x.shape[1] > 1 and x.stride(1) != 1
+    ):
+        raise ValueError(
+            "dia_spmv_strided: each part's values and x must be contiguous, got "
+            f"strides {vals.stride()} and {x.stride()}"
+        )
+    y = torch.empty((P, R), dtype=vals.dtype, device=vals.device)
+    code = _build.entry("pat_dia_spmv_strided", vals.dtype)(
+        vals.data_ptr(), x.data_ptr(), y.data_ptr(), _offsets_arg(offsets), len(offsets),
+        R, x.shape[1], P, vals.stride(0), x.stride(0), _build.stream_of(vals),
+    )
+    dia_spmv_strided.launches += 1
+    _build.check(code, "dia_spmv_strided")
+    return y
+
+
+dia_spmv_strided.launches = 0

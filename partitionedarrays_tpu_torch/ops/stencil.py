@@ -1,16 +1,20 @@
 """Direct construction of constant-coefficient stencil operators.
 
 Counterpart of ``partitionedarrays_tpu/ops/stencil.py`` (the equal-box
-branch of ``stencil_psparse`` :109-357, and ``stencil_rhs_counts``
-:426-447).  On a C-ordered box the own-own block of a constant stencil is
-exactly DIA, one diagonal per distinct local offset, and each diagonal's
-values are a product of 1-D boundary masks.  So the diagonals are built on
-the device from per-axis masks, with no triplets, no sort and no host copy
-of the values.  Legs that leave the global domain are dropped
-(zero-Dirichlet truncation).
+branch of ``stencil_psparse`` :109-357 with the freeze at :416-423, and
+``stencil_rhs_counts`` :426-447).  On a C-ordered box the own-own block of a
+constant stencil is exactly DIA, one diagonal per distinct local offset, and
+each diagonal's values are a product of 1-D boundary masks; every part's
+own-own block is the same, so the diagonals are built once on the device
+from per-axis masks and broadcast over the parts, with no triplets, no sort
+and no host copy of the values.  Legs that leave the global domain are
+dropped (zero-Dirichlet truncation).
 
-Only one part is supported so far: with more parts, legs cross into
-neighbour boxes and the matrix gets a ghost block (ROADMAP slice B).
+Legs that leave the part's box but stay in the domain reach a neighbour's
+own ids: they make the ghost columns and the own-ghost block ``oh``, built
+on the host in O(surface) (:175-231) and frozen as a compressed-row ELL
+(kernel K5).  Boxes of unequal shape (a grid that the parts do not divide)
+are not supported yet (the reference's general branch :358-415).
 """
 from __future__ import annotations
 
@@ -18,13 +22,15 @@ from functools import reduce
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
-from ..backends import GHOSTED_PARTS
 from ..config import numpy_dtype, torch_dtype
 from ..parallel.exchange_plan import layout_of
-from ..parallel.partition import PRange, uniform_partition
-from .blocks import make_dia_block
+from ..parallel.partition import INT, PRange, uniform_partition
+from ..psparse import DeviceSpMat, PSparseMatrix, _sorted_ghosts
+from .blocks import freeze_block, make_dia_block
+from .sparse_host import compresscoo
 
 
 def _axis_masks(loc, org, gshape, delta):
@@ -60,6 +66,42 @@ def _terms_for(loc, stencil) -> Dict[int, List]:
     return terms
 
 
+def _ghost_surface(part, gshape, stencil, np_dtype):
+    """The part's column partition (ghosts appended by owner, then id) and
+    its own-ghost block as CSR, from the legs that leave its box but stay in
+    the domain."""
+    org, loc = part.origin, part.shape
+    nd = len(loc)
+    gstrides = [int(np.prod(gshape[d + 1 :], dtype=np.int64)) for d in range(nd)]
+    ghost_rows, ghost_gids, ghost_vals = [], [], []
+    for delta, value in stencil:
+        in_loc, in_glob = _axis_masks(loc, org, gshape, delta)
+        if all(m.all() for m in in_loc):
+            continue
+        gmask = _outer_and(in_glob) & ~_outer_and(in_loc)
+        rows = np.flatnonzero(gmask)
+        if rows.size == 0:
+            continue
+        coords = np.unravel_index(rows, loc)
+        gid = np.zeros(rows.size, dtype=np.int64)
+        for d in range(nd):
+            gid += (org[d] + coords[d] + delta[d]) * gstrides[d]
+        ghost_rows.append(rows.astype(INT))
+        ghost_gids.append(gid)
+        ghost_vals.append(np.full(rows.size, value, dtype=np_dtype))
+    if not ghost_gids:
+        return part, sp.csr_matrix((part.n_own, 0), dtype=np_dtype)
+    tg = np.concatenate(ghost_gids)
+    gids = np.unique(tg)
+    gids, owners = _sorted_ghosts(gids, part.global_to_owner(gids))
+    col_part = part.union_ghost(gids, owners)
+    oh = compresscoo(
+        np.concatenate(ghost_rows), col_part.global_to_ghost(tg),
+        np.concatenate(ghost_vals), part.n_own, col_part.n_ghost,
+    )
+    return col_part, oh
+
+
 def stencil_psparse(
     parts_per_dir: Sequence[int],
     gshape: Sequence[int],
@@ -71,28 +113,39 @@ def stencil_psparse(
     """Assembled PSparseMatrix of a constant-coefficient stencil operator.
 
     ``stencil``: iterable of (offset tuple, value), the center included.
-    The own-own DIA values ``[P, n_off, n_own_pad]`` are built on ``device``.
+    The own-own DIA values ``[P, n_off, n_own_pad]`` are built on ``device``,
+    the own-ghost block on the host and then frozen onto ``device``.
     """
-    from ..psparse import DeviceSpMat, PSparseMatrix
-
     gshape = tuple(int(v) for v in gshape)
     parts_per_dir = tuple(int(v) for v in parts_per_dir)
     stencil = [(tuple(int(x) for x in d), float(v)) for d, v in stencil]
-    parts = uniform_partition(parts_per_dir, gshape)
-    P = len(parts)
-    if P != 1 or backend.n_parts != P:
-        raise NotImplementedError(GHOSTED_PARTS)
-    loc = parts[0].shape
+    row_parts = uniform_partition(parts_per_dir, gshape)
+    P = len(row_parts)
+    if backend.n_parts != P:
+        raise ValueError(f"{P} parts on a backend of {backend.n_parts}")
+    if len({p.shape for p in row_parts}) != 1:
+        raise NotImplementedError(
+            "stencil_psparse: parts of unequal box shapes (grid "
+            f"{gshape} on {parts_per_dir} parts) are not ported yet"
+        )
+    loc = row_parts[0].shape
     nd = len(loc)
     R = int(np.prod(loc))
-    terms = _terms_for(loc, stencil)
-    all_offs = sorted(terms)
-    pr = PRange(parts)
-    lay = layout_of(pr)
     np_dtype = numpy_dtype(dtype)
 
-    vals = torch.zeros(
-        (P, max(len(all_offs), 1), lay.n_own_pad), dtype=torch_dtype(dtype), device=device
+    surfaces = [_ghost_surface(p, gshape, stencil, np_dtype) for p in row_parts]
+    row_pr = PRange(row_parts)
+    col_pr = PRange([s[0] for s in surfaces])
+    oh_csrs = [s[1] for s in surfaces]
+    rlay = layout_of(row_pr)
+    clay = layout_of(col_pr)
+
+    # every part's own-own block is the same (legs that stay inside the box
+    # never see the global boundary): build one part, broadcast over parts
+    terms = _terms_for(loc, stencil)
+    all_offs = sorted(terms)
+    one = torch.zeros(
+        (max(len(all_offs), 1), rlay.n_own_pad), dtype=torch_dtype(dtype), device=device
     )
     for k, o in enumerate(all_offs):
         for delta, value in terms[o]:
@@ -101,10 +154,12 @@ def stencil_psparse(
             v = fs[0] * value
             for d in range(1, nd):
                 v = v.reshape(v.shape + (1,)) * fs[d]
-            vals[:, k, :R] += v.reshape(-1)
-    nnz = P * int(torch.count_nonzero(vals[0]))
-    oo = make_dia_block(tuple(all_offs), lay.n_own_pad, vals)
-    return PSparseMatrix(DeviceSpMat(oo), pr, pr, backend, nnz)
+            one[k, :R] += v.reshape(-1)
+    vals = one.unsqueeze(0).expand(P, -1, -1).contiguous()
+    nnz = P * int(torch.count_nonzero(one)) + sum(m.nnz for m in oh_csrs)
+    oo = make_dia_block(tuple(all_offs), clay.n_own_pad, vals)
+    oh = freeze_block(oh_csrs, rlay.n_own_pad, max(clay.n_ghost_pad, 1), device=device)
+    return PSparseMatrix(DeviceSpMat(oo, oh), row_pr, col_pr, backend, nnz)
 
 
 def stencil_rhs_counts(

@@ -1,58 +1,195 @@
 """Padded vector layouts and halo-exchange plans.
 
-Counterpart of ``partitionedarrays_tpu/parallel/exchange_plan.py``
-(``VectorLayout`` :243-293, ``ExchangePlan.apply`` :104-136).  A vector on
-``P`` parts is stored as ``own[P, n_own_pad]`` and ``ghost[P, n_ghost_pad]``
-with sizes padded to a multiple of 8 and the padding kept at zero.
+Counterpart of ``partitionedarrays_tpu/parallel/exchange_plan.py``:
+``color_edges``, ``_build_plan`` and ``vector_exchange_plans`` (:50-208) are
+copied, so that a plan's rounds (``perms``) and padded index tables
+(``snd_idx``, ``rcv_idx``) equal the reference's table for table.  A vector
+on ``P`` parts is stored as ``own[P, n_own_pad]`` and ``ghost[P,
+n_ghost_pad]`` with sizes padded to a multiple of 8 and the padding kept at
+zero (``VectorLayout`` :243-293).
 
-So far only partitions without ghosts exist, and their exchange plans have
-zero rounds.  The plan object exists so that the code that will run the
-rounds already calls it; a plan with rounds raises.
-
-When the rounds come, note that the reference marks padding lanes with an
-out-of-range sentinel (``OOB``) and relies on JAX's ``mode="fill"`` and
-``mode="drop"``; torch indexing raises on the CPU and device-asserts on
-CUDA, so the port will need a dump slot or a mask instead.
+On the serial backend every part lives on one device and each round only
+moves data along dim 0, so ``ExchangePlan.apply`` does not run rounds: at
+build time all rounds are folded into one pair of flat index tensors that
+hold only the valid (source slot, destination slot) pairs, and an exchange
+is one gather plus one ``index_copy_`` ("set") or ``index_add_`` ("add").
+The padded tables keep the reference's out-of-range sentinel ``OOB`` for
+their padding lanes; they stay host arrays for the tests and for a later
+multi-process backend, and no sentinel ever reaches torch indexing (on the
+GPU an out-of-range index is a device assert, not a fill).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..backends import GHOSTED_PARTS
 from .partition import PRange
+
+# the reference's padding index: any index >= 2**31 - 2**8
+OOB = np.int32(np.iinfo(np.int32).max - 255)
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m if x > 0 else 0
 
 
+def color_edges(edges: Sequence[Tuple[int, int]]) -> List[int]:
+    """Greedy directed edge coloring: within one color, each node has at
+    most one outgoing and at most one incoming edge."""
+    out_used: dict = {}
+    in_used: dict = {}
+    colors = []
+    for s, d in edges:
+        su = out_used.setdefault(s, set())
+        du = in_used.setdefault(d, set())
+        c = 0
+        while c in su or c in du:
+            c += 1
+        su.add(c)
+        du.add(c)
+        colors.append(c)
+    return colors
+
+
 class ExchangePlan:
     """A one-direction exchange from source slots into destination slots.
 
-    ``perms[r]`` lists the (source part, destination part) pairs of round
-    ``r``.  Only the plan with no rounds is supported.
+    - ``perms[r]``: the (source part, destination part) pairs of round r,
+      completed to a full permutation as the reference does;
+    - ``snd_idx[r]``, ``rcv_idx[r]``: int32 ``[P, K_r]`` host tables of the
+      positions packed on the source and unpacked on the destination,
+      padded with ``OOB``;
+    - ``src_part``, ``src_pos``, ``dst_part``, ``dst_pos``: the valid pairs
+      of all rounds, in round order (int64 host arrays).
     """
 
-    def __init__(self, perms: Tuple = ()):
-        self.perms = tuple(tuple(p) for p in perms)
+    def __init__(self, perms=(), snd_idx=(), rcv_idx=()):
+        self.perms = tuple(tuple(tuple(int(v) for v in e) for e in p) for p in perms)
+        self.snd_idx = tuple(np.asarray(a, dtype=np.int32) for a in snd_idx)
+        self.rcv_idx = tuple(np.asarray(a, dtype=np.int32) for a in rcv_idx)
+        if not len(self.perms) == len(self.snd_idx) == len(self.rcv_idx):
+            raise ValueError("exchange plan: one snd_idx and rcv_idx table per round")
+        sp, so, dp, do = [], [], [], []
+        for r, perm in enumerate(self.perms):
+            for s, d in perm:
+                valid = self.rcv_idx[r][d] != OOB
+                sp.append(np.full(int(valid.sum()), s, dtype=np.int64))
+                so.append(self.snd_idx[r][s][valid].astype(np.int64))
+                dp.append(np.full(int(valid.sum()), d, dtype=np.int64))
+                do.append(self.rcv_idx[r][d][valid].astype(np.int64))
+        cat = lambda xs: np.concatenate(xs) if xs else np.zeros(0, dtype=np.int64)
+        self.src_part, self.src_pos = cat(sp), cat(so)
+        self.dst_part, self.dst_pos = cat(dp), cat(do)
+        if (self.src_pos == OOB).any():
+            raise ValueError("exchange plan: a valid destination lane has no source")
+        self._flat: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     @property
     def n_rounds(self) -> int:
         return len(self.perms)
 
+    def _flat_indices(self, n_src: int, n_dst: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The valid pairs as flat positions ``part * n_src + pos`` and
+        ``part * n_dst + pos`` into ``[P, n_src]`` and ``[P, n_dst]``
+        tensors, built once per shape and device."""
+        key = (int(n_src), int(n_dst), torch.device(device))
+        got = self._flat.get(key)
+        if got is None:
+            if self.src_pos.size and (
+                self.src_pos.max() >= n_src or self.dst_pos.max() >= n_dst
+            ):
+                raise ValueError(
+                    f"exchange plan: slots beyond the tensors ({n_src}, {n_dst})"
+                )
+            src = torch.from_numpy(self.src_part * n_src + self.src_pos).to(device)
+            dst = torch.from_numpy(self.dst_part * n_dst + self.dst_pos).to(device)
+            got = self._flat[key] = (src, dst)
+        return got
+
     def apply(
         self, src_vals: torch.Tensor, dst_vals: torch.Tensor, combine: str
     ) -> torch.Tensor:
-        """Run all rounds; ``combine`` is "add" (assemble) or "set"
-        (consistent)."""
+        """All rounds at once: the source slots' values of ``src_vals[P,
+        n_src]`` are set into ("set", consistent) or added to ("add",
+        assemble) the destination slots of a copy of ``dst_vals[P, n_dst]``,
+        which is returned."""
         if combine not in ("add", "set"):
             raise ValueError(combine)
         if self.n_rounds == 0:
             return dst_vals
-        raise NotImplementedError(GHOSTED_PARTS)
+        src, dst = self._flat_indices(src_vals.shape[1], dst_vals.shape[1], src_vals.device)
+        moved = src_vals.reshape(-1).index_select(0, src)
+        out = dst_vals.clone(memory_format=torch.contiguous_format)
+        flat = out.view(-1)
+        if combine == "add":
+            flat.index_add_(0, dst, moved)
+        else:
+            # one owner per ghost: the destinations of "set" are unique
+            flat.index_copy_(0, dst, moved)
+        return out
+
+
+def _build_plan(
+    n_parts: int,
+    edges: List[Tuple[int, int]],
+    src_lists: List[np.ndarray],
+    dst_lists: List[np.ndarray],
+) -> ExchangePlan:
+    """edges[e] = (source part, destination part); src_lists[e] = positions
+    packed on the source; dst_lists[e] = positions unpacked on the
+    destination (same order and length)."""
+    colors = color_edges(edges)
+    n_rounds = (max(colors) + 1) if colors else 0
+    perms: List[List[Tuple[int, int]]] = [[] for _ in range(n_rounds)]
+    K = [0] * n_rounds
+    for e, c in enumerate(colors):
+        perms[c].append(edges[e])
+        K[c] = max(K[c], len(src_lists[e]))
+    # complete each round to a full permutation; the added pairs' lanes are
+    # all padding on the receiver
+    for c in range(n_rounds):
+        srcs = {s for s, _ in perms[c]}
+        dsts = {d for _, d in perms[c]}
+        free_s = [p for p in range(n_parts) if p not in srcs]
+        free_d = [p for p in range(n_parts) if p not in dsts]
+        perms[c] = perms[c] + list(zip(free_s, free_d))
+    K = [_round_up(max(k, 1), 8) for k in K]
+    snd = [np.full((n_parts, K[r]), OOB, dtype=np.int32) for r in range(n_rounds)]
+    rcv = [np.full((n_parts, K[r]), OOB, dtype=np.int32) for r in range(n_rounds)]
+    for e, c in enumerate(colors):
+        s, d = edges[e]
+        sl = np.asarray(src_lists[e], dtype=np.int32)
+        dl = np.asarray(dst_lists[e], dtype=np.int32)
+        snd[c][s, : sl.size] = sl
+        rcv[c][d, : dl.size] = dl
+    return ExchangePlan(perms, snd, rcv)
+
+
+def vector_exchange_plans(pr: PRange) -> Tuple[ExchangePlan, ExchangePlan]:
+    """(assemble_plan, consistent_plan) of a vector partitioned by ``pr``:
+    assemble adds ghost values into their owners' own slots; consistent
+    sets ghost slots from their owners' own values."""
+    g = pr.assembly_graph()
+    P = pr.n_parts
+    edges: List[Tuple[int, int]] = []
+    src_lists: List[np.ndarray] = []
+    dst_lists: List[np.ndarray] = []
+    rcv_ptr = [dict() for _ in range(P)]
+    for o in range(P):
+        for k, src in enumerate(g.neighbors_rcv[o]):
+            rcv_ptr[o][src] = g.rcv_own[o][k]
+    for j in range(P):
+        for k, o in enumerate(g.neighbors_snd[j]):
+            edges.append((j, o))
+            src_lists.append(g.snd_ghost[j][k])
+            dst_lists.append(rcv_ptr[o][j])
+    assemble_plan = _build_plan(P, edges, src_lists, dst_lists)
+    # consistent direction: reverse every edge, swap the index lists
+    redges = [(d, s) for s, d in edges]
+    consistent_plan = _build_plan(P, redges, dst_lists, src_lists)
+    return assemble_plan, consistent_plan
 
 
 class VectorLayout:
@@ -65,8 +202,7 @@ class VectorLayout:
         self.n_ghost = np.array([p.n_ghost for p in pr.parts], dtype=np.int64)
         self.n_own_pad = _round_up(int(self.n_own.max()), pad)
         self.n_ghost_pad = _round_up(int(self.n_ghost.max()), pad)
-        self.assemble_plan = ExchangePlan()
-        self.consistent_plan = ExchangePlan()
+        self.assemble_plan, self.consistent_plan = vector_exchange_plans(pr)
 
     def __repr__(self):
         return (

@@ -1,18 +1,70 @@
-"""C-ordered Cartesian box partitions (numpy only).
+"""Index partitions: C-ordered Cartesian boxes with ghost columns (numpy only).
 
-The box geometry of ``partitionedarrays_tpu/parallel/p_range.py``
-(``local_range`` :92 and ``uniform_partition`` :635), reduced to what the
-closed-form stencil builder reads: each part's own global ids, box origin
-and box shape.  Global ids linearize the grid in C order; parts linearize
-``parts_shape`` in C order.  Ghost layers, periodicity and the index maps
-come with the ghosted slice.
+Copied from ``partitionedarrays_tpu/parallel/p_range.py``: ``GlobalLookup``
+(:45-91), ``local_range`` (:92), ``block_owner_1d`` (:118), the subset of
+``LocalIndices`` (:140-361) that the ghosted stencil needs, the owner map of
+``uniform_partition`` (:661-668) and ``AssemblyGraph`` with the memoized
+``PRange.assembly_graph`` (:520-601).
+
+Each part owns a box ``origin + [0, shape)`` of a C-ordered global grid and
+may store ghost ids owned by other parts.  Global ids linearize the grid in
+C order; parts linearize ``parts_shape`` in C order.  Ghost layers of the
+partition constructor, periodicity and local permutations are not copied:
+``ops/stencil.py`` adds ghosts by ``union_ghost``.  All of it is host
+setup code, run once.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+INT = np.int64
+
+
+def _as1d(x, dtype=INT) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(x, dtype=dtype).ravel())
+
+
+class GlobalLookup:
+    """Vectorized global-id -> position lookup over an id set; queries not
+    in the set map to -1."""
+
+    def __init__(self, gids: np.ndarray):
+        self.gids = _as1d(gids)
+        n = self.gids.size
+        # contiguous ranges need no sort; pre-sorted ids need no argsort
+        self.contig = bool(
+            n > 0
+            and self.gids[-1] - self.gids[0] == n - 1
+            and np.all(np.diff(self.gids) == 1)
+        )
+        if self.contig:
+            self.start = int(self.gids[0])
+            self.order = None
+            self.sorted = None
+        elif n and np.all(np.diff(self.gids) > 0):
+            self.order = None
+            self.sorted = self.gids
+        else:
+            self.order = np.argsort(self.gids, kind="stable")
+            self.sorted = self.gids[self.order]
+
+    def __call__(self, queries) -> np.ndarray:
+        q = _as1d(queries)
+        n = self.gids.size
+        if n == 0:
+            return np.full(q.shape, -1, dtype=INT)
+        if self.contig:
+            rel = q - self.start
+            return np.where((rel >= 0) & (rel < n) & (q >= 0), rel, -1).astype(INT)
+        pos = np.searchsorted(self.sorted, q)
+        pos[pos >= n] = n - 1
+        hit = self.sorted[pos] == q
+        src = pos if self.order is None else self.order[pos]
+        out = np.where(hit, src, -1)
+        out[q < 0] = -1
+        return out.astype(INT)
 
 
 def local_range(p: int, np_parts: int, n: int) -> range:
@@ -27,14 +79,52 @@ def local_range(p: int, np_parts: int, n: int) -> range:
     return range(max(0, offset), min(n, offset + l))
 
 
-@dataclass(frozen=True)
-class BoxPart:
-    """One part of a box partition: the own box ``origin + [0, shape)``."""
+def block_owner_1d(np_parts: int, n: int, coords) -> np.ndarray:
+    """Inverse of ``local_range``: the owner part of each 1-D coordinate."""
+    c = _as1d(coords)
+    l, rem = divmod(n, np_parts)
+    cut = (np_parts - rem) * l  # first coordinate of the size-(l+1) blocks
+    if l == 0:
+        return (np_parts - rem + c).astype(INT)
+    small = c // l
+    big = (np_parts - rem) + (c - cut) // (l + 1)
+    return np.where(c < cut, small, big).astype(INT)
 
-    part: int
-    origin: Tuple[int, ...]
-    shape: Tuple[int, ...]
-    global_shape: Tuple[int, ...]
+
+class BoxPart:
+    """One part of a box partition: the own box ``origin + [0, shape)`` of a
+    ``global_shape`` grid, plus ghost ids and their owners.
+
+    The index maps are those of the reference's ``LocalIndices`` without a
+    local permutation: own positions follow the box in C order, ghost
+    positions follow ``ghost_to_global``."""
+
+    def __init__(
+        self,
+        part: int,
+        n_parts: int,
+        origin: Sequence[int],
+        shape: Sequence[int],
+        global_shape: Sequence[int],
+        global_to_owner: Callable[[np.ndarray], np.ndarray],
+        ghost_to_global=(),
+        ghost_to_owner=(),
+    ):
+        self.part = int(part)
+        self.n_parts = int(n_parts)
+        self.origin = tuple(int(v) for v in origin)
+        self.shape = tuple(int(v) for v in shape)
+        self.global_shape = tuple(int(v) for v in global_shape)
+        self.n_global = int(np.prod(self.global_shape))
+        self.global_to_owner = global_to_owner
+        self.ghost_to_global = _as1d(ghost_to_global)
+        self.ghost_to_owner = _as1d(ghost_to_owner)
+        if self.ghost_to_global.shape != self.ghost_to_owner.shape:
+            raise ValueError("ghost ids and owners differ in length")
+        axes = [np.arange(o, o + s) for o, s in zip(self.origin, self.shape)]
+        mesh = np.meshgrid(*axes, indexing="ij")
+        self.own_to_global = np.ravel_multi_index(tuple(mesh), self.global_shape).ravel()
+        self._lookups = {}
 
     @property
     def n_own(self) -> int:
@@ -42,39 +132,135 @@ class BoxPart:
 
     @property
     def n_ghost(self) -> int:
-        return 0
+        return int(self.ghost_to_global.shape[0])
 
-    @property
-    def own_to_global(self) -> np.ndarray:
-        axes = [np.arange(o, o + s) for o, s in zip(self.origin, self.shape)]
-        mesh = np.meshgrid(*axes, indexing="ij")
-        return np.ravel_multi_index(tuple(mesh), self.global_shape).ravel()
+    def _lookup(self, key: str, gids: np.ndarray) -> GlobalLookup:
+        lk = self._lookups.get(key)
+        if lk is None:
+            lk = self._lookups[key] = GlobalLookup(gids)
+        return lk
+
+    def global_to_own(self, queries) -> np.ndarray:
+        return self._lookup("own", self.own_to_global)(queries)
+
+    def global_to_ghost(self, queries) -> np.ndarray:
+        return self._lookup("ghost", self.ghost_to_global)(queries)
+
+    def replace_ghost(self, gids, owners) -> "BoxPart":
+        """The same box with the ghost ids ``gids`` owned by ``owners``."""
+        return BoxPart(
+            self.part, self.n_parts, self.origin, self.shape, self.global_shape,
+            self.global_to_owner, gids, owners,
+        )
+
+    def filter_ghost(self, gids, owners) -> Tuple[np.ndarray, np.ndarray]:
+        """The (gids, owners) that are neither own nor already ghost,
+        deduplicated keeping the first occurrence."""
+        gids = _as1d(gids)
+        owners = _as1d(owners)
+        is_own = self.global_to_own(gids) >= 0
+        is_ghost = self.global_to_ghost(gids) >= 0
+        new = ~(is_own | is_ghost) & (gids >= 0)
+        g = gids[new]
+        o = owners[new]
+        _, first = np.unique(g, return_index=True)
+        first.sort()
+        return g[first], o[first]
+
+    def union_ghost(self, gids, owners) -> "BoxPart":
+        """Append the new ids among ``gids`` to the ghosts."""
+        g_new, o_new = self.filter_ghost(gids, owners)
+        return self.replace_ghost(
+            np.concatenate([self.ghost_to_global, g_new]),
+            np.concatenate([self.ghost_to_owner, o_new]),
+        )
+
+    def __repr__(self):
+        return (
+            f"BoxPart(part={self.part}/{self.n_parts}, origin={self.origin}, "
+            f"shape={self.shape}, n_ghost={self.n_ghost})"
+        )
 
 
 def uniform_partition(
     parts_shape: Sequence[int], global_shape: Sequence[int]
 ) -> List[BoxPart]:
-    """N-D Cartesian block partition without ghost layers."""
+    """N-D Cartesian block partition without ghosts."""
     parts_shape = tuple(int(v) for v in parts_shape)
     gshape = tuple(int(v) for v in global_shape)
     if len(parts_shape) != len(gshape):
         raise ValueError(f"parts {parts_shape} and grid {gshape} differ in rank")
+    nd = len(gshape)
+    n_global = int(np.prod(gshape))
+    P = int(np.prod(parts_shape))
+
+    def g2owner(q):
+        q = _as1d(q)
+        coords = np.unravel_index(np.clip(q, 0, n_global - 1), gshape)
+        oc = [block_owner_1d(parts_shape[d], gshape[d], coords[d]) for d in range(nd)]
+        own = np.ravel_multi_index(tuple(oc), parts_shape)
+        return np.where(q >= 0, own, -1).astype(INT)
+
     out = []
-    for p in range(int(np.prod(parts_shape))):
+    for p in range(P):
         pc = np.unravel_index(p, parts_shape)
-        ranges = [
-            local_range(int(pc[d]), parts_shape[d], gshape[d])
-            for d in range(len(gshape))
-        ]
+        ranges = [local_range(int(pc[d]), parts_shape[d], gshape[d]) for d in range(nd)]
         out.append(
             BoxPart(
-                part=p,
-                origin=tuple(r.start for r in ranges),
-                shape=tuple(len(r) for r in ranges),
-                global_shape=gshape,
+                p, P, tuple(r.start for r in ranges), tuple(len(r) for r in ranges),
+                gshape, g2owner,
             )
         )
     return out
+
+
+class AssemblyGraph:
+    """Assembly communication graph and per-neighbour index lists.
+
+    Part ``j`` sends the values in its ghost slots to their owners and
+    receives contributions into its own slots (the consistent direction is
+    the reverse):
+
+    - ``neighbors_snd[j]``: destination parts;
+    - ``snd_ghost[j][k]``: ghost positions on j sent to ``neighbors_snd[j][k]``
+      (sorted by global id within each destination);
+    - ``neighbors_rcv[j]``: source parts;
+    - ``rcv_own[j][k]``: own positions on j where the data from
+      ``neighbors_rcv[j][k]`` lands, in the sender's order.
+    """
+
+    def __init__(self, partition: Sequence[BoxPart]):
+        P = len(partition)
+        self.neighbors_snd: List[List[int]] = [[] for _ in range(P)]
+        self.neighbors_rcv: List[List[int]] = [[] for _ in range(P)]
+        self.snd_ghost: List[List[np.ndarray]] = [[] for _ in range(P)]
+        self.rcv_own: List[List[np.ndarray]] = [[] for _ in range(P)]
+
+        # sender side: group ghosts by owner, sort by global id inside a group
+        pending: List[List[Tuple[int, np.ndarray]]] = [[] for _ in range(P)]
+        for j, li in enumerate(partition):
+            if li.n_ghost == 0:
+                continue
+            owners = li.ghost_to_owner
+            gids = li.ghost_to_global
+            order = np.lexsort((gids, owners))
+            owners_s = owners[order]
+            cuts = np.flatnonzero(np.diff(owners_s)) + 1
+            for grp in np.split(np.arange(owners_s.size), cuts):
+                o = int(owners_s[grp[0]])
+                self.neighbors_snd[j].append(o)
+                self.snd_ghost[j].append(order[grp].astype(INT))
+                pending[o].append((j, gids[order[grp]]))
+
+        # receiver side: map the sender's global ids to own positions
+        for o in range(P):
+            li = partition[o]
+            for src, sent_gids in sorted(pending[o], key=lambda t: t[0]):
+                pos = li.global_to_own(sent_gids)
+                if not (pos >= 0).all():
+                    raise ValueError("assembly graph: a ghost id is not owned by its owner")
+                self.neighbors_rcv[o].append(src)
+                self.rcv_own[o].append(pos.astype(INT))
 
 
 class PRange:
@@ -83,8 +269,15 @@ class PRange:
     def __init__(self, parts: Sequence[BoxPart]):
         self.parts = list(parts)
         self.n_parts = len(self.parts)
-        self.n_global = sum(p.n_own for p in self.parts)
+        self.n_global = self.parts[0].n_global
         self._layout = None
+        self._assembly_graph: Optional[AssemblyGraph] = None
+
+    def assembly_graph(self) -> AssemblyGraph:
+        """Built once and kept on the range."""
+        if self._assembly_graph is None:
+            self._assembly_graph = AssemblyGraph(self.parts)
+        return self._assembly_graph
 
     def __repr__(self):
         return f"PRange(n_global={self.n_global}, n_parts={self.n_parts})"

@@ -58,6 +58,8 @@ def pfill(value, pr: PRange, backend, dtype=torch.float32, device="cpu") -> PVec
     for p, n in enumerate(lay.n_own):
         own[p, :n] = value
     ghost = torch.zeros((lay.n_parts, lay.n_ghost_pad), dtype=dt, device=device)
+    for p, n in enumerate(lay.n_ghost):
+        ghost[p, :n] = value
     return PVector(own, ghost, lay, backend)
 
 

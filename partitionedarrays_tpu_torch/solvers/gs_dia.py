@@ -15,9 +15,12 @@ Counterpart of ``partitionedarrays_tpu/solvers/gs_dia.py`` (``ColoredDIAGS``
    data volume of one SpMV.
 
 All tensors carry the part axis first: vals_d ``[P, m, n_off, Lq]``, cores
-``[P, m, Lq]``.  The sweep is kernel K3 and the core SpMV kernel K4
-(``ops/gs_dia_kernels.py``).  The reference's de-interleave by 0/1 matmul
-is a TPU layout trick; here it is a reshape and a transpose.
+``[P, m, Lq]``.  The sweep sequence of the smoothers is kernel K3 and the
+core SpMV kernel K4 (``ops/gs_dia_kernels.py``).  The standalone ``sweep``
+runs each color as the reference's ``sweep_flat`` does: a DIA SpMV of the
+color's values over the core (kernel K2, ``ops/dia_spmv.py``) and an
+update of the color's row.  The reference's de-interleave by 0/1 matmul is
+a TPU layout trick; here it is a reshape and a transpose.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..ops.dia_spmv import dia_spmv_strided
 from ..ops.gs_dia_kernels import TapTable, ax_core, gs_sweeps
 
 
@@ -154,3 +158,40 @@ class ColoredDIAGS:
         if xcore is None:
             xcore = self.zeros_core(bd.shape[0], bd.dtype, bd.device)
         return gs_sweeps(vals_d, bd, invd_d, xcore, self.taps, tuple(int(c) for c in order_seq))
+
+    def sweep_flat(
+        self,
+        xcore: torch.Tensor,
+        bd: torch.Tensor,
+        vals_d: torch.Tensor,
+        invd_d: torch.Tensor,
+        order: Sequence[int],
+    ) -> torch.Tensor:
+        """Color updates in ``order`` on the core, in place, one color at a
+        time: ``x_c += (bd_c - A_c x) * invd_c`` where ``A_c x`` is the DIA
+        SpMV of the color's values ``vals_d[:, c]`` over the whole core
+        (K2).  ``bd`` [P, m, Lq] holds the rhs with the frozen ghost-column
+        contribution already subtracted.  Returns ``xcore``."""
+        P = xcore.shape[0]
+        flat = xcore.view(P, self.m * self.Lq)
+        for c in order:
+            ax = dia_spmv_strided(self.taps.host[c], vals_d[:, c], flat)
+            row = xcore[:, c]
+            row.copy_(row + (bd[:, c] - ax) * invd_d[:, c])
+        return xcore
+
+    def sweep(
+        self,
+        xo: torch.Tensor,
+        bo: torch.Tensor,
+        ghost_contrib: torch.Tensor,
+        vals_d: torch.Tensor,
+        invd_d: torch.Tensor,
+        order: Sequence[int],
+    ) -> torch.Tensor:
+        """A standalone sweep in standard order: own values ``xo``, rhs
+        ``bo`` and ghost contribution ``A_oh g``, each [P, >= R], to the
+        swept own values [P, R]."""
+        xcore = self.deinterleave(xo)
+        bd = self.deinterleave(bo - ghost_contrib)
+        return self.interleave_core(self.sweep_flat(xcore, bd, vals_d, invd_d, order))

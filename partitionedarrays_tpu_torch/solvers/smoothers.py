@@ -1,21 +1,23 @@
 """Gauss-Seidel smoothing on partitioned matrices.
 
 Counterpart of ``partitionedarrays_tpu/solvers/smoothers.py``: the colored
-DIA tier of ``GaussSeidel`` (:123-204), ``_order_seq`` and the flat-space
-methods (:313-461) that let the MG V-cycle keep x in the de-interleaved
-core layout of ``solvers/gs_dia.py`` between smoothing steps.  The names
-keep the reference's "flat" although the state is the ``[P, m, Lq]`` core.
+DIA tier of ``GaussSeidel`` (:123-204), ``_order_seq``, ``ghost_contrib``,
+the flat-space methods (:313-461), ``apply`` (:463-535) and ``__call__``
+(:600-604).  The flat-space methods let the MG V-cycle keep x in the
+de-interleaved core layout of ``solvers/gs_dia.py`` between smoothing
+steps; the names keep the reference's "flat" although the state is the
+``[P, m, Lq]`` core.
 
-Across parts the reference freezes ghost values per application (hybrid
-"processor-block" GS); with one part there are no ghosts.  A matrix whose
-own block is not DIA, and the slot-wave and sorted-ELL tiers, come with
-the generic slice.
+Across parts the smoother is the reference's hybrid "processor-block" GS:
+the ghost values are frozen once per application (one consistent exchange)
+and their contribution ``A_oh g`` is subtracted from the rhs before the
+sweeps.  A matrix whose own block is not DIA, and the slot-wave and
+sorted-ELL tiers, come with the generic slice.
 """
 from __future__ import annotations
 
 import torch
 
-from ..backends import GHOSTED_PARTS
 from ..psparse import PSparseMatrix
 from ..pvector import PVector
 from .gs_dia import ColoredDIAGS, find_mod_coloring
@@ -63,17 +65,44 @@ class GaussSeidel:
         )
 
     def flat_viable(self) -> bool:
+        """True when the flat pipeline needs no ghost exchange."""
         clay = self.A.col_layout()
         return not (clay.n_ghost_pad > 0 and clay.consistent_plan.n_rounds > 0)
 
-    def __call__(self, b: PVector) -> PVector:
-        """Smooth ``A x = b`` from x = 0 and return x."""
-        if not self.flat_viable():
-            raise NotImplementedError(GHOSTED_PARTS)
-        x_own = self.flat_interleave(self.smooth_bd(None, self.make_bd(b)))
-        return PVector(x_own, torch.zeros_like(b.ghost), b.layout, b.backend)
+    def ghost_contrib(self, x_own: torch.Tensor) -> torch.Tensor:
+        """``A_oh @ consistent(x)`` in standard own order [P, n_own_pad]:
+        the ghost-column contribution that the hybrid sweep freezes per
+        application.  One exchange and one own-ghost SpMV (K5)."""
+        A = self.A
+        clay = A.col_layout()
+        g = clay.consistent_plan.apply(
+            x_own, x_own.new_zeros((clay.n_parts, clay.n_ghost_pad)), "set"
+        )
+        return A.device().oh.spmv(g)
 
-    # -- flat-space pipeline (colored path, no ghost columns) ----------
+    def apply(self, x: PVector, b: PVector) -> PVector:
+        """In-solver smoothing: improve x for ``A x = b``.  With ghost
+        columns the ghost values are refreshed by one exchange per
+        application, then all sweeps run in the core layout."""
+        return self._apply(x, b, zero_guess=False)
+
+    def _apply(self, x: PVector, b: PVector, zero_guess: bool) -> PVector:
+        col = self.colored
+        bo = b.own
+        if not self.flat_viable():
+            bo = bo - self.ghost_contrib(x.own)
+        xc = None if zero_guess else col.deinterleave(x.own)
+        xc = col.sweeps_core(xc, col.deinterleave(bo), col.vals_d, col.invd_d, self._order_seq())
+        return PVector(col.interleave_core(xc), x.ghost, x.layout, x.backend)
+
+    def __call__(self, r: PVector) -> PVector:
+        """Preconditioner form: smooth ``A z = r`` from z = 0 and return z.
+        With ghosts this still runs the exchange and the own-ghost SpMV on
+        the zero guess, as the reference does."""
+        z = PVector(torch.zeros_like(r.own), torch.zeros_like(r.ghost), r.layout, r.backend)
+        return self._apply(z, r, zero_guess=True)
+
+    # -- flat-space pipeline (colored path) ------------------------------
     def make_bd(self, b: PVector) -> torch.Tensor:
         """De-interleaved rhs [P, m, Lq]; reused by pre and post smoothing."""
         return self.flat_deinterleave(b.own)

@@ -61,7 +61,8 @@ def test_partition_matches_jax(parts, grid):
 @pytest.mark.parametrize("grid", [(8, 8, 8), (5, 7, 4)])
 def test_layout_matches_jax_and_plans_have_no_rounds(grid):
     """Padded sizes as the reference's layout; with one part the exchange
-    plans have zero rounds and ``apply`` hands back its destination."""
+    plans have zero rounds and no index tables, and ``apply`` hands back
+    its destination."""
     lay = layout_of(PRange(uniform_partition((1, 1, 1), grid)))
     ref = jax_pvector.pvector_layout(JaxPRange(jax_uniform_partition((1, 1, 1), grid)))
     assert (lay.n_parts, lay.n_own_pad, lay.n_ghost_pad) == (
@@ -70,9 +71,10 @@ def test_layout_matches_jax_and_plans_have_no_rounds(grid):
     dst = torch.zeros(1, lay.n_ghost_pad)
     for plan in (lay.assemble_plan, lay.consistent_plan):
         assert plan.n_rounds == 0
+        assert plan.snd_idx == plan.rcv_idx == ()
         assert plan.apply(torch.ones(1, lay.n_own_pad), dst, "set") is dst
-    with pytest.raises(NotImplementedError, match="ROADMAP slice B"):
-        ExchangePlan(perms=[[(0, 1)]]).apply(dst, dst, "add")
+    with pytest.raises(ValueError):
+        ExchangePlan(perms=[[(0, 0)]])  # a round without its index tables
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 ``dia_spmv``, K4 ``ax_core`` and K3 ``gs_sweeps`` run on CUDA tensors of
-the 32^3 HPCG operator and are compared with their plain versions on the
-same tensors.  Tolerance: rtol 1e-5 in float32 and 1e-12 in float64,
+the 32^3 HPCG operator, K5 ``ghost_spmv`` and K2 ``dia_spmv_strided`` on
+those of the (2,2,2) x 16^3 one, and are compared with their plain versions
+on the same tensors.  Tolerance: rtol 1e-5 in float32 and 1e-12 in float64,
 relative to the largest plain entry, since only FMA contraction and the
 order of the sums differ.
 
@@ -18,7 +19,8 @@ import torch
 from partitionedarrays_tpu_torch.backends import SerialBackend
 from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
 from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
-from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv
+from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_strided
+from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv, ghost_spmv_plain
 from partitionedarrays_tpu_torch.ops.gs_dia_kernels import (
     ax_core,
     ax_core_plain,
@@ -97,3 +99,52 @@ def test_cuda_tensor_of_another_dtype_raises(cuda):
     x = torch.zeros(1, col.m, col.Lq, dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError):
         ax_core(col.vals_d, x, col.taps)
+
+
+def _ghosted(device, dtype):
+    A, b = build_hpcg_problem((16, 16, 16), (2, 2, 2), SerialBackend(8), dtype=dtype, device=device)
+    return A, b, GaussSeidel(A)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ghost_spmv_kernel_matches_plain(cuda, dtype):
+    A, _, _ = _ghosted(cuda, dtype)
+    oh = A.device().oh
+    assert oh.kind == "ell"
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn(8, A.col_layout().n_ghost_pad, generator=g, dtype=dtype).to(cuda)
+    y0 = torch.randn(8, oh.n_rows, generator=g, dtype=dtype).to(cuda)
+    before = ghost_spmv.launches
+    got = ghost_spmv(oh.rows, oh.cols, oh.vals, x, y0.clone())
+    assert ghost_spmv.launches == before + 1
+    _assert_close(got, ghost_spmv_plain(oh.rows, oh.cols, oh.vals, x, y0.clone()), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dia_spmv_strided_kernel_matches_plain(cuda, dtype):
+    _, _, gs = _ghosted(cuda, dtype)
+    col = gs.colored
+    g = torch.Generator().manual_seed(17)
+    core = torch.randn(8, col.m * col.Lq, generator=g, dtype=dtype).to(cuda)
+    for c in range(col.m):
+        before = dia_spmv_strided.launches
+        got = dia_spmv_strided(col.taps.host[c], col.vals_d[:, c], core)
+        assert dia_spmv_strided.launches == before + 1
+        _assert_close(got, dia_spmv_plain(col.taps.host[c], col.vals_d[:, c], core), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sweep_through_k2_matches_sweeps_core(cuda, dtype):
+    """The standalone sweep (K2 per color) and the smoother's sweep
+    sequence (K3) on the same input with a ghost contribution."""
+    _, b, gs = _ghosted(cuda, dtype)
+    col = gs.colored
+    g = torch.Generator().manual_seed(18)
+    x = torch.randn(8, b.own.shape[1], generator=g, dtype=dtype).to(cuda)
+    gc = gs.ghost_contrib(x)
+    order = gs._order_seq()
+    got = col.sweep(x, b.own, gc, col.vals_d, col.invd_d, order)
+    want = col.interleave_core(col.sweeps_core(
+        col.deinterleave(x), col.deinterleave(b.own - gc), col.vals_d, col.invd_d, order
+    ))
+    _assert_close(got, want, dtype)

@@ -1,8 +1,10 @@
 """The PyTorch port never loads JAX.
 
-A fresh interpreter imports the port, builds a small HPCG problem and runs
-a short MG-preconditioned CG solve on the CPU; afterwards ``jax`` must not
-be among the loaded modules.
+A fresh interpreter imports the port's modules, builds small HPCG problems
+on one part and on (2,2,2) parts, and runs short MG-preconditioned CG solves
+on the CPU (the flat CG, and the ghosted flat CG with its exchanges and
+own-ghost products); afterwards ``jax`` must not be among the loaded
+modules.
 """
 import os
 import subprocess
@@ -16,11 +18,18 @@ import sys
 import numpy as np
 import torch
 torch.set_num_threads(1)
+import partitionedarrays_tpu_torch.convert
+import partitionedarrays_tpu_torch.ops.ghost_spmv
+import partitionedarrays_tpu_torch.ops.sparse_host
 from partitionedarrays_tpu_torch.backends import SerialBackend
-from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg_flat
+from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg_flat, hpcg_cg_flat_g
 from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
 mg = HPCGMGPreconditioner((8, 8, 8), (1, 1, 1), SerialBackend(1), n_levels=2)
 _, norms = hpcg_cg_flat(mg, mg.b, iterations=5)
+assert float(norms[-1] / norms[0]) < 1e-3, norms
+mg = HPCGMGPreconditioner((4, 4, 4), (2, 2, 2), SerialBackend(8), n_levels=2)
+assert mg.A.col_layout().consistent_plan.n_rounds > 0
+_, norms = hpcg_cg_flat_g(mg, mg.b, iterations=5)
 assert float(norms[-1] / norms[0]) < 1e-3, norms
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
