@@ -13,9 +13,14 @@ Phases, one output line each:
    and float64: K1 dia_spmv, K4 ax_core and K3 gs_sweeps at the shapes of
    the 128^3 one-part fine level, K5 ghost_spmv and K2 dia_spmv_strided at
    those of the (2,2,2) x 64^3 fine level; largest difference, tolerance,
-   and the time of each (CUDA events);
+   the time of each (CUDA events), its bound (the larger of its bytes over
+   the card's memory rate and its operations over its float32 rate) and,
+   for K1, K2, K4 and K5, the time of the same product as one
+   ``torch.sparse`` CSR call; then K7 dia_spmv_df (df64 pairs) at both fine
+   shapes, held to 1e-13 of sum |A||x| per row against its plain version
+   and, with it, against K1 in float64 on the same values;
 4. the HPCG benchmark through the port, 4 MG levels, 50 CG iterations, on
-   two paths, each with its kernels' launch counts set to 0 just before it
+   three paths, each with its kernels' launch counts set to 0 just before it
    and read just after:
    a. one part: 128^3 in float32 and float64, 64^3 in float64; each also
       checks the standard-order operator (K1) against the de-interleaved
@@ -26,12 +31,18 @@ Phases, one output line each:
       (K4) plus the ghost contribution, runs the generic CG, and holds the
       standalone colored sweep (K2 per color) against the smoother's sweep
       sequence (K3) with a real ghost contribution;
-   the relative residuals are held to the limits of ``HPCG_RUNS`` and
-   ``GHOSTED_RUNS``;
+   c. ``precision="df64"`` (the df64 CG through K7, the float32 MG through
+      K3, K4 and K5): 64^3 and 128^3 on one part and (2,2,2) parts of 64^3;
+      each also runs ``cg_df64`` with no preconditioner and with the float32
+      GaussSeidel on the same operator to rtol 1e-10, and profiles one set
+      (kernel launches and device time);
+   the relative residuals are held to the limits of ``HPCG_RUNS``,
+   ``GHOSTED_RUNS`` and ``DF64_RUNS``;
 5. the launch counts of each path, each kernel of a path required > 0;
 6. the whole port on the card against the whole port on the CPU (plain
    versions), float64, residual histories to rtol 1e-10: 32^3 on one part
-   and (2,2,2) parts of 8^3, 3 levels, flat and generic CG.
+   and (2,2,2) parts of 8^3, 3 levels, flat and generic CG; and the df64
+   CG at (2,2,2) parts of 8^3 (``DF64_CROSS_RTOL``).
 
 Then the card's name and power limit, a JSON line of per-kernel results,
 and last a JSON line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -72,6 +83,32 @@ GHOSTED_RUNS = (
     (GHOST_LOCAL, "float32", 1e-5),
     (GHOST_LOCAL, "float64", 1e-5),
 )
+# the df64 path: (local shape, parts per direction, limit on the final
+# relative residual).  64^3 on one part is the reference's official-precision
+# configuration (bench.py:464-481; it reported 7.51e-10 there); at 128^3 the
+# solve is convergence-limited as in float32 and float64 (2e-6); (2,2,2)
+# parts of 64^3 keep the ghosted runs' sanity bound.
+DF64_RUNS = (
+    ((64, 64, 64), (1, 1, 1), 1e-8),
+    (LOCAL, (1, 1, 1), 2e-6),
+    (GHOST_LOCAL, GHOST_PARTS, 1e-5),
+)
+# cg_df64 beside each df64 run: its stopping rtol, and the limit on the true
+# float64 residual |b - A x| / |b| of its solution
+DF64_CG_RTOL = 1e-10
+DF64_CG_TRUE_RELRES = 1e-9
+DF64_CG_MAXITER = 3000
+# K7 against its plain version and against K1 in float64, relative to
+# sum_j |A_ij| |x_j| per row (tests/test_df64.py:89)
+DF64_KERNEL_TOL = 1e-13
+# df64 CG, card against CPU: with no preconditioner both round every
+# operation alike (rtol 1e-6); with the float32 MG, K3's contracted
+# float32 sums move the histories (rtol 1e-4 over 10 iterations)
+DF64_CROSS_RTOL = {"identity": 1e-6, "mg": 1e-4}
+# the card's published peaks (H100 SXM, 700 W): memory rate and float32
+# rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 # (local shape, parts per direction) of the cuda-vs-cpu comparison
 CROSS_CASES = (((32, 32, 32), (1, 1, 1)), ((8, 8, 8), GHOST_PARTS))
 CROSS_LEVELS = 3
@@ -101,11 +138,16 @@ KERNELS = {
         "partitionedarrays_tpu_torch/csrc/ghost_spmv.cu",
         "partitionedarrays_tpu/ops/slot_spmv.py:363",
     ),
+    "dia_spmv_df": (
+        "partitionedarrays_tpu_torch/csrc/dia_spmv_df.cu",
+        "partitionedarrays_tpu/ops/spmv_pallas.py:240",
+    ),
 }
 # the kernels each path of phase 4 must launch
 PATH_KERNELS = {
     "one_part": ("dia_spmv", "ax_core", "gs_sweeps"),
-    "ghosted": tuple(KERNELS),
+    "ghosted": ("dia_spmv", "ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv"),
+    "df64": ("dia_spmv_df", "ax_core", "gs_sweeps", "ghost_spmv"),
 }
 
 
@@ -181,10 +223,23 @@ def phase_build():
     emit("2 build", {"seconds": round(seconds, 3), "library": path.name, "registers": regs})
 
 
-def _hold(results, kname, dtype_name, kernel, plain, timed=None) -> None:
+def bound(nbytes: float, ops: float):
+    """The least time (ms) a call that moves ``nbytes`` and does ``ops``
+    float32 operations can take on the card, and which of the two sets
+    it: the larger of bytes over the memory rate and operations over the
+    float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _hold(results, kname, dtype_name, kernel, plain, timed=None, library=None, work=None):
     """Run ``kernel`` and ``plain`` on the same inputs, hold the largest
     difference to the tolerance relative to the largest plain entry, and
-    time both (or the pair ``timed``, calls without the set-up copies)."""
+    time both (or the pair ``timed``, calls without the set-up copies).
+    ``library``: one PyTorch call computing the same function, held to the
+    same tolerance and timed; ``work``: (bytes, operations) of the call,
+    for its bound."""
     import torch
 
     got = kernel()
@@ -201,6 +256,56 @@ def _hold(results, kname, dtype_name, kernel, plain, timed=None) -> None:
     })
     k_t, p_t = timed if timed is not None else (kernel, plain)
     results[-1].update(ms=time_ms(k_t, 20), plain_ms=time_ms(p_t, 5))
+    if library is not None:
+        lib_err = (library().reshape(want.shape) - want).abs().max().item()
+        if not (lib_err <= tol):
+            raise AssertionError(f"{kname} {dtype_name}: the library call differs by {lib_err}")
+        results[-1].update(library_ms=time_ms(library, 20), library_max_abs_err=lib_err)
+    if work is not None:
+        b_ms, b_by = bound(*work)
+        results[-1].update(bytes=work[0], ops=work[1], bound_ms=b_ms, bound_by=b_by)
+
+
+def _dia_triplets(offsets, vals, n_cols: int, rows_per_part: int, row0: int = 0):
+    """The nonzeros of DIA values ``vals[P, n_off, R]`` (x zero outside
+    ``[0, n_cols)``) as (row, column, value) tensors of a block-diagonal
+    matrix of P blocks of ``rows_per_part`` rows and ``n_cols`` columns,
+    the R rows starting at ``row0`` of each block."""
+    import torch
+
+    P, _, R = vals.shape
+    i = torch.arange(R, device=vals.device)
+    part = torch.arange(P, device=vals.device).unsqueeze(1)
+    rows, cols, vs = [], [], []
+    for d, off in enumerate(offsets):
+        j = i + off
+        keep = ((j >= 0) & (j < n_cols)).unsqueeze(0) & (vals[:, d] != 0)
+        rows.append((part * rows_per_part + row0 + i).expand(P, R)[keep])
+        cols.append((part * n_cols + j).expand(P, R)[keep])
+        vs.append(vals[:, d][keep])
+    return torch.cat(rows), torch.cat(cols), torch.cat(vs)
+
+
+def _csr(rows, cols, vals, shape):
+    """A torch sparse CSR matrix with int32 indices from (row, col, value)."""
+    import torch
+
+    csr = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape).coalesce().to_sparse_csr()
+    return torch.sparse_csr_tensor(
+        csr.crow_indices().int(), csr.col_indices().int(), csr.values(), shape
+    )
+
+
+def _library(csr, x, y=None):
+    """``csr @ x`` (or ``y + csr @ x``) on flattened operands as one
+    ``torch.mv`` (``torch.addmv``) call."""
+    import torch
+
+    xf = x.reshape(-1)
+    if y is None:
+        return lambda: torch.mv(csr, xf)
+    yf = y.reshape(-1)
+    return lambda: torch.addmv(yf, csr, xf)
 
 
 def phase_kernels(device):
@@ -230,16 +335,36 @@ def phase_kernels(device):
         x_core = torch.randn(1, col.m, col.Lq, generator=g, dtype=dtype).to(device)
         bd = gs.make_bd(b)
         order = gs._order_seq()
+        f32 = dtype == torch.float32
+        P, _, R = oo.vals.shape
+        m, Lq = col.m, col.Lq
+        lib = {}
+        if f32:  # the same products as one torch.sparse CSR call each
+            lib["dia_spmv"] = _library(_csr(
+                *_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad, R), (P * R, P * oo.n_cols_pad)
+            ), x_std)
+            lib["ax_core"] = _library(_csr(*(torch.cat(t) for t in zip(*(
+                _dia_triplets(col.taps.host[c], col.vals_d[:, c], m * Lq, m * Lq, c * Lq)
+                for c in range(m)))), (P * m * Lq, P * m * Lq)), x_core)
         _hold(results, "dia_spmv", name,
               lambda: dia_spmv(oo.offsets, oo.vals, x_std),
-              lambda: dia_spmv_plain(oo.offsets, oo.vals, x_std))
+              lambda: dia_spmv_plain(oo.offsets, oo.vals, x_std),
+              library=lib.get("dia_spmv"),
+              work=(4 * (oo.vals.numel() + x_std.numel() + P * R), 2 * oo.vals.numel()) if f32 else None)
         _hold(results, "ax_core", name,
               lambda: ax_core(col.vals_d, x_core, col.taps),
-              lambda: ax_core_plain(col.vals_d, x_core, col.taps))
+              lambda: ax_core_plain(col.vals_d, x_core, col.taps),
+              library=lib.get("ax_core"),
+              work=(4 * (col.vals_d.numel() + 2 * x_core.numel()), 2 * col.vals_d.numel()) if f32 else None)
+        # the sweep sequence reads each input once at the least: values,
+        # rhs, inverse diagonal, x in and x out
+        sweeps = len(order) / m
         _hold(results, "gs_sweeps", name,
               lambda: gs_sweeps(col.vals_d, bd, col.invd_d, x_core, col.taps, order),
-              lambda: gs_sweeps_plain(col.vals_d, bd, col.invd_d, x_core, col.taps, order))
-        del A, b, gs, col, oo, x_std, x_core, bd
+              lambda: gs_sweeps_plain(col.vals_d, bd, col.invd_d, x_core, col.taps, order),
+              work=(4 * (col.vals_d.numel() + bd.numel() + col.invd_d.numel() + 2 * x_core.numel()),
+                    sweeps * (2 * col.vals_d.numel() + 3 * x_core.numel())) if f32 else None)
+        del A, b, gs, col, oo, x_std, x_core, bd, lib
         torch.cuda.empty_cache()
 
         P = 8
@@ -251,19 +376,94 @@ def phase_kernels(device):
         core = torch.randn(P, col.m * col.Lq, generator=g, dtype=dtype).to(device)
         c = col.m // 2  # a middle color: its taps reach both neighbouring rows
         taps, vals_c = col.taps.host[c], col.vals_d[:, c]
+        f32 = dtype == torch.float32
+        Nr, K, R, n_g = oh.rows.shape[1], oh.cols.shape[1], oh.n_rows, g_vals.shape[1]
+        Lq, mLq = col.Lq, col.m * col.Lq
+        lib = {}
+        if f32:
+            live = oh.cols >= 0
+            part = torch.arange(P, device=device).view(P, 1, 1)
+            lib["ghost_spmv"] = _library(_csr(
+                (part * R + oh.rows.unsqueeze(1)).expand(P, K, Nr)[live],
+                (part * n_g + oh.cols)[live], oh.vals[live], (P * R, P * n_g),
+            ), g_vals, y0)
+            lib["dia_spmv_strided"] = _library(
+                _csr(*_dia_triplets(taps, vals_c, mLq, Lq), (P * Lq, P * mLq)), core
+            )
+        n_live = int((oh.rows >= 0).sum())
         # K5 accumulates into y: compared on copies of y0, timed in place
         y_t = y0.clone()
         _hold(results, "ghost_spmv", name,
               lambda: ghost_spmv(oh.rows, oh.cols, oh.vals, g_vals, y0.clone()),
               lambda: ghost_spmv_plain(oh.rows, oh.cols, oh.vals, g_vals, y0.clone()),
               timed=(lambda: ghost_spmv(oh.rows, oh.cols, oh.vals, g_vals, y_t),
-                     lambda: ghost_spmv_plain(oh.rows, oh.cols, oh.vals, g_vals, y_t)))
+                     lambda: ghost_spmv_plain(oh.rows, oh.cols, oh.vals, g_vals, y_t)),
+              library=lib.get("ghost_spmv"),
+              # rows, lanes, ghost values once; each live row of y read and written
+              work=(4 * (oh.rows.numel() + 2 * oh.cols.numel() + g_vals.numel() + 2 * n_live),
+                    2 * int((oh.cols >= 0).sum())) if f32 else None)
         _hold(results, "dia_spmv_strided", name,
               lambda: dia_spmv_strided(taps, vals_c, core),
-              lambda: dia_spmv_plain(taps, vals_c, core))
-        del y_t, A, oh, col, g_vals, y0, core, vals_c
+              lambda: dia_spmv_plain(taps, vals_c, core),
+              library=lib.get("dia_spmv_strided"),
+              work=(4 * (vals_c.numel() + core.numel() + P * Lq), 2 * vals_c.numel()) if f32 else None)
+        del y_t, A, oh, col, g_vals, y0, core, vals_c, lib
         torch.cuda.empty_cache()
     emit("3 kernels", results)
+    return results
+
+
+def phase_kernel_df(device):
+    """K7 against its plain version and, with it, against K1 in float64 on
+    the same values, at the 128^3 one-part and (2,2,2) x 64^3 fine shapes:
+    the (hi, lo) split of the float64 27-point operator and of a random x.
+    Errors relative to sum_j |A_ij| |x_j| per row."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
+    from partitionedarrays_tpu_torch.ops import df64 as df
+    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_df
+
+    results = []
+    for shape, parts in ((LOCAL, (1, 1, 1)), (GHOST_LOCAL, GHOST_PARTS)):
+        P = int(np.prod(parts))
+        A, _ = build_hpcg_problem(shape, parts, SerialBackend(P), dtype=torch.float64, device=device)
+        oo = A.device().oo
+        vh, vl = df.from_f64(oo.vals)
+        g = torch.Generator().manual_seed(4321)
+        x64 = torch.randn(P, oo.n_cols_pad, generator=g, dtype=torch.float64).to(device)
+        x = df.from_f64(x64)
+        got = df.to_f64(*dia_spmv_df(oo.offsets, vh, vl, x))
+        torch.cuda.synchronize()
+        want = df.to_f64(*df.dia_spmv_df_plain(oo.offsets, vh, vl, x))
+        exact = dia_spmv(oo.offsets, oo.vals, x64)
+        scale = dia_spmv(oo.offsets, oo.vals.abs(), x64.abs()) + 1e-30
+        errs = {
+            "kernel_vs_plain": ((got - want).abs() / scale).max().item(),
+            "kernel_vs_f64": ((got - exact).abs() / scale).max().item(),
+            "plain_vs_f64": ((want - exact).abs() / scale).max().item(),
+        }
+        bad = {k: v for k, v in errs.items() if not v <= DF64_KERNEL_TOL}
+        if bad:
+            raise AssertionError(f"dia_spmv_df {parts}x{shape}: {bad} > {DF64_KERNEL_TOL}")
+        _, n_off, R = vh.shape
+        work = (4 * (2 * vh.numel() + 2 * x[0].numel() + 2 * P * R), 15 * vh.numel())
+        b_ms, b_by = bound(*work)
+        results.append({
+            "kernel": "dia_spmv_df", "dtype": "df64", "shape": f"{parts}x{shape[0]}^3",
+            "max_abs_err": (got - want).abs().max().item(), "tol_rel_sum_abs": DF64_KERNEL_TOL,
+            **errs,
+            "ms": time_ms(lambda: dia_spmv_df(oo.offsets, vh, vl, x), 20),
+            "plain_ms": time_ms(lambda: df.dia_spmv_df_plain(oo.offsets, vh, vl, x), 3),
+            "k1_float64_ms": time_ms(lambda: dia_spmv(oo.offsets, oo.vals, x64), 20),
+            "bytes": work[0], "ops": work[1], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+        del A, oo, vh, vl, x64, x, got, want, exact, scale
+        torch.cuda.empty_cache()
+    emit("3b kernel K7", results)
     return results
 
 
@@ -436,6 +636,148 @@ def phase_hpcg_ghosted(device):
     return out
 
 
+def _profile_set(run_set) -> dict:
+    """Device events (kernels, memsets, copies) and device time of one
+    warm call of ``run_set``, from torch.profiler, beside its wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run_set()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_set()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {
+        "device_events": sum(e.count for e in events),
+        "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+        "profiled_wall_ms": wall * 1e3,
+    }
+
+
+def phase_hpcg_df64(device):
+    """The benchmark with ``precision="df64"``: the df64 CG (K7 through
+    ``spmv_df64``) with the float32 MG (K3, K4, and K5 with ghosts).  Each
+    configuration also runs ``cg_df64`` on the same float64 operator with
+    no preconditioner and with the MG's float32 fine-level GaussSeidel,
+    and profiles one set."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg_df64
+    from partitionedarrays_tpu_torch.models.hpcg.driver import cg_route, df64_problem, hpcg_benchmark
+    from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
+    from partitionedarrays_tpu_torch.ops import df64 as df
+    from partitionedarrays_tpu_torch.psparse import spmv
+    from partitionedarrays_tpu_torch.pvector import PVector
+    from partitionedarrays_tpu_torch.solvers.krylov import cg_df64
+
+    out, failures = {}, []
+    for shape, parts, limit in DF64_RUNS:
+        P = int(np.prod(parts))
+        key = f"df64@{parts}x{shape[0]}^3"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mg = HPCGMGPreconditioner(
+            shape, parts, SerialBackend(P), n_levels=LEVELS, dtype=np.float32, device=device
+        )
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        A, b = df64_problem(shape, parts, mg.backend, device)
+        torch.cuda.synchronize()
+        setup = (t1 - t0, time.perf_counter() - t1)  # MG, df64 operator and rhs
+        report = hpcg_benchmark(
+            None, local_shape=shape, parts_per_dir=parts, n_levels=LEVELS,
+            iterations=ITERATIONS, ref_sets=1, timed_sets=3, precision="df64",
+            mg=mg, setup_time=sum(setup), device=device,
+        )
+        s = report.summary()
+        prof = _profile_set(lambda: hpcg_cg_df64(A, b, M=mg, iterations=ITERATIONS))
+        b64 = df.to_f64(b[0].own, b[1].own)
+        solves = {}
+        for name, M in (("none", None), ("gauss_seidel", mg.gss[-1])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = cg_df64(A, b, M=M, rtol=DF64_CG_RTOL, maxiter=DF64_CG_MAXITER)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            x64 = df.to_f64(x[0].own, x[1].own)
+            xv = PVector(x64, x64.new_zeros((P, A.row_layout().n_ghost_pad)), A.row_layout(), A.backend)
+            true_relres = (torch.linalg.vector_norm(b64 - spmv(A, xv).own)
+                           / torch.linalg.vector_norm(b64)).item()
+            solves[name] = {
+                "iterations": info.iterations, "seconds": seconds, "true_relres": true_relres,
+            }
+            if info.iterations >= DF64_CG_MAXITER or not true_relres <= DF64_CG_TRUE_RELRES:
+                failures.append(f"{key}: cg_df64 ({name}) {solves[name]}")
+        gf = report.gflops()
+        out[key] = {
+            "cg_route": cg_route(mg, "df64"),
+            "dtype": s["dtype"],
+            "precision_bits": s["precision_bits"],
+            "raw_gflops": gf["raw"],
+            "rated_gflops": gf["rated"],
+            "final_relres": s["final_relres"],
+            "relres_limit": limit,
+            "validation_passed": s["validation_passed"],
+            "chain_consistent": s["chain_consistent"],
+            "seconds_per_set": report.time_solve / report.n_sets,
+            "setup_mg_s": setup[0],
+            "setup_df64_s": setup[1],
+            "profiled_set": prof,
+            "cg_df64": solves,
+            "nrow": s["nrow"],
+            "nnz": s["nnz"],
+        }
+        if (s["dtype"], s["precision_bits"]) != ("float64-df64", 49):
+            failures.append(f"{key}: report says {s['dtype']}, {s['precision_bits']} bits")
+        if not s["final_relres"] <= limit:
+            failures.append(f"{key}: relres {s['final_relres']} > {limit}")
+        if not (s["validation_passed"] and s["chain_consistent"]):
+            failures.append(f"{key}: HPCG validation or chain consistency failed")
+        del mg, A, b, report, b64, x, x64, xv
+        torch.cuda.empty_cache()
+    emit("4c hpcg df64", out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def _cross_df64(device):
+    """The df64 CG on the card against the CPU at (2,2,2) parts of 8^3,
+    with the float32 MG and with no preconditioner."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg_df64
+    from partitionedarrays_tpu_torch.models.hpcg.driver import df64_problem
+    from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
+
+    hist = {}
+    for dev in (device, torch.device("cpu")):
+        mg = HPCGMGPreconditioner(
+            (8, 8, 8), GHOST_PARTS, SerialBackend(8), n_levels=CROSS_LEVELS,
+            dtype=np.float32, device=dev,
+        )
+        A, b = df64_problem((8, 8, 8), GHOST_PARTS, mg.backend, dev)
+        hist[dev.type] = {
+            name: hpcg_cg_df64(A, b, M=M, iterations=CROSS_ITERATIONS)[1].cpu().numpy()
+            for name, M in (("mg", mg), ("identity", None))
+        }
+    errs = {}
+    for name, rtol in DF64_CROSS_RTOL.items():
+        a, c = hist["cuda"][name], hist["cpu"][name]
+        errs[name] = float(np.max(np.abs(a - c) / np.abs(c)))
+        if not errs[name] <= rtol:
+            raise AssertionError(f"df64 CG ({name}) (2,2,2)x8^3: cuda vs cpu differ by {errs[name]}")
+    return {"max_rel_diff": errs, "rtol": DF64_CROSS_RTOL,
+            "final_relres": float(hist["cpu"]["mg"][-1] / hist["cpu"]["mg"][0])}
+
+
 def phase_cross(device):
     """The whole port on the card against the whole port on the CPU."""
     import numpy as np
@@ -468,6 +810,7 @@ def phase_cross(device):
             "max_rel_diff": errs,
             "final_relres": float(hist["cpu"][0][-1] / hist["cpu"][0][0]),
         }
+    out[f"df64 {GHOST_PARTS}x8^3"] = _cross_df64(device)
     emit("6 cuda-vs-cpu", {
         "levels": CROSS_LEVELS, "iterations": CROSS_ITERATIONS, "rtol": CROSS_RTOL, "cases": out,
     })
@@ -483,7 +826,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     try:
-        from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_strided
+        from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_df, dia_spmv_strided
         from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv
         from partitionedarrays_tpu_torch.ops.gs_dia_kernels import ax_core, gs_sweeps
     except ImportError as exc:
@@ -495,13 +838,17 @@ def main() -> int:
     phase_toolchain()
     phase_build()
     kernel_results = phase_kernels(device)
+    kernel_results += phase_kernel_df(device)
 
     counters = {
         "dia_spmv": dia_spmv, "ax_core": ax_core, "gs_sweeps": gs_sweeps,
         "dia_spmv_strided": dia_spmv_strided, "ghost_spmv": ghost_spmv,
+        "dia_spmv_df": dia_spmv_df,
     }
     launches = {}
-    for path, run_path in (("one_part", phase_hpcg), ("ghosted", phase_hpcg_ghosted)):
+    for path, run_path in (
+        ("one_part", phase_hpcg), ("ghosted", phase_hpcg_ghosted), ("df64", phase_hpcg_df64),
+    ):
         for fn in counters.values():
             fn.launches = 0
         run_path(device)
@@ -516,13 +863,18 @@ def main() -> int:
 
     phase_cross(device)
 
+    # one row per kernel: its float32 measurement (K7: df64 at the 128^3
+    # one-part shape), its launches over the three paths' runs
     rows = []
     for kname, (source, replaces) in KERNELS.items():
-        r = next(r for r in kernel_results if r["kernel"] == kname and r["dtype"] == "float32")
+        r = next(r for r in kernel_results
+                 if r["kernel"] == kname and r["dtype"] in ("float32", "df64"))
         rows.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches["ghosted"][kname], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "launches": sum(launches[path][kname] for path in launches),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"),
         })
     print(card_line())
     print(json.dumps({"kernels": rows}))

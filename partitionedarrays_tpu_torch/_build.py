@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, which is loaded with
-``ctypes``.  The build runs on first use, in the process that first needs
-a kernel, and lands in ``build/torch_kernels/`` beside the package (a
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, which is loaded
+with ``ctypes``.  The build runs on first use, in the process that first
+needs a kernel, and lands in ``build/torch_kernels/`` beside the package (a
 directory git ignores).  The library's name carries a hash of the sources
 and flags, so an edited source is rebuilt and a stale library is never
 loaded.  A missing ``nvcc`` or a failed build raises with the compiler's
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # register and spill report, kept in the build log
 )
 
@@ -51,8 +52,15 @@ _SIGNATURES = {
     "pat_ax_core": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _I64, _VP],
     # vals, bd, invd, x, tap (device int [m, n_off]), c, P, m, n_off, Lq, stream
     "pat_gs_color": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _I64, _VP],
+    # vals_hi, vals_lo, x_hi, x_lo, y_hi, y_lo, offsets (host int array),
+    # n_off, R, n_cols, P, stream
+    "pat_dia_spmv_df": [
+        _VP, _VP, _VP, _VP, _VP, _VP, ctypes.POINTER(_INT), _INT, _I64, _I64, _INT, _VP,
+    ],
 }
 DTYPE_SUFFIX = {"float32": "f32", "float64": "f64"}
+# entry points that exist for some dtypes only (df64 pairs are float32 words)
+_SUFFIXES = {"pat_dia_spmv_df": ("f32",)}
 
 # the loaded library: a process-wide resource, built and opened once
 _lib: Optional[ctypes.CDLL] = None
@@ -87,23 +95,47 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpat_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; return (return codes, combined log)."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, cwd=str(CSRC))
+        for c in cmds
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(f"$ {' '.join(c)}\n{text}" for c, text in zip(cmds, logs))
+    return [p.returncode for p in procs], log
+
+
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists:
+    one ``nvcc -c`` per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tag = f"{out.stem}.{os.getpid()}"
     cu, _ = _sources()
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(f) for f in cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(CSRC))
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    out.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in cu]
+    compile_cmds = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)] for f, o in zip(cu, objs)
+    ]
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    link_cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+    try:
+        codes, log = _run_all(compile_cmds)
+        if not any(codes):
+            link_codes, link_log = _run_all([link_cmd])
+            codes, log = codes + link_codes, log + link_log
+        out.with_suffix(".log").write_text(log)
+        if any(codes):
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed (exit codes {codes}):\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 
@@ -119,7 +151,7 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for base, argtypes in _SIGNATURES.items():
-            for suffix in DTYPE_SUFFIX.values():
+            for suffix in _SUFFIXES.get(base, DTYPE_SUFFIX.values()):
                 fn = getattr(lib, f"{base}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = _INT

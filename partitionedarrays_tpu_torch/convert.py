@@ -28,7 +28,7 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def from_jax_arrays(
-    levels: Sequence[Mapping], backend: Optional[SerialBackend] = None, device="cpu"
+    levels: Sequence[Mapping], backend: Optional[SerialBackend] = None, device="cuda"
 ) -> HPCGMGPreconditioner:
     """An HPCG MG preconditioner (with its operators and rhs) on ``device``.
 

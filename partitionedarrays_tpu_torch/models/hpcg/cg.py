@@ -2,9 +2,10 @@
 history.
 
 Counterpart of ``partitionedarrays_tpu/models/hpcg/cg.py`` (``hpcg_cg``
-:22-60, ``hpcg_cg_flat_g`` :63-127 and ``hpcg_cg_flat`` :130-186).  The loop runs eagerly; the residual
-norms stay in a device tensor (``norms[k + 1] = ...``) and nothing is copied
-to the host inside the loop, so the host only enqueues work.
+:22-60, ``hpcg_cg_flat_g`` :63-127, ``hpcg_cg_flat`` :130-186 and
+``hpcg_cg_df64`` :189-286).  The loop runs eagerly; the residual norms
+stay in a device tensor (``norms[k + 1] = ...``) and nothing is copied to
+the host inside the loop, so the host only enqueues work.
 """
 from __future__ import annotations
 
@@ -12,22 +13,10 @@ from typing import Callable, Optional
 
 import torch
 
-from ...psparse import PSparseMatrix, spmv
+from ...ops import df64 as df
+from ...psparse import PSparseMatrix, spmv, spmv_df64
 from ...pvector import PVector, axpy, pdot
-
-
-def _as_col_vector(A: PSparseMatrix, v: PVector) -> PVector:
-    clay = A.col_layout()
-    if v.layout is clay:
-        return v
-    return PVector(v.own, v.own.new_zeros((clay.n_parts, clay.n_ghost_pad)), clay, v.backend)
-
-
-def _as_row_vector(A: PSparseMatrix, v: PVector) -> PVector:
-    rlay = A.row_layout()
-    if v.layout is rlay:
-        return v
-    return PVector(v.own, v.own.new_zeros((rlay.n_parts, rlay.n_ghost_pad)), rlay, v.backend)
+from ...solvers.krylov import _as_col_vector, _as_row_vector
 
 
 def hpcg_cg(
@@ -144,7 +133,64 @@ def hpcg_cg_flat(mg, b: PVector, iterations: int = 50):
     return xv, norms
 
 
-def hpcg_cg_df64(*args, **kwargs):
-    """The two-float (df64) CG is not ported yet; native float64 runs
-    through ``hpcg_cg``/``hpcg_cg_flat`` with ``dtype=float64``."""
-    raise NotImplementedError("df64 HPCG: ROADMAP Queue 1 item 9 (slice B)")
+def hpcg_cg_df64(
+    A: PSparseMatrix,
+    b_pair,
+    M: Optional[Callable[[PVector], PVector]] = None,
+    iterations: int = 50,
+):
+    """Official-precision PCG (``cg.py:189-286``): the operator (kernel K7
+    through ``spmv_df64``), the vectors, their updates and every dot in
+    df64 two-float arithmetic; the preconditioner ``M`` stays float32.  A
+    float64 ``A`` is frozen into its (hi, lo) pair on first use.
+
+    ``b_pair``: (hi, lo) PVectors on ``A.row_prange``.  The loop stays on
+    the device: alpha and beta are pairs of 0-d tensors and nothing is read
+    back.  Returns ((x_hi, x_lo) own tensors, norms[iterations + 1]), the
+    norms in float32 as the reference's (the square root of the hi word of
+    the compensated dot)."""
+    bh, bl = b_pair
+    backend = bh.backend
+    lay = bh.layout
+    clay = A.col_layout()
+    dot = df.dot_parts
+
+    if M is None:
+        # identity preconditioner: z = r exactly, both words.  Keeping only
+        # hi here would quantize every search direction to float32, and x
+        # would stall at float32 precision while the df64 residual
+        # recurrence still converged (the reference's round-2 fault).
+        def precond(r):
+            return r
+    else:
+        # a float32 preconditioner is an approximate inverse: its output
+        # has no lo word, and that moves only the convergence rate
+        def precond(r):
+            z = M(PVector(r[0], r[0].new_zeros((r[0].shape[0], lay.n_ghost_pad)), lay, backend))
+            return z.own, torch.zeros_like(z.own)
+
+    def a_apply(p):
+        # the iterate lives on the row partition; re-home to the columns
+        zgc = p[0].new_zeros((p[0].shape[0], clay.n_ghost_pad))
+        yh, yl = spmv_df64(A, (PVector(p[0], zgc, clay, backend), PVector(p[1], zgc, clay, backend)))
+        return yh.own, yl.own
+
+    x = (torch.zeros_like(bh.own), torch.zeros_like(bh.own))
+    r = (bh.own, bl.own)
+    norms = bh.own.new_zeros(iterations + 1)
+    norms[0] = torch.sqrt(dot(r, r)[0])
+    z = precond(r)
+    p = z
+    rz = dot(r, z)
+    for k in range(iterations):
+        Ap = a_apply(p)
+        alpha = df.div(rz, dot(p, Ap))
+        x = df.add(x, df.scale(p, alpha))
+        r = df.sub(r, df.scale(Ap, alpha))
+        z = precond(r)
+        rz_new = dot(r, z)
+        beta = df.div(rz_new, rz)
+        p = df.add(z, df.scale(p, beta))
+        rz = rz_new
+        norms[k + 1] = torch.sqrt(dot(r, r)[0])
+    return x, norms

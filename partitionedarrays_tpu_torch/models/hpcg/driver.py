@@ -16,7 +16,8 @@ sets' residual histories are compared with the validation set's
 Each set runs the CG that the reference's dispatch picks (``driver.py:
 119-144``, see ``cg_route``): the flat CG without ghost columns (one
 part), the ghosted flat CG with them, the generic standard-order CG for a
-one-level ghosted preconditioner.
+one-level ghosted preconditioner, and with ``precision="df64"`` the
+official-precision df64 CG (``driver.py:60-136``) with a float32 MG.
 """
 from __future__ import annotations
 
@@ -28,9 +29,13 @@ import torch
 
 from ...backends import SerialBackend
 from ...config import numpy_dtype
-from .cg import hpcg_cg, hpcg_cg_flat, hpcg_cg_flat_g
+from ...ops.stencil import stencil_psparse, stencil_rhs_counts
+from ...psparse import device_df64
+from ...pvector import pvector_df64
+from .cg import hpcg_cg, hpcg_cg_df64, hpcg_cg_flat, hpcg_cg_flat_g
 from .mg import HPCGMGPreconditioner
 from .opt3d import compute_optimal_shape_xyz
+from .problem import STENCIL_27PT
 from .report import HPCGReport
 
 
@@ -58,14 +63,36 @@ def _timed_sets(one_set, n_sets: int, device: torch.device):
     return time.perf_counter() - t0, norms
 
 
-def cg_route(mg: HPCGMGPreconditioner) -> str:
-    """The CG a set runs: "flat" (no ghost exchange on the finest level),
-    "flat_g" (ghosted flat pipeline) or "generic" (standard order)."""
+def cg_route(mg: HPCGMGPreconditioner, precision: Optional[str] = None) -> str:
+    """The CG a set runs: "df64" (the df64 CG, for ``precision="df64"``),
+    "flat" (no ghost exchange on the finest level), "flat_g" (ghosted flat
+    pipeline) or "generic" (standard order)."""
+    if precision == "df64":
+        return "df64"
     if mg.flat_viable():
         return "flat"
     if mg.flat_viable_ghosted():
         return "flat_g"
     return "generic"
+
+
+def df64_problem(local_shape, parts_per_dir, backend, device):
+    """The df64 fine problem: the exact float64 27-point operator in closed
+    form with its (hi, lo) pair frozen (setup work), and the rhs
+    ``b = 26 - counts`` split into a pair.  The reference builds float64
+    host blocks because its TPU has no float64 (``driver.py:93-117``); the
+    card has, so the split runs on the device."""
+    nx, ny, nz = (int(v) for v in local_shape)
+    px, py, pz = (int(v) for v in parts_per_dir)
+    gshape = (px * nx, py * ny, pz * nz)
+    A = stencil_psparse(
+        (px, py, pz), gshape, STENCIL_27PT, backend, dtype=np.float64, device=device
+    )
+    device_df64(A)
+    offdiag = [d for d, _ in STENCIL_27PT if d != (0, 0, 0)]
+    counts = stencil_rhs_counts((px, py, pz), gshape, offdiag)
+    b = pvector_df64([26.0 - c for c in counts], A.row_prange, backend, device=device)
+    return A, b
 
 
 def hpcg_benchmark(
@@ -83,20 +110,29 @@ def hpcg_benchmark(
     mg: Optional[HPCGMGPreconditioner] = None,
     setup_time: Optional[float] = None,
     precision: Optional[str] = None,
-    device="cpu",
+    device="cuda",
 ) -> HPCGReport:
-    """Run the benchmark on ``device`` and return its report.
+    """Run the benchmark on ``device`` (the card unless the caller asks for
+    the CPU) and return its report.
 
     ``setup_time``: seconds of preconditioner setup to account when a
     pre-built ``mg`` is passed (otherwise it is measured here).
     ``total_runtime``: run timed sets for at least this many seconds.
-    ``precision="df64"`` and ``precond_dtype`` are not ported yet."""
-    if precision == "df64":
-        raise NotImplementedError("df64 HPCG: ROADMAP Queue 1 item 9 (slice B)")
-    if precision is not None:
+    ``precision="df64"``: the official-precision configuration; the fine
+    operator, the CG vectors, updates and dots run in df64 (~49 bits), the
+    MG preconditioner in float32, and ``dtype`` is ignored.  The fine
+    problem lives on the device of ``mg``.  ``precond_dtype`` is not
+    ported yet."""
+    if precision not in (None, "df64"):
         raise ValueError(f"unknown precision {precision!r}")
     if precond_dtype is not None:
-        raise NotImplementedError("reduced-precision preconditioner values: ROADMAP")
+        raise NotImplementedError(
+            "reduced-precision preconditioner values: ROADMAP Queue 1, what is left of "
+            "slice A, item 3"
+        )
+    df64_mode = precision == "df64"
+    if df64_mode:
+        dtype = np.float32  # the preconditioner's dtype
     dtype = numpy_dtype(dtype)
     if backend is None and mg is None:
         backend = SerialBackend(
@@ -112,10 +148,15 @@ def hpcg_benchmark(
         )
     A, b = mg.A, mg.b
     dev = b.own.device
+    if df64_mode:
+        A, b = df64_problem(local_shape, parts_per_dir, mg.backend, dev)
     _sync(dev)
-    route = cg_route(mg)
+    route = cg_route(mg, precision)
 
     def one_set():
+        if route == "df64":
+            (x, _), norms = hpcg_cg_df64(A, b, M=mg, iterations=iterations)
+            return x, norms
         if route == "flat":
             x, norms = hpcg_cg_flat(mg, b, iterations=iterations)
         elif route == "flat_g":
@@ -178,8 +219,10 @@ def hpcg_benchmark(
             "parts_per_dir": list(parts_per_dir),
             "levels": mg.n_levels,
             "final_relres": float(opt_rel[-1]),
-            "dtype": dtype.name,
-            "precision_bits": 53 if dtype == np.float64 else 24,
+            # df64 carries ~49 significand bits (two float32 words), not
+            # IEEE float64's 53
+            "dtype": "float64-df64" if df64_mode else dtype.name,
+            "precision_bits": 49 if df64_mode else (53 if dtype == np.float64 else 24),
             "validation_passed": validation_passed,
             "chain_consistent": chain_consistent,
             "validation_tolerance": float(tolerance),

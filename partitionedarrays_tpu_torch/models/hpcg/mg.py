@@ -40,10 +40,13 @@ class HPCGMGPreconditioner:
         dtype=np.float64,
         smoother_iters: int = 1,
         precond_dtype=None,
-        device="cpu",
+        device="cuda",
     ):
         if precond_dtype is not None:
-            raise NotImplementedError("reduced-precision preconditioner values: ROADMAP")
+            raise NotImplementedError(
+                "reduced-precision preconditioner values: ROADMAP Queue 1, what is left of "
+                "slice A, item 3"
+            )
         nx, ny, nz = (int(v) for v in local_shape)
         if min(nx, ny, nz) % (2 ** (n_levels - 1)) != 0:
             raise ValueError("local shape must be divisible by 2^(levels-1)")

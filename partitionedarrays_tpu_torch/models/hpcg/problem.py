@@ -30,7 +30,7 @@ def build_hpcg_problem(
     backend,
     dtype=np.float64,
     structured: bool = True,
-    device="cpu",
+    device="cuda",
 ):
     """The partitioned 27-point matrix and rhs, built in closed form on
     ``device``.  The generic triplet pipeline (``structured=False``) comes

@@ -11,6 +11,9 @@ freezes into one of two kinds:
   with nonzeros (``stack_rows``); the SpMV is kernel K5.  The reference
   stores a padded ``[P, R, K]`` ELL plus the TPU slot format; neither is
   mirrored (``ops/ghost_spmv.py``).
+
+A df64 (two-float) block is a pair of float32 blocks of one structure
+(``freeze_block_pair``, ``block_spmv_df``, the reference's :275-335).
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from . import df64 as df
 from .dia import MAX_DIAGS, dia_viable, stack_dia
-from .dia_spmv import dia_spmv
+from .dia_spmv import dia_spmv, dia_spmv_df
 from .ghost_spmv import ghost_spmv
 
 
@@ -100,7 +104,7 @@ def freeze_block(
     blocks: Sequence[sp.spmatrix],
     n_rows_pad: int,
     n_cols_pad: int,
-    device="cpu",
+    device="cuda",
     prefer_dia: bool = True,
 ) -> DeviceBlock:
     """Per-part host blocks -> one DeviceBlock on ``device``: DIA when
@@ -128,3 +132,32 @@ def freeze_block(
         "ell", None, n_rows_pad, n_cols_pad, torch.from_numpy(vals).to(device),
         rows=torch.from_numpy(rows).to(device), cols=torch.from_numpy(cols).to(device),
     )
+
+
+def freeze_block_pair(block: DeviceBlock) -> Tuple[DeviceBlock, DeviceBlock]:
+    """A float64 device block -> the (hi, lo) pair of float32 blocks of the
+    same kind and structure (an "ell" pair shares its rows and columns).
+
+    The reference freezes the pair from float64 host blocks, because its
+    TPU has no float64 (``blocks.py:275-313``); the card has, so the split
+    runs on the device on the block's own values, bit for bit as the
+    reference's host split."""
+    if block.vals.dtype != torch.float64:
+        raise TypeError(f"freeze_block_pair: a float64 block, got {block.vals.dtype}")
+    hi, lo = df.from_f64(block.vals)
+    return tuple(
+        DeviceBlock(block.kind, block.offsets, block.n_rows, block.n_cols_pad,
+                    v.contiguous(), rows=block.rows, cols=block.cols)
+        for v in (hi, lo)
+    )
+
+
+def block_spmv_df(bh: DeviceBlock, bl: DeviceBlock, x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``block @ x`` in df64 on a ``freeze_block_pair``: x a pair of
+    [P, n_cols_pad], returns a pair of [P, n_rows].  A "dia" pair runs
+    kernel K7; an "ell" pair the compensated compressed-row product of
+    ``ops/df64.py`` in plain torch (the reference computes it in XLA, not
+    in a TPU kernel)."""
+    if bh.kind == "dia":
+        return dia_spmv_df(bh.offsets, bh.vals, bl.vals, (x[0].contiguous(), x[1].contiguous()))
+    return df.ell_spmv_df(bh.rows, bh.cols, bh.vals, bl.vals, x, bh.n_rows)

@@ -1,4 +1,4 @@
-"""K1 and K2: the DIA SpMV kernels, wrappers and plain version.
+"""K1, K2 and K7: the DIA SpMV kernels, wrappers and plain versions.
 
 K1 ``dia_spmv`` replaces ``partitionedarrays_tpu/ops/spmv_pallas.py::
 dia_spmv_pallas_flat`` (the TPU kernel behind ``DeviceBlock.spmv``).  K2
@@ -12,8 +12,14 @@ bandwidth: one pass over the values plus x) and how the design meets that.
 the wrappers run it for CPU tensors, and the tests and ``chip_smoke.py``
 hold the kernels against it.
 
-The TPU kernel keeps x resident in VMEM, walks 1024-aligned windows and
-stores the values segment-major to dodge sublane padding; none of that
+K7 ``dia_spmv_df`` replaces ``partitionedarrays_tpu/ops/spmv_pallas.py::
+dia_spmv_pallas_flat_df``: the same product in df64 (two-float) arithmetic
+on (hi, lo) float32 pairs, the fine-operator SpMV of the df64 HPCG.  Its
+CUDA kernel is ``csrc/dia_spmv_df.cu``, its plain version
+``ops/df64.py::dia_spmv_df_plain`` (the same per-tap order).
+
+The TPU kernels keep x resident in VMEM, walk 1024-aligned windows and
+store the values segment-major to dodge sublane padding; none of that
 carries over.  The TPU refused f64; here float32 and float64 go through the
 same kernel.
 """
@@ -25,9 +31,10 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from .df64 import dia_spmv_df_plain
 from .dia import MAX_DIAGS, dia_spmv_plain
 
-__all__ = ["dia_spmv", "dia_spmv_plain", "dia_spmv_strided"]
+__all__ = ["dia_spmv", "dia_spmv_df", "dia_spmv_plain", "dia_spmv_strided"]
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -114,3 +121,42 @@ def dia_spmv_strided(
 
 
 dia_spmv_strided.launches = 0
+
+
+def dia_spmv_df(
+    offsets: Tuple[int, ...], vals_hi: torch.Tensor, vals_lo: torch.Tensor, x
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7.  The product of ``dia_spmv`` in df64: values ``vals_hi``,
+    ``vals_lo`` [P, n_off, R] and x a pair (hi, lo) of [P, n_cols], all
+    float32; returns the pair (hi, lo) of [P, R].
+
+    A CPU tensor goes to ``dia_spmv_df_plain``; a CUDA tensor goes to the
+    kernel, or the call raises."""
+    xh, xl = x
+    if vals_lo.shape != vals_hi.shape or xl.shape != xh.shape:
+        raise ValueError(
+            f"dia_spmv_df: hi/lo shapes {tuple(vals_hi.shape)}/{tuple(vals_lo.shape)} "
+            f"and {tuple(xh.shape)}/{tuple(xl.shape)}"
+        )
+    if any(t.dtype != torch.float32 for t in (vals_hi, vals_lo, xh, xl)):
+        raise TypeError("dia_spmv_df: the words of a df64 pair are float32")
+    if len({t.device for t in (vals_hi, vals_lo, xh, xl)}) != 1:
+        raise ValueError("dia_spmv_df: operands on more than one device")
+    if not _check("dia_spmv_df", offsets, vals_hi, xh):
+        return dia_spmv_df_plain(offsets, vals_hi, vals_lo, x)
+    if not all(t.is_contiguous() for t in (vals_hi, vals_lo, xh, xl)):
+        raise ValueError("dia_spmv_df: values and x must be contiguous")
+    P, _, R = vals_hi.shape
+    yh = torch.empty((P, R), dtype=torch.float32, device=vals_hi.device)
+    yl = torch.empty_like(yh)
+    code = _build.entry("pat_dia_spmv_df", torch.float32)(
+        vals_hi.data_ptr(), vals_lo.data_ptr(), xh.data_ptr(), xl.data_ptr(),
+        yh.data_ptr(), yl.data_ptr(), _offsets_arg(offsets), len(offsets),
+        R, xh.shape[1], P, _build.stream_of(vals_hi),
+    )
+    dia_spmv_df.launches += 1
+    _build.check(code, "dia_spmv_df")
+    return yh, yl
+
+
+dia_spmv_df.launches = 0

@@ -108,7 +108,7 @@ def stencil_psparse(
     stencil: Sequence[Tuple[Tuple[int, ...], float]],
     backend,
     dtype=np.float64,
-    device="cpu",
+    device="cuda",
 ):
     """Assembled PSparseMatrix of a constant-coefficient stencil operator.
 

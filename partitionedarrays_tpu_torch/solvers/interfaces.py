@@ -1,0 +1,148 @@
+"""The problem / solver protocol.
+
+Counterpart of ``partitionedarrays_tpu/solvers/interfaces.py``, the part
+that the ported solvers carry: ``LinearProblem``, ``LinearSolverBase``,
+``CGSolver``, ``SmootherSolver``, the constructors ``cg_solver``,
+``jacobi_solver``, ``gauss_seidel_solver`` and ``richardson_solver``, and
+``solve``, ``preconditioner``, ``smooth`` and ``history``.  A solver has
+``solve(problem)``, ``update(problem)`` (same sparsity, new values) and
+``finalize()``.  ``lu_solver``, ``additive_schwarz_solver`` and
+``amg_solver`` raise until their slices are ported; the nonlinear and ODE
+problems come with ROADMAP Queue 1 item 14.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Iterator, Optional
+
+from ..psparse import PSparseMatrix
+from ..pvector import PVector, pzeros
+
+
+@dataclass
+class LinearProblem:
+    """A x = b."""
+
+    A: PSparseMatrix
+    b: PVector
+    x0: Optional[PVector] = None
+    nullspace: Optional[Any] = None
+    attributes: Dict = field(default_factory=dict)
+
+
+class LinearSolverBase:
+    """The update / solve contract."""
+
+    def solve(self, problem: LinearProblem) -> PVector:
+        raise NotImplementedError
+
+    def update(self, problem: LinearProblem) -> None:
+        """Matrix values changed at fixed sparsity; refresh caches."""
+
+    def finalize(self) -> None:
+        """Release resources."""
+
+
+class CGSolver(LinearSolverBase):
+    def __init__(self, rtol=1e-8, atol=0.0, maxiter=1000, M=None):
+        self.rtol, self.atol, self.maxiter, self.M = rtol, atol, maxiter, M
+        self.last_info = None
+
+    def solve(self, p: LinearProblem) -> PVector:
+        from .krylov import cg
+
+        x, info = cg(
+            p.A, p.b, x0=p.x0, M=self.M, rtol=self.rtol, atol=self.atol,
+            maxiter=self.maxiter,
+        )
+        self.last_info = info
+        return x
+
+
+class SmootherSolver(LinearSolverBase):
+    """A preconditioner built from the matrix (``make_M(A)``), run as
+    ``iterations`` Richardson steps."""
+
+    def __init__(self, make_M, iterations=10, omega=1.0):
+        self.make_M = make_M
+        self.iterations = iterations
+        self.omega = omega
+        self._M = None
+        self._A = None
+
+    def _get_M(self, A):
+        if self._M is None or self._A is not A:
+            self._M = self.make_M(A)
+            self._A = A
+        return self._M
+
+    def solve(self, p: LinearProblem) -> PVector:
+        from .krylov import richardson_iteration
+
+        M = self._get_M(p.A)
+        x = p.x0 if p.x0 is not None else pzeros(
+            p.A.row_prange, p.b.backend, dtype=p.b.own.dtype, device=p.b.own.device
+        )
+        return richardson_iteration(
+            p.A, p.b, x, omega=self.omega, M=M, iterations=self.iterations
+        )
+
+
+def cg_solver(**kw) -> CGSolver:
+    return CGSolver(**kw)
+
+
+def jacobi_solver(iterations=10, omega=1.0) -> SmootherSolver:
+    from .smoothers import JacobiCorrection
+
+    return SmootherSolver(JacobiCorrection, iterations, omega)
+
+
+def gauss_seidel_solver(iterations=10, sweep="symmetric") -> SmootherSolver:
+    from .smoothers import GaussSeidel
+
+    return SmootherSolver(lambda A: GaussSeidel(A, 1, sweep), iterations)
+
+
+def richardson_solver(iterations=10, omega=1.0) -> SmootherSolver:
+    return SmootherSolver(lambda A: (lambda r: r), iterations, omega)
+
+
+def lu_solver():
+    raise NotImplementedError("lu_solver needs psparse centralize: ROADMAP Queue 1 item 10")
+
+
+def additive_schwarz_solver(iterations=3, local_solver=None):
+    raise NotImplementedError("additive_schwarz_solver: ROADMAP Queue 1 item 12")
+
+
+def amg_solver(params=None, nullspace=None, iterations=1):
+    raise NotImplementedError("amg_solver: ROADMAP Queue 1 item 13")
+
+
+def solve(solver: LinearSolverBase, problem: LinearProblem) -> PVector:
+    return solver.solve(problem)
+
+
+def preconditioner(solver: LinearSolverBase, problem: LinearProblem):
+    """Any solver as a preconditioner callable r -> M(r)."""
+
+    def M(r: PVector) -> PVector:
+        return solver.solve(LinearProblem(problem.A, r))
+
+    return M
+
+
+def smooth(solver: LinearSolverBase, x: PVector, problem: LinearProblem) -> PVector:
+    """Improve x in place of a full solve."""
+    return solver.solve(LinearProblem(problem.A, problem.b, x0=x))
+
+
+def history(
+    step: Callable[[PVector], PVector], x0: PVector, maxiters: int = 100
+) -> Iterator[PVector]:
+    """The lazy history of iterates x_{k+1} = step(x_k)."""
+    x = x0
+    for _ in range(maxiters):
+        x = step(x)
+        yield x

@@ -1,8 +1,9 @@
 """Gauss-Seidel smoothing on partitioned matrices.
 
-Counterpart of ``partitionedarrays_tpu/solvers/smoothers.py``: the colored
-DIA tier of ``GaussSeidel`` (:123-204), ``_order_seq``, ``ghost_contrib``,
-the flat-space methods (:313-461), ``apply`` (:463-535) and ``__call__``
+Counterpart of ``partitionedarrays_tpu/solvers/smoothers.py``:
+``JacobiCorrection`` and ``jacobi`` (:83-115), the colored DIA tier of
+``GaussSeidel`` (:123-204), ``_order_seq``, ``ghost_contrib``, the
+flat-space methods (:313-461), ``apply`` (:463-535) and ``__call__``
 (:600-604).  The flat-space methods let the MG V-cycle keep x in the
 de-interleaved core layout of ``solvers/gs_dia.py`` between smoothing
 steps; the names keep the reference's "flat" although the state is the
@@ -21,6 +22,42 @@ import torch
 from ..psparse import PSparseMatrix
 from ..pvector import PVector
 from .gs_dia import ColoredDIAGS, find_mod_coloring
+
+
+def _own_diagonal(A: PSparseMatrix) -> torch.Tensor:
+    """The diagonal of the own-own block, [P, n_own_pad], on its device."""
+    oo = A.device().oo
+    if oo.kind != "dia":
+        raise NotImplementedError(
+            "the diagonal of a non-banded own block: ROADMAP Queue 1 item 10 (slice C)"
+        )
+    if 0 not in oo.offsets:
+        return torch.zeros_like(oo.vals[:, 0, :])
+    return oo.vals[:, oo.offsets.index(0), :]
+
+
+class JacobiCorrection:
+    """dx = D^-1 r, with D the diagonal of the own-own block (zero where
+    the diagonal is zero)."""
+
+    def __init__(self, A: PSparseMatrix):
+        d = _own_diagonal(A)
+        self.inv_diag = torch.where(d != 0, 1.0 / torch.where(d != 0, d, torch.ones_like(d)),
+                                    torch.zeros_like(d))
+        self.layout = A.row_layout()
+        self.backend = A.backend
+
+    def __call__(self, r: PVector) -> PVector:
+        return PVector(r.own * self.inv_diag, torch.zeros_like(r.ghost), r.layout, r.backend)
+
+
+def jacobi(A, b, x, iterations: int = 1, omega: float = 1.0) -> PVector:
+    """Damped Jacobi: ``richardson_iteration`` with ``JacobiCorrection``."""
+    from .krylov import richardson_iteration
+
+    return richardson_iteration(
+        A, b, x, omega=omega, M=JacobiCorrection(A), iterations=iterations
+    )
 
 
 class GaussSeidel:
@@ -47,9 +84,7 @@ class GaussSeidel:
         if oo.kind != "dia" or find_mod_coloring(oo.offsets) is None:
             raise NotImplementedError("GaussSeidel needs a DIA own block with a mod-m coloring")
         if colored is None:
-            k0 = oo.offsets.index(0) if 0 in oo.offsets else None
-            diag = oo.vals[:, k0, :] if k0 is not None else torch.zeros_like(oo.vals[:, 0, :])
-            colored = ColoredDIAGS.from_device(oo.offsets, oo.vals, diag)
+            colored = ColoredDIAGS.from_device(oo.offsets, oo.vals, _own_diagonal(A))
         self.colored = colored
         self.n_colors = colored.m
 

@@ -1,0 +1,43 @@
+"""The port's entry points run on the card unless the caller asks for the
+CPU: each defaults to ``device="cuda"``, with no fallback.  Without a CUDA
+build of torch a call with no device raises torch's no-CUDA error instead
+of running on the CPU."""
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from partitionedarrays_tpu_torch import convert, pvector
+from partitionedarrays_tpu_torch.backends import SerialBackend
+from partitionedarrays_tpu_torch.models.hpcg.driver import hpcg_benchmark
+from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
+from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
+from partitionedarrays_tpu_torch.ops.blocks import freeze_block
+from partitionedarrays_tpu_torch.ops.stencil import stencil_psparse
+
+ENTRY_POINTS = [
+    hpcg_benchmark, HPCGMGPreconditioner.__init__, build_hpcg_problem, stencil_psparse,
+    freeze_block, pvector.pfill, pvector.pzeros, pvector.pones, pvector.pvector_from_own,
+    pvector.pvector_df64, convert.from_jax_arrays,
+]
+
+
+@pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
+def test_entry_point_defaults_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("precision", [None, "df64"])
+def test_benchmark_without_device_does_not_run_on_the_cpu(precision):
+    """The first device tensor of the problem build asks for CUDA, so no
+    set runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises(AssertionError, match="CUDA"):
+        hpcg_benchmark(
+            None, local_shape=(4, 4, 4), parts_per_dir=(1, 1, 1), n_levels=2,
+            iterations=2, ref_sets=1, timed_sets=1, dtype=np.float64, precision=precision,
+        )
+    with pytest.raises(AssertionError, match="CUDA"):
+        build_hpcg_problem((4, 4, 4), (1, 1, 1), SerialBackend(1))

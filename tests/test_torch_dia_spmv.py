@@ -111,7 +111,7 @@ def test_dia_spmv_wrapper_refuses_mixed_dtypes():
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_spmv_matches_jax_on_hpcg_operator(dtype):
     A_ref, _ = jax_build((16, 16, 16), (1, 1, 1), JaxSerialBackend(1), dtype=dtype)
-    A, _ = build_hpcg_problem((16, 16, 16), (1, 1, 1), SerialBackend(1), dtype=dtype)
+    A, _ = build_hpcg_problem((16, 16, 16), (1, 1, 1), SerialBackend(1), dtype=dtype, device="cpu")
     lay = A.col_layout()
     rng = np.random.default_rng(4)
     x = np.zeros((1, lay.n_own_pad), dtype=dtype)

@@ -58,7 +58,7 @@ def problems():
     out = {}
     for dtype in DTYPES:
         ref = jax_build(LOCAL, PARTS, JaxSerialBackend(P), dtype=dtype)
-        mine = build_hpcg_problem(LOCAL, PARTS, SerialBackend(P), dtype=dtype)
+        mine = build_hpcg_problem(LOCAL, PARTS, SerialBackend(P), dtype=dtype, device="cpu")
         out[dtype] = (ref, mine)
     return out
 
@@ -236,8 +236,8 @@ def test_freeze_block_picks_dia_for_bands_and_rows_for_the_rest():
     rng = np.random.default_rng(46)
     band = [sp.diags([rng.standard_normal(40) for _ in range(3)], [-1, 0, 1], shape=(40, 40)).tocsr()]
     scattered = [sp.random(40, 30, density=0.05, random_state=s, format="csr") for s in (1, 2)]
-    dia = freeze_block(band, 40, 40)
-    ell = freeze_block(scattered, 40, 30)
+    dia = freeze_block(band, 40, 40, device="cpu")
+    ell = freeze_block(scattered, 40, 30, device="cpu")
     assert dia.kind == "dia" and dia.offsets == (-1, 0, 1)
     assert ell.kind == "ell" and ell.rows.dtype == torch.int32
     for blk, mats, n_cols in ((dia, band, 40), (ell, scattered, 30)):

@@ -69,7 +69,7 @@ def _plan_of(cls, offsets, R):
 
 @pytest.mark.parametrize("n", [8, 16, 32])
 def test_plan_matches_jax(n):
-    A, _ = build_hpcg_problem((n, n, n), (1, 1, 1), SerialBackend(1))
+    A, _ = build_hpcg_problem((n, n, n), (1, 1, 1), SerialBackend(1), device="cpu")
     oo = A.device().oo
     R = oo.vals.shape[-1]
     mine = _plan_of(ColoredDIAGS, oo.offsets, R)
@@ -82,7 +82,7 @@ def test_build_matches_jax(state):
     """The port's on-device de-interleave of A's values equals the
     reference's exactly (a permutation and 1/d)."""
     dtype, ref, _, vals_d, invd_d = state
-    A, _ = build_hpcg_problem((16, 16, 16), (1, 1, 1), SerialBackend(1), dtype=dtype)
+    A, _ = build_hpcg_problem((16, 16, 16), (1, 1, 1), SerialBackend(1), dtype=dtype, device="cpu")
     col = GaussSeidel(A).colored
     np.testing.assert_array_equal(col.vals_d.numpy(), vals_d)
     np.testing.assert_array_equal(col.invd_d.numpy(), invd_d)

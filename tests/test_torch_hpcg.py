@@ -88,13 +88,13 @@ def test_pvector_core_matches_jax(dtype):
     be, be_ref = SerialBackend(1), JaxSerialBackend(1)
     rng = np.random.default_rng(30)
     own = [rng.standard_normal(int(np.prod(grid))).astype(dtype) for _ in range(2)]
-    x = pvector.pvector_from_own([own[0]], pr, be)
-    y = pvector.pvector_from_own([own[1]], pr, be)
+    x = pvector.pvector_from_own([own[0]], pr, be, device="cpu")
+    y = pvector.pvector_from_own([own[1]], pr, be, device="cpu")
     x_ref = jax_pvector.pvector_from_own([own[0]], pr_ref, be_ref)
     y_ref = jax_pvector.pvector_from_own([own[1]], pr_ref, be_ref)
     pairs = [
-        (pvector.pzeros(pr, be, dtype=dtype), jax_pvector.pzeros(pr_ref, be_ref, dtype=dtype)),
-        (pvector.pones(pr, be, dtype=dtype), jax_pvector.pones(pr_ref, be_ref, dtype=dtype)),
+        (pvector.pzeros(pr, be, dtype=dtype, device="cpu"), jax_pvector.pzeros(pr_ref, be_ref, dtype=dtype)),
+        (pvector.pones(pr, be, dtype=dtype, device="cpu"), jax_pvector.pones(pr_ref, be_ref, dtype=dtype)),
         (x, x_ref),
         (pvector.axpy(0.5, x, y), jax_pvector.axpy(jnp.asarray(0.5, dtype), x_ref, y_ref)),
     ]
@@ -114,7 +114,7 @@ def test_pvector_core_matches_jax(dtype):
 def test_problem_matches_jax(shape, dtype):
     """The closed-form operator and rhs equal the reference's exactly."""
     A_ref, b_ref = jax_build(shape, (1, 1, 1), JaxSerialBackend(1), dtype=dtype)
-    A, b = build_hpcg_problem(shape, (1, 1, 1), SerialBackend(1), dtype=dtype)
+    A, b = build_hpcg_problem(shape, (1, 1, 1), SerialBackend(1), dtype=dtype, device="cpu")
     assert A.device().oo.offsets == A_ref.device().oo.offsets
     np.testing.assert_array_equal(A.device().oo.vals.numpy(), np.asarray(A_ref.device().oo.vals))
     np.testing.assert_array_equal(b.own.numpy(), np.asarray(b_ref.own))
@@ -139,7 +139,7 @@ def test_benchmark_report_matches_jax_keys(jax_report_keys, total_runtime, windo
     mine = hpcg_benchmark(
         None, local_shape=(8, 8, 8), parts_per_dir=(1, 1, 1), n_levels=2,
         iterations=10, ref_sets=1, timed_sets=1, dtype=np.float64,
-        total_runtime=total_runtime,
+        total_runtime=total_runtime, device="cpu",
     ).summary()
     assert set(mine) == jax_report_keys
     assert mine["validation_passed"] and mine["chain_consistent"]

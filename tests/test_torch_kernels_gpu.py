@@ -5,7 +5,11 @@ the 32^3 HPCG operator, K5 ``ghost_spmv`` and K2 ``dia_spmv_strided`` on
 those of the (2,2,2) x 16^3 one, and are compared with their plain versions
 on the same tensors.  Tolerance: rtol 1e-5 in float32 and 1e-12 in float64,
 relative to the largest plain entry, since only FMA contraction and the
-order of the sums differ.
+order of the sums differ.  K7 ``dia_spmv_df`` runs on the (hi, lo) float32
+pair of the float64 operator at both shapes and is held to 1e-13 of
+``sum_j |A_ij| |x_j|`` per row (the bound of ``tests/test_df64.py``); the
+kernel and its plain version round every operation alike, so they are
+expected to agree exactly.
 
 Every test is marked ``gpu`` and skips without a CUDA card.  This module
 imports torch and the port only (no JAX), so that it also runs on a
@@ -19,7 +23,8 @@ import torch
 from partitionedarrays_tpu_torch.backends import SerialBackend
 from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
 from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
-from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_strided
+from partitionedarrays_tpu_torch.ops import df64 as df
+from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_df, dia_spmv_strided
 from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv, ghost_spmv_plain
 from partitionedarrays_tpu_torch.ops.gs_dia_kernels import (
     ax_core,
@@ -148,3 +153,24 @@ def test_sweep_through_k2_matches_sweeps_core(cuda, dtype):
         col.deinterleave(x), col.deinterleave(b.own - gc), col.vals_d, col.invd_d, order
     ))
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("shape, parts", [((32, 32, 32), (1, 1, 1)), ((16, 16, 16), (2, 2, 2))])
+def test_dia_spmv_df_kernel_matches_plain(cuda, shape, parts):
+    P = parts[0] * parts[1] * parts[2]
+    A, _ = build_hpcg_problem(shape, parts, SerialBackend(P), dtype=torch.float64, device=cuda)
+    oo = A.device().oo
+    vh, vl = df.from_f64(oo.vals)
+    g = torch.Generator().manual_seed(19)
+    x64 = torch.randn(P, oo.n_cols_pad, generator=g, dtype=torch.float64).to(cuda)
+    x = df.from_f64(x64)
+    before = dia_spmv_df.launches
+    got = dia_spmv_df(oo.offsets, vh, vl, x)
+    assert dia_spmv_df.launches == before + 1
+    want = df.dia_spmv_df_plain(oo.offsets, vh, vl, x)
+    torch.cuda.synchronize()
+    scale = dia_spmv(oo.offsets, oo.vals.abs(), x64.abs()) + 1e-30
+    err = (df.to_f64(*got) - df.to_f64(*want)).abs() / scale
+    assert err.max().item() <= 1e-13, err.max().item()
+    exact = dia_spmv(oo.offsets, oo.vals, x64)  # K1 in float64
+    assert ((df.to_f64(*got) - exact).abs() / scale).max().item() <= 1e-13

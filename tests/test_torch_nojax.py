@@ -2,9 +2,10 @@
 
 A fresh interpreter imports the port's modules, builds small HPCG problems
 on one part and on (2,2,2) parts, and runs short MG-preconditioned CG solves
-on the CPU (the flat CG, and the ghosted flat CG with its exchanges and
-own-ghost products); afterwards ``jax`` must not be among the loaded
-modules.
+on the CPU (the flat CG, the ghosted flat CG with its exchanges and
+own-ghost products, and the df64 CG), then the generic solvers (``cg``,
+``cg_df64``, a solver of ``solvers/interfaces.py``); afterwards ``jax``
+must not be among the loaded modules.
 """
 import os
 import subprocess
@@ -24,13 +25,29 @@ import partitionedarrays_tpu_torch.ops.sparse_host
 from partitionedarrays_tpu_torch.backends import SerialBackend
 from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg_flat, hpcg_cg_flat_g
 from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
-mg = HPCGMGPreconditioner((8, 8, 8), (1, 1, 1), SerialBackend(1), n_levels=2)
+mg = HPCGMGPreconditioner((8, 8, 8), (1, 1, 1), SerialBackend(1), n_levels=2, device="cpu")
 _, norms = hpcg_cg_flat(mg, mg.b, iterations=5)
 assert float(norms[-1] / norms[0]) < 1e-3, norms
-mg = HPCGMGPreconditioner((4, 4, 4), (2, 2, 2), SerialBackend(8), n_levels=2)
+mg = HPCGMGPreconditioner((4, 4, 4), (2, 2, 2), SerialBackend(8), n_levels=2, device="cpu")
 assert mg.A.col_layout().consistent_plan.n_rounds > 0
 _, norms = hpcg_cg_flat_g(mg, mg.b, iterations=5)
 assert float(norms[-1] / norms[0]) < 1e-3, norms
+import partitionedarrays_tpu_torch.ops.df64
+from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg_df64
+from partitionedarrays_tpu_torch.models.hpcg.driver import df64_problem
+from partitionedarrays_tpu_torch.solvers.interfaces import LinearProblem, jacobi_solver, solve
+from partitionedarrays_tpu_torch.solvers.krylov import cg, cg_df64
+from partitionedarrays_tpu_torch.solvers.smoothers import JacobiCorrection
+mg32 = HPCGMGPreconditioner((4, 4, 4), (2, 2, 2), SerialBackend(8), n_levels=2,
+                            dtype=np.float32, device="cpu")
+A, b = df64_problem((4, 4, 4), (2, 2, 2), mg32.backend, "cpu")
+_, norms = hpcg_cg_df64(A, b, M=mg32, iterations=5)
+assert float(norms[-1] / norms[0]) < 1e-3, norms
+_, info = cg_df64(A, b, rtol=1e-10)
+assert float(info.residual) < 1e-9 * float(norms[0]), info
+_, info = cg(mg.A, mg.b, M=JacobiCorrection(mg.A), rtol=1e-6)
+assert info.iterations > 0, info
+solve(jacobi_solver(iterations=2), LinearProblem(mg.A, mg.b))
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
 sys.exit(1 if loaded else 0)

@@ -82,7 +82,7 @@ def solve(dtype):
     finally:
         jax_config.use_pallas = saved
     ref = {"rd": rd, "cycle": cycle, "flat": flat, "generic": generic}
-    return dtype, from_jax_arrays(levels), ref
+    return dtype, from_jax_arrays(levels, device="cpu"), ref
 
 
 def _assert_history_close(got, want, dtype):

@@ -83,7 +83,7 @@ def solve(dtype):
     finally:
         jax_config.use_pallas = saved
     ref = {"r_own": r_own, "cycle": cycle, "flat_g": flat_g, "generic": generic}
-    return dtype, from_jax_arrays(levels), ref
+    return dtype, from_jax_arrays(levels, device="cpu"), ref
 
 
 def check_vcycle(solved):
