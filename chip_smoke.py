@@ -19,9 +19,10 @@ Phases, one output line each:
    ``torch.sparse`` CSR call; then K7 dia_spmv_df (df64 pairs) at both fine
    shapes, held to 1e-13 of sum |A||x| per row against its plain version
    and, with it, against K1 in float64 on the same values;
-4. the HPCG benchmark through the port, 4 MG levels, 50 CG iterations, on
-   three paths, each with its kernels' launch counts set to 0 just before it
-   and read just after:
+4. four paths through the port, each with its kernels' launch counts set to
+   0 just before it and read just after (a-c: the HPCG benchmark, 4 MG
+   levels, 50 CG iterations; d: the elasticity AMG, counted over its
+   solves):
    a. one part: 128^3 in float32 and float64, 64^3 in float64; each also
       checks the standard-order operator (K1) against the de-interleaved
       one (K4) and runs the generic CG, which applies A through K1;
@@ -38,6 +39,16 @@ Phases, one output line each:
       (kernel launches and device time);
    the relative residuals are held to the limits of ``HPCG_RUNS``,
    ``GHOSTED_RUNS`` and ``DF64_RUNS``;
+   d. ``amg_elasticity``: 3-D Q1 linear elasticity through the port's
+      entry points (``linear_elasticity_fem`` -> ``psparse`` ->
+      ``nullspace_linear_elasticity`` -> ``AMGPreconditioner`` -> ``cg`` to
+      rtol 1e-8): 16^3 nodes in float32 (the reference's anchor, 9 +- 1
+      iterations) and 40^3 nodes (192,000 rows) in float32 and float64;
+      host seconds of assembly and setup, the hierarchy, iterations, the
+      true float64 residual and the solve time (CUDA events); then K6 and
+      K1 (99 diagonals) against their plain versions on the 40^3
+      hierarchy's operators, and K6 on the forced tile tier of the 20^3
+      elasticity block;
 5. the launch counts of each path, each kernel of a path required > 0;
 6. the whole port on the card against the whole port on the CPU (plain
    versions), float64, residual histories to rtol 1e-10: 32^3 on one part
@@ -142,13 +153,38 @@ KERNELS = {
         "partitionedarrays_tpu_torch/csrc/dia_spmv_df.cu",
         "partitionedarrays_tpu/ops/spmv_pallas.py:240",
     ),
+    "tile_gs_sweeps": (
+        "partitionedarrays_tpu_torch/csrc/tile_gs.cu",
+        "partitionedarrays_tpu/solvers/gs_slot.py:112",
+    ),
 }
 # the kernels each path of phase 4 must launch
 PATH_KERNELS = {
     "one_part": ("dia_spmv", "ax_core", "gs_sweeps"),
     "ghosted": ("dia_spmv", "ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv"),
     "df64": ("dia_spmv_df", "ax_core", "gs_sweeps", "ghost_spmv"),
+    "amg_elasticity": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
 }
+# the elasticity SA-AMG path: the reference's own workload (bench.py:371-430,
+# AMGParams(coarse_size=400, block_size=3, max_levels=4), CG to rtol 1e-8),
+# (nodes per direction, dtype, allowed CG iterations or None, limit on the
+# true float64 residual |b - A x| / |b|).  16^3 is the reference's anchor
+# (BENCH_r05.json: 9 iterations, 12,288 rows); 40^3 (192,000 rows) is the
+# size of its elasticity operator (bench.py:226-228)
+AMG_PARAMS = dict(coarse_size=400, block_size=3, max_levels=4)
+AMG_RTOL = 1e-8
+AMG_MAXITER = 200
+AMG_RUNS = (
+    ((16, 16, 16), "float32", (8, 10), 1e-5),
+    ((40, 40, 40), "float32", None, 1e-5),
+    ((40, 40, 40), "float64", None, 2e-8),
+)
+# the run whose hierarchy holds K6 (levels 1 and 2) and K1 (99 diagonals)
+# against their plain versions
+AMG_KERNEL_NODES = (40, 40, 40)
+# K6 on the forced tile tier of the 20^3-node elasticity block (24,000
+# rows; the reference's bench.py:283-349 shape)
+FORCED_TILE_NODES = (20, 20, 20)
 
 
 def emit(phase: str, payload) -> None:
@@ -636,9 +672,10 @@ def phase_hpcg_ghosted(device):
     return out
 
 
-def _profile_set(run_set) -> dict:
+def _profile_set(run_set, top: int = 0) -> dict:
     """Device events (kernels, memsets, copies) and device time of one
-    warm call of ``run_set``, from torch.profiler, beside its wall time."""
+    warm call of ``run_set``, from torch.profiler, beside its wall time;
+    with ``top``, the ``top`` device ops by device time (name, count, ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -650,11 +687,15 @@ def _profile_set(run_set) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {
+    out = {
         "device_events": sum(e.count for e in events),
         "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
         "profiled_wall_ms": wall * 1e3,
     }
+    if top:
+        events.sort(key=lambda e: -e.self_device_time_total)
+        out["top"] = [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in events[:top]]
+    return out
 
 
 def phase_hpcg_df64(device):
@@ -746,6 +787,181 @@ def phase_hpcg_df64(device):
     return out
 
 
+def _level_info(M):
+    """Per level: rows, nnz, block kind, smoother tier and its geometry."""
+    out = []
+    for lev in M.levels:
+        oo = lev.A.device().oo
+        info = {"rows": lev.A.shape[0], "nnz": lev.A.nnz(), "kind": oo.kind,
+                "n_diags": len(oo.offsets) if oo.kind == "dia" else None}
+        gs = lev.smoother
+        if gs is None:
+            info["smoother"] = f"coarse {M.coarse_kind}"
+        elif gs.colored is not None:
+            info.update(smoother="colored", m=gs.colored.m)
+        else:
+            tg = gs.tile_gs
+            info.update(smoother="tile", tiles=tg.n_real_tiles, W=tg.W, B=tg.B)
+        out.append(info)
+    return out
+
+
+def _tile_work(tg, dirs, itemsize):
+    """(bytes, operations) of ``len(dirs)`` K6 passes: each input read once
+    (the plane of every direction used, the off-tile entries and rows, b,
+    x in) and x written once; per pass 2 * 128^2 operations per tile (the
+    two triangular products) and 2 per off-tile entry."""
+    n_dir = len(set(dirs))
+    nnz_off = int((tg.cols >= 0).sum())
+    nbytes = (n_dir * tg.n_real_tiles * 128 * 128 * itemsize + nnz_off * (itemsize + 4)
+              + 4 * tg.rows.shape[1] + 3 * tg.Rp * itemsize)
+    ops = len(dirs) * (tg.n_real_tiles * 2 * 128 * 128 + 2 * nnz_off)
+    return nbytes, ops
+
+
+def _hold_tile(results, where, tg, dtype_name, g, device, timed):
+    """K6 against its plain version on one tile smoother: forward, backward
+    and symmetric, from a zero and a nonzero guess; with ``timed`` the
+    symmetric sweep from a nonzero guess (the post-smoothing) is timed."""
+    import torch
+
+    from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps, tile_gs_sweeps_plain
+
+    dtype = getattr(torch, dtype_name)
+    b = torch.randn(1, tg.Rp, generator=g, dtype=dtype).to(device)
+    x0 = torch.randn(1, tg.Rp, generator=g, dtype=dtype).to(device)
+    worst = (0.0, 0.0)
+    for dirs in (("f",), ("b",), ("f", "b")):
+        for zero in (True, False):
+            start = torch.zeros_like(x0) if zero else x0
+            got = tile_gs_sweeps(*tg.operands(), start.clone(), b, dirs, zero_guess=zero)
+            torch.cuda.synchronize()
+            want = tile_gs_sweeps_plain(*tg.operands(), start.clone(), b, dirs, zero_guess=zero)
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            if not rel <= KERNEL_RTOL[dtype_name]:
+                raise AssertionError(f"tile_gs_sweeps {where} {dtype_name} {dirs} zero={zero}: {rel}")
+            worst = max(worst, (rel, err))
+    row = {"kernel": "tile_gs_sweeps", "dtype": dtype_name, "where": where,
+           "tiles": tg.n_real_tiles, "W": tg.W, "B": tg.B, "max_abs_err": worst[1],
+           "max_rel_err": worst[0], "tol_rel": KERNEL_RTOL[dtype_name]}
+    if timed:
+        x_t = x0.clone()
+        row.update(
+            ms=time_ms(lambda: tile_gs_sweeps(*tg.operands(), x_t, b, ("f", "b")), 20),
+            plain_ms=time_ms(lambda: tile_gs_sweeps_plain(*tg.operands(), x_t, b, ("f", "b")), 3),
+            library_ms=None,
+        )
+        work = _tile_work(tg, ("f", "b"), x0.element_size())
+        b_ms, b_by = bound(*work)
+        row.update(bytes=work[0], ops=work[1], bound_ms=b_ms, bound_by=b_by)
+    results.append(row)
+
+
+def phase_amg_elasticity(device, counters):
+    """Elasticity SA-AMG through the port's entry points (``AMG_RUNS``).
+    The launch counts of the solves (``counters`` set to 0 just before each
+    solve and read just after) are returned as the path's; the kernel
+    checks that follow are not counted.  Returns (launches, K6/K1 rows)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.gallery import (
+        linear_elasticity_fem, node_coordinates_unit_cube, nullspace_linear_elasticity,
+    )
+    from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
+    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv
+    from partitionedarrays_tpu_torch.psparse import psparse, spmv, to_global_scipy
+    from partitionedarrays_tpu_torch.pvector import pones
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+    from partitionedarrays_tpu_torch.solvers.gs_slot import NaturalTileGS
+    from partitionedarrays_tpu_torch.solvers.krylov import cg
+
+    out, failures, results = {}, [], []
+    path_launches = {k: 0 for k in counters}
+    g = torch.Generator().manual_seed(2024)
+    for nodes, dtype, iter_range, limit in AMG_RUNS:
+        key = f"{dtype}@{nodes[0]}^3"
+        np_dtype = getattr(np, dtype)  # the scalar type, as the gallery takes
+        t0 = time.perf_counter()
+        I, J, V, rows, cols = linear_elasticity_fem(nodes, (1, 1, 1), dtype=np_dtype)
+        A = psparse(I, J, V, rows, cols, SerialBackend(1), device=device)
+        A.device()
+        torch.cuda.synchronize()
+        assembly = time.perf_counter() - t0
+        del I, J, V
+        coords, _ = node_coordinates_unit_cube(nodes, (1, 1, 1))
+        ns = nullspace_linear_elasticity(coords)
+        t0 = time.perf_counter()
+        M = AMGPreconditioner(A, AMGParams(**AMG_PARAMS), nullspace=ns)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device=device))
+        solves = []
+        for _ in range(2):  # the second solve is warm
+            for fn in counters.values():
+                fn.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            x, info = cg(A, b, M=M, rtol=AMG_RTOL, maxiter=AMG_MAXITER)
+            end.record()
+            end.synchronize()
+            counts = {k: fn.launches for k, fn in counters.items()}
+            for k, v in counts.items():
+                path_launches[k] += v
+            solves.append((start.elapsed_time(end) / 1e3, info.iterations, counts))
+        prof = None
+        if nodes == AMG_KERNEL_NODES:  # where the device time of a solve goes
+            prof = _profile_set(lambda: cg(A, b, M=M, rtol=AMG_RTOL, maxiter=AMG_MAXITER), top=8)
+        G = to_global_scipy(A).astype(np.float64)
+        n = A.shape[0]
+        b64 = b.own[0, :n].double().cpu().numpy()
+        x64 = x.own[0, :n].double().cpu().numpy()
+        true_relres = float(np.linalg.norm(b64 - G @ x64) / np.linalg.norm(b64))
+        iters = solves[-1][1]
+        out[key] = {
+            "rows": n, "nnz": A.nnz(), "assembly_s": assembly, "setup_s": setup,
+            "levels": _level_info(M), "omegas": M.omegas, "iterations": iters,
+            "cg_residual": float(info.residual), "true_relres": true_relres,
+            "solve_s": [s[0] for s in solves], "launches_per_solve": solves[-1][2],
+            "profiled_solve": prof,
+        }
+        emit(f"4d amg_elasticity {key}", out[key])
+        if iter_range is not None and not iter_range[0] <= iters <= iter_range[1]:
+            failures.append(f"{key}: {iters} CG iterations, not in {iter_range}")
+        if iters >= AMG_MAXITER or not true_relres <= limit:
+            failures.append(f"{key}: {iters} iterations, true relres {true_relres} > {limit}")
+        if solves[-1][2]["tile_gs_sweeps"] <= 0:
+            failures.append(f"{key}: K6 did not launch in the solve")
+        if nodes == AMG_KERNEL_NODES:
+            # K6 on every tile level, K1 on the 99-diagonal fine operator
+            for l, lev in enumerate(M.levels):
+                if lev.smoother is not None and lev.smoother.tile_gs is not None:
+                    _hold_tile(results, f"level {l} of {nodes[0]}^3", lev.smoother.tile_gs,
+                               dtype, g, device, timed=(l == 1))
+            oo = A.device().oo
+            xs = torch.randn(1, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
+            _hold(results, "dia_spmv", dtype, lambda: dia_spmv(oo.offsets, oo.vals, xs),
+                  lambda: dia_spmv_plain(oo.offsets, oo.vals, xs),
+                  work=(xs.element_size() * (oo.vals.numel() + 2 * xs.numel()), 2 * oo.vals.numel()))
+            results[-1].update(where=f"{len(oo.offsets)} diagonals, {nodes[0]}^3 elasticity")
+        del A, M, b, x, G
+        torch.cuda.empty_cache()
+    # K6 on the forced tile tier of the 20^3 block (its fine level is DIA)
+    for dtype in ("float32", "float64"):
+        I, J, V, rows, cols = linear_elasticity_fem(FORCED_TILE_NODES, (1, 1, 1), dtype=getattr(np, dtype))
+        A = psparse(I, J, V, rows, cols, SerialBackend(1), device=device)
+        _hold_tile(results, f"forced, {FORCED_TILE_NODES[0]}^3 fine level", NaturalTileGS.build(A),
+                   dtype, g, device, timed=True)
+        del A
+    emit("4d kernel K6", results)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return path_launches, results
+
+
 def _cross_df64(device):
     """The df64 CG on the card against the CPU at (2,2,2) parts of 8^3,
     with the float32 MG and with no preconditioner."""
@@ -829,6 +1045,7 @@ def main() -> int:
         from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_df, dia_spmv_strided
         from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv
         from partitionedarrays_tpu_torch.ops.gs_dia_kernels import ax_core, gs_sweeps
+        from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable from here: {exc}", file=sys.stderr)
         return 2
@@ -843,7 +1060,7 @@ def main() -> int:
     counters = {
         "dia_spmv": dia_spmv, "ax_core": ax_core, "gs_sweeps": gs_sweeps,
         "dia_spmv_strided": dia_spmv_strided, "ghost_spmv": ghost_spmv,
-        "dia_spmv_df": dia_spmv_df,
+        "dia_spmv_df": dia_spmv_df, "tile_gs_sweeps": tile_gs_sweeps,
     }
     launches = {}
     for path, run_path in (
@@ -853,6 +1070,8 @@ def main() -> int:
             fn.launches = 0
         run_path(device)
         launches[path] = {k: fn.launches for k, fn in counters.items()}
+    launches["amg_elasticity"], k6_results = phase_amg_elasticity(device, counters)
+    kernel_results += k6_results
     emit("5 launches", launches)
     missing = [
         f"{path}:{k}" for path, names in PATH_KERNELS.items() for k in names
@@ -864,11 +1083,12 @@ def main() -> int:
     phase_cross(device)
 
     # one row per kernel: its float32 measurement (K7: df64 at the 128^3
-    # one-part shape), its launches over the three paths' runs
+    # one-part shape; K6: level 1 of the 40^3 elasticity hierarchy), its
+    # launches over the four paths' runs
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         r = next(r for r in kernel_results
-                 if r["kernel"] == kname and r["dtype"] in ("float32", "df64"))
+                 if r["kernel"] == kname and r["dtype"] in ("float32", "df64") and "ms" in r)
         rows.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches[path][kname] for path in launches),

@@ -11,8 +11,9 @@ kernel's plain PyTorch version instead.
 
 So far the port covers the HPCG benchmark on one part and on many parts
 stacked on one device (ghost exchange, own-ghost block) in float32,
-float64 and df64, and the Krylov solvers of ``solvers/krylov.py``; see
-ROADMAP.md.
+float64 and df64, the Krylov solvers of ``solvers/krylov.py``, and on one
+part the COO assembly of ``models/gallery.py``'s problems with
+smoothed-aggregation AMG (``solvers/amg.py``); see ROADMAP.md.
 """
 from . import config
 from .backends import SerialBackend

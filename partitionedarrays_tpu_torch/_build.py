@@ -57,6 +57,12 @@ _SIGNATURES = {
     "pat_dia_spmv_df": [
         _VP, _VP, _VP, _VP, _VP, _VP, ctypes.POINTER(_INT), _INT, _I64, _I64, _INT, _VP,
     ],
+    # pack, rows, cols, vals, tile_ptr, wave_tiles, b, x, w, dir, zero_old,
+    # nt, B, W, Nr, K, Rp, P, stream
+    "pat_tile_gs_wave": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _VP,
+    ],
 }
 DTYPE_SUFFIX = {"float32": "f32", "float64": "f64"}
 # entry points that exist for some dtypes only (df64 pairs are float32 words)

@@ -38,7 +38,7 @@
 
 namespace {
 
-constexpr int kMaxDiags = 48;  // ops/dia.py::MAX_DIAGS
+constexpr int kMaxDiags = 128;  // ops/dia.py::MAX_DIAGS
 constexpr int kThreads = 256;
 
 struct DiaOffsets {

@@ -106,13 +106,15 @@ def freeze_block(
     n_cols_pad: int,
     device="cuda",
     prefer_dia: bool = True,
+    dtype=None,
 ) -> DeviceBlock:
     """Per-part host blocks -> one DeviceBlock on ``device``: DIA when
     every part block is banded with a small common diagonal set and the
     dense-diagonal storage does not exceed the ELL footprint (the
     reference's rule), else the compressed-row ELL.  The common diagonal
-    set is capped at ``MAX_DIAGS``, the most K1 takes (the reference's
-    cap is 128)."""
+    set is capped at ``MAX_DIAGS`` (128, the reference's cap and the most
+    K1 takes).  ``dtype``: the values' torch dtype on the device (default:
+    the host blocks' own)."""
     csrs = [b.tocsr() for b in blocks]
     for b in csrs:
         b.sort_indices()
@@ -125,11 +127,11 @@ def freeze_block(
                 vals = stack_dia(csrs, n_rows_pad, offsets)
                 return make_dia_block(
                     tuple(int(o) for o in offsets), n_cols_pad,
-                    torch.from_numpy(vals).to(device),
+                    torch.from_numpy(vals).to(device, dtype),
                 )
     rows, cols, vals = stack_rows(csrs, n_cols_pad)
     return DeviceBlock(
-        "ell", None, n_rows_pad, n_cols_pad, torch.from_numpy(vals).to(device),
+        "ell", None, n_rows_pad, n_cols_pad, torch.from_numpy(vals).to(device, dtype),
         rows=torch.from_numpy(rows).to(device), cols=torch.from_numpy(cols).to(device),
     )
 

@@ -20,8 +20,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-# the most diagonals a DIA block may carry (as the reference's dia_viable)
-MAX_DIAGS = 48
+# the most diagonals a DIA block may carry (the reference's freeze_block
+# cap): banded operators up to interleaved Q1 elasticity (99 diagonals in 3-D)
+# stay DIA, as in the reference
+MAX_DIAGS = 128
 
 
 def csr_diagonals(A: sp.spmatrix) -> np.ndarray:

@@ -1,17 +1,23 @@
-"""Index partitions: C-ordered Cartesian boxes with ghost columns (numpy only).
+"""Index partitions (numpy only).
 
 Copied from ``partitionedarrays_tpu/parallel/p_range.py``: ``GlobalLookup``
-(:45-91), ``local_range`` (:92), ``block_owner_1d`` (:118), the subset of
-``LocalIndices`` (:140-361) that the ghosted stencil needs, the owner map of
-``uniform_partition`` (:661-668) and ``AssemblyGraph`` with the memoized
-``PRange.assembly_graph`` (:520-601).
+(:45-91), ``local_range`` (:92), ``block_owner_1d`` (:118), the general
+``LocalIndices`` (:140-361), the owner map of
+``uniform_partition`` (:661-668), ``variable_partition`` (:718-747) and
+``AssemblyGraph`` with the memoized ``PRange.assembly_graph`` (:520-601).
 
-Each part owns a box ``origin + [0, shape)`` of a C-ordered global grid and
-may store ghost ids owned by other parts.  Global ids linearize the grid in
-C order; parts linearize ``parts_shape`` in C order.  Ghost layers of the
-partition constructor, periodicity and local permutations are not copied:
-``ops/stencil.py`` adds ghosts by ``union_ghost``.  All of it is host
-setup code, run once.
+Two kinds of part:
+
+- ``BoxPart``: a box ``origin + [0, shape)`` of a C-ordered global grid
+  (the stencil operators; ``ops/stencil.py`` adds ghosts by
+  ``union_ghost``).  Ghost layers of the partition constructor and
+  periodicity are not copied.
+- ``LocalIndices``: any set of own ids, with ghost ids, an optional local
+  permutation and an optional global owner map (the COO path: the gallery's
+  dof partitions, ``variable_partition`` for AMG coarse levels).
+
+Global ids linearize a grid in C order; parts linearize ``parts_shape`` in
+C order.  All of it is host setup code, run once.
 """
 from __future__ import annotations
 
@@ -175,11 +181,142 @@ class BoxPart:
             np.concatenate([self.ghost_to_owner, o_new]),
         )
 
+    def remove_ghost(self) -> "BoxPart":
+        return self.replace_ghost((), ())
+
     def __repr__(self):
         return (
             f"BoxPart(part={self.part}/{self.n_parts}, origin={self.origin}, "
             f"shape={self.shape}, n_ghost={self.n_ghost})"
         )
+
+
+class LocalIndices:
+    """One part of a general partition: own ids, ghost ids and their
+    owners, an optional local permutation and an optional global owner map.
+
+    ``perm`` (if given) maps local position -> position in
+    ``concat(own_to_global, ghost_to_global)``, so
+    ``local_to_global = concat(own, ghost)[perm]``."""
+
+    def __init__(
+        self,
+        n_global: int,
+        part: int,
+        n_parts: int,
+        own_to_global,
+        ghost_to_global=(),
+        ghost_to_owner=(),
+        perm: Optional[np.ndarray] = None,
+        global_to_owner: Optional[Callable] = None,
+    ):
+        self.n_global = int(n_global)
+        self.part = int(part)
+        self.n_parts = int(n_parts)
+        self.own_to_global = _as1d(own_to_global)
+        self.ghost_to_global = _as1d(ghost_to_global)
+        self.ghost_to_owner = _as1d(ghost_to_owner)
+        if self.ghost_to_global.shape != self.ghost_to_owner.shape:
+            raise ValueError("ghost ids and owners differ in length")
+        self.perm = None if perm is None else _as1d(perm)
+        self.global_to_owner = global_to_owner
+        self._lookups = {}
+
+    @property
+    def n_own(self) -> int:
+        return int(self.own_to_global.shape[0])
+
+    @property
+    def n_ghost(self) -> int:
+        return int(self.ghost_to_global.shape[0])
+
+    @property
+    def n_local(self) -> int:
+        return self.n_own + self.n_ghost
+
+    def local_to_global(self) -> np.ndarray:
+        cat = np.concatenate([self.own_to_global, self.ghost_to_global])
+        return cat if self.perm is None else cat[self.perm]
+
+    def local_to_owner(self) -> np.ndarray:
+        cat = np.concatenate([np.full(self.n_own, self.part, dtype=INT), self.ghost_to_owner])
+        return cat if self.perm is None else cat[self.perm]
+
+    def _lookup(self, key: str, gids: np.ndarray) -> GlobalLookup:
+        lk = self._lookups.get(key)
+        if lk is None:
+            lk = self._lookups[key] = GlobalLookup(gids)
+        return lk
+
+    def global_to_own(self, queries) -> np.ndarray:
+        return self._lookup("own", self.own_to_global)(queries)
+
+    def global_to_ghost(self, queries) -> np.ndarray:
+        return self._lookup("ghost", self.ghost_to_global)(queries)
+
+    def global_to_local(self, queries) -> np.ndarray:
+        own = self.global_to_own(queries)
+        ghost = self.global_to_ghost(queries)
+        concat_pos = np.where(own >= 0, own, np.where(ghost >= 0, ghost + self.n_own, -1))
+        if self.perm is None:
+            return concat_pos.astype(INT)
+        inv = np.empty(self.n_local, dtype=INT)
+        inv[self.perm] = np.arange(self.n_local, dtype=INT)
+        return np.where(concat_pos >= 0, inv[np.clip(concat_pos, 0, None)], -1).astype(INT)
+
+    def replace_ghost(self, gids, owners) -> "LocalIndices":
+        """The same own ids with the ghost ids ``gids`` owned by ``owners``
+        (drops the permutation)."""
+        return LocalIndices(
+            self.n_global, self.part, self.n_parts, self.own_to_global, gids, owners,
+            global_to_owner=self.global_to_owner,
+        )
+
+    def remove_ghost(self) -> "LocalIndices":
+        return self.replace_ghost((), ())
+
+    filter_ghost = BoxPart.filter_ghost
+
+    def union_ghost(self, gids, owners) -> "LocalIndices":
+        """Append the new ids among ``gids`` to the ghosts (drops the
+        permutation)."""
+        g_new, o_new = self.filter_ghost(gids, owners)
+        return self.replace_ghost(
+            np.concatenate([self.ghost_to_global, g_new]),
+            np.concatenate([self.ghost_to_owner, o_new]),
+        )
+
+    def __repr__(self):
+        return (
+            f"LocalIndices(part={self.part}/{self.n_parts}, n_global={self.n_global}, "
+            f"n_own={self.n_own}, n_ghost={self.n_ghost})"
+        )
+
+
+def variable_partition(n_own_per_part: Sequence[int], n_global: Optional[int] = None):
+    """1-D partition into consecutive blocks of the given sizes."""
+    sizes = _as1d(n_own_per_part)
+    starts = np.zeros(sizes.size + 1, dtype=INT)
+    np.cumsum(sizes, out=starts[1:])
+    if n_global is None:
+        n_global = int(starts[-1])
+    if starts[-1] != n_global:
+        raise ValueError(f"part sizes sum to {starts[-1]}, not {n_global}")
+    P = sizes.size
+
+    def g2owner(q):
+        q = _as1d(q)
+        own = np.searchsorted(starts, np.clip(q, 0, None), side="right") - 1
+        own = np.clip(own, 0, P - 1)
+        return np.where(q >= 0, own, -1).astype(INT)
+
+    return [
+        LocalIndices(
+            n_global, p, P, np.arange(starts[p], starts[p + 1], dtype=INT),
+            global_to_owner=g2owner,
+        )
+        for p in range(P)
+    ]
 
 
 def uniform_partition(

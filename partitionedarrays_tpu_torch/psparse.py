@@ -1,26 +1,49 @@
-"""PSparseMatrix: a row-partitioned sparse matrix, and its SpMV.
+"""PSparseMatrix: a row-partitioned sparse matrix, its COO constructor,
+its SpMVs and the host sparse products.
 
-Counterpart of ``partitionedarrays_tpu/psparse.py`` (``_sorted_ghosts``
-:54, ``DeviceSpMat`` and ``PSparseMatrix`` :63-252, ``spmv`` :1568-1677),
-reduced to what the HPCG slices need: an assembled matrix whose device
-blocks are already frozen (built in closed form by ``ops/stencil.py``):
-the own-own block ``oo`` and the own-ghost block ``oh``.  COO assembly, the
-host block mirrors and the reuse tier come with the generic slice.  The
-df64 (two-float) SpMV is ``device_df64`` and ``spmv_df64`` (:2711-2783).
+Counterpart of ``partitionedarrays_tpu/psparse.py``: ``_sorted_ghosts``
+:54, ``DeviceSpMat`` and ``PSparseMatrix`` :63-252 with
+``device_transpose``, ``_build_part_blocks`` and ``psparse`` :366-579,
+``to_global_scipy`` and ``gather_global_scipy`` :885-977, ``spmv`` and
+``spmtv`` :1568-1750, ``dense_diag`` :1757, ``spmm`` :1827 and ``spmtm``
+:1994, and the df64 SpMV ``device_df64``/``spmv_df64`` :2711-2783.
+
+A matrix has frozen device blocks, the own-own block ``oo`` and the
+own-ghost block ``oh`` (``ops/blocks.py``: DIA on kernel K1 or compressed
+rows on K5), and, when it was assembled from triplets, host mirrors
+``blocks[p]["oo"|"oh"]`` (scipy CSR) that are frozen on first use.  The
+closed-form stencil matrices (``ops/stencil.py``) have device blocks only.
+The device blocks may hold another dtype than the host mirrors
+(``device_dtype``): a float32 AMG hierarchy keeps the reference's host
+products, whose prolongators are float64 (the nullspace is), and runs
+its cycle in float32 as the reference does on its TPU, which has no
+float64.
+
+COO assembly and the sparse products are ported for one part: the triplets
+of a one-part matrix are all own rows, and its columns have no ghosts.
+More parts, ghost columns in the triplets, and the reuse tier raise
+``NotImplementedError`` (ROADMAP Queue 1 item 10).  The products are the
+reference's scipy products on the same operands in the same order, without
+its reuse caches.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from .backends import SerialBackend
+from .config import numpy_dtype, torch_dtype
 from .ops import df64 as df
-from .ops.blocks import DeviceBlock, block_spmv_df, freeze_block_pair
+from .ops.blocks import DeviceBlock, block_spmv_df, freeze_block, freeze_block_pair
+from .ops.sparse_host import compresscoo
 from .parallel.exchange_plan import VectorLayout, layout_of
-from .parallel.partition import PRange
-from .pvector import PVector
+from .parallel.partition import INT, PRange
+from .pvector import PVector, pvector_from_own
+
+_MULTI_PART = "ROADMAP Queue 1 item 10 (multi-part COO, ghost columns)"
 
 
 def _sorted_ghosts(gids: np.ndarray, owners: np.ndarray):
@@ -40,21 +63,34 @@ class DeviceSpMat:
 
 class PSparseMatrix:
     """An assembled matrix: rows partitioned by ``row_prange``, columns by
-    ``col_prange``."""
+    ``col_prange``.  Built from frozen device blocks (``device_blocks``) or
+    from host blocks (``blocks``, frozen on ``device`` at first use, with
+    values of ``device_dtype``, by default the host blocks' dtype)."""
 
     def __init__(
         self,
-        device_blocks: DeviceSpMat,
+        device_blocks: Optional[DeviceSpMat],
         row_prange: PRange,
         col_prange: PRange,
         backend: SerialBackend,
-        nnz: int,
+        nnz: Optional[int] = None,
+        blocks: Optional[List[dict]] = None,
+        device="cuda",
+        device_dtype: Optional[torch.dtype] = None,
     ):
+        if device_blocks is None and blocks is None:
+            raise ValueError("PSparseMatrix needs device blocks or host blocks")
         self._device = device_blocks
+        self.blocks = blocks
+        self._target = device
+        self._device_dtype = device_dtype
         self.row_prange = row_prange
         self.col_prange = col_prange
         self.backend = backend
+        if nnz is None:
+            nnz = sum(m.nnz for b in blocks for m in b.values())
         self._nnz = int(nnz)
+        self._device_T = None  # the frozen transpose of oo, built once
         self._device_df = None  # the (hi, lo) pair of device_df64, built once
 
     @property
@@ -63,7 +99,17 @@ class PSparseMatrix:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self._device.oo.vals.dtype
+        """The dtype of the device blocks."""
+        if self._device is not None:
+            return self._device.oo.vals.dtype
+        return self._device_dtype or torch_dtype(self.blocks[0]["oo"].dtype)
+
+    @property
+    def torch_device(self) -> torch.device:
+        """Where the device blocks live (or will, once frozen)."""
+        if self._device is not None:
+            return self._device.oo.vals.device
+        return torch.device(self._target)
 
     def nnz(self) -> int:
         return self._nnz
@@ -75,13 +121,195 @@ class PSparseMatrix:
         return layout_of(self.col_prange)
 
     def device(self) -> DeviceSpMat:
+        """The frozen blocks; a matrix built from host blocks freezes them
+        on first call (``freeze_block``: DIA when banded, else compressed
+        rows)."""
+        if self._device is None:
+            rlay, clay = self.row_layout(), self.col_layout()
+            oo = freeze_block([b["oo"] for b in self.blocks], rlay.n_own_pad, clay.n_own_pad,
+                              device=self._target, dtype=self.dtype)
+            oh = freeze_block([b["oh"] for b in self.blocks], rlay.n_own_pad,
+                              max(clay.n_ghost_pad, 1), device=self._target, dtype=self.dtype)
+            self._device = DeviceSpMat(oo, oh)
         return self._device
+
+    def device_transpose(self) -> DeviceBlock:
+        """The frozen transpose of the own-own block (the product of
+        ``spmtv``), built once from the host blocks."""
+        if self._device_T is None:
+            if self.col_layout().n_ghost_pad:
+                raise NotImplementedError(f"the transpose of a ghosted matrix: {_MULTI_PART}")
+            rlay, clay = self.row_layout(), self.col_layout()
+            self._device_T = freeze_block(
+                [b["oo"].T.tocsr() for b in host_blocks(self)], clay.n_own_pad,
+                rlay.n_own_pad, device=self.torch_device, dtype=self.dtype,
+            )
+        return self._device_T
 
     def __repr__(self):
         return (
             f"PSparseMatrix({self.shape[0]}x{self.shape[1]}, P="
             f"{self.row_prange.n_parts}, nnz={self.nnz()})"
         )
+
+
+def host_blocks(A: PSparseMatrix) -> List[dict]:
+    """A's host blocks; the closed-form stencil matrices have none."""
+    if A.blocks is None:
+        raise NotImplementedError(
+            "host blocks of a closed-form stencil matrix: ROADMAP Queue 1 item 10"
+        )
+    return A.blocks
+
+
+# -- construction ------------------------------------------------------------
+
+def _as_prange(x) -> PRange:
+    return x if isinstance(x, PRange) else PRange(list(x))
+
+
+def _build_part_blocks(li_row, li_col, I, J, V, dtype):
+    """One part's own-row triplets (global ids) -> its split blocks
+    ``{"oo", "oh"}`` (``compresscoo``: duplicates summed, columns sorted).
+    Negative ids mark entries to skip.  A column owned by another part
+    would be a ghost column, which is not ported."""
+    I = np.asarray(I, dtype=INT)
+    J = np.asarray(J, dtype=INT)
+    V = np.asarray(V, dtype=dtype)
+    iro = li_row.global_to_own(I)
+    if not ((iro >= 0) | (I < 0)).all():
+        raise ValueError("psparse: a triplet row is not owned by its part")
+    jco = li_col.global_to_own(J)
+    if ((jco < 0) & (J >= 0)).any():
+        raise NotImplementedError(f"psparse: triplets with ghost columns: {_MULTI_PART}")
+    return {
+        "oo": compresscoo(iro, jco, V, li_row.n_own, li_col.n_own),
+        "oh": sp.csr_matrix((li_row.n_own, 0), dtype=dtype),
+    }
+
+
+def psparse(
+    I_parts: Sequence[np.ndarray],
+    J_parts: Sequence[np.ndarray],
+    V_parts: Sequence[np.ndarray],
+    rows,
+    cols,
+    backend: SerialBackend,
+    assembled: bool = False,
+    dtype=None,
+    device="cuda",
+) -> PSparseMatrix:
+    """The COO constructor: per-part triplets (I, J, V) in global ids,
+    duplicates summed, into an assembled matrix on ``rows`` and ``cols``
+    (a PRange or a list of parts).  ``assembled=False`` (the disassembled
+    state) lets a part contribute to rows it does not own; on one part
+    every row is its own, so both states assemble alike.  The blocks are
+    frozen on ``device`` at first use."""
+    rows_pr = _as_prange(rows)
+    cols_pr = _as_prange(cols)
+    if rows_pr.n_parts != 1 or cols_pr.n_parts != 1:
+        raise NotImplementedError(f"psparse on {rows_pr.n_parts} parts: {_MULTI_PART}")
+    dtype = numpy_dtype(dtype or np.asarray(V_parts[0]).dtype)
+    li_r, li_c = rows_pr.parts[0], cols_pr.parts[0]
+    if li_r.n_ghost or li_c.n_ghost:
+        raise NotImplementedError(f"psparse on a ghosted partition: {_MULTI_PART}")
+    blocks = _build_part_blocks(li_r, li_c, I_parts[0], J_parts[0], V_parts[0], dtype)
+    return PSparseMatrix(
+        None, rows_pr, PRange([li_c]), backend, blocks=[blocks], device=device
+    )
+
+
+def to_global_scipy(A: PSparseMatrix) -> sp.csr_matrix:
+    """All parts' blocks summed into one global CSR on the host."""
+    m, n = A.shape
+    Is, Js, Vs = [], [], []
+    for b, li_r, li_c in zip(host_blocks(A), A.row_prange.parts, A.col_prange.parts):
+        for name, cmap in (("oo", li_c.own_to_global), ("oh", li_c.ghost_to_global)):
+            if b[name].nnz == 0:
+                continue
+            coo = b[name].tocoo()
+            Is.append(li_r.own_to_global[coo.row])
+            Js.append(cmap[coo.col])
+            Vs.append(coo.data)
+    if not Is:
+        return sp.csr_matrix((m, n), dtype=numpy_dtype(A.dtype))
+    G = sp.coo_matrix((np.concatenate(Vs), (np.concatenate(Is), np.concatenate(Js))), shape=(m, n))
+    G.sum_duplicates()
+    G = G.tocsr()
+    G.sort_indices()
+    return G
+
+
+def gather_global_scipy(A: PSparseMatrix, max_rows: Optional[int] = None) -> sp.csr_matrix:
+    """The global CSR of A on the host (``to_global_scipy``; a
+    per-process matrix and its triplet gather are not ported)."""
+    if max_rows is not None and A.shape[0] > max_rows:
+        raise ValueError(f"gather_global_scipy: {A.shape[0]} rows exceeds max_rows={max_rows}")
+    return to_global_scipy(A)
+
+
+def dense_diag(A: PSparseMatrix) -> PVector:
+    """The diagonal as a PVector on the row partition (entries of the
+    own-own block whose global row and column ids agree)."""
+    parts = []
+    for b, li_r, li_c in zip(host_blocks(A), A.row_prange.parts, A.col_prange.parts):
+        d = np.zeros(li_r.n_own, dtype=b["oo"].dtype)
+        coo = b["oo"].tocoo()
+        m = li_c.own_to_global[coo.col] == li_r.own_to_global[coo.row]
+        d[coo.row[m]] = coo.data[m]
+        parts.append(d)
+    return pvector_from_own(parts, A.row_prange, A.backend, dtype=A.dtype, device=A.torch_device)
+
+
+def _one_part_csr(A: PSparseMatrix, what: str) -> sp.csr_matrix:
+    """The own-own block of a one-part matrix without ghost columns."""
+    b = host_blocks(A)
+    if len(b) != 1 or b[0]["oh"].shape[1]:
+        raise NotImplementedError(f"{what} across parts or with ghost columns: {_MULTI_PART}")
+    return b[0]["oo"]
+
+
+def spmm(A: PSparseMatrix, B: PSparseMatrix) -> PSparseMatrix:
+    """C = A @ B on the host: scipy's product of the own-own blocks (the
+    reference's local product at one part), re-split by ``compresscoo``.
+    C's host dtype is the result type of the operands', its device dtype
+    A's."""
+    a = _one_part_csr(A, "spmm")
+    b = _one_part_csr(B, "spmm")
+    dtype = np.result_type(a.dtype, b.dtype)
+    C = (a @ b).tocoo()
+    li_r, li_c = A.row_prange.parts[0].remove_ghost(), B.col_prange.parts[0].remove_ghost()
+    blocks = _build_part_blocks(
+        li_r, li_c, li_r.own_to_global[C.row], li_c.own_to_global[C.col],
+        C.data.astype(dtype, copy=False), dtype,
+    )
+    return PSparseMatrix(
+        None, PRange([li_r]), PRange([li_c]), A.backend, blocks=[blocks],
+        device=A.torch_device, device_dtype=A.dtype,
+    )
+
+
+def spmtm(A: PSparseMatrix, B: PSparseMatrix) -> PSparseMatrix:
+    """C = A^T @ B on the host: scipy's product of the sorted transpose of
+    A's own-own block with B's, re-split by ``compresscoo``.  Dtypes as
+    ``spmm``."""
+    a = _one_part_csr(A, "spmtm")
+    b = _one_part_csr(B, "spmtm")
+    if A.shape[0] != B.shape[0]:
+        raise ValueError("spmtm: A and B must share the row partition")
+    dtype = np.result_type(a.dtype, b.dtype)
+    AT = a.T.tocsr()
+    AT.sort_indices()
+    C = (AT @ b).tocoo()
+    li_r, li_c = A.col_prange.parts[0].remove_ghost(), B.col_prange.parts[0].remove_ghost()
+    blocks = _build_part_blocks(
+        li_r, li_c, li_r.own_to_global[C.row], li_c.own_to_global[C.col],
+        C.data.astype(dtype, copy=False), dtype,
+    )
+    return PSparseMatrix(
+        None, PRange([li_r]), PRange([li_c]), A.backend, blocks=[blocks],
+        device=A.torch_device, device_dtype=A.dtype,
+    )
 
 
 def _col_ghosts(A: PSparseMatrix, x: PVector):
@@ -110,7 +338,7 @@ def spmv(
     With ghost columns, ``g = consistent(x)`` (one exchange) and
     ``A x = A_oo x + A_oh g``: the own-own product is kernel K1 and the
     own-ghost product, kernel K5, accumulates into K1's output.  The
-    reference's ``dev`` substitute comes with the generic slice."""
+    reference's ``dev`` substitute is not ported."""
     clay, xg = _col_ghosts(A, x)
     rlay = A.row_layout()
     dev = A.device()
@@ -124,6 +352,23 @@ def spmv(
         out = out + (1.0 if beta is None else beta) * y.own
     ghost = out.new_zeros((rlay.n_parts, rlay.n_ghost_pad))
     return PVector(out, ghost, rlay, A.backend)
+
+
+def spmtv(
+    A: PSparseMatrix, x: PVector, alpha=1.0, beta=None, y: Optional[PVector] = None
+) -> PVector:
+    """``alpha * A^T @ x [+ beta * y]``: x partitioned by ``A.row_prange``,
+    the result (and y) by ``A.col_prange``.  The product is the frozen
+    transpose of the own-own block (``device_transpose``: DIA on K1 or
+    compressed rows on K5); a matrix with ghost columns would assemble
+    their contributions back to the owners, which is not ported."""
+    clay = A.col_layout()
+    out = A.device_transpose().spmv(x.own)
+    if not (isinstance(alpha, (int, float)) and alpha == 1.0):
+        out = alpha * out
+    if y is not None:
+        out = out + (1.0 if beta is None else beta) * y.own
+    return PVector(out, out.new_zeros((clay.n_parts, clay.n_ghost_pad)), clay, A.backend)
 
 
 def device_df64(A: PSparseMatrix):

@@ -1,0 +1,177 @@
+"""Wave-scheduled tile Gauss-Seidel: the smoother of an own block that is not
+a colorable DIA band.
+
+Counterpart of ``partitionedarrays_tpu/solvers/gs_slot.py``:
+``_wave_schedule`` (:73-105, copied verbatim) and ``NaturalTileGS.build``
+(:259-495) with its sweeps (:542-641).  The rows of a part are cut into
+128-row tiles.  Tiles are packed greedily into waves of at most B mutually
+uncoupled tiles (no off-tile nonzero joins two tiles of a wave), and a sweep
+visits the waves in order, each tile solved exactly with dense triangular
+factors: exact Gauss-Seidel in the wave-major row order (natural within a
+tile), exposed as ``schedules``.  The sweep is kernel K6
+(``ops/tile_gs.py``).
+
+What is kept from the reference: the schedule and the occupancy shrink of B
+(:321-330), so ``schedules``, ``W`` and ``B`` agree; the identity on empty
+diagonals (:331-334); the host inverses of the tile blocks, packed in the
+reference's transposed layout and cast to the working type (:379-389).
+What is not: the slot plan (``ops/slot_spmv.py::build_slot_plan``, a TPU
+layout; the off-tile coupling is compressed rows here) and the TPU's
+VMEM/HBM viability gates (:356-362, :374-375, :401-419), so the port never
+declines a block.  The ``topo`` schedule and single-direction packing serve
+the Schwarz ILU(0) tier, which is not ported (ROADMAP Queue 1 item 12).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ..ops.blocks import stack_rows
+from ..ops.tile_gs import TILE, tile_gs_sweeps
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m if x > 0 else 0
+
+
+def _wave_schedule(adj, nt: int, B: int, topo: bool = False) -> List[List[int]]:
+    """Greedy first-fit capacity-B schedule: tiles in natural order land
+    in the first wave with free capacity containing none of their
+    neighbors.  Any such assignment yields an exact GS for the wave-major
+    ordering (tiles within a wave are mutually uncoupled).
+
+    ``topo=True`` additionally constrains every tile to a wave STRICTLY
+    AFTER all its already-placed (lower-index) neighbors — i.e. classic
+    level scheduling.  For a triangular matrix this makes the forward
+    wave-major sweep from zero guess an EXACT lower-triangular solve
+    (and the reverse sweep an exact upper solve): every dependency is
+    computed in an earlier wave, every not-yet-needed value is still
+    zero."""
+    waves: List[List[int]] = []
+    wave_sets: List[set] = []
+    wave_of = {}
+    for t in range(nt):
+        at = adj[t]
+        start = 0
+        if topo:
+            placed = [wave_of[s] for s in at if s in wave_of]
+            start = max(placed) + 1 if placed else 0
+        for w in range(start, len(waves)):
+            if len(waves[w]) < B and not (at & wave_sets[w]):
+                waves[w].append(t)
+                wave_sets[w].add(t)
+                wave_of[t] = w
+                break
+        else:
+            waves.append([t])
+            wave_sets.append({t})
+            wave_of[t] = len(waves) - 1
+    return waves
+
+
+class NaturalTileGS:
+    """Sweep state of one matrix: ``schedules[p]`` (part p's forward waves,
+    tile ids), ``W`` waves of at most ``B`` tiles, ``n_real_tiles`` tiles of
+    ``TILE`` rows (``Rp`` rows with padding), and the device operands of K6
+    (``pack``, ``rows``, ``cols``, ``vals``, ``tile_ptr``,
+    ``wave_tiles``)."""
+
+    @classmethod
+    def build(cls, A) -> "NaturalTileGS":
+        """From A's host own-own blocks (``psparse``), computed in their
+        dtype as the reference does and stored on A's device in A's device
+        dtype."""
+        from ..psparse import host_blocks
+
+        blocks = host_blocks(A)
+        lay = A.row_layout()
+        dtype = blocks[0]["oo"].dtype
+        Rp = _round_up(lay.n_own_pad, TILE)
+        nt = Rp // TILE
+        P = len(blocks)
+        B = min(8, max(nt, 1))
+
+        off_blocks = []
+        dense = np.zeros((P, nt, TILE, TILE), dtype)
+        schedules: List[List[List[int]]] = []
+        for k, b in enumerate(blocks):
+            oo = b["oo"].tocoo()
+            tr = oo.row // TILE
+            tc = oo.col // TILE
+            inside = tr == tc
+            # dense within-tile blocks
+            np.add.at(
+                dense[k], (tr[inside], oo.row[inside] % TILE, oo.col[inside] % TILE),
+                oo.data[inside],
+            )
+            off_blocks.append(
+                sp.csr_matrix((oo.data[~inside], (oo.row[~inside], oo.col[~inside])), shape=(Rp, Rp))
+            )
+            adj = [set() for _ in range(nt)]
+            for a, b_ in set(zip(tr[~inside].tolist(), tc[~inside].tolist())):
+                adj[a].add(b_)
+                adj[b_].add(a)
+            schedules.append(_wave_schedule(adj, nt, B))
+        W = max(max((len(s) for s in schedules), default=1), 1)
+        # shrink B to the largest wave: on densely coupled tile graphs the
+        # waves degenerate toward single tiles
+        B = max(max((len(w) for s in schedules for w in s), default=1), 1)
+        # identity on empty diagonals (padding rows) so the factors exist
+        di = np.arange(TILE)
+        dvals = dense[:, :, di, di]
+        dense[:, :, di, di] = np.where(dvals == 0, 1.0, dvals)
+
+        # the packed planes, stored transposed as the reference's:
+        # fwd = (D+L)^-T (q <= r) + U^T (q > r), bwd = (D+U)^-T + L^T
+        m_fwd_t = np.swapaxes(np.linalg.inv(np.tril(dense)), -1, -2)
+        m_bwd_t = np.swapaxes(np.linalg.inv(np.triu(dense)), -1, -2)
+        u_t = np.swapaxes(np.triu(dense, 1), -1, -2)
+        l_t = np.swapaxes(np.tril(dense, -1), -1, -2)
+        # (stack keeps the transposed memory order: K6 reads the logical one)
+        pack = np.ascontiguousarray(
+            np.stack([(m_fwd_t + u_t).astype(dtype), (m_bwd_t + l_t).astype(dtype)], axis=1)
+        )
+
+        rows, cols, vals = stack_rows(off_blocks, Rp)
+        tile_ptr = np.zeros((P, nt + 1), dtype=np.int32)
+        wave_tiles = np.full((P, W, B), -1, dtype=np.int32)
+        for k in range(P):
+            live = rows[k][rows[k] >= 0]
+            tile_ptr[k] = np.searchsorted(live // TILE, np.arange(nt + 1))
+            for w, wave in enumerate(schedules[k]):
+                wave_tiles[k, w, : len(wave)] = wave
+
+        self = cls.__new__(cls)
+        self.Rp = Rp
+        self.n_real_tiles = nt
+        self.W = W
+        self.B = B
+        self.schedules = schedules
+        dev, dt = A.torch_device, A.dtype
+        self.pack = torch.from_numpy(pack).to(dev, dt)
+        self.rows = torch.from_numpy(rows).to(dev)
+        self.cols = torch.from_numpy(cols).to(dev)
+        self.vals = torch.from_numpy(vals).to(dev, dt)
+        self.tile_ptr = torch.from_numpy(tile_ptr).to(dev)
+        self.wave_tiles = torch.from_numpy(wave_tiles).to(dev)
+        return self
+
+    def operands(self):
+        """K6's operands, in the order of ``tile_gs_sweeps``."""
+        return self.pack, self.rows, self.cols, self.vals, self.tile_ptr, self.wave_tiles
+
+    def sweeps(self, xo: Optional[torch.Tensor], bo: torch.Tensor, dir_seq: Sequence[str]):
+        """The sweeps of ``dir_seq`` on own values ``xo`` [P, n] (None: a
+        zero guess) for the rhs ``bo`` [P, n]; returns the new own values
+        [P, n].  x and b are padded to ``Rp`` rows with zeros."""
+        P, n = bo.shape
+        x = bo.new_zeros((P, self.Rp))
+        if xo is not None:
+            x[:, : xo.shape[1]] = xo
+        b = bo.new_zeros((P, self.Rp))
+        b[:, :n] = bo
+        tile_gs_sweeps(*self.operands(), x, b, tuple(dir_seq), zero_guess=xo is None)
+        return x[:, :n].contiguous()

@@ -6,9 +6,10 @@ that the ported solvers carry: ``LinearProblem``, ``LinearSolverBase``,
 ``jacobi_solver``, ``gauss_seidel_solver`` and ``richardson_solver``, and
 ``solve``, ``preconditioner``, ``smooth`` and ``history``.  A solver has
 ``solve(problem)``, ``update(problem)`` (same sparsity, new values) and
-``finalize()``.  ``lu_solver``, ``additive_schwarz_solver`` and
-``amg_solver`` raise until their slices are ported; the nonlinear and ODE
-problems come with ROADMAP Queue 1 item 14.
+``finalize()``.  ``amg_solver`` runs ``solvers/amg.py``'s preconditioner
+as a Richardson iteration; ``lu_solver`` and ``additive_schwarz_solver``
+raise until their slices are ported; the nonlinear and ODE problems come
+with ROADMAP Queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -116,8 +117,10 @@ def additive_schwarz_solver(iterations=3, local_solver=None):
     raise NotImplementedError("additive_schwarz_solver: ROADMAP Queue 1 item 12")
 
 
-def amg_solver(params=None, nullspace=None, iterations=1):
-    raise NotImplementedError("amg_solver: ROADMAP Queue 1 item 13")
+def amg_solver(params=None, nullspace=None, iterations=1) -> SmootherSolver:
+    from .amg import AMGPreconditioner
+
+    return SmootherSolver(lambda A: AMGPreconditioner(A, params, nullspace), iterations)
 
 
 def solve(solver: LinearSolverBase, problem: LinearProblem) -> PVector:

@@ -1,36 +1,40 @@
 """Gauss-Seidel smoothing on partitioned matrices.
 
 Counterpart of ``partitionedarrays_tpu/solvers/smoothers.py``:
-``JacobiCorrection`` and ``jacobi`` (:83-115), the colored DIA tier of
-``GaussSeidel`` (:123-204), ``_order_seq``, ``ghost_contrib``, the
-flat-space methods (:313-461), ``apply`` (:463-535) and ``__call__``
-(:600-604).  The flat-space methods let the MG V-cycle keep x in the
-de-interleaved core layout of ``solvers/gs_dia.py`` between smoothing
-steps; the names keep the reference's "flat" although the state is the
-``[P, m, Lq]`` core.
+``JacobiCorrection`` and ``jacobi`` (:83-115), ``GaussSeidel`` with its
+colored DIA tier (:123-204) and its tier 1, the wave-scheduled tile sweep
+(:205-218, :537-571), ``_order_seq``, ``ghost_contrib``, the flat-space
+methods (:313-461), ``apply`` (:463-535) and ``__call__`` (:600-604).  The
+flat-space methods let the MG V-cycle keep x in the de-interleaved core
+layout of ``solvers/gs_dia.py`` between smoothing steps; the names keep the
+reference's "flat" although the state is the ``[P, m, Lq]`` core.
 
 Across parts the smoother is the reference's hybrid "processor-block" GS:
 the ghost values are frozen once per application (one consistent exchange)
 and their contribution ``A_oh g`` is subtracted from the rhs before the
-sweeps.  A matrix whose own block is not DIA, and the slot-wave and
-sorted-ELL tiers, come with the generic slice.
+sweeps.  An own block that is a DIA band with a mod-m coloring takes the
+colored tier (kernels K3, K4); any other takes the tile tier
+(``solvers/gs_slot.py::NaturalTileGS``, kernel K6), built from the host
+blocks.  The reference's tier 2, the sorted-by-color sweep, runs only where
+its TPU gates decline the tile tier; the port has no such gates (ROADMAP
+Queue 1 item 12).
 """
 from __future__ import annotations
 
 import torch
 
-from ..psparse import PSparseMatrix
+from ..psparse import PSparseMatrix, dense_diag
 from ..pvector import PVector
 from .gs_dia import ColoredDIAGS, find_mod_coloring
+from .gs_slot import NaturalTileGS
 
 
 def _own_diagonal(A: PSparseMatrix) -> torch.Tensor:
-    """The diagonal of the own-own block, [P, n_own_pad], on its device."""
+    """The diagonal of the own-own block, [P, n_own_pad], on its device (a
+    non-banded block's from its host blocks, ``dense_diag``)."""
     oo = A.device().oo
     if oo.kind != "dia":
-        raise NotImplementedError(
-            "the diagonal of a non-banded own block: ROADMAP Queue 1 item 10 (slice C)"
-        )
+        return dense_diag(A).own
     if 0 not in oo.offsets:
         return torch.zeros_like(oo.vals[:, 0, :])
     return oo.vals[:, oo.offsets.index(0), :]
@@ -61,9 +65,9 @@ def jacobi(A, b, x, iterations: int = 1, omega: float = 1.0) -> PVector:
 
 
 class GaussSeidel:
-    """Multicolor Gauss-Seidel smoother, ``sweep`` "forward", "backward" or
-    "symmetric".  Called on a vector it applies as a preconditioner from a
-    zero initial guess."""
+    """Gauss-Seidel smoother, ``sweep`` "forward", "backward" or
+    "symmetric", ``iterations`` times per application.  Called on a vector
+    it applies as a preconditioner from a zero initial guess."""
 
     def __init__(
         self,
@@ -80,13 +84,18 @@ class GaussSeidel:
         self.A = A
         self.iterations = iterations
         self.sweep = sweep
+        self.colored = self.tile_gs = None
         oo = A.device().oo
-        if oo.kind != "dia" or find_mod_coloring(oo.offsets) is None:
-            raise NotImplementedError("GaussSeidel needs a DIA own block with a mod-m coloring")
-        if colored is None:
-            colored = ColoredDIAGS.from_device(oo.offsets, oo.vals, _own_diagonal(A))
-        self.colored = colored
-        self.n_colors = colored.m
+        if oo.kind == "dia" and find_mod_coloring(oo.offsets) is not None:
+            if colored is None:
+                colored = ColoredDIAGS.from_device(oo.offsets, oo.vals, _own_diagonal(A))
+            self.colored = colored
+            self.n_colors = colored.m
+        elif colored is not None:
+            raise ValueError("a colored sweep state for an own block without a DIA coloring")
+        else:
+            self.tile_gs = NaturalTileGS.build(A)
+            self.n_colors = 1
 
     def _order_seq(self):
         fwd = list(range(self.n_colors))
@@ -98,6 +107,12 @@ class GaussSeidel:
         return tuple(
             c for _ in range(self.iterations) for order in orders for c in order
         )
+
+    def _dir_seq(self):
+        """The tile tier's directions: "f"/"b" per pass, ``iterations``
+        times."""
+        one = {"forward": ("f",), "backward": ("b",), "symmetric": ("f", "b")}[self.sweep]
+        return one * self.iterations
 
     def flat_viable(self) -> bool:
         """True when the flat pipeline needs no ghost exchange."""
@@ -126,6 +141,9 @@ class GaussSeidel:
         bo = b.own
         if not self.flat_viable():
             bo = bo - self.ghost_contrib(x.own)
+        if self.tile_gs is not None:
+            xo = self.tile_gs.sweeps(None if zero_guess else x.own, bo, self._dir_seq())
+            return PVector(xo, x.ghost, x.layout, x.backend)
         xc = None if zero_guess else col.deinterleave(x.own)
         xc = col.sweeps_core(xc, col.deinterleave(bo), col.vals_d, col.invd_d, self._order_seq())
         return PVector(col.interleave_core(xc), x.ghost, x.layout, x.backend)

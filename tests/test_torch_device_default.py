@@ -15,11 +15,12 @@ from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
 from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
 from partitionedarrays_tpu_torch.ops.blocks import freeze_block
 from partitionedarrays_tpu_torch.ops.stencil import stencil_psparse
+from partitionedarrays_tpu_torch.psparse import PSparseMatrix, psparse
 
 ENTRY_POINTS = [
     hpcg_benchmark, HPCGMGPreconditioner.__init__, build_hpcg_problem, stencil_psparse,
     freeze_block, pvector.pfill, pvector.pzeros, pvector.pones, pvector.pvector_from_own,
-    pvector.pvector_df64, convert.from_jax_arrays,
+    pvector.pvector_df64, convert.from_jax_arrays, psparse, PSparseMatrix.__init__,
 ]
 
 
@@ -41,3 +42,22 @@ def test_benchmark_without_device_does_not_run_on_the_cpu(precision):
         )
     with pytest.raises(AssertionError, match="CUDA"):
         build_hpcg_problem((4, 4, 4), (1, 1, 1), SerialBackend(1))
+
+
+def test_elasticity_amg_without_device_does_not_run_on_the_cpu():
+    """A COO matrix built with no device freezes on the card, and so does
+    the AMG hierarchy built on it: without a card the freeze raises."""
+    from partitionedarrays_tpu_torch.models.gallery import (
+        linear_elasticity_fem, node_coordinates_unit_cube, nullspace_linear_elasticity,
+    )
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    I, J, V, rows, cols = linear_elasticity_fem((4, 4, 4), (1, 1, 1))
+    A = psparse(I, J, V, rows, cols, SerialBackend(1))
+    assert A.torch_device.type == "cuda"
+    coords, _ = node_coordinates_unit_cube((4, 4, 4), (1, 1, 1))
+    with pytest.raises(AssertionError, match="CUDA"):
+        AMGPreconditioner(A, AMGParams(coarse_size=20, block_size=3),
+                          nullspace=nullspace_linear_elasticity(coords))

@@ -9,7 +9,11 @@ order of the sums differ.  K7 ``dia_spmv_df`` runs on the (hi, lo) float32
 pair of the float64 operator at both shapes and is held to 1e-13 of
 ``sum_j |A_ij| |x_j|`` per row (the bound of ``tests/test_df64.py``); the
 kernel and its plain version round every operation alike, so they are
-expected to agree exactly.
+expected to agree exactly.  K1 also runs at the 99 diagonals of the 3-D
+elasticity block (6^3 nodes, COO assembly), and K6 ``tile_gs_sweeps`` on
+the tile smoother of an elasticity AMG level 1 and of a banded operator
+(forward, backward and symmetric, from a zero and a nonzero guess), at the
+same tolerances.
 
 Every test is marked ``gpu`` and skips without a CUDA card.  This module
 imports torch and the port only (no JAX), so that it also runs on a
@@ -174,3 +178,71 @@ def test_dia_spmv_df_kernel_matches_plain(cuda, shape, parts):
     assert err.max().item() <= 1e-13, err.max().item()
     exact = dia_spmv(oo.offsets, oo.vals, x64)  # K1 in float64
     assert ((df.to_f64(*got) - exact).abs() / scale).max().item() <= 1e-13
+
+
+def _elasticity(device, dtype, nodes=(6, 6, 6)):
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.models import gallery
+    from partitionedarrays_tpu_torch.psparse import psparse
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    I, J, V, rows, cols = gallery.linear_elasticity_fem(nodes, (1, 1, 1), dtype=np_dtype)
+    return psparse(I, J, V, rows, cols, SerialBackend(1), device=device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dia_spmv_kernel_at_99_diagonals(cuda, dtype):
+    oo = _elasticity(cuda, dtype).device().oo
+    assert oo.kind == "dia" and len(oo.offsets) == 99
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(1, oo.n_cols_pad, generator=g, dtype=dtype).to(cuda)
+    before = dia_spmv.launches
+    got = dia_spmv(oo.offsets, oo.vals, x)
+    assert dia_spmv.launches == before + 1
+    _assert_close(got, dia_spmv_plain(oo.offsets, oo.vals, x), dtype)
+
+
+def _tile_smoothers(device, dtype):
+    """The tile tier of an elasticity AMG level 1 (8^3 nodes) and of a
+    banded operator of 1,024 rows in 8 tiles."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from partitionedarrays_tpu_torch.models import gallery
+    from partitionedarrays_tpu_torch.parallel.partition import variable_partition
+    from partitionedarrays_tpu_torch.psparse import psparse
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+
+    A = _elasticity(device, dtype, (8, 8, 8))
+    coords, _ = gallery.node_coordinates_unit_cube((8, 8, 8), (1, 1, 1))
+    M = AMGPreconditioner(A, AMGParams(coarse_size=100, block_size=3),
+                          nullspace=gallery.nullspace_linear_elasticity(coords))
+    n, rng = 1024, np.random.default_rng(100)
+    rows = np.repeat(np.arange(n), 9)
+    cols = np.clip(rows + rng.integers(-100, 101, size=rows.size), 0, n - 1)
+    B = sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)), shape=(n, n))
+    B = (B + B.T + sp.diags(np.abs(B + B.T).sum(1).A1 + 1.0)).tocoo()
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    Bm = psparse([B.row], [B.col], [B.data.astype(np_dtype)], variable_partition([n]),
+                 variable_partition([n]), SerialBackend(1), device=device)
+    return [M.levels[1].smoother.tile_gs, GaussSeidel(Bm).tile_gs]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tile_gs_kernel_matches_plain(cuda, dtype):
+    from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps, tile_gs_sweeps_plain
+
+    g = torch.Generator().manual_seed(16)
+    for tg in _tile_smoothers(cuda, dtype):
+        assert tg is not None
+        b = torch.randn(1, tg.Rp, generator=g, dtype=dtype).to(cuda)
+        x0 = torch.randn(1, tg.Rp, generator=g, dtype=dtype).to(cuda)
+        for dirs in (("f",), ("b",), ("f", "b")):
+            for zero in (True, False):
+                start = torch.zeros_like(x0) if zero else x0
+                before = tile_gs_sweeps.launches
+                got = tile_gs_sweeps(*tg.operands(), start.clone(), b, dirs, zero_guess=zero)
+                assert tile_gs_sweeps.launches == before + tg.W * len(dirs)
+                want = tile_gs_sweeps_plain(*tg.operands(), start.clone(), b, dirs, zero_guess=zero)
+                _assert_close(got, want, dtype)

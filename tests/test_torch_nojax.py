@@ -4,8 +4,10 @@ A fresh interpreter imports the port's modules, builds small HPCG problems
 on one part and on (2,2,2) parts, and runs short MG-preconditioned CG solves
 on the CPU (the flat CG, the ghosted flat CG with its exchanges and
 own-ghost products, and the df64 CG), then the generic solvers (``cg``,
-``cg_df64``, a solver of ``solvers/interfaces.py``); afterwards ``jax``
-must not be among the loaded modules.
+``cg_df64``, a solver of ``solvers/interfaces.py``), and the elasticity
+SA-AMG path (gallery, COO ``psparse``, the tile Gauss-Seidel tier, ``cg``
+and ``amg_solver``); afterwards ``jax`` must not be among the loaded
+modules.
 """
 import os
 import subprocess
@@ -48,6 +50,25 @@ assert float(info.residual) < 1e-9 * float(norms[0]), info
 _, info = cg(mg.A, mg.b, M=JacobiCorrection(mg.A), rtol=1e-6)
 assert info.iterations > 0, info
 solve(jacobi_solver(iterations=2), LinearProblem(mg.A, mg.b))
+import partitionedarrays_tpu_torch.ops.tile_gs
+from partitionedarrays_tpu_torch.models.gallery import (
+    linear_elasticity_fem, node_coordinates_unit_cube, nullspace_linear_elasticity,
+)
+from partitionedarrays_tpu_torch.psparse import psparse, spmv
+from partitionedarrays_tpu_torch.pvector import pones
+from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+from partitionedarrays_tpu_torch.solvers.interfaces import amg_solver
+I, J, V, rows, cols = linear_elasticity_fem((7, 7, 7), (1, 1, 1))
+A = psparse(I, J, V, rows, cols, SerialBackend(1), device="cpu")
+coords, _ = node_coordinates_unit_cube((7, 7, 7), (1, 1, 1))
+ns = nullspace_linear_elasticity(coords)
+params = AMGParams(coarse_size=30, block_size=3, max_levels=4)
+M = AMGPreconditioner(A, params, nullspace=ns)
+assert M.levels[1].smoother.tile_gs is not None
+b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device="cpu"))
+_, info = cg(A, b, M=M, rtol=1e-8)
+assert info.iterations < 20, info
+solve(amg_solver(params, ns, iterations=2), LinearProblem(A, b))
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
 sys.exit(1 if loaded else 0)
@@ -55,7 +76,7 @@ sys.exit(1 if loaded else 0)
 
 
 def test_port_does_not_load_jax():
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OPENBLAS_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=str(REPO), env=env,
         capture_output=True, text=True, timeout=300,

@@ -9,6 +9,7 @@ import importlib
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from partitionedarrays_tpu import config as jax_config
 from partitionedarrays_tpu.backends import SerialBackend as JaxSerialBackend
@@ -25,11 +26,15 @@ jax_pvector = importlib.import_module("partitionedarrays_tpu.pvector")
 torch.set_num_threads(1)
 
 
+# numpy's BLAS on one thread in this module: its idle threads spin, and
+# beside the suite's other workers its small dense factorizations (tile
+# inverses, QR, LU) then run up to ~30x slower
 @pytest.fixture(scope="module", autouse=True)
 def reference_without_pallas():
     saved = jax_config.use_pallas
     jax_config.use_pallas = False
-    yield
+    with threadpool_limits(limits=1):
+        yield
     jax_config.use_pallas = saved
 
 
@@ -96,8 +101,39 @@ def test_history_and_the_unported_solvers(problems):
     xs = list(port_if.history(step, x0, maxiters=4))
     assert len(xs) == 4
     _close(xs[-1], port_if.solve(port_if.jacobi_solver(iterations=4, omega=0.8), prob), 1e-14)
-    for make in (port_if.lu_solver, port_if.additive_schwarz_solver, port_if.amg_solver):
+    for make in (port_if.lu_solver, port_if.additive_schwarz_solver):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make()
     with pytest.raises(NotImplementedError):
         port_if.LinearSolverBase().solve(prob)
+
+
+def test_amg_solver_matches_jax():
+    """``amg_solver``: two AMG V-cycles as Richardson steps on 2-D
+    elasticity (6 x 6 nodes, block size 2, the rigid-body nullspace),
+    float64, against the reference's to 1e-10."""
+    from partitionedarrays_tpu.models import gallery as jax_gallery
+    from partitionedarrays_tpu.parallel.p_range import PRange as JaxPRange
+    from partitionedarrays_tpu.solvers.amg import AMGParams as JaxAMGParams
+
+    from partitionedarrays_tpu_torch.models import gallery
+    from partitionedarrays_tpu_torch.psparse import psparse
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams
+
+    jax_psparse = importlib.import_module("partitionedarrays_tpu.psparse")
+    nodes, parts = (6, 6), (1, 1)
+    own = [np.random.default_rng(44).standard_normal(72)]
+    probs = []
+    for gal, make_A, make_b, iface, Params in (
+        (gallery, lambda *t: psparse(*t, SerialBackend(1), device="cpu"),
+         lambda A: pvector_from_own(own, A.row_prange, A.backend, device="cpu"), port_if, AMGParams),
+        (jax_gallery,
+         lambda I, J, V, r, c: jax_psparse.psparse(I, J, V, JaxPRange(r), JaxPRange(c), JaxSerialBackend(1)),
+         lambda A: jax_pvector.pvector_from_own(own, A.row_prange, A.backend), jax_if, JaxAMGParams),
+    ):
+        A = make_A(*gal.linear_elasticity_fem(nodes, parts))
+        coords, _ = gal.node_coordinates_unit_cube(nodes, parts)
+        ns = gal.nullspace_linear_elasticity(coords, A.row_prange)
+        solver = iface.amg_solver(Params(coarse_size=10, block_size=2), ns, iterations=2)
+        probs.append(iface.solve(solver, iface.LinearProblem(A, make_b(A))))
+    _close(*probs, 1e-10)
