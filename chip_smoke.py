@@ -18,14 +18,23 @@ Phases, one output line each:
    for K1, K2, K4 and K5, the time of the same product as one
    ``torch.sparse`` CSR call; then K7 dia_spmv_df (df64 pairs) at both fine
    shapes, held to 1e-13 of sum |A||x| per row against its plain version
-   and, with it, against K1 in float64 on the same values;
+   and, with it, against K1 in float64 on the same values; then K3 (one
+   launch per color sequence) on every level of the one-part 128^3
+   hierarchy (128^3, 64^3, 32^3, 16^3), float32 and float64, symmetric
+   order from a guess and from a zero guess: m, Lq, launches per call, the
+   bound (each input read once), the streaming floor (each color's values
+   read once per step), the plain version's time, the device time of a
+   launch of no step and of one step, and the time under every other
+   lane count;
 4. four paths through the port, each with its kernels' launch counts set to
    0 just before it and read just after (a-c: the HPCG benchmark, 4 MG
    levels, 50 CG iterations; d: the elasticity AMG, counted over its
    solves):
    a. one part: 128^3 in float32 and float64, 64^3 in float64; each also
       checks the standard-order operator (K1) against the de-interleaved
-      one (K4) and runs the generic CG, which applies A through K1;
+      one (K4) and runs the generic CG, which applies A through K1; one
+      float32 set at 128^3 is profiled (launches and device time per
+      kernel and per set);
    b. (2,2,2) parts of 64^3 (the same 128^3 global problem) in float32 and
       float64 through the ghosted flat CG; each also checks the
       standard-order ``spmv`` (exchange, K1, K5) against the core product
@@ -45,10 +54,11 @@ Phases, one output line each:
       rtol 1e-8): 16^3 nodes in float32 (the reference's anchor, 9 +- 1
       iterations) and 40^3 nodes (192,000 rows) in float32 and float64;
       host seconds of assembly and setup, the hierarchy, iterations, the
-      true float64 residual and the solve time (CUDA events); then K6 and
-      K1 (99 diagonals) against their plain versions on the 40^3
-      hierarchy's operators, and K6 on the forced tile tier of the 20^3
-      elasticity block;
+      true float64 residual and the solve time (CUDA events), and at 40^3
+      a profiled solve with K3's share of its device time; then K6, K1 (99
+      diagonals) and K3 (27 colors, 99 diagonals, as in phase 3) against
+      their plain versions on the 40^3 hierarchy's operators, and K6 on the
+      forced tile tier of the 20^3 elasticity block;
 5. the launch counts of each path, each kernel of a path required > 0;
 6. the whole port on the card against the whole port on the CPU (plain
    versions), float64, residual histories to rtol 1e-10: 32^3 on one part
@@ -120,11 +130,16 @@ DF64_CROSS_RTOL = {"identity": 1e-6, "mg": 1e-4}
 # rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+F64_FLOPS_PER_S = 34e12  # float64 outside the tensor cores (data sheet)
 # (local shape, parts per direction) of the cuda-vs-cpu comparison
 CROSS_CASES = (((32, 32, 32), (1, 1, 1)), ((8, 8, 8), GHOST_PARTS))
 CROSS_LEVELS = 3
 CROSS_ITERATIONS = 10
 CROSS_RTOL = 1e-10
+# the same float32 set at 128^3 when K3 ran one launch per color step
+# (PERF.md section 5): device events and device ms, beside the profile of
+# phase 4a
+PER_COLOR_K3_SET = {"device_events": 9684, "device_ms": 100.6}
 # kernel against plain version, relative to the largest plain entry: only
 # FMA contraction and the order of the sums differ
 KERNEL_RTOL = {"float32": 1e-5, "float64": 1e-12}
@@ -219,6 +234,59 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def flushed_ms(fn, reps: int) -> float:
+    """Mean device time of one ``fn()`` with the L2 cache flushed before
+    each call (a read of 512 MB, ten times the card's 50 MB L2), by CUDA
+    events around each call: the time of a call whose operands arrive
+    cold, as they do on a path that runs other kernels in between."""
+    import torch
+
+    scratch = torch.ones(128 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        scratch.sum()  # the host queues the timed call while this runs
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def device_ms(fn, reps: int):
+    """Device time of one ``fn()`` from torch.profiler over ``reps`` calls:
+    for each kernel, memset or copy the calls ran, its mean time per launch
+    times its launches per call.  Unlike ``time_ms`` it leaves out the
+    host's time between launches.  The profiler does not always keep every
+    launch of a window, and now and then keeps none: the mean per launch
+    does not depend on how many it kept (no function timed here launches
+    one kernel twice), and a window with none is profiled again, up to
+    three times (then None)."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+        if events:
+            return sum(e.self_device_time_total / e.count * math.ceil(e.count / reps)
+                       for e in events) / 1e3
+    return None
+
+
 def phase_toolchain():
     import torch
 
@@ -259,23 +327,25 @@ def phase_build():
     emit("2 build", {"seconds": round(seconds, 3), "library": path.name, "registers": regs})
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, flops_per_s: float = F32_FLOPS_PER_S):
     """The least time (ms) a call that moves ``nbytes`` and does ``ops``
-    float32 operations can take on the card, and which of the two sets
-    it: the larger of bytes over the memory rate and operations over the
-    float32 rate."""
+    operations can take on the card, and which of the two sets it: the
+    larger of bytes over the memory rate and operations over the rate of
+    their type (float32 unless ``flops_per_s`` says otherwise)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    t_ops = ops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _hold(results, kname, dtype_name, kernel, plain, timed=None, library=None, work=None):
+def _hold(results, kname, dtype_name, kernel, plain, timed=None, library=None, work=None,
+          flushed=False):
     """Run ``kernel`` and ``plain`` on the same inputs, hold the largest
     difference to the tolerance relative to the largest plain entry, and
     time both (or the pair ``timed``, calls without the set-up copies).
     ``library``: one PyTorch call computing the same function, held to the
     same tolerance and timed; ``work``: (bytes, operations) of the call,
-    for its bound."""
+    for its bound; ``flushed``: also time the kernel and the library call
+    with the L2 flushed before each call (``flushed_ms``)."""
     import torch
 
     got = kernel()
@@ -291,12 +361,18 @@ def _hold(results, kname, dtype_name, kernel, plain, timed=None, library=None, w
         "max_rel_err": max_abs / scale, "tol_rel": KERNEL_RTOL[dtype_name],
     })
     k_t, p_t = timed if timed is not None else (kernel, plain)
-    results[-1].update(ms=time_ms(k_t, 20), plain_ms=time_ms(p_t, 5))
+    results[-1].update(ms=time_ms(k_t, 20), plain_ms=time_ms(p_t, 5),
+                       device_ms=device_ms(k_t, 20))
     if library is not None:
         lib_err = (library().reshape(want.shape) - want).abs().max().item()
         if not (lib_err <= tol):
             raise AssertionError(f"{kname} {dtype_name}: the library call differs by {lib_err}")
-        results[-1].update(library_ms=time_ms(library, 20), library_max_abs_err=lib_err)
+        results[-1].update(library_ms=time_ms(library, 20), library_max_abs_err=lib_err,
+                           library_device_ms=device_ms(library, 20))
+        if flushed:
+            results[-1].update(library_ms_flushed=flushed_ms(library, 20))
+    if flushed:
+        results[-1].update(ms_flushed=flushed_ms(k_t, 20))
     if work is not None:
         b_ms, b_by = bound(*work)
         results[-1].update(bytes=work[0], ops=work[1], bound_ms=b_ms, bound_by=b_by)
@@ -442,7 +518,11 @@ def phase_kernels(device):
               lambda: dia_spmv_strided(taps, vals_c, core),
               lambda: dia_spmv_plain(taps, vals_c, core),
               library=lib.get("dia_spmv_strided"),
-              work=(4 * (vals_c.numel() + core.numel() + P * Lq), 2 * vals_c.numel()) if f32 else None)
+              work=(4 * (vals_c.numel() + core.numel() + P * Lq), 2 * vals_c.numel()) if f32 else None,
+              # the sweep runs one color between other kernels, so its
+              # 31 MB arrive cold; back to back they stay in the 50 MB L2
+              flushed=True)
+        results[-1].update(shape=list(vals_c.shape), m=col.m, Lq=Lq, color=c)
         del y_t, A, oh, col, g_vals, y0, core, vals_c, lib
         torch.cuda.empty_cache()
     emit("3 kernels", results)
@@ -503,6 +583,122 @@ def phase_kernel_df(device):
     return results
 
 
+def _k3_work(col, order, itemsize: int, zero_guess: bool):
+    """(bytes, operations, streaming-floor bytes) of one K3 call running
+    the color steps ``order``.  Bytes: each input the call reads, once
+    (the values of every color that a step taps, bd and invd of every
+    color it updates, x in unless the guess is zero) and x written once.
+    The streaming floor: each step reads its color's values (none at a
+    zero guess's first step), bd and invd once, and x is read (unless the
+    guess is zero) and written once."""
+    P, m, n_off, Lq = col.vals_d.shape
+    z = int(zero_guess)
+    tapped = len(set(order[z:]))
+    nbytes = itemsize * P * Lq * (n_off * tapped + 2 * len(set(order)) + (2 - z) * m)
+    ops = P * Lq * ((len(order) - z) * (2 * n_off + 3) + z)
+    floor = itemsize * P * Lq * ((len(order) - z) * (n_off + 2) + 2 * z + (2 - z) * m)
+    return nbytes, ops, floor
+
+
+def _k3_plans(col, itemsize: int):
+    """K3's launch plan at each lane count, with CTAs for one pass over a
+    step."""
+    from partitionedarrays_tpu_torch.ops.dia_rows import THREADS, SweepPlan, vec_of
+
+    groups = col.vals_d.shape[-1] // vec_of(itemsize)
+    return [SweepPlan(lanes, -(-groups * lanes // THREADS)) for lanes in (1, 2, 4, 8, 16)]
+
+
+def _hold_k3(results, where, gs, dtype_name, g, device):
+    """K3 against its plain version on one level's smoother, symmetric
+    order, from a guess and from a zero guess (plain: on a zero core); the
+    kernel's time under its default plan and, from the guess, under every
+    other plan (``_k3_plans``)."""
+    import torch
+
+    from partitionedarrays_tpu_torch.ops.dia_rows import sweep_plan
+    from partitionedarrays_tpu_torch.ops.gs_dia_kernels import gs_sweeps, gs_sweeps_plain
+
+    col = gs.colored
+    dtype = getattr(torch, dtype_name)
+    P, m, n_off, Lq = col.vals_d.shape
+    x0 = torch.randn(P, m, Lq, generator=g, dtype=dtype).to(device)
+    bd = torch.randn(P, m, Lq, generator=g, dtype=dtype).to(device)
+    zero = torch.zeros_like(x0)
+    order = gs._order_seq()
+    itemsize = x0.element_size()
+    plan = sweep_plan(P, m, n_off, Lq, itemsize)
+    for start in (x0, None):
+        plain_start = zero if start is None else start
+        nbytes, ops, floor = _k3_work(col, order, itemsize, zero_guess=start is None)
+        b_ms, b_by = bound(nbytes, ops, F32_FLOPS_PER_S if itemsize == 4 else F64_FLOPS_PER_S)
+        before = gs_sweeps.launches
+        got = gs_sweeps(col.vals_d, bd, col.invd_d, start, col.taps, order)
+        launches = gs_sweeps.launches - before
+        torch.cuda.synchronize()
+        want = gs_sweeps_plain(col.vals_d, bd, col.invd_d, plain_start, col.taps, order)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not err <= KERNEL_RTOL[dtype_name] * scale:
+            raise AssertionError(f"gs_sweeps {where} {dtype_name}: max |kernel - plain| {err}")
+        row = {
+            "kernel": "gs_sweeps", "dtype": dtype_name, "where": where,
+            "guess": "zero" if start is None else "random",
+            "P": P, "m": m, "n_off": n_off, "Lq": Lq, "steps": len(order),
+            "plan": list(plan), "launches_per_call": launches,
+            "max_abs_err": err, "max_rel_err": err / scale, "tol_rel": KERNEL_RTOL[dtype_name],
+            "ms": time_ms(lambda: gs_sweeps(col.vals_d, bd, col.invd_d, start, col.taps, order), 20),
+            "device_ms": device_ms(
+                lambda: gs_sweeps(col.vals_d, bd, col.invd_d, start, col.taps, order), 20),
+            "plain_ms": time_ms(lambda: gs_sweeps_plain(
+                col.vals_d, bd, col.invd_d, plain_start, col.taps, order), 3),
+            "library_ms": None, "bytes": nbytes, "ops": ops, "bound_ms": b_ms, "bound_by": b_by,
+            "floor_bytes": floor, "floor_ms": floor / HBM_BYTES_PER_S * 1e3,
+        }
+        if start is not None:
+            # a launch of no step and of one step beside the whole sequence:
+            # the fixed cost and the cost of each further step
+            row["steps_device_ms"] = [
+                [n, device_ms(lambda n=n: gs_sweeps(
+                    col.vals_d, bd, col.invd_d, x0, col.taps, order[:n]), 20)]
+                for n in (0, 1)
+            ] + [[len(order), row["device_ms"]]]
+            row["other_plans_device_ms"] = [
+                [*p, device_ms(lambda p=p: gs_sweeps(
+                    col.vals_d, bd, col.invd_d, x0, col.taps, order, _plan=p), 20)]
+                for p in _k3_plans(col, itemsize) if p != plan
+            ]
+        results.append(row)
+
+
+def phase_k3_levels(device):
+    """K3 on every level of the one-part 128^3 hierarchy and of the
+    (2,2,2) x 64^3 one (``_hold_k3``), float32 and float64: the plan
+    depends on the part count, so each path's levels are held under its
+    own."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
+
+    results = []
+    g = torch.Generator().manual_seed(777)
+    for dtype in ("float32", "float64"):
+        for local, parts in ((LOCAL, (1, 1, 1)), (GHOST_LOCAL, GHOST_PARTS)):
+            P = int(np.prod(parts))
+            mg = HPCGMGPreconditioner(
+                local, parts, SerialBackend(P), n_levels=LEVELS, dtype=getattr(np, dtype),
+                device=device,
+            )
+            for l, gs in enumerate(reversed(mg.gss)):
+                _hold_k3(results, f"level {l} of {parts}x{local[0]}^3", gs, dtype, g, device)
+            del mg
+            torch.cuda.empty_cache()
+    emit("3c kernel K3 levels", results)
+    return results
+
+
 def phase_hpcg(device):
     """The benchmark through the port, plus the standard-order operator (K1)
     against the de-interleaved one (K4) and in the generic CG."""
@@ -510,7 +706,7 @@ def phase_hpcg(device):
     import torch
 
     from partitionedarrays_tpu_torch.backends import SerialBackend
-    from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg
+    from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg, hpcg_cg_flat
     from partitionedarrays_tpu_torch.models.hpcg.driver import hpcg_benchmark
     from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
     from partitionedarrays_tpu_torch.psparse import spmv
@@ -546,6 +742,10 @@ def phase_hpcg(device):
         # the generic CG: standard-order vectors, A-apply through K1
         _, norms = hpcg_cg(A, mg.b, M=mg, iterations=ITERATIONS)
         generic_relres = (norms[-1] / norms[0]).item()
+        prof = None
+        if (shape, dtype) == (LOCAL, "float32"):  # one set: launches and device time
+            prof = _profile_set(lambda: hpcg_cg_flat(mg, mg.b, iterations=ITERATIONS), top=12)
+            prof["per_color_k3"] = PER_COLOR_K3_SET
         gf = report.gflops()  # unrounded, unlike the summary
         out[key] = {
             "raw_gflops": gf["raw"],
@@ -558,6 +758,7 @@ def phase_hpcg(device):
             "seconds_per_set": report.time_solve / report.n_sets,
             "setup_s": setup,
             "operator_rel_err": op_err,
+            "profiled_set": prof,
             "nrow": s["nrow"],
             "nnz": s["nnz"],
         }
@@ -672,10 +873,12 @@ def phase_hpcg_ghosted(device):
     return out
 
 
-def _profile_set(run_set, top: int = 0) -> dict:
+def _profile_set(run_set, top: int = 0, kernel: str = "gs_seq") -> dict:
     """Device events (kernels, memsets, copies) and device time of one
     warm call of ``run_set``, from torch.profiler, beside its wall time;
-    with ``top``, the ``top`` device ops by device time (name, count, ms)."""
+    with ``top``, the ``top`` device ops by device time (name, count, ms);
+    and the launches, device ms and share of the device time of the
+    kernels whose name holds ``kernel`` (K3's by default)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -692,6 +895,10 @@ def _profile_set(run_set, top: int = 0) -> dict:
         "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
         "profiled_wall_ms": wall * 1e3,
     }
+    mine = [e for e in events if kernel in e.key]
+    mine_ms = sum(e.self_device_time_total for e in mine) / 1e3
+    out[kernel] = {"launches": sum(e.count for e in mine), "ms": mine_ms,
+                   "share": mine_ms / out["device_ms"] if out["device_ms"] else None}
     if top:
         events.sort(key=lambda e: -e.self_device_time_total)
         out["top"] = [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in events[:top]]
@@ -947,6 +1154,8 @@ def phase_amg_elasticity(device, counters):
                   lambda: dia_spmv_plain(oo.offsets, oo.vals, xs),
                   work=(xs.element_size() * (oo.vals.numel() + 2 * xs.numel()), 2 * oo.vals.numel()))
             results[-1].update(where=f"{len(oo.offsets)} diagonals, {nodes[0]}^3 elasticity")
+            _hold_k3(results, f"level 0 of {nodes[0]}^3 elasticity", M.levels[0].smoother,
+                     dtype, g, device)
         del A, M, b, x, G
         torch.cuda.empty_cache()
     # K6 on the forced tile tier of the 20^3 block (its fine level is DIA)
@@ -956,7 +1165,7 @@ def phase_amg_elasticity(device, counters):
         _hold_tile(results, f"forced, {FORCED_TILE_NODES[0]}^3 fine level", NaturalTileGS.build(A),
                    dtype, g, device, timed=True)
         del A
-    emit("4d kernel K6", results)
+    emit("4d kernels K6, K1, K3", results)
     if failures:
         raise AssertionError("; ".join(failures))
     return path_launches, results
@@ -1056,6 +1265,7 @@ def main() -> int:
     phase_build()
     kernel_results = phase_kernels(device)
     kernel_results += phase_kernel_df(device)
+    kernel_results += phase_k3_levels(device)
 
     counters = {
         "dia_spmv": dia_spmv, "ax_core": ax_core, "gs_sweeps": gs_sweeps,
@@ -1083,8 +1293,9 @@ def main() -> int:
     phase_cross(device)
 
     # one row per kernel: its float32 measurement (K7: df64 at the 128^3
-    # one-part shape; K6: level 1 of the 40^3 elasticity hierarchy), its
-    # launches over the four paths' runs
+    # one-part shape; K6: level 1 of the 40^3 elasticity hierarchy; K2 and
+    # its library call with the L2 flushed before each call), its launches
+    # over the four paths' runs
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         r = next(r for r in kernel_results
@@ -1092,9 +1303,9 @@ def main() -> int:
         rows.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches[path][kname] for path in launches),
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("library_ms"),
+            "max_abs_err": r["max_abs_err"], "ms": r.get("ms_flushed", r["ms"]),
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms_flushed", r.get("library_ms")),
         })
     print(card_line())
     print(json.dumps({"kernels": rows}))

@@ -42,16 +42,23 @@ _I64 = ctypes.c_longlong
 _SIGNATURES = {
     # vals, x, y, offsets (host int array), n_off, R, n_cols, P, stream
     "pat_dia_spmv": [_VP, _VP, _VP, ctypes.POINTER(_INT), _INT, _I64, _I64, _INT, _VP],
-    # as pat_dia_spmv, then the values' and x's part strides
+    # as pat_dia_spmv, then the values' and x's part strides and lanes per
+    # row group
     "pat_dia_spmv_strided": [
-        _VP, _VP, _VP, ctypes.POINTER(_INT), _INT, _I64, _I64, _INT, _I64, _I64, _VP,
+        _VP, _VP, _VP, ctypes.POINTER(_INT), _INT, _I64, _I64, _INT, _I64, _I64,
+        _INT, _VP,
     ],
     # rows, cols, vals, x, y, Nr, K, n_cols, R, P, stream
     "pat_ghost_spmv": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _I64, _I64, _INT, _VP],
     # vals, x, out, tap (device int [m, n_off]), P, m, n_off, Lq, stream
     "pat_ax_core": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _I64, _VP],
-    # vals, bd, invd, x, tap (device int [m, n_off]), c, P, m, n_off, Lq, stream
-    "pat_gs_color": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _I64, _VP],
+    # vals, bd, invd, x_in (NULL from a zero guess), x, tap (device int
+    # [m, n_off]), steps (device int [n_steps]), n_steps, zero_guess,
+    # lanes, width (CTAs per part), P, m, n_off, Lq, stream
+    "pat_gs_sweeps": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP,
+    ],
     # vals_hi, vals_lo, x_hi, x_lo, y_hi, y_lo, offsets (host int array),
     # n_off, R, n_cols, P, stream
     "pat_dia_spmv_df": [
@@ -165,10 +172,16 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+_entries = {}
+
+
 def entry(base: str, dtype: torch.dtype):
     """The C entry point ``base`` for a torch dtype (float32 or float64)."""
-    name = str(dtype).replace("torch.", "")
-    return getattr(library(), f"{base}_{DTYPE_SUFFIX[name]}")
+    fn = _entries.get((base, dtype))
+    if fn is None:
+        name = str(dtype).replace("torch.", "")
+        fn = _entries[(base, dtype)] = getattr(library(), f"{base}_{DTYPE_SUFFIX[name]}")
+    return fn
 
 
 def check(code: int, what: str) -> None:
@@ -177,6 +190,8 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on the device of tensor ``t``."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current CUDA stream on the device of tensor ``t``, as the
+    raw ``cudaStream_t`` (the one call PyTorch's own generated kernels make:
+    no Stream object is built per launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -1,0 +1,166 @@
+// The DIA row engine shared by K2 (dia_spmv.cu) and K3 (gs_dia.cu).
+//
+// Both kernels compute, for rows i of one [n_off, ld] block of values,
+//
+//     acc[i] = sum_d vals[d * ld + i] * x[taps[d] + i]
+//
+// with x read as zero outside [0, n).  K2 is that sum for one color; K3
+// runs it once per color step and updates the color's row of x with it.
+// The engine is written for the two regimes the paths run:
+//
+//   (a) many rows, few taps (the HPCG fine level: 245,760 rows per color,
+//       27 taps): one thread takes VEC consecutive rows (16 bytes: 4 floats
+//       or 2 doubles), reads each tap's values as one 16-byte load, issues
+//       every load of a chunk of CH taps before its FMAs, and keeps 32-bit
+//       offsets inside a part (the caller adds the part's base once);
+//   (b) few rows, many taps (the 40^3 elasticity level: 7,168 rows, 99
+//       taps; the HPCG 16^3 level: 1,024 rows, 27 taps): G lanes of one
+//       warp share a row group and split its taps, lane g taking d = g,
+//       g + G, ...; a butterfly of shuffles adds the G partial sums, so
+//       that every lane holds the same, fixed-order total.  G is a power
+//       of two up to 16, so a tap's loads of one warp still cover whole
+//       32-byte sectors.
+// G = 1 is regime (a).  The host (ops/dia_rows.py::row_lanes) picks G.
+//
+// Operands: the engine has one form, 16-byte loads along the rows.  The
+// row length (ld), every operand's start and every part stride of the
+// values, bd, invd and x_in must be whole 16-byte steps; x itself is read
+// by element.  The two wrappers (ops/dia_rows.py::check_rows) raise
+// ValueError on anything else and the launchers return
+// cudaErrorInvalidValue: there is no scalar form.  Every operand the paths
+// give qualifies (Lq is a multiple of 1024, solvers/gs_dia.py).
+//
+// x is read with ordinary loads through a generic pointer: K3 writes x in
+// the same launch (and may keep it in shared memory), so it must not go
+// through the read-only path.  Values go through __ldg.  Taps sit in
+// shared memory: lanes of a warp read different taps, which the constant
+// bank would serialise.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pat {
+
+constexpr int kVecBytes = 16;
+
+// 16-byte loads and stores of VEC values (4 floats or 2 doubles)
+__device__ __forceinline__ void load_ro(const float* p, float (&v)[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load_ro(const double* p, double (&v)[2]) {
+  const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = q.x; v[1] = q.y;
+}
+
+// coherent (x may be written in the same launch)
+__device__ __forceinline__ void load_rw(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load_rw(const double* p, double (&v)[2]) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  v[0] = q.x; v[1] = q.y;
+}
+
+__device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store(double* p, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+// taps per lane whose loads are all issued before their FMAs
+template <int G>
+struct Chunk {
+  static constexpr int value = G == 1 ? 8 : 4;
+};
+
+// One chunk of lane g's taps: d = d0, d0 + G, ..., CH of them (a tap past
+// n_off is a zero).  chunk_values loads their values for rows i ..
+// i+VEC-1 (vals: tap 0 of row 0 of the block, row stride ld); chunk_fma
+// loads their x (the part's vector of n entries, in global or shared
+// memory; taps: n_off tap offsets in shared memory) and adds the products
+// to acc in increasing d.  The two are apart so that a caller can load a
+// chunk's values before x is ready.
+template <typename T, int VEC, int G>
+__device__ __forceinline__ void chunk_values(T (&vv)[Chunk<G>::value][VEC],
+                                             const T* __restrict__ vals,
+                                             int ld, int n_off, int i, int d0) {
+#pragma unroll
+  for (int k = 0; k < Chunk<G>::value; ++k) {
+    const int d = d0 + k * G;
+    if (d < n_off) {
+      load_ro(vals + d * ld + i, vv[k]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) vv[k][v] = T(0);
+    }
+  }
+}
+
+template <typename T, int VEC, int G>
+__device__ __forceinline__ void chunk_fma(T (&acc)[VEC],
+                                          const T (&vv)[Chunk<G>::value][VEC],
+                                          const T* x, int n, const int* taps,
+                                          int n_off, int i, int d0) {
+  constexpr int CH = Chunk<G>::value;
+  T xv[CH][VEC];
+#pragma unroll
+  for (int k = 0; k < CH; ++k) {
+    const int d = d0 + k * G;
+    const int j = d < n_off ? taps[d] + i : -VEC;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      xv[k][v] = (unsigned)(j + v) < (unsigned)n ? x[j + v] : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < CH; ++k)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] += vv[k][v] * xv[k][v];
+}
+
+// Lane g's partial sums of rows i .. i+VEC-1 over the taps d = g, g+G, ...
+// in increasing d, given the values of its first chunk (d0 = g) in vv0.
+template <typename T, int VEC, int G>
+__device__ __forceinline__ void rows_partial_from(
+    T (&acc)[VEC], const T (&vv0)[Chunk<G>::value][VEC],
+    const T* __restrict__ vals, int ld, const T* x, int n, const int* taps,
+    int n_off, int i, int g) {
+  constexpr int CH = Chunk<G>::value;
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = T(0);
+  chunk_fma<T, VEC, G>(acc, vv0, x, n, taps, n_off, i, g);
+  for (int d0 = g + G * CH; d0 < n_off; d0 += G * CH) {
+    T vv[CH][VEC];
+    chunk_values<T, VEC, G>(vv, vals, ld, n_off, i, d0);
+    chunk_fma<T, VEC, G>(acc, vv, x, n, taps, n_off, i, d0);
+  }
+}
+
+// The same, loading every chunk itself.
+template <typename T, int VEC, int G>
+__device__ __forceinline__ void rows_partial(T (&acc)[VEC],
+                                             const T* __restrict__ vals,
+                                             int ld, const T* x, int n,
+                                             const int* taps, int n_off,
+                                             int i, int g) {
+  T vv0[Chunk<G>::value][VEC];
+  chunk_values<T, VEC, G>(vv0, vals, ld, n_off, i, g);
+  rows_partial_from<T, VEC, G>(acc, vv0, vals, ld, x, n, taps, n_off, i, g);
+}
+
+// Sum the partials of the G lanes that share a row group (a butterfly:
+// every lane ends with the same total).  Every lane of the warp must call
+// it: the shuffles take the full mask.
+template <typename T, int VEC, int G>
+__device__ __forceinline__ void reduce_lanes(T (&acc)[VEC]) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      acc[v] += __shfl_xor_sync(0xffffffffu, acc[v], off);
+}
+
+}  // namespace pat

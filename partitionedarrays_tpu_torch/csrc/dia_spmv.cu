@@ -13,16 +13,30 @@
 // K2 replaces partitionedarrays_tpu/ops/spmv_pallas.py::dia_spmv_pallas
 // (_dia_spmv_pallas, body _dia_kernel), the same SpMV over one color's
 // [n_off, Lq] values inside the colored Gauss-Seidel's de-interleaved core
-// (ColoredDIAGS.sweep_flat).  It is K1's row loop with the values and x of
-// part p read at a per-part stride: one color's values vals_d[:, c] are a
-// [P, n_off, Lq] view whose parts lie m * n_off * Lq apart, so no copy of
-// the color is made.  Wrapper: ops/dia_spmv.py::dia_spmv_strided; its plain
-// version is dia_spmv_plain on the same views.
+// (ColoredDIAGS.sweep_flat):
 //
-// Bound: device-memory bandwidth.  The product does 2 flops per value and
-// must read every value once (n_off * R words), x once and write y once;
-// at the 27-point stencil the values are ~93% of the bytes.  The design
-// keeps the traffic at that minimum:
+//     y[p, i] = sum_d vals[p, d, i] * x[p, i + off[d]]
+//
+// with the values and x of part p read at a per-part stride: one color's
+// values vals_d[:, c] are a [P, n_off, Lq] view whose parts lie
+// m * n_off * Lq apart, so no copy of the color is made.  Wrapper:
+// ops/dia_spmv.py::dia_spmv_strided; its plain version is dia_spmv_plain
+// on the same views.
+//
+// Bound: device-memory bandwidth, as K1: every value once, x once, y once.
+// At one color of the (2,2,2) x 64^3 level, [8, 27, 24,576] (m = 11), that
+// is 31 MB, so a per-row loop with scalar loads spends as much time in its
+// launch and tail as in streaming.  K2 runs the row engine of
+// dia_rows.cuh that K3 shares: 16-byte value loads along i (a view that
+// is not 16-byte aligned is refused), a chunk of taps in flight before its
+// FMAs, the offsets in shared memory, 32-bit offsets inside a
+// part, a grid (row tiles, parts), and G lanes per row group where rows
+// are few (ops/dia_rows.py::row_lanes picks G).
+//
+// K1's bound: device-memory bandwidth.  The product does 2 flops per
+// value and must read every value once (n_off * R words), x once and write
+// y once; at the 27-point stencil the values are ~93% of the bytes.  The
+// design keeps the traffic at that minimum:
 //   - values are stored [.., n_off, R], so for each diagonal neighbouring
 //     threads read neighbouring addresses (fully coalesced streams);
 //   - x is read through the read-only path (__ldg).  The 27 taps of a warp
@@ -34,7 +48,11 @@
 // One thread per output row, grid-stride loop; the sum runs over the
 // diagonals in the order of the offsets, as the plain version's does.
 
+#include <climits>
+
 #include <cuda_runtime.h>
+
+#include "dia_rows.cuh"
 
 namespace {
 
@@ -78,25 +96,36 @@ __global__ void dia_spmv_kernel(const T* __restrict__ vals,
   }
 }
 
-// K2: as K1, the values of part p start at p * vals_stride and its x at
-// p * x_stride; y is [P, R] contiguous
-template <typename T>
-__global__ void dia_spmv_strided_kernel(const T* __restrict__ vals,
-                                        const T* __restrict__ x,
-                                        T* __restrict__ y,
-                                        const DiaOffsets offs, long long R,
-                                        long long n_cols, int P,
-                                        long long vals_stride,
-                                        long long x_stride) {
-  const long long total = (long long)P * R;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const long long p = t / R;
-    const long long i = t - p * R;
-    y[t] = dia_row(vals + p * vals_stride + i, x + p * x_stride, offs, i, R,
-                   n_cols);
+// K2: the row engine over one tile of rows of part blockIdx.y; the values
+// of part p start at p * vals_stride and its x at p * x_stride; y is
+// [P, R] contiguous
+template <typename T, int VEC, int G>
+__global__ void __launch_bounds__(kThreads)
+    dia_rows_strided_kernel(const T* __restrict__ vals, const T* x,
+                            T* __restrict__ y, const DiaOffsets offs, int R,
+                            int n_cols, long long vals_stride,
+                            long long x_stride) {
+  __shared__ int s_off[kMaxDiags];
+  for (int d = threadIdx.x; d < offs.n; d += blockDim.x) s_off[d] = offs.off[d];
+  __syncthreads();
+  const long long p = blockIdx.y;
+  vals += p * vals_stride;
+  x += p * x_stride;
+  y += p * R;
+  const int total = (R / VEC) * G;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool on = t < total;
+  const int i = (t / G) * VEC;
+  const int g = t % G;
+  T acc[VEC];
+  if (on) {
+    pat::rows_partial<T, VEC, G>(acc, vals, R, x, n_cols, s_off, offs.n, i, g);
+  } else {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = T(0);
   }
+  pat::reduce_lanes<T, VEC, G>(acc);  // every lane of the warp takes part
+  if (on && g == 0) pat::store(y + i, acc);
 }
 
 int blocks_for(long long work) {
@@ -125,19 +154,45 @@ int launch(const T* vals, const T* x, T* y, const int* offsets, int n_off,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int VEC, int G>
+int launch_rows(const T* vals, const T* x, T* y, const DiaOffsets& offs, int R,
+                int n_cols, int P, long long vals_stride, long long x_stride,
+                cudaStream_t stream) {
+  const int total = (R / VEC) * G;
+  if (total > 0 && P > 0) {
+    dia_rows_strided_kernel<T, VEC, G>
+        <<<dim3((total + kThreads - 1) / kThreads, P), kThreads, 0, stream>>>(
+            vals, x, y, offs, R, n_cols, vals_stride, x_stride);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_strided(const T* vals, const T* x, T* y, const int* offsets,
                    int n_off, long long R, long long n_cols, int P,
-                   long long vals_stride, long long x_stride,
+                   long long vals_stride, long long x_stride, int lanes,
                    cudaStream_t stream) {
+  constexpr int VEC = pat::kVecBytes / sizeof(T);
   DiaOffsets offs;
   if (!load_offsets(&offs, offsets, n_off)) return (int)cudaErrorInvalidValue;
-  if ((long long)P * R > 0) {
-    dia_spmv_strided_kernel<T>
-        <<<blocks_for((long long)P * R), kThreads, 0, stream>>>(
-            vals, x, y, offs, R, n_cols, P, vals_stride, x_stride);
+  if (R < 0 || n_cols < 0 || P < 0 || (long long)n_off * R > INT_MAX ||
+      n_cols > INT_MAX || R * lanes > INT_MAX || R % VEC != 0 ||
+      vals_stride % VEC != 0)
+    return (int)cudaErrorInvalidValue;
+#define PAT_K2_LANES(G)                                                      \
+  case G:                                                                    \
+    return launch_rows<T, VEC, G>(vals, x, y, offs, (int)R, (int)n_cols, P,  \
+                                  vals_stride, x_stride, stream);
+  switch (lanes) {
+    PAT_K2_LANES(1)
+    PAT_K2_LANES(2)
+    PAT_K2_LANES(4)
+    PAT_K2_LANES(8)
+    PAT_K2_LANES(16)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef PAT_K2_LANES
 }
 
 }  // namespace
@@ -161,19 +216,20 @@ int pat_dia_spmv_f64(const void* vals, const void* x, void* y,
 int pat_dia_spmv_strided_f32(const void* vals, const void* x, void* y,
                              const int* offsets, int n_off, long long R,
                              long long n_cols, int P, long long vals_stride,
-                             long long x_stride, void* stream) {
+                             long long x_stride, int lanes, void* stream) {
   return launch_strided<float>((const float*)vals, (const float*)x, (float*)y,
                                offsets, n_off, R, n_cols, P, vals_stride,
-                               x_stride, (cudaStream_t)stream);
+                               x_stride, lanes, (cudaStream_t)stream);
 }
 
 int pat_dia_spmv_strided_f64(const void* vals, const void* x, void* y,
                              const int* offsets, int n_off, long long R,
                              long long n_cols, int P, long long vals_stride,
-                             long long x_stride, void* stream) {
+                             long long x_stride, int lanes, void* stream) {
   return launch_strided<double>((const double*)vals, (const double*)x,
                                 (double*)y, offsets, n_off, R, n_cols, P,
-                                vals_stride, x_stride, (cudaStream_t)stream);
+                                vals_stride, x_stride, lanes,
+                                (cudaStream_t)stream);
 }
 
 }  // extern "C"

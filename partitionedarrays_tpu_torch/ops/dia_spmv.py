@@ -7,10 +7,16 @@ dia_spmv_pallas`` (the per-color SpMV of ``ColoredDIAGS.sweep_flat``): the
 same product over values and x whose parts lie at any stride, so that one
 color of the de-interleaved values is read in place.  The CUDA kernels are
 ``csrc/dia_spmv.cu``; its source note says what bounds them (device-memory
-bandwidth: one pass over the values plus x) and how the design meets that.
-``dia_spmv_plain`` (``ops/dia.py``) is the plain PyTorch version of both:
-the wrappers run it for CPU tensors, and the tests and ``chip_smoke.py``
-hold the kernels against it.
+bandwidth: one pass over the values plus x) and how each design meets
+that.  K1 is a row loop with one thread per row.  K2 runs the row engine
+that it shares with K3 (``csrc/dia_rows.cuh``): 16-byte value loads along
+the rows, a chunk of taps in flight per thread, a grid of (row tiles,
+parts), and ``lanes`` threads per row group where rows are few
+(``ops/dia_rows.py::row_lanes``).  A CUDA view that the engine's 16-byte
+loads cannot read raises (``ops/dia_rows.py::check_rows``).
+``dia_spmv_plain`` (``ops/dia.py``) is the
+plain PyTorch version of both: the wrappers run it for CPU tensors, and
+the tests and ``chip_smoke.py`` hold the kernels against it.
 
 K7 ``dia_spmv_df`` replaces ``partitionedarrays_tpu/ops/spmv_pallas.py::
 dia_spmv_pallas_flat_df``: the same product in df64 (two-float) arithmetic
@@ -26,6 +32,7 @@ same kernel.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Tuple
 
 import torch
@@ -33,6 +40,7 @@ import torch
 from .. import _build
 from .df64 import dia_spmv_df_plain
 from .dia import MAX_DIAGS, dia_spmv_plain
+from .dia_rows import TARGET_THREADS, check_rows, row_lanes, vec_of
 
 __all__ = ["dia_spmv", "dia_spmv_df", "dia_spmv_plain", "dia_spmv_strided"]
 
@@ -60,8 +68,14 @@ def _check(name, offsets, vals, x) -> bool:
     return True
 
 
-def _offsets_arg(offsets):
+@lru_cache(maxsize=None)
+def _offsets_c(offsets: Tuple[int, ...]):
     return (ctypes.c_int * max(len(offsets), 1))(*(int(o) for o in offsets))
+
+
+def _offsets_arg(offsets):
+    """The offsets as a C int array, built once per offsets tuple."""
+    return _offsets_c(tuple(offsets))
 
 
 def dia_spmv(offsets: Tuple[int, ...], vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +113,8 @@ def dia_spmv_strided(
     Returns a contiguous [P, R].
 
     A CPU tensor goes to ``dia_spmv_plain``; a CUDA tensor goes to the
-    kernel, or the call raises."""
+    kernel (R, the values' start and part stride in whole 16-byte steps),
+    or the call raises."""
     if not _check("dia_spmv_strided", offsets, vals, x):
         return dia_spmv_plain(offsets, vals, x)
     P, n_off, R = vals.shape
@@ -110,10 +125,12 @@ def dia_spmv_strided(
             "dia_spmv_strided: each part's values and x must be contiguous, got "
             f"strides {vals.stride()} and {x.stride()}"
         )
+    check_rows("dia_spmv_strided", R, (vals,))
     y = torch.empty((P, R), dtype=vals.dtype, device=vals.device)
+    lanes = row_lanes(P * (R // vec_of(vals.element_size())), n_off, TARGET_THREADS)
     code = _build.entry("pat_dia_spmv_strided", vals.dtype)(
         vals.data_ptr(), x.data_ptr(), y.data_ptr(), _offsets_arg(offsets), len(offsets),
-        R, x.shape[1], P, vals.stride(0), x.stride(0), _build.stream_of(vals),
+        R, x.shape[1], P, vals.stride(0), x.stride(0), lanes, _build.stream_of(vals),
     )
     dia_spmv_strided.launches += 1
     _build.check(code, "dia_spmv_strided")

@@ -9,29 +9,38 @@ unknowns of color ``c`` (rows ``m*i + c``) form row ``c`` of a
 - K4 ``ax_core`` replaces ``partitionedarrays_tpu/ops/gs_pallas.py::
   ax_core_pallas``: ``A_own_own @ x`` in the core layout.
 - K3 ``gs_sweeps`` replaces ``partitionedarrays_tpu/ops/gs_pallas.py::
-  gs_sweep_pallas``: a sequence of color updates, run as one kernel launch
-  per color step, in order.
+  gs_sweep_pallas``: a whole sequence of color updates (any number of
+  forward, backward or symmetric sweeps) in ONE launch, as the TPU runs
+  it.  Its output is a new core; from a zero guess (``xcore=None``) the
+  launch itself writes the zeros.
 
-The CUDA kernels are ``csrc/gs_dia.cu``; its source note says why one
-launch per color is race-free, what bounds the kernels (device-memory
-bandwidth: one pass over the values plus x) and how the design meets that.
-The TPU's padded flat buffer, aligned windows and scalar-prefetched color
-schedule do not carry over: the kernels read the core with masked loads.
+The CUDA kernels are ``csrc/gs_dia.cu``; its source note says why the
+sequence is race-free with a barrier between color steps, what bounds K3
+(device-memory bandwidth: each color's values once per step, plus x) and
+how its design meets that: a persistent cooperative launch with
+``grid.sync()`` between steps, over the row engine it shares with K2
+(``csrc/dia_rows.cuh``).  ``ops/dia_rows.py::sweep_plan`` picks the lanes
+per row group and the CTAs for each level.  The TPU's padded flat buffer,
+aligned windows and scalar-prefetched color schedule do not carry over:
+the kernels read the core with masked loads, and the color sequence travels
+as a device int array (``TapTable.steps_on``).
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from .. import _build
+from .dia_rows import SweepPlan, check_rows, sweep_plan
 
 _DTYPES = (torch.float32, torch.float64)
 
 
 class TapTable:
     """Per-color tap offsets into the flattened ``[m, Lq]`` core, with one
-    int32 copy per device for the kernels."""
+    int32 copy per device for the kernels, and the color sequences K3 has
+    run, as int32 step arrays per device."""
 
     def __init__(self, taps: Sequence[Sequence[int]]):
         self.host: Tuple[Tuple[int, ...], ...] = tuple(
@@ -40,12 +49,26 @@ class TapTable:
         self.m = len(self.host)
         self.n_off = len(self.host[0]) if self.host else 0
         self._dev: Dict[torch.device, torch.Tensor] = {}
+        self._steps: Dict[Tuple[Tuple[int, ...], torch.device], torch.Tensor] = {}
 
     def on(self, device: torch.device) -> torch.Tensor:
         t = self._dev.get(device)
         if t is None:
             t = torch.tensor(self.host, dtype=torch.int32, device=device)
             self._dev[device] = t
+        return t
+
+    def steps_on(self, order: Sequence[int], device: torch.device) -> torch.Tensor:
+        """The color sequence ``order`` as an int32 array on ``device``."""
+        order = tuple(int(c) for c in order)
+        key = (order, torch.device(device))
+        t = self._steps.get(key)
+        if t is None:
+            bad = [c for c in order if not 0 <= c < self.m]
+            if bad:
+                raise ValueError(f"colors {bad} outside [0, {self.m})")
+            t = torch.tensor(order, dtype=torch.int32, device=device)
+            self._steps[key] = t
         return t
 
     def margins(self, Lq: int) -> Tuple[int, int]:
@@ -146,28 +169,38 @@ def gs_sweeps(
     vals: torch.Tensor,
     bd: torch.Tensor,
     invd: torch.Tensor,
-    xcore: torch.Tensor,
+    xcore: Optional[torch.Tensor],
     tap: TapTable,
     order: Sequence[int],
+    _plan: Optional[SweepPlan] = None,
 ) -> torch.Tensor:
     """K3.  Runs the color steps of ``order`` on a copy of ``xcore``
-    [P, m, Lq] and returns it; vals [P, m, n_off, Lq], bd and invd
-    [P, m, Lq].  A CPU tensor goes to ``gs_sweeps_plain``; a CUDA tensor
-    goes to the kernel, one launch per color step, or the call raises."""
-    if not _check("gs_sweeps", vals, (bd, invd, xcore), tap):
-        return gs_sweeps_plain(vals, bd, invd, xcore, tap, order)
+    [P, m, Lq] (``None``: a zero guess) and returns it; vals
+    [P, m, n_off, Lq], bd and invd [P, m, Lq].  A CPU tensor goes to
+    ``gs_sweeps_plain``; a CUDA tensor goes to the kernel, one launch for
+    the whole sequence (Lq and every start in whole 16-byte steps), or the
+    call raises.  The launch's lanes and CTAs are
+    ``dia_rows.sweep_plan`` of the shape; ``_plan`` overrides them for
+    the GPU tests and ``chip_smoke.py``, which time and check every plan."""
+    cores = (bd, invd) if xcore is None else (bd, invd, xcore)
+    if not _check("gs_sweeps", vals, cores, tap):
+        start = torch.zeros_like(bd) if xcore is None else xcore
+        return gs_sweeps_plain(vals, bd, invd, start, tap, order)
     P, m, n_off, Lq = vals.shape
-    x = xcore.clone()
-    fn = _build.entry("pat_gs_color", vals.dtype)
-    tap_dev = tap.on(vals.device).data_ptr()
-    stream = _build.stream_of(vals)
-    for c in order:
-        code = fn(
-            vals.data_ptr(), bd.data_ptr(), invd.data_ptr(), x.data_ptr(),
-            tap_dev, int(c), P, m, n_off, Lq, stream,
-        )
-        gs_sweeps.launches += 1
-        _build.check(code, "gs_sweeps")
+    check_rows("gs_sweeps", Lq, (vals, *cores))
+    if m * n_off * Lq >= 2**31:
+        raise ValueError(f"gs_sweeps: a part's {m * n_off * Lq} values exceed int32 offsets")
+    plan = _plan or sweep_plan(P, m, n_off, Lq, vals.element_size())
+    x = torch.empty_like(bd)
+    code = _build.entry("pat_gs_sweeps", vals.dtype)(
+        vals.data_ptr(), bd.data_ptr(), invd.data_ptr(),
+        None if xcore is None else xcore.data_ptr(), x.data_ptr(),
+        tap.on(vals.device).data_ptr(), tap.steps_on(order, vals.device).data_ptr(),
+        len(order), int(xcore is None), plan.lanes, plan.width,
+        P, m, n_off, Lq, _build.stream_of(vals),
+    )
+    gs_sweeps.launches += 1
+    _build.check(code, "gs_sweeps")
     return x
 
 

@@ -153,10 +153,8 @@ class ColoredDIAGS:
         invd_d: torch.Tensor,
         order_seq: Sequence[int],
     ) -> torch.Tensor:
-        """Run the color sequence ``order_seq`` on the core (K3);
-        ``xcore=None`` means a zero initial guess."""
-        if xcore is None:
-            xcore = self.zeros_core(bd.shape[0], bd.dtype, bd.device)
+        """Run the color sequence ``order_seq`` on the core (K3, one
+        launch); ``xcore=None`` means a zero initial guess."""
         return gs_sweeps(vals_d, bd, invd_d, xcore, self.taps, tuple(int(c) for c in order_seq))
 
     def sweep_flat(

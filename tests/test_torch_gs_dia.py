@@ -138,3 +138,93 @@ def test_sweep_order_matters(state):
     seq = col.sweeps_core(x0, bd, col.vals_d, col.invd_d, tuple(range(col.m)))
     jacobi = x0 + (bd - col.ax_core(x0, col.vals_d)) * col.invd_d
     assert (seq - jacobi).abs().max() > 1e-2 * seq.abs().max()
+
+
+# -- K3's host-side planning (ops/dia_rows.py, TapTable.steps_on) ---------
+
+
+@pytest.mark.parametrize("sweep", ["forward", "backward", "symmetric"])
+@pytest.mark.parametrize("iterations", [1, 2])
+def test_step_array_equals_order_seq(sweep, iterations):
+    """The int32 step array K3 reads is the smoother's color sequence,
+    built once per order and device."""
+    A, _ = build_hpcg_problem((8, 8, 8), (1, 1, 1), SerialBackend(1), device="cpu")
+    gs = GaussSeidel(A, iterations=iterations, sweep=sweep)
+    order = gs._order_seq()
+    steps = gs.colored.taps.steps_on(order, torch.device("cpu"))
+    assert steps.dtype == torch.int32
+    assert steps.tolist() == list(order)
+    assert len(order) == iterations * gs.colored.m * (2 if sweep == "symmetric" else 1)
+    assert gs.colored.taps.steps_on(list(order), "cpu") is steps
+    with pytest.raises(ValueError):
+        gs.colored.taps.steps_on((0, gs.colored.m), "cpu")
+
+
+# (P, m, n_off, Lq, itemsize) of the levels the paths run, and the lanes
+# the rule of ops/dia_rows.py gives them: one lane where rows are many
+# (the HPCG fine level), up to 16 where rows are few and taps many
+PLAN_CASES = [
+    ((1, 9, 27, 245760, 4), 1),  # 128^3 fine, float32
+    ((1, 9, 27, 245760, 8), 1),  # 128^3 fine, float64
+    ((1, 11, 27, 24576, 4), 4),  # 64^3
+    ((1, 11, 27, 24576, 8), 2),
+    ((1, 9, 27, 4096, 4), 16),  # 32^3
+    ((1, 9, 27, 1024, 8), 16),  # 16^3
+    ((8, 11, 27, 24576, 4), 1),  # (2,2,2) x 64^3
+    ((1, 27, 99, 7168, 4), 16),  # 40^3 elasticity fine
+    ((1, 27, 99, 7168, 8), 8),
+    ((1, 10, 2, 1024, 4), 2),  # lanes never exceed the taps
+]
+
+
+@pytest.mark.parametrize("shape, lanes", PLAN_CASES, ids=[str(c[0]) for c in PLAN_CASES])
+def test_sweep_plan_per_level(shape, lanes):
+    from partitionedarrays_tpu_torch.ops.dia_rows import (
+        TARGET_THREADS, THREADS, row_lanes, sweep_plan, vec_of,
+    )
+
+    P, m, n_off, Lq, itemsize = shape
+    plan = sweep_plan(*shape)
+    assert plan.lanes == lanes
+    groups = Lq // vec_of(itemsize)
+    # one pass over a step, and the smallest lane count that reaches the
+    # target unless the taps or the sector width stop it first
+    assert plan.width * THREADS >= groups * plan.lanes > (plan.width - 1) * THREADS
+    assert plan.lanes == 16 or 2 * plan.lanes > n_off or P * groups * plan.lanes >= TARGET_THREADS
+    assert plan.lanes == 1 or P * groups * plan.lanes // 2 < TARGET_THREADS
+    assert row_lanes(P * groups, n_off, TARGET_THREADS) == plan.lanes
+
+
+@pytest.mark.parametrize("sweep", ["forward", "symmetric"])
+def test_zero_guess_entry_matches_plain_on_zero_core(state, sweep):
+    """``gs_sweeps(..., xcore=None)`` (and ``sweeps_core(None, ...)``) is
+    the plain sweep from a zero core, bit for bit on the CPU."""
+    from partitionedarrays_tpu_torch.ops.gs_dia_kernels import gs_sweeps, gs_sweeps_plain
+
+    dtype, _, col, _, _ = state
+    rng = np.random.default_rng(14)
+    bd = torch.from_numpy(rng.standard_normal((1, col.m, col.Lq)).astype(dtype))
+    fwd = tuple(range(col.m))
+    order = fwd if sweep == "forward" else fwd + fwd[::-1]
+    want = gs_sweeps_plain(col.vals_d, bd, col.invd_d, torch.zeros_like(bd), col.taps, order)
+    got = gs_sweeps(col.vals_d, bd, col.invd_d, None, col.taps, order)
+    assert torch.equal(got, want)
+    assert torch.equal(col.sweeps_core(None, bd, col.vals_d, col.invd_d, order), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_row_engine_refuses_what_its_16_byte_loads_cannot_read(dtype):
+    """``check_rows``, the one operand policy of K2 and K3: rows, starts and
+    part strides in whole 16-byte steps pass; anything else raises."""
+    from partitionedarrays_tpu_torch.ops.dia_rows import check_rows, vec_of
+
+    vec = vec_of(torch.empty((), dtype=dtype).element_size())
+    vals = torch.zeros(2, 3, 5, 8 * vec, dtype=dtype)
+    check_rows("k", 8 * vec, (vals, vals[:, 1]))  # a color view: part stride 15 rows
+    buf = torch.zeros(vals.numel() + 1, dtype=dtype)
+    with pytest.raises(ValueError):
+        check_rows("k", 8 * vec, (buf[1:].view(vals.shape),))  # start off by 1 element
+    with pytest.raises(ValueError):
+        check_rows("k", 8 * vec + 1, (vals,))  # rows not whole 16-byte steps
+    with pytest.raises(ValueError):
+        check_rows("k", 8 * vec, (buf[: 2 * (8 * vec + 1)].view(2, 8 * vec + 1)[:, 1:],))

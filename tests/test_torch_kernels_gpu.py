@@ -1,15 +1,19 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 ``dia_spmv``, K4 ``ax_core`` and K3 ``gs_sweeps`` run on CUDA tensors of
-the 32^3 HPCG operator, K5 ``ghost_spmv`` and K2 ``dia_spmv_strided`` on
-those of the (2,2,2) x 16^3 one, and are compared with their plain versions
-on the same tensors.  Tolerance: rtol 1e-5 in float32 and 1e-12 in float64,
-relative to the largest plain entry, since only FMA contraction and the
-order of the sums differ.  K7 ``dia_spmv_df`` runs on the (hi, lo) float32
-pair of the float64 operator at both shapes and is held to 1e-13 of
-``sum_j |A_ij| |x_j|`` per row (the bound of ``tests/test_df64.py``); the
-kernel and its plain version round every operation alike, so they are
-expected to agree exactly.  K1 also runs at the 99 diagonals of the 3-D
+the 32^3 HPCG operator, K5 ``ghost_spmv`` and K2 ``dia_spmv_strided`` (every
+color; a view that is not 16-byte aligned raises) on those of the (2,2,2) x
+16^3 one, and are compared with their plain versions on the same tensors.
+K3 runs each whole color sequence in one launch; it is also held at 27
+colors and 99 diagonals (7^3-node elasticity), on a small coarse level
+(8^3), and at every lane count: forward, backward, symmetric and twice
+symmetric, from a guess and from a zero guess.  Tolerance: rtol 1e-5 in
+float32 and 1e-12 in float64, relative to the largest plain entry, since
+only FMA contraction and the order of the sums differ.  K7 ``dia_spmv_df``
+runs on the (hi, lo) float32 pair of the float64 operator at both shapes
+and is held to 1e-13 of ``sum_j |A_ij| |x_j|`` per row (the bound of
+``tests/test_df64.py``); the kernel and its plain version round every
+operation alike, so they are expected to agree exactly.  K1 also runs at the 99 diagonals of the 3-D
 elasticity block (6^3 nodes, COO assembly), and K6 ``tile_gs_sweeps`` on
 the tile smoother of an elasticity AMG level 1 and of a banded operator
 (forward, backward and symmetric, from a zero and a nonzero guess), at the
@@ -28,9 +32,11 @@ from partitionedarrays_tpu_torch.backends import SerialBackend
 from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
 from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
 from partitionedarrays_tpu_torch.ops import df64 as df
+from partitionedarrays_tpu_torch.ops.dia_rows import SweepPlan, sweep_plan
 from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_df, dia_spmv_strided
 from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv, ghost_spmv_plain
 from partitionedarrays_tpu_torch.ops.gs_dia_kernels import (
+    TapTable,
     ax_core,
     ax_core_plain,
     gs_sweeps,
@@ -98,7 +104,7 @@ def test_gs_sweeps_kernel_matches_plain(cuda, dtype):
     order = gs._order_seq()
     before = gs_sweeps.launches
     got = gs_sweeps(col.vals_d, bd, col.invd_d, x, col.taps, order)
-    assert gs_sweeps.launches == before + len(order)  # one launch per color step
+    assert gs_sweeps.launches == before + 1  # one launch per color sequence
     _assert_close(got, gs_sweeps_plain(col.vals_d, bd, col.invd_d, x, col.taps, order), dtype)
 
 
@@ -108,6 +114,79 @@ def test_cuda_tensor_of_another_dtype_raises(cuda):
     x = torch.zeros(1, col.m, col.Lq, dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError):
         ax_core(col.vals_d, x, col.taps)
+
+
+def _orders(m):
+    fwd = tuple(range(m))
+    return {"forward": fwd, "backward": fwd[::-1], "symmetric": fwd + fwd[::-1],
+            "symmetric x2": 2 * (fwd + fwd[::-1])}
+
+
+def _hold_sweeps(col, dtype, device, seed, plans=(None,)):
+    """K3 against its plain version: every order of ``_orders``, from a
+    random guess and from a zero guess (plain: on a zero core), one launch
+    per call, under each plan."""
+    g = torch.Generator().manual_seed(seed)
+    P = col.vals_d.shape[0]
+    x = torch.randn(P, col.m, col.Lq, generator=g, dtype=dtype).to(device)
+    bd = torch.randn(P, col.m, col.Lq, generator=g, dtype=dtype).to(device)
+    for order in _orders(col.m).values():
+        for start in (x, None):
+            want = gs_sweeps_plain(col.vals_d, bd, col.invd_d,
+                                   torch.zeros_like(x) if start is None else start, col.taps, order)
+            for plan in plans:
+                before = gs_sweeps.launches
+                got = gs_sweeps(col.vals_d, bd, col.invd_d, start, col.taps, order, _plan=plan)
+                assert gs_sweeps.launches == before + 1
+                _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gs_sweeps_kernel_at_27_colors_99_diagonals(cuda, dtype):
+    gs = GaussSeidel(_elasticity(cuda, dtype, (7, 7, 7)))
+    col = gs.colored
+    assert (col.m, len(col.offsets)) == (27, 99)
+    _hold_sweeps(col, dtype, cuda, 21)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gs_sweeps_kernel_on_a_small_coarse_level(cuda, dtype):
+    """8^3 on one part (m = 10): 1,024 rows per color, 16 lanes a row group."""
+    A, _ = build_hpcg_problem((8, 8, 8), (1, 1, 1), SerialBackend(1), dtype=dtype, device=cuda)
+    col = GaussSeidel(A).colored
+    assert sweep_plan(1, col.m, 27, col.Lq, col.vals_d.element_size()).lanes == 16
+    _hold_sweeps(col, dtype, cuda, 22)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gs_sweeps_kernel_every_lane_count(cuda, dtype):
+    """Every lane count, with one CTA per part and with many, on the 16^3
+    level of (2,2,2) parts (8 parts) and on the 32^3 operator of one part."""
+    for shape, parts in (((16, 16, 16), (2, 2, 2)), ((32, 32, 32), (1, 1, 1))):
+        P = parts[0] * parts[1] * parts[2]
+        A, _ = build_hpcg_problem(shape, parts, SerialBackend(P), dtype=dtype, device=cuda)
+        col = GaussSeidel(A).colored
+        plans = [SweepPlan(lanes, width) for lanes in (1, 2, 4, 8, 16) for width in (1, 64)]
+        _hold_sweeps(col, dtype, cuda, 23, plans)
+
+
+def test_gs_sweeps_refused_launch_raises(cuda):
+    """A launch the kernel cannot take (a tap table over its 48 KB of
+    shared memory: 128 colors x 99 taps) is refused and the wrapper raises
+    (no per-color fallback); the next launch runs."""
+    m, n_off, Lq = 128, 99, 4
+    taps = TapTable([[0] * n_off for _ in range(m)])
+    vals = torch.zeros(1, m, n_off, Lq, device=cuda)
+    bd = torch.zeros(1, m, Lq, device=cuda)
+    with pytest.raises(RuntimeError):
+        gs_sweeps(vals, bd, torch.zeros_like(bd), None, taps, (0,))
+    _, b, gs = _operator(cuda, torch.float64)
+    col = gs.colored
+    bd = gs.make_bd(b)
+    order = gs._order_seq()
+    got = gs_sweeps(col.vals_d, bd, col.invd_d, None, col.taps, order)
+    _assert_close(got, gs_sweeps_plain(col.vals_d, bd, col.invd_d, torch.zeros_like(bd),
+                                       col.taps, order), torch.float64)
 
 
 def _ghosted(device, dtype):
@@ -140,6 +219,22 @@ def test_dia_spmv_strided_kernel_matches_plain(cuda, dtype):
         got = dia_spmv_strided(col.taps.host[c], col.vals_d[:, c], core)
         assert dia_spmv_strided.launches == before + 1
         _assert_close(got, dia_spmv_plain(col.taps.host[c], col.vals_d[:, c], core), dtype)
+    # copies that start 1 element into their storage are not 16-byte
+    # aligned: the row engine refuses them in K2 and in K3 (no scalar form)
+    launches = dia_spmv_strided.launches, gs_sweeps.launches
+    with pytest.raises(ValueError):
+        dia_spmv_strided(col.taps.host[1], _misaligned(col.vals_d[:, 1]), core)
+    with pytest.raises(ValueError):
+        gs_sweeps(col.vals_d, _misaligned(col.invd_d), col.invd_d, None, col.taps, (0,))
+    assert (dia_spmv_strided.launches, gs_sweeps.launches) == launches
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 1 element into its storage."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
