@@ -16,7 +16,9 @@ Phases, one output line each:
    the time of each (CUDA events), its bound (the larger of its bytes over
    the card's memory rate and its operations over its float32 rate) and,
    for K1, K2, K4 and K5, the time of the same product as one
-   ``torch.sparse`` CSR call; then K7 dia_spmv_df (df64 pairs) at both fine
+   ``torch.sparse`` CSR call (K2 and K5 also with the L2 flushed before
+   each call, K5 under every warps-per-group count); then K7 dia_spmv_df
+   (df64 pairs) at both fine
    shapes, held to 1e-13 of sum |A||x| per row against its plain version
    and, with it, against K1 in float64 on the same values; then K3 (one
    launch per color sequence) on every level of the one-part 128^3
@@ -55,10 +57,18 @@ Phases, one output line each:
       iterations) and 40^3 nodes (192,000 rows) in float32 and float64;
       host seconds of assembly and setup, the hierarchy, iterations, the
       true float64 residual and the solve time (CUDA events), and at 40^3
-      a profiled solve with K3's share of its device time; then K6, K1 (99
-      diagonals) and K3 (27 colors, 99 diagonals, as in phase 3) against
-      their plain versions on the 40^3 hierarchy's operators, and K6 on the
-      forced tile tier of the 20^3 elasticity block;
+      a profiled solve with K3's, K6's and K5's shares of its device time;
+      then, on the 40^3 hierarchy's operators: K6 (one launch per sweep
+      sequence) on levels 1 and 2, forward, backward and symmetric from a
+      zero and a nonzero guess, and its symmetric sweep timed (CUDA events,
+      device time, plain version, bound, launches of 0 and 1 wave step,
+      and with x read from L2 instead of shared memory); K5 on every
+      compressed-row block of the V-cycle (P_l, P_l^T, A_l), with the L2
+      flushed before each call, beside its bound, the ``torch.sparse``
+      CSR ``addmv`` of the same matrix and its time under every
+      warps-per-group count; K1 (99 diagonals) and K3 (27 colors, 99
+      diagonals, as in phase 3); and K6 on the forced tile tier of the 20^3
+      elasticity block;
 5. the launch counts of each path, each kernel of a path required > 0;
 6. the whole port on the card against the whole port on the CPU (plain
    versions), float64, residual histories to rtol 1e-10: 32^3 on one part
@@ -506,14 +516,18 @@ def phase_kernels(device):
         # K5 accumulates into y: compared on copies of y0, timed in place
         y_t = y0.clone()
         _hold(results, "ghost_spmv", name,
-              lambda: ghost_spmv(oh.rows, oh.cols, oh.vals, g_vals, y0.clone()),
+              lambda: ghost_spmv(oh.rows, oh.cols, oh.vals, g_vals, y0.clone(), oh.plan),
               lambda: ghost_spmv_plain(oh.rows, oh.cols, oh.vals, g_vals, y0.clone()),
-              timed=(lambda: ghost_spmv(oh.rows, oh.cols, oh.vals, g_vals, y_t),
+              timed=(lambda: ghost_spmv(oh.rows, oh.cols, oh.vals, g_vals, y_t, oh.plan),
                      lambda: ghost_spmv_plain(oh.rows, oh.cols, oh.vals, g_vals, y_t)),
               library=lib.get("ghost_spmv"),
               # rows, lanes, ghost values once; each live row of y read and written
               work=(4 * (oh.rows.numel() + 2 * oh.cols.numel() + g_vals.numel() + 2 * n_live),
-                    2 * int((oh.cols >= 0).sum())) if f32 else None)
+                    2 * int((oh.cols >= 0).sum())) if f32 else None,
+              # on the path it runs between other kernels: its operands arrive cold
+              flushed=True)
+        results[-1].update(where="own-ghost block, (2,2,2)x64^3", lanes=oh.plan.lanes,
+                           every_g_ms_flushed=_every_g(oh, g_vals, y_t))
         _hold(results, "dia_spmv_strided", name,
               lambda: dia_spmv_strided(taps, vals_c, core),
               lambda: dia_spmv_plain(taps, vals_c, core),
@@ -873,12 +887,13 @@ def phase_hpcg_ghosted(device):
     return out
 
 
-def _profile_set(run_set, top: int = 0, kernel: str = "gs_seq") -> dict:
+def _profile_set(run_set, top: int = 0, kernels=("gs_seq",)) -> dict:
     """Device events (kernels, memsets, copies) and device time of one
     warm call of ``run_set``, from torch.profiler, beside its wall time;
     with ``top``, the ``top`` device ops by device time (name, count, ms);
-    and the launches, device ms and share of the device time of the
-    kernels whose name holds ``kernel`` (K3's by default)."""
+    and for each name of ``kernels`` (K3's by default) the launches,
+    device ms and share of the device time of the kernels whose name holds
+    it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -895,10 +910,11 @@ def _profile_set(run_set, top: int = 0, kernel: str = "gs_seq") -> dict:
         "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
         "profiled_wall_ms": wall * 1e3,
     }
-    mine = [e for e in events if kernel in e.key]
-    mine_ms = sum(e.self_device_time_total for e in mine) / 1e3
-    out[kernel] = {"launches": sum(e.count for e in mine), "ms": mine_ms,
-                   "share": mine_ms / out["device_ms"] if out["device_ms"] else None}
+    for kernel in kernels:
+        mine = [e for e in events if kernel in e.key]
+        mine_ms = sum(e.self_device_time_total for e in mine) / 1e3
+        out[kernel] = {"launches": sum(e.count for e in mine), "ms": mine_ms,
+                       "share": mine_ms / out["device_ms"] if out["device_ms"] else None}
     if top:
         events.sort(key=lambda e: -e.self_device_time_total)
         out["top"] = [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in events[:top]]
@@ -1026,10 +1042,13 @@ def _tile_work(tg, dirs, itemsize):
     return nbytes, ops
 
 
-def _hold_tile(results, where, tg, dtype_name, g, device, timed):
+def _hold_tile(results, where, tg, dtype_name, g, device):
     """K6 against its plain version on one tile smoother: forward, backward
-    and symmetric, from a zero and a nonzero guess; with ``timed`` the
-    symmetric sweep from a nonzero guess (the post-smoothing) is timed."""
+    and symmetric, from a zero and a nonzero guess, one launch per call;
+    then the symmetric sweep from a nonzero guess (the post-smoothing)
+    timed: CUDA events, device time (profiler), the plain version, the
+    bound, the device time of a launch of no wave step and of one, and
+    the device time with x read from L2 instead of shared memory."""
     import torch
 
     from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps, tile_gs_sweeps_plain
@@ -1041,7 +1060,12 @@ def _hold_tile(results, where, tg, dtype_name, g, device, timed):
     for dirs in (("f",), ("b",), ("f", "b")):
         for zero in (True, False):
             start = torch.zeros_like(x0) if zero else x0
-            got = tile_gs_sweeps(*tg.operands(), start.clone(), b, dirs, zero_guess=zero)
+            before = tile_gs_sweeps.launches
+            got = tile_gs_sweeps(*tg.operands(), start.clone(), b, dirs, zero_guess=zero,
+                                 tile_lanes=tg.tile_lanes)
+            if tile_gs_sweeps.launches != before + 1:
+                raise AssertionError(f"tile_gs_sweeps {where}: {tile_gs_sweeps.launches - before} "
+                                     "launches for one call")
             torch.cuda.synchronize()
             want = tile_gs_sweeps_plain(*tg.operands(), start.clone(), b, dirs, zero_guess=zero)
             err = (got - want).abs().max().item()
@@ -1049,20 +1073,114 @@ def _hold_tile(results, where, tg, dtype_name, g, device, timed):
             if not rel <= KERNEL_RTOL[dtype_name]:
                 raise AssertionError(f"tile_gs_sweeps {where} {dtype_name} {dirs} zero={zero}: {rel}")
             worst = max(worst, (rel, err))
-    row = {"kernel": "tile_gs_sweeps", "dtype": dtype_name, "where": where,
-           "tiles": tg.n_real_tiles, "W": tg.W, "B": tg.B, "max_abs_err": worst[1],
-           "max_rel_err": worst[0], "tol_rel": KERNEL_RTOL[dtype_name]}
-    if timed:
-        x_t = x0.clone()
-        row.update(
-            ms=time_ms(lambda: tile_gs_sweeps(*tg.operands(), x_t, b, ("f", "b")), 20),
-            plain_ms=time_ms(lambda: tile_gs_sweeps_plain(*tg.operands(), x_t, b, ("f", "b")), 3),
-            library_ms=None,
-        )
-        work = _tile_work(tg, ("f", "b"), x0.element_size())
-        b_ms, b_by = bound(*work)
-        row.update(bytes=work[0], ops=work[1], bound_ms=b_ms, bound_by=b_by)
-    results.append(row)
+    x_t = x0.clone()
+
+    def sweep(**kw):
+        return lambda: tile_gs_sweeps(*tg.operands(), x_t, b, ("f", "b"), tile_lanes=tg.tile_lanes,
+                                      **kw)
+
+    work = _tile_work(tg, ("f", "b"), x0.element_size())
+    b_ms, b_by = bound(*work, F32_FLOPS_PER_S if dtype_name == "float32" else F64_FLOPS_PER_S)
+    dev_ms = device_ms(sweep(), 20)
+    results.append({
+        "kernel": "tile_gs_sweeps", "dtype": dtype_name, "where": where,
+        "tiles": tg.n_real_tiles, "W": tg.W, "B": tg.B, "K_off": tg.cols.shape[1],
+        "launches_per_call": 1, "max_abs_err": worst[1], "max_rel_err": worst[0],
+        "tol_rel": KERNEL_RTOL[dtype_name],
+        "ms": time_ms(sweep(), 20), "device_ms": dev_ms,
+        "plain_ms": time_ms(lambda: tile_gs_sweeps_plain(*tg.operands(), x_t, b, ("f", "b")), 3),
+        "library_ms": None, "bytes": work[0], "ops": work[1], "bound_ms": b_ms, "bound_by": b_by,
+        # a launch of no wave step and of one beside the whole sequence
+        "steps_device_ms": [[n, device_ms(sweep(_n_steps=n), 20)] for n in (0, 1)]
+        + [[2 * tg.W, dev_ms]],
+        "x_in_l2_device_ms": device_ms(sweep(_x_in_smem=False), 20),
+    })
+
+
+def _every_g(blk, x, y):
+    """K5's time (L2 flushed before each call) on block ``blk`` under every
+    warps-per-group count, accumulating into ``y``: [[G, ms], ...]."""
+    from partitionedarrays_tpu_torch.ops.ell_rows import LANES_MAX
+    from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv
+
+    out = []
+    G = 1
+    while G <= LANES_MAX:
+        plan = blk.plan._replace(lanes=G)
+        out.append([G, flushed_ms(lambda: ghost_spmv(blk.rows, blk.cols, blk.vals, x, y, plan), 20)])
+        G *= 2
+    return out
+
+
+def _hold_k5_blocks(results, where, blocks, dtype_name, g, device):
+    """K5 against its plain version on the compressed-row blocks ``blocks``
+    ((name, DeviceBlock) pairs: the AMG path's P, P^T and coarse A),
+    accumulating into y: the largest difference, the kernel's and the
+    ``torch.sparse`` CSR ``addmv``'s times with the L2 flushed before each
+    call, the device time, the bound (each live lane's value and column,
+    x, and each live row of y read and written, once), the warps per group
+    the rule picks, and the time under every count."""
+    import torch
+
+    from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv, ghost_spmv_plain
+
+    dtype = getattr(torch, dtype_name)
+    for name, blk in blocks:
+        P, K, Nr = blk.cols.shape
+        R, n_cols = blk.n_rows, blk.n_cols_pad
+        x = torch.randn(P, n_cols, generator=g, dtype=dtype).to(device)
+        y0 = torch.randn(P, R, generator=g, dtype=dtype).to(device)
+        got = ghost_spmv(blk.rows, blk.cols, blk.vals, x, y0.clone(), blk.plan)
+        torch.cuda.synchronize()
+        want = ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, y0.clone())
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        tol = KERNEL_RTOL[dtype_name] * scale
+        if not err <= tol:
+            raise AssertionError(f"ghost_spmv {name} of {where} {dtype_name}: {err} > {tol}")
+        live = blk.cols >= 0
+        nnz = int(live.sum())
+        n_live = int((blk.rows >= 0).sum())
+        part = torch.arange(P, device=device).view(P, 1, 1)
+        lib = _library(_csr((part * R + blk.rows.unsqueeze(1)).expand(P, K, Nr)[live],
+                            (part * n_cols + blk.cols)[live], blk.vals[live], (P * R, P * n_cols)),
+                       x, y0)
+        lib_err = (lib().reshape(want.shape) - want).abs().max().item()
+        if not lib_err <= tol:
+            raise AssertionError(f"ghost_spmv {name} of {where}: the library call differs by {lib_err}")
+        itemsize = x.element_size()
+        nbytes = itemsize * (nnz + P * n_cols + 2 * n_live) + 4 * (nnz + n_live)
+        b_ms, b_by = bound(nbytes, 2 * nnz,
+                           F32_FLOPS_PER_S if dtype_name == "float32" else F64_FLOPS_PER_S)
+        y_t = y0.clone()
+        kernel = lambda: ghost_spmv(blk.rows, blk.cols, blk.vals, x, y_t, blk.plan)  # noqa: E731
+        results.append({
+            "kernel": "ghost_spmv", "dtype": dtype_name, "where": f"{name} of {where}",
+            "P": P, "rows": Nr, "K": K, "nnz": nnz, "mean_lanes": nnz / max(n_live, 1),
+            "groups": blk.plan.group_lanes.numel(),
+            "mean_group_lanes": blk.plan.group_lanes.double().mean().item(),
+            "lanes": blk.plan.lanes, "max_abs_err": err, "max_rel_err": err / scale,
+            "tol_rel": KERNEL_RTOL[dtype_name],
+            "ms_flushed": flushed_ms(kernel, 20), "device_ms": device_ms(kernel, 20),
+            "plain_ms": time_ms(lambda: ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, y_t), 3),
+            "library_ms_flushed": flushed_ms(lib, 20), "library_max_abs_err": lib_err,
+            "bytes": nbytes, "ops": 2 * nnz, "bound_ms": b_ms, "bound_by": b_by,
+            "every_g_ms_flushed": _every_g(blk, x, y_t),
+        })
+
+
+def _amg_blocks(M):
+    """The compressed-row blocks K5 runs in the V-cycle: P_l and P_l^T of
+    every level but the coarsest, and the operators A_l (0 < l) whose
+    residual the cycle takes."""
+    out = []
+    for l, lev in enumerate(M.levels):
+        if lev.P is None:
+            continue
+        if l > 0:
+            out.append((f"A{l}", lev.A.device().oo))
+        out += [(f"P{l}", lev.P.device().oo), (f"P{l}^T", lev.P.device_transpose())]
+    return [(n, b) for n, b in out if b.kind == "ell"]
 
 
 def phase_amg_elasticity(device, counters):
@@ -1121,7 +1239,8 @@ def phase_amg_elasticity(device, counters):
             solves.append((start.elapsed_time(end) / 1e3, info.iterations, counts))
         prof = None
         if nodes == AMG_KERNEL_NODES:  # where the device time of a solve goes
-            prof = _profile_set(lambda: cg(A, b, M=M, rtol=AMG_RTOL, maxiter=AMG_MAXITER), top=8)
+            prof = _profile_set(lambda: cg(A, b, M=M, rtol=AMG_RTOL, maxiter=AMG_MAXITER), top=8,
+                                kernels=("gs_seq_grid", "tile_sweeps", "ghost_spmv"))
         G = to_global_scipy(A).astype(np.float64)
         n = A.shape[0]
         b64 = b.own[0, :n].double().cpu().numpy()
@@ -1143,11 +1262,13 @@ def phase_amg_elasticity(device, counters):
         if solves[-1][2]["tile_gs_sweeps"] <= 0:
             failures.append(f"{key}: K6 did not launch in the solve")
         if nodes == AMG_KERNEL_NODES:
-            # K6 on every tile level, K1 on the 99-diagonal fine operator
+            # K6 on every tile level, K5 on every compressed-row block, K1
+            # on the 99-diagonal fine operator
             for l, lev in enumerate(M.levels):
                 if lev.smoother is not None and lev.smoother.tile_gs is not None:
                     _hold_tile(results, f"level {l} of {nodes[0]}^3", lev.smoother.tile_gs,
-                               dtype, g, device, timed=(l == 1))
+                               dtype, g, device)
+            _hold_k5_blocks(results, f"{nodes[0]}^3", _amg_blocks(M), dtype, g, device)
             oo = A.device().oo
             xs = torch.randn(1, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
             _hold(results, "dia_spmv", dtype, lambda: dia_spmv(oo.offsets, oo.vals, xs),
@@ -1163,9 +1284,9 @@ def phase_amg_elasticity(device, counters):
         I, J, V, rows, cols = linear_elasticity_fem(FORCED_TILE_NODES, (1, 1, 1), dtype=getattr(np, dtype))
         A = psparse(I, J, V, rows, cols, SerialBackend(1), device=device)
         _hold_tile(results, f"forced, {FORCED_TILE_NODES[0]}^3 fine level", NaturalTileGS.build(A),
-                   dtype, g, device, timed=True)
+                   dtype, g, device)
         del A
-    emit("4d kernels K6, K1, K3", results)
+    emit("4d kernels K6, K5, K1, K3", results)
     if failures:
         raise AssertionError("; ".join(failures))
     return path_launches, results
@@ -1293,9 +1414,10 @@ def main() -> int:
     phase_cross(device)
 
     # one row per kernel: its float32 measurement (K7: df64 at the 128^3
-    # one-part shape; K6: level 1 of the 40^3 elasticity hierarchy; K2 and
-    # its library call with the L2 flushed before each call), its launches
-    # over the four paths' runs
+    # one-part shape; K6: a symmetric sweep of level 1 of the 40^3
+    # elasticity hierarchy; K2, K5 and their library calls with the L2
+    # flushed before each call), its launches over the four paths' runs
+    # (calls of the kernel's C entry: K3 and K6 one per sweep sequence)
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         r = next(r for r in kernel_results

@@ -48,8 +48,11 @@ _SIGNATURES = {
         _VP, _VP, _VP, ctypes.POINTER(_INT), _INT, _I64, _I64, _INT, _I64, _I64,
         _INT, _VP,
     ],
-    # rows, cols, vals, x, y, Nr, K, n_cols, R, P, stream
-    "pat_ghost_spmv": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _I64, _I64, _INT, _VP],
+    # rows, cols, vals, group lanes, x, y, Nr, K, n_cols, R, P, warps per
+    # row group, stream
+    "pat_ghost_spmv": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _I64, _I64, _INT, _INT, _VP,
+    ],
     # vals, x, out, tap (device int [m, n_off]), P, m, n_off, Lq, stream
     "pat_ax_core": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _I64, _VP],
     # vals, bd, invd, x_in (NULL from a zero guess), x, tap (device int
@@ -64,11 +67,12 @@ _SIGNATURES = {
     "pat_dia_spmv_df": [
         _VP, _VP, _VP, _VP, _VP, _VP, ctypes.POINTER(_INT), _INT, _I64, _I64, _INT, _VP,
     ],
-    # pack, rows, cols, vals, tile_ptr, wave_tiles, b, x, w, dir, zero_old,
-    # nt, B, W, Nr, K, Rp, P, stream
-    "pat_tile_gs_wave": [
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-        _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _VP,
+    # pack, rows, cols, vals, tile_ptr, tile_lanes, wave_tiles, steps
+    # (device int [n_steps]), b, x, n_steps, nt, B, W, Nr, K, P, x in
+    # shared memory (1, 0, -1: where it fits), stream
+    "pat_tile_gs_sweeps": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP,
     ],
 }
 DTYPE_SUFFIX = {"float32": "f32", "float64": "f64"}

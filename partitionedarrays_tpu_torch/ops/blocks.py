@@ -8,7 +8,9 @@ freezes into one of two kinds:
   SpMV is kernel K1.  The reference's segment-major ``vflat`` copy existed
   only to avoid TPU sublane padding and does not carry over.
 - "ell": any other block, as a compressed-row ELL that keeps only the rows
-  with nonzeros (``stack_rows``); the SpMV is kernel K5.  The reference
+  with nonzeros (``stack_rows``); the SpMV is kernel K5, whose launch plan
+  (``ops/ell_rows.py``) is computed once at the freeze and kept with the
+  block.  The reference
   stores a padded ``[P, R, K]`` ELL plus the TPU slot format; neither is
   mirrored (``ops/ghost_spmv.py``).
 
@@ -26,18 +28,19 @@ import torch
 from . import df64 as df
 from .dia import MAX_DIAGS, dia_viable, stack_dia
 from .dia_spmv import dia_spmv, dia_spmv_df
+from .ell_rows import EllPlan, plan_of
 from .ghost_spmv import ghost_spmv
 
 
 class DeviceBlock:
     """kind "dia": ``vals[P, n_off, R]`` on static ``offsets``; kind "ell":
     ``rows[P, Nr]``, ``cols[P, K, Nr]``, ``vals[P, K, Nr]`` of the rows with
-    nonzeros.  The block has ``n_rows`` (padded) rows and ``n_cols_pad``
-    columns."""
+    nonzeros and K5's ``plan``.  The block has ``n_rows`` (padded) rows and
+    ``n_cols_pad`` columns."""
 
     def __init__(
         self, kind: str, offsets, n_rows: int, n_cols_pad: int, vals: torch.Tensor,
-        rows: torch.Tensor = None, cols: torch.Tensor = None,
+        rows: torch.Tensor = None, cols: torch.Tensor = None, plan: EllPlan = None,
     ):
         if kind not in ("dia", "ell"):
             raise ValueError(f"unknown block kind {kind!r}")
@@ -48,13 +51,14 @@ class DeviceBlock:
         self.vals = vals
         self.rows = rows
         self.cols = cols
+        self.plan = plan
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         """Per-part SpMV: x [P, n_cols_pad] -> [P, n_rows] (K1 or K5)."""
         if self.kind == "dia":
             return dia_spmv(self.offsets, self.vals, x.contiguous())
         y = x.new_zeros((x.shape[0], self.n_rows))
-        return ghost_spmv(self.rows, self.cols, self.vals, x.contiguous(), y)
+        return ghost_spmv(self.rows, self.cols, self.vals, x.contiguous(), y, self.plan)
 
     def spmv_add(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """``y + block @ x``.  An "ell" block accumulates into y in place
@@ -62,7 +66,7 @@ class DeviceBlock:
         the two products."""
         if self.kind == "dia":
             return y + self.spmv(x)
-        return ghost_spmv(self.rows, self.cols, self.vals, x.contiguous(), y)
+        return ghost_spmv(self.rows, self.cols, self.vals, x.contiguous(), y, self.plan)
 
 
 def make_dia_block(offsets, n_cols_pad: int, vals: torch.Tensor) -> DeviceBlock:
@@ -133,6 +137,7 @@ def freeze_block(
     return DeviceBlock(
         "ell", None, n_rows_pad, n_cols_pad, torch.from_numpy(vals).to(device, dtype),
         rows=torch.from_numpy(rows).to(device), cols=torch.from_numpy(cols).to(device),
+        plan=plan_of(cols, torch.device(device)),
     )
 
 
@@ -149,7 +154,7 @@ def freeze_block_pair(block: DeviceBlock) -> Tuple[DeviceBlock, DeviceBlock]:
     hi, lo = df.from_f64(block.vals)
     return tuple(
         DeviceBlock(block.kind, block.offsets, block.n_rows, block.n_cols_pad,
-                    v.contiguous(), rows=block.rows, cols=block.cols)
+                    v.contiguous(), rows=block.rows, cols=block.cols, plan=block.plan)
         for v in (hi, lo)
     )
 

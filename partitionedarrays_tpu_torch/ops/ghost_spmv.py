@@ -14,17 +14,24 @@ The product accumulates into an output ``y[P, R]``:
 
     y[p, rows[p, i]] += sum_k vals[p, k, i] * x[p, cols[p, k, i]]  (cols >= 0)
 
-The CUDA kernel is ``csrc/ghost_spmv.cu``; its source note says what bounds
-it (launch and latency at the HPCG sizes).  The reference's slot format
-(128-lane windows, one-hot routing) and its padded ``[P, R, K]`` ELL twin
-are not mirrored: at 64^3 per part the full ELL would be read as 319 MB per
-call, the compressed rows as about 15 MB.
+The CUDA kernel is ``csrc/ghost_spmv.cu`` over the compressed-row engine
+``csrc/ell_rows.cuh``; its source note says what bounds it (device-memory
+bandwidth) and how the design meets the paths' two regimes, many short rows
+and few long ones.  Its launch plan (warps per group of 32 rows, each
+group's lane count) is ``ops/ell_rows.py::plan_of``, kept with the block
+(``DeviceBlock.plan``).  The reference's slot format (128-lane windows,
+one-hot routing) and its padded ``[P, R, K]`` ELL twin are not mirrored: at
+64^3 per part the full ELL would be read as 319 MB per call, the compressed
+rows as about 15 MB.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from .. import _build
+from .ell_rows import EllPlan, plan_of
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -52,11 +59,13 @@ def ghost_spmv_plain(
 
 def ghost_spmv(
     rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
-    y: torch.Tensor,
+    y: torch.Tensor, plan: Optional[EllPlan] = None,
 ) -> torch.Tensor:
     """K5.  Accumulate the block product into ``y`` (in place) and return
     it.  rows [P, Nr] int32; cols, vals [P, K, Nr]; x [P, n_cols]; y
-    [P, R] contiguous.
+    [P, R] contiguous.  ``plan``: the block's ``ell_rows.plan_of(cols)``
+    (``DeviceBlock.plan``); None computes it here, which copies the columns
+    to the host.
 
     A CPU tensor goes to ``ghost_spmv_plain``; a CUDA tensor goes to the
     kernel, or the call raises."""
@@ -85,9 +94,18 @@ def ghost_spmv(
         raise ValueError("ghost_spmv: tensors must be contiguous")
     if Nr == 0 or K == 0:
         return y
+    if K * Nr >= 2**31:
+        raise ValueError(f"ghost_spmv: a part's {K * Nr} lanes exceed int32 offsets")
+    if plan is None:
+        plan = plan_of(cols)
+    glanes = plan.group_lanes
+    if tuple(glanes.shape) != (P, -(-Nr // 32)) or glanes.dtype != torch.int32 \
+            or glanes.device != cols.device:
+        raise ValueError(f"ghost_spmv: the plan's lane counts {tuple(glanes.shape)} do not "
+                         f"fit cols {tuple(cols.shape)}")
     code = _build.entry("pat_ghost_spmv", vals.dtype)(
-        rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-        Nr, K, x.shape[1], y.shape[1], P, _build.stream_of(vals),
+        rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), glanes.data_ptr(), x.data_ptr(),
+        y.data_ptr(), Nr, K, x.shape[1], y.shape[1], P, plan.lanes, _build.stream_of(vals),
     )
     ghost_spmv.launches += 1
     _build.check(code, "ghost_spmv")

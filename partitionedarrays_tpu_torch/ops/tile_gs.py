@@ -21,23 +21,59 @@ operands (all with the part axis first):
 - ``wave_tiles[P, W, B]``: the tiles of each wave, -1 on padding entries;
 - ``x``, ``b``: ``[P, 128 nt]``, x updated in place.
 
-The CUDA kernel is ``csrc/tile_gs.cu``; its source note says what bounds it
-and how the design meets that.  The TPU kernel's one-hot routing matmuls,
-int8 lanes, block-diagonal wave matmuls and VMEM-resident x plane are TPU
-layouts and are not carried over.
+The CUDA kernel is ``csrc/tile_gs.cu``: ONE launch runs every wave step of
+a call (every direction of ``dir_seq``), one thread-block cluster per part
+with the cluster barrier between steps and x in shared memory, as the TPU's
+one ``pallas_call`` does with x in VMEM; its source note says what bounds
+it and how the design meets that.  The steps travel as a cached device int32 array
+(``tile_steps``, ``steps_on``), each with its direction flag.  The off-tile
+step runs the compressed-row engine K5 shares (``csrc/ell_rows.cuh``), up
+to each tile's lane count (``ops/ell_rows.py::tile_lane_counts``, kept by
+``NaturalTileGS``).  The TPU kernel's one-hot routing matmuls, int8 lanes,
+block-diagonal wave matmuls and VMEM-resident x plane are TPU layouts and
+are not carried over.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from .. import _build
+from .ell_rows import tile_lane_counts
 from .ghost_spmv import ghost_spmv_plain
 
 TILE = 128
 _DTYPES = (torch.float32, torch.float64)
 _DIRECTIONS = {"f": 0, "b": 1}
+
+
+def tile_steps(W: int, dir_seq: Sequence[str], zero_guess: bool = False) -> Tuple[int, ...]:
+    """K6's step sequence: for each direction of ``dir_seq`` its W wave
+    steps in its order (forward w = 0 .. W-1, backward W-1 .. 0), each
+    step ``w * 4 + zero_old * 2 + dir``: the wave, whether x is still the
+    zero guess there (the first direction of a ``zero_guess`` call), and
+    the direction (0 forward, 1 backward)."""
+    steps = []
+    for s, d in enumerate(dir_seq):
+        zero_old = int(zero_guess and s == 0)
+        order = range(W) if d == "f" else range(W - 1, -1, -1)
+        steps += [w * 4 + zero_old * 2 + _DIRECTIONS[d] for w in order]
+    return tuple(steps)
+
+
+_steps: Dict[Tuple, torch.Tensor] = {}
+
+
+def steps_on(W: int, dir_seq: Sequence[str], zero_guess: bool, device) -> torch.Tensor:
+    """``tile_steps`` as an int32 array on ``device``, built once per
+    sequence and device."""
+    key = (W, tuple(dir_seq), bool(zero_guess), torch.device(device))
+    t = _steps.get(key)
+    if t is None:
+        t = _steps[key] = torch.tensor(tile_steps(W, dir_seq, zero_guess), dtype=torch.int32,
+                                       device=device)
+    return t
 
 
 def _masks(device):
@@ -86,14 +122,23 @@ def tile_gs_sweeps_plain(
 
 def tile_gs_sweeps(
     pack, rows, cols, vals, tile_ptr, wave_tiles, x, b, dir_seq: Sequence[str],
-    zero_guess: bool = False,
+    zero_guess: bool = False, tile_lanes: Optional[torch.Tensor] = None,
+    _n_steps: Optional[int] = None, _x_in_smem: Optional[bool] = None,
 ) -> torch.Tensor:
     """K6.  Run the sweeps of ``dir_seq`` ("f" forward, "b" backward) on x
     in place and return it.  ``zero_guess``: x is 0 on entry, so the first
-    direction's tiles skip the N x_old product.
+    direction's tiles skip the N x_old product.  ``tile_lanes``: int32
+    ``[P, nt]``, ``ell_rows.tile_lane_counts(cols, tile_ptr)``
+    (``NaturalTileGS.tile_lanes``); None computes it here, which copies the
+    columns to the host.
 
     A CPU tensor goes to ``tile_gs_sweeps_plain``; a CUDA tensor goes to
-    the kernel (one launch per wave step, in order), or the call raises."""
+    the kernel, one launch for the whole sequence, or the call raises.
+    The kernel keeps x in shared memory where it fits (else reads it from
+    L2).  ``_n_steps`` runs only the first wave steps of the sequence and
+    ``_x_in_smem`` forces where x lives (True raises where it does not
+    fit): private hooks for the GPU tests and ``chip_smoke.py``, which time
+    a launch of 0 and 1 step and both places of x."""
     P, two, nt = pack.shape[:3]
     Nr = rows.shape[1]
     K = cols.shape[1]
@@ -125,17 +170,25 @@ def tile_gs_sweeps(
         raise TypeError("tile_gs_sweeps: rows, cols, tile_ptr and wave_tiles must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("tile_gs_sweeps: tensors must be contiguous")
-    fn = _build.entry("pat_tile_gs_wave", x.dtype)
-    stream = _build.stream_of(x)
+    if K * Nr >= 2**31:
+        raise ValueError(f"tile_gs_sweeps: a part's {K * Nr} off-tile lanes exceed int32 offsets")
+    if tile_lanes is None:
+        tile_lanes = torch.from_numpy(tile_lane_counts(cols, tile_ptr)).to(x.device)
+    if tuple(tile_lanes.shape) != (P, nt) or tile_lanes.dtype != torch.int32 \
+            or tile_lanes.device != x.device:
+        raise ValueError(f"tile_gs_sweeps: tile_lanes {tuple(tile_lanes.shape)} for {nt} tiles")
+    steps = steps_on(W, dir_seq, zero_guess, x.device)
+    if _n_steps is not None:
+        steps = steps[:_n_steps]
     # the C entry takes b before x
-    ptrs = [t.data_ptr() for t in (pack, rows, cols, vals, tile_ptr, wave_tiles, b, x)]
-    for s, d in enumerate(dir_seq):
-        zero_old = int(zero_guess and s == 0)
-        order = range(W) if d == "f" else range(W - 1, -1, -1)
-        for w in order:
-            code = fn(*ptrs, w, _DIRECTIONS[d], zero_old, nt, B, W, Nr, K, nt * TILE, P, stream)
-            tile_gs_sweeps.launches += 1
-            _build.check(code, "tile_gs_sweeps")
+    code = _build.entry("pat_tile_gs_sweeps", x.dtype)(
+        pack.data_ptr(), rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), tile_ptr.data_ptr(),
+        tile_lanes.data_ptr(), wave_tiles.data_ptr(), steps.data_ptr(), b.data_ptr(),
+        x.data_ptr(), steps.numel(), nt, B, W, Nr, K, P,
+        -1 if _x_in_smem is None else int(_x_in_smem), _build.stream_of(x),
+    )
+    tile_gs_sweeps.launches += 1
+    _build.check(code, "tile_gs_sweeps")
     return x
 
 

@@ -30,6 +30,7 @@ import scipy.sparse as sp
 import torch
 
 from ..ops.blocks import stack_rows
+from ..ops.ell_rows import tile_lane_counts
 from ..ops.tile_gs import TILE, tile_gs_sweeps
 
 
@@ -77,7 +78,8 @@ class NaturalTileGS:
     tile ids), ``W`` waves of at most ``B`` tiles, ``n_real_tiles`` tiles of
     ``TILE`` rows (``Rp`` rows with padding), and the device operands of K6
     (``pack``, ``rows``, ``cols``, ``vals``, ``tile_ptr``,
-    ``wave_tiles``)."""
+    ``wave_tiles``, and the off-tile lanes of each tile's longest row,
+    ``tile_lanes``)."""
 
     @classmethod
     def build(cls, A) -> "NaturalTileGS":
@@ -157,6 +159,7 @@ class NaturalTileGS:
         self.vals = torch.from_numpy(vals).to(dev, dt)
         self.tile_ptr = torch.from_numpy(tile_ptr).to(dev)
         self.wave_tiles = torch.from_numpy(wave_tiles).to(dev)
+        self.tile_lanes = torch.from_numpy(tile_lane_counts(cols, tile_ptr)).to(dev)
         return self
 
     def operands(self):
@@ -173,5 +176,6 @@ class NaturalTileGS:
             x[:, : xo.shape[1]] = xo
         b = bo.new_zeros((P, self.Rp))
         b[:, :n] = bo
-        tile_gs_sweeps(*self.operands(), x, b, tuple(dir_seq), zero_guess=xo is None)
+        tile_gs_sweeps(*self.operands(), x, b, tuple(dir_seq), zero_guess=xo is None,
+                       tile_lanes=self.tile_lanes)
         return x[:, :n].contiguous()

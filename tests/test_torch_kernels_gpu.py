@@ -15,9 +15,13 @@ and is held to 1e-13 of ``sum_j |A_ij| |x_j|`` per row (the bound of
 ``tests/test_df64.py``); the kernel and its plain version round every
 operation alike, so they are expected to agree exactly.  K1 also runs at the 99 diagonals of the 3-D
 elasticity block (6^3 nodes, COO assembly), and K6 ``tile_gs_sweeps`` on
-the tile smoother of an elasticity AMG level 1 and of a banded operator
-(forward, backward and symmetric, from a zero and a nonzero guess), at the
-same tolerances.
+the tile smoother of an elasticity AMG level 1, of a banded operator, of a
+level whose waves hold one tile (B = 1) and of two parts stacked
+(forward, backward, symmetric and twice symmetric, from a zero and a
+nonzero guess; one launch per call), at the same tolerances; a K6 launch
+the card cannot take raises.  K5 also runs on the prolongators,
+restrictions and coarse operators of the 8^3-node elasticity hierarchy
+under every warps-per-group count.
 
 Every test is marked ``gpu`` and skips without a CUDA card.  This module
 imports torch and the port only (no JAX), so that it also runs on a
@@ -298,46 +302,189 @@ def test_dia_spmv_kernel_at_99_diagonals(cuda, dtype):
     _assert_close(got, dia_spmv_plain(oo.offsets, oo.vals, x), dtype)
 
 
-def _tile_smoothers(device, dtype):
-    """The tile tier of an elasticity AMG level 1 (8^3 nodes) and of a
-    banded operator of 1,024 rows in 8 tiles."""
-    import numpy as np
-    import scipy.sparse as sp
-
+def _amg(device, dtype):
+    """SA-AMG of 3-D elasticity at 8^3 nodes."""
     from partitionedarrays_tpu_torch.models import gallery
-    from partitionedarrays_tpu_torch.parallel.partition import variable_partition
-    from partitionedarrays_tpu_torch.psparse import psparse
     from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
 
     A = _elasticity(device, dtype, (8, 8, 8))
     coords, _ = gallery.node_coordinates_unit_cube((8, 8, 8), (1, 1, 1))
-    M = AMGPreconditioner(A, AMGParams(coarse_size=100, block_size=3),
-                          nullspace=gallery.nullspace_linear_elasticity(coords))
-    n, rng = 1024, np.random.default_rng(100)
-    rows = np.repeat(np.arange(n), 9)
-    cols = np.clip(rows + rng.integers(-100, 101, size=rows.size), 0, n - 1)
-    B = sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)), shape=(n, n))
-    B = (B + B.T + sp.diags(np.abs(B + B.T).sum(1).A1 + 1.0)).tocoo()
+    return AMGPreconditioner(A, AMGParams(coarse_size=100, block_size=3),
+                             nullspace=gallery.nullspace_linear_elasticity(coords))
+
+
+def _one_part(G, device, dtype):
+    """A one-part psparse matrix from a scipy matrix."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.parallel.partition import variable_partition
+    from partitionedarrays_tpu_torch.psparse import psparse
+
+    G = G.tocoo()
+    n = G.shape[0]
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    Bm = psparse([B.row], [B.col], [B.data.astype(np_dtype)], variable_partition([n]),
-                 variable_partition([n]), SerialBackend(1), device=device)
-    return [M.levels[1].smoother.tile_gs, GaussSeidel(Bm).tile_gs]
+    return psparse([G.row], [G.col], [G.data.astype(np_dtype)], variable_partition([n]),
+                   variable_partition([n]), SerialBackend(1), device=device)
+
+
+def _banded(n, width, seed):
+    """n rows, 9 entries per row within +-width, symmetrised, diagonally
+    dominant."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), 9)
+    cols = np.clip(rows + rng.integers(-width, width + 1, size=rows.size), 0, n - 1)
+    B = sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)), shape=(n, n))
+    return B + B.T + sp.diags(np.abs(B + B.T).sum(1).A1 + 1.0)
+
+
+def _tile_smoothers(device, dtype):
+    """The tile tier of an elasticity AMG level 1 (8^3 nodes), of a banded
+    operator of 1,024 rows in 8 tiles, and of 384 rows whose 3 tiles all
+    couple (waves of one tile: B = 1)."""
+    return [_amg(device, dtype).levels[1].smoother.tile_gs,
+            GaussSeidel(_one_part(_banded(1024, 100, 100), device, dtype)).tile_gs,
+            GaussSeidel(_one_part(_banded(384, 300, 101), device, dtype)).tile_gs]
+
+
+def _stacked(tgs):
+    """The K6 operands of several one-part tile smoothers of as many tiles,
+    stacked as parts: the off-tile lanes and rows padded to the largest
+    (column -1, row -1), the waves to the most and the widest (-1)."""
+    import torch.nn.functional as F
+
+    Nr = max(tg.rows.shape[1] for tg in tgs)
+    K = max(tg.cols.shape[1] for tg in tgs)
+    W = max(tg.W for tg in tgs)
+    B = max(tg.B for tg in tgs)
+
+    def pad(t, *widths, value):
+        return F.pad(t, [a for w in reversed(widths) for a in (0, w)], value=value)
+
+    return dict(
+        pack=torch.cat([tg.pack for tg in tgs]),
+        rows=torch.cat([pad(tg.rows, 0, Nr - tg.rows.shape[1], value=-1) for tg in tgs]),
+        cols=torch.cat([pad(tg.cols, 0, K - tg.cols.shape[1], Nr - tg.cols.shape[2], value=-1)
+                        for tg in tgs]),
+        vals=torch.cat([pad(tg.vals, 0, K - tg.vals.shape[1], Nr - tg.vals.shape[2], value=0)
+                        for tg in tgs]),
+        tile_ptr=torch.cat([tg.tile_ptr for tg in tgs]),
+        wave_tiles=torch.cat([pad(tg.wave_tiles, 0, W - tg.W, B - tg.B, value=-1) for tg in tgs]),
+        tile_lanes=torch.cat([tg.tile_lanes for tg in tgs]),
+    )
+
+
+def _operands(tg):
+    return dict(pack=tg.pack, rows=tg.rows, cols=tg.cols, vals=tg.vals, tile_ptr=tg.tile_ptr,
+                wave_tiles=tg.wave_tiles, tile_lanes=tg.tile_lanes)
+
+
+DIR_SEQS = [("f",), ("b",), ("f", "b"), ("f", "b", "f", "b")]
+
+
+def _hold_tile(ops, dtype, device, seed):
+    """K6 against its plain version on the operands ``ops``: every order
+    of ``DIR_SEQS`` from a zero and a nonzero guess, with x in shared
+    memory and in L2, one launch per call."""
+    from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps, tile_gs_sweeps_plain
+
+    g = torch.Generator().manual_seed(seed)
+    P, nt = ops["pack"].shape[0], ops["pack"].shape[2]
+    b = torch.randn(P, nt * 128, generator=g, dtype=dtype).to(device)
+    x0 = torch.randn(P, nt * 128, generator=g, dtype=dtype).to(device)
+    args = [ops[k] for k in ("pack", "rows", "cols", "vals", "tile_ptr", "wave_tiles")]
+    for dirs in DIR_SEQS:
+        for zero in (True, False):
+            start = torch.zeros_like(x0) if zero else x0
+            want = tile_gs_sweeps_plain(*args, start.clone(), b, dirs, zero_guess=zero)
+            for x_in_smem in (True, False):
+                before = tile_gs_sweeps.launches
+                got = tile_gs_sweeps(*args, start.clone(), b, dirs, zero_guess=zero,
+                                     tile_lanes=ops["tile_lanes"], _x_in_smem=x_in_smem)
+                assert tile_gs_sweeps.launches == before + 1  # one launch per sequence
+                _assert_close(got, want, dtype)
+            # without its lane counts the wrapper derives them
+            got = tile_gs_sweeps(*args, start.clone(), b, dirs, zero_guess=zero)
+            _assert_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_tile_gs_kernel_matches_plain(cuda, dtype):
+    tgs = _tile_smoothers(cuda, dtype)
+    assert tgs[2].B == 1 and tgs[1].B > 1
+    for tg in tgs:
+        _hold_tile(_operands(tg), dtype, cuda, 16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tile_gs_kernel_on_stacked_parts(cuda, dtype):
+    """Two parts in one launch: banded operators of 8 tiles each, from two
+    seeds (other off-tile lanes, waves and widths per part)."""
+    tgs = [GaussSeidel(_one_part(_banded(1024, w, seed), cuda, dtype)).tile_gs
+           for w, seed in ((100, 102), (250, 103))]
+    assert (tgs[0].W, tgs[0].B) != (tgs[1].W, tgs[1].B)
+    _hold_tile(_stacked(tgs), dtype, cuda, 17)
+
+
+def test_tile_gs_refused_launch_raises(cuda):
+    """A launch the card cannot take raises (no per-wave-step fallback),
+    and the next launch runs: a wave of 9 tiles (a cluster beyond the
+    portable 8 CTAs), and x forced into shared memory that it does not fit
+    (240 tiles of float64: 240 KB)."""
     from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps, tile_gs_sweeps_plain
 
-    g = torch.Generator().manual_seed(16)
-    for tg in _tile_smoothers(cuda, dtype):
-        assert tg is not None
-        b = torch.randn(1, tg.Rp, generator=g, dtype=dtype).to(cuda)
-        x0 = torch.randn(1, tg.Rp, generator=g, dtype=dtype).to(cuda)
-        for dirs in (("f",), ("b",), ("f", "b")):
-            for zero in (True, False):
-                start = torch.zeros_like(x0) if zero else x0
-                before = tile_gs_sweeps.launches
-                got = tile_gs_sweeps(*tg.operands(), start.clone(), b, dirs, zero_guess=zero)
-                assert tile_gs_sweeps.launches == before + tg.W * len(dirs)
-                want = tile_gs_sweeps_plain(*tg.operands(), start.clone(), b, dirs, zero_guess=zero)
-                _assert_close(got, want, dtype)
+    def synthetic(nt, B, dtype):
+        return dict(
+            pack=torch.zeros(1, 2, nt, 128, 128, dtype=dtype, device=cuda),
+            rows=torch.full((1, 8), -1, dtype=torch.int32, device=cuda),
+            cols=torch.full((1, 1, 8), -1, dtype=torch.int32, device=cuda),
+            vals=torch.zeros(1, 1, 8, dtype=dtype, device=cuda),
+            tile_ptr=torch.zeros(1, nt + 1, dtype=torch.int32, device=cuda),
+            wave_tiles=torch.arange(B, dtype=torch.int32, device=cuda).view(1, 1, B),
+            tile_lanes=torch.zeros(1, nt, dtype=torch.int32, device=cuda),
+        )
+
+    for ops, x_in_smem in ((synthetic(9, 9, torch.float32), None),
+                           (synthetic(240, 8, torch.float64), True)):
+        x = torch.zeros(1, ops["pack"].shape[2] * 128, dtype=ops["pack"].dtype, device=cuda)
+        args = [ops[k] for k in ("pack", "rows", "cols", "vals", "tile_ptr", "wave_tiles")]
+        with pytest.raises(RuntimeError):
+            tile_gs_sweeps(*args, x, x.clone(), ("f",), tile_lanes=ops["tile_lanes"],
+                           _x_in_smem=x_in_smem)
+    tg = _tile_smoothers(cuda, torch.float64)[1]
+    b = torch.ones(1, tg.Rp, dtype=torch.float64, device=cuda)
+    got = tile_gs_sweeps(*tg.operands(), torch.zeros_like(b), b, ("f", "b"), zero_guess=True,
+                         tile_lanes=tg.tile_lanes)
+    _assert_close(got, tile_gs_sweeps_plain(*tg.operands(), torch.zeros_like(b), b, ("f", "b")),
+                  torch.float64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ghost_spmv_kernel_on_amg_blocks_every_g(cuda, dtype):
+    """K5 on the compressed-row blocks of the 8^3 elasticity hierarchy (P
+    and P^T of every level, the coarse operators), accumulating into y,
+    under every warps-per-group count and the block's own plan."""
+    from partitionedarrays_tpu_torch.ops.ell_rows import LANES_MAX
+
+    M = _amg(cuda, dtype)
+    blocks = []
+    for l, lev in enumerate(M.levels):
+        if lev.P is not None:
+            blocks += [lev.P.device().oo, lev.P.device_transpose()]
+        if l > 0:
+            blocks.append(lev.A.device().oo)
+    blocks = [blk for blk in blocks if blk.kind == "ell"]
+    assert len(blocks) >= 4
+    g = torch.Generator().manual_seed(24)
+    for blk in blocks:
+        x = torch.randn(1, blk.n_cols_pad, generator=g, dtype=dtype).to(cuda)
+        y0 = torch.randn(1, blk.n_rows, generator=g, dtype=dtype).to(cuda)
+        want = ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, y0.clone())
+        lanes = [1 << i for i in range(LANES_MAX.bit_length())]
+        for plan in [blk.plan] + [blk.plan._replace(lanes=G) for G in lanes]:
+            before = ghost_spmv.launches
+            got = ghost_spmv(blk.rows, blk.cols, blk.vals, x, y0.clone(), plan)
+            assert ghost_spmv.launches == before + 1
+            _assert_close(got, want, dtype)
