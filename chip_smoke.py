@@ -28,9 +28,9 @@ Phases, one output line each:
    read once per step), the plain version's time, the device time of a
    launch of no step and of one step, and the time under every other
    lane count;
-4. four paths through the port, each with its kernels' launch counts set to
+4. six paths through the port, each with its kernels' launch counts set to
    0 just before it and read just after (a-c: the HPCG benchmark, 4 MG
-   levels, 50 CG iterations; d: the elasticity AMG, counted over its
+   levels, 50 CG iterations; d, e: the AMG paths, counted over their
    solves):
    a. one part: 128^3 in float32 and float64, 64^3 in float64; each also
       checks the standard-order operator (K1) against the de-interleaved
@@ -69,11 +69,26 @@ Phases, one output line each:
       warps-per-group count; K1 (99 diagonals) and K3 (27 colors, 99
       diagonals, as in phase 3); and K6 on the forced tile tier of the 20^3
       elasticity block;
+   e. ``amg_box`` and ``amg_box_df64``: the box-stencil SA-AMG
+      (``laplacian_fdm`` -> ``psparse`` -> ``AMGPreconditioner`` with its
+      box aggregation and flat cycle): the 64^3 7-point Laplacian in
+      float32 and float64 under ``cg`` to rtol 1e-8 (float32 held to the
+      reference's 10 +- 1 iterations), and ``cg_df64`` on the float64 48^3
+      Laplacian preconditioned by the AMG of its ``astype`` float32 copy
+      (13 +- 1 iterations, true residual <= 1e-9); host seconds of
+      assembly and setup, the hierarchy, cold and warm solve seconds, the
+      launches of a solve and of a V-cycle, a profiled solve with K3's,
+      K4's and K1's shares; then K3 and K4 against their plain versions on
+      every colored level of the 64^3 hierarchies (float32, float64) and
+      of the 48^3 float32 one (time, bound, launches per V-cycle), K1 on
+      the 7-point 64^3 operator in both dtypes and K7 on the (hi, lo) split
+      of the 48^3 one (as in phase 3b);
 5. the launch counts of each path, each kernel of a path required > 0;
 6. the whole port on the card against the whole port on the CPU (plain
    versions), float64, residual histories to rtol 1e-10: 32^3 on one part
-   and (2,2,2) parts of 8^3, 3 levels, flat and generic CG; and the df64
-   CG at (2,2,2) parts of 8^3 (``DF64_CROSS_RTOL``).
+   and (2,2,2) parts of 8^3, 3 levels, flat and generic CG; the df64
+   CG at (2,2,2) parts of 8^3 (``DF64_CROSS_RTOL``); and the box AMG-CG at
+   16^3.
 
 Then the card's name and power limit, a JSON line of per-kernel results,
 and last a JSON line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -189,6 +204,8 @@ PATH_KERNELS = {
     "ghosted": ("dia_spmv", "ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv"),
     "df64": ("dia_spmv_df", "ax_core", "gs_sweeps", "ghost_spmv"),
     "amg_elasticity": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
+    "amg_box": ("dia_spmv", "ax_core", "gs_sweeps"),
+    "amg_box_df64": ("dia_spmv_df", "ax_core", "gs_sweeps"),
 }
 # the elasticity SA-AMG path: the reference's own workload (bench.py:371-430,
 # AMGParams(coarse_size=400, block_size=3, max_levels=4), CG to rtol 1e-8),
@@ -210,6 +227,27 @@ AMG_KERNEL_NODES = (40, 40, 40)
 # K6 on the forced tile tier of the 20^3-node elasticity block (24,000
 # rows; the reference's bench.py:283-349 shape)
 FORCED_TILE_NODES = (20, 20, 20)
+# the box-stencil SA-AMG path: the reference's bench.py:143-202, the 64^3
+# 7-point laplacian_fdm on one part, AMGParams(coarse_size=200), CG to rtol
+# 1e-8 (maxiter 100) on ones in the first 10 own entries; its anchor
+# (BENCH_r05.json amg64_cg_iters_1e8) is 10 iterations.  (dtype, allowed
+# iterations or None, limit on the true float64 residual |b - A x| / |b|)
+BOX_NODES = (64, 64, 64)
+BOX_PARAMS = dict(coarse_size=200)
+BOX_RTOL = 1e-8
+BOX_MAXITER = 100
+BOX_RUNS = (("float32", (9, 11), 1e-5), ("float64", None, 2e-8))
+# bench.py:491-544: cg_df64 on the float64 48^3 laplacian_fdm, b = A x with x
+# from default_rng(7), preconditioned by the AMG of the operator's float32
+# copy, to rtol 1e-10 (maxiter 300); anchor 13 iterations, relres 3.0956e-11
+BOX_DF64_NODES = (48, 48, 48)
+BOX_DF64_ITERS = (12, 14)
+BOX_DF64_RTOL = 1e-10
+BOX_DF64_MAXITER = 300
+BOX_DF64_TRUE_RELRES = 1e-9
+# the box AMG-CG on the card against the CPU (float64, rtol 0, each
+# iteration count from 0 to CROSS_ITERATIONS)
+BOX_CROSS_NODES = (16, 16, 16)
 
 
 def emit(phase: str, payload) -> None:
@@ -430,6 +468,84 @@ def _library(csr, x, y=None):
     return lambda: torch.addmv(yf, csr, xf)
 
 
+def _flops(dtype_name: str) -> float:
+    return F32_FLOPS_PER_S if dtype_name == "float32" else F64_FLOPS_PER_S
+
+
+def _hold_k1(results, where, oo, x, library=None):
+    """K1 against its plain version on the DIA block ``oo`` and the x of
+    its columns (``_hold``); bound: the values, x and y, each moved once."""
+    from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
+    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv
+
+    dtype_name = str(x.dtype).replace("torch.", "")
+    P, _, R = oo.vals.shape
+    _hold(results, "dia_spmv", dtype_name,
+          lambda: dia_spmv(oo.offsets, oo.vals, x),
+          lambda: dia_spmv_plain(oo.offsets, oo.vals, x),
+          library=library,
+          work=(x.element_size() * (oo.vals.numel() + x.numel() + P * R), 2 * oo.vals.numel(),
+                _flops(dtype_name)))
+    results[-1].update(where=where, n_diags=len(oo.offsets), rows=P * R)
+
+
+def _hold_k4(results, where, col, x, library=None):
+    """K4 against its plain version on a colored smoother's core ``col``
+    and the core x (``_hold``); bound: the values once, x read and y
+    written once."""
+    from partitionedarrays_tpu_torch.ops.gs_dia_kernels import ax_core, ax_core_plain
+
+    dtype_name = str(x.dtype).replace("torch.", "")
+    _hold(results, "ax_core", dtype_name,
+          lambda: ax_core(col.vals_d, x, col.taps),
+          lambda: ax_core_plain(col.vals_d, x, col.taps),
+          library=library,
+          work=(x.element_size() * (col.vals_d.numel() + 2 * x.numel()), 2 * col.vals_d.numel(),
+                _flops(dtype_name)))
+    results[-1].update(where=where, m=col.m, n_off=len(col.offsets), Lq=col.Lq)
+
+
+def _hold_k7(results, where, oo, g, device):
+    """K7 against its plain version and, with it, against K1 in float64 on
+    the same values: the (hi, lo) split of the float64 DIA block ``oo`` and
+    of a random x.  Errors relative to sum_j |A_ij| |x_j| per row."""
+    import torch
+
+    from partitionedarrays_tpu_torch.ops import df64 as df
+    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_df
+
+    P = oo.vals.shape[0]
+    vh, vl = df.from_f64(oo.vals)
+    x64 = torch.randn(P, oo.n_cols_pad, generator=g, dtype=torch.float64).to(device)
+    x = df.from_f64(x64)
+    got = df.to_f64(*dia_spmv_df(oo.offsets, vh, vl, x))
+    torch.cuda.synchronize()
+    want = df.to_f64(*df.dia_spmv_df_plain(oo.offsets, vh, vl, x))
+    exact = dia_spmv(oo.offsets, oo.vals, x64)
+    scale = dia_spmv(oo.offsets, oo.vals.abs(), x64.abs()) + 1e-30
+    errs = {
+        "kernel_vs_plain": ((got - want).abs() / scale).max().item(),
+        "kernel_vs_f64": ((got - exact).abs() / scale).max().item(),
+        "plain_vs_f64": ((want - exact).abs() / scale).max().item(),
+    }
+    bad = {k: v for k, v in errs.items() if not v <= DF64_KERNEL_TOL}
+    if bad:
+        raise AssertionError(f"dia_spmv_df {where}: {bad} > {DF64_KERNEL_TOL}")
+    _, n_off, R = vh.shape
+    work = (4 * (2 * vh.numel() + 2 * x[0].numel() + 2 * P * R), 15 * vh.numel())
+    b_ms, b_by = bound(*work)
+    results.append({
+        "kernel": "dia_spmv_df", "dtype": "df64", "where": where, "n_diags": n_off,
+        "rows": P * R, "max_abs_err": (got - want).abs().max().item(),
+        "tol_rel_sum_abs": DF64_KERNEL_TOL, **errs,
+        "ms": time_ms(lambda: dia_spmv_df(oo.offsets, vh, vl, x), 20),
+        "plain_ms": time_ms(lambda: df.dia_spmv_df_plain(oo.offsets, vh, vl, x), 3),
+        "k1_float64_ms": time_ms(lambda: dia_spmv(oo.offsets, oo.vals, x64), 20),
+        "bytes": work[0], "ops": work[1], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    })
+
+
 def phase_kernels(device):
     """Each kernel against its plain version: K1, K4, K3 at the 128^3
     one-part fine-level shapes, K5 and K2 at the (2,2,2) x 64^3 ones."""
@@ -438,11 +554,9 @@ def phase_kernels(device):
     from partitionedarrays_tpu_torch.backends import SerialBackend
     from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
     from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
-    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_strided
+    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv_strided
     from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv, ghost_spmv_plain
-    from partitionedarrays_tpu_torch.ops.gs_dia_kernels import (
-        ax_core, ax_core_plain, gs_sweeps, gs_sweeps_plain,
-    )
+    from partitionedarrays_tpu_torch.ops.gs_dia_kernels import gs_sweeps, gs_sweeps_plain
     from partitionedarrays_tpu_torch.solvers.smoothers import GaussSeidel
 
     results = []
@@ -468,16 +582,10 @@ def phase_kernels(device):
             lib["ax_core"] = _library(_csr(*(torch.cat(t) for t in zip(*(
                 _dia_triplets(col.taps.host[c], col.vals_d[:, c], m * Lq, m * Lq, c * Lq)
                 for c in range(m)))), (P * m * Lq, P * m * Lq)), x_core)
-        _hold(results, "dia_spmv", name,
-              lambda: dia_spmv(oo.offsets, oo.vals, x_std),
-              lambda: dia_spmv_plain(oo.offsets, oo.vals, x_std),
-              library=lib.get("dia_spmv"),
-              work=(4 * (oo.vals.numel() + x_std.numel() + P * R), 2 * oo.vals.numel()) if f32 else None)
-        _hold(results, "ax_core", name,
-              lambda: ax_core(col.vals_d, x_core, col.taps),
-              lambda: ax_core_plain(col.vals_d, x_core, col.taps),
-              library=lib.get("ax_core"),
-              work=(4 * (col.vals_d.numel() + 2 * x_core.numel()), 2 * col.vals_d.numel()) if f32 else None)
+        _hold_k1(results, f"fine level, one part of {LOCAL[0]}^3", oo, x_std,
+                 library=lib.get("dia_spmv"))
+        _hold_k4(results, f"fine level, one part of {LOCAL[0]}^3", col, x_core,
+                 library=lib.get("ax_core"))
         # the sweep sequence reads each input once at the least: values,
         # rhs, inverse diagonal, x in and x out
         sweeps = len(order) / m
@@ -553,45 +661,14 @@ def phase_kernel_df(device):
 
     from partitionedarrays_tpu_torch.backends import SerialBackend
     from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
-    from partitionedarrays_tpu_torch.ops import df64 as df
-    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_df
 
     results = []
     for shape, parts in ((LOCAL, (1, 1, 1)), (GHOST_LOCAL, GHOST_PARTS)):
         P = int(np.prod(parts))
         A, _ = build_hpcg_problem(shape, parts, SerialBackend(P), dtype=torch.float64, device=device)
-        oo = A.device().oo
-        vh, vl = df.from_f64(oo.vals)
-        g = torch.Generator().manual_seed(4321)
-        x64 = torch.randn(P, oo.n_cols_pad, generator=g, dtype=torch.float64).to(device)
-        x = df.from_f64(x64)
-        got = df.to_f64(*dia_spmv_df(oo.offsets, vh, vl, x))
-        torch.cuda.synchronize()
-        want = df.to_f64(*df.dia_spmv_df_plain(oo.offsets, vh, vl, x))
-        exact = dia_spmv(oo.offsets, oo.vals, x64)
-        scale = dia_spmv(oo.offsets, oo.vals.abs(), x64.abs()) + 1e-30
-        errs = {
-            "kernel_vs_plain": ((got - want).abs() / scale).max().item(),
-            "kernel_vs_f64": ((got - exact).abs() / scale).max().item(),
-            "plain_vs_f64": ((want - exact).abs() / scale).max().item(),
-        }
-        bad = {k: v for k, v in errs.items() if not v <= DF64_KERNEL_TOL}
-        if bad:
-            raise AssertionError(f"dia_spmv_df {parts}x{shape}: {bad} > {DF64_KERNEL_TOL}")
-        _, n_off, R = vh.shape
-        work = (4 * (2 * vh.numel() + 2 * x[0].numel() + 2 * P * R), 15 * vh.numel())
-        b_ms, b_by = bound(*work)
-        results.append({
-            "kernel": "dia_spmv_df", "dtype": "df64", "shape": f"{parts}x{shape[0]}^3",
-            "max_abs_err": (got - want).abs().max().item(), "tol_rel_sum_abs": DF64_KERNEL_TOL,
-            **errs,
-            "ms": time_ms(lambda: dia_spmv_df(oo.offsets, vh, vl, x), 20),
-            "plain_ms": time_ms(lambda: df.dia_spmv_df_plain(oo.offsets, vh, vl, x), 3),
-            "k1_float64_ms": time_ms(lambda: dia_spmv(oo.offsets, oo.vals, x64), 20),
-            "bytes": work[0], "ops": work[1], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
-        })
-        del A, oo, vh, vl, x64, x, got, want, exact, scale
+        _hold_k7(results, f"{parts}x{shape[0]}^3", A.device().oo,
+                 torch.Generator().manual_seed(4321), device)
+        del A
         torch.cuda.empty_cache()
     emit("3b kernel K7", results)
     return results
@@ -1011,12 +1088,16 @@ def phase_hpcg_df64(device):
 
 
 def _level_info(M):
-    """Per level: rows, nnz, block kind, smoother tier and its geometry."""
+    """Per level: rows, nnz, block kind, smoother tier and its geometry, and
+    on a box-aggregated level its fine and coarse boxes and whether the
+    cycle runs it flat."""
     out = []
-    for lev in M.levels:
+    for l, lev in enumerate(M.levels):
         oo = lev.A.device().oo
         info = {"rows": lev.A.shape[0], "nnz": lev.A.nnz(), "kind": oo.kind,
                 "n_diags": len(oo.offsets) if oo.kind == "dia" else None}
+        if lev.struct is not None:
+            info.update(box=[list(lev.struct.fine), list(lev.struct.coarse)], flat=M._flat_ok(l))
         gs = lev.smoother
         if gs is None:
             info["smoother"] = f"coarse {M.coarse_kind}"
@@ -1027,6 +1108,22 @@ def _level_info(M):
             info.update(smoother="tile", tiles=tg.n_real_tiles, W=tg.W, B=tg.B)
         out.append(info)
     return out
+
+
+def _timed(counters, fn):
+    """``fn()`` with every launch count set to 0 just before it: (its
+    result, its seconds by CUDA events, the launches it made)."""
+    import torch
+
+    for c in counters.values():
+        c.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / 1e3, {k: c.launches for k, c in counters.items()}
 
 
 def _tile_work(tg, dirs, itemsize):
@@ -1195,8 +1292,6 @@ def phase_amg_elasticity(device, counters):
     from partitionedarrays_tpu_torch.models.gallery import (
         linear_elasticity_fem, node_coordinates_unit_cube, nullspace_linear_elasticity,
     )
-    from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
-    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv
     from partitionedarrays_tpu_torch.psparse import psparse, spmv, to_global_scipy
     from partitionedarrays_tpu_torch.pvector import pones
     from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
@@ -1225,18 +1320,11 @@ def phase_amg_elasticity(device, counters):
         b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device=device))
         solves = []
         for _ in range(2):  # the second solve is warm
-            for fn in counters.values():
-                fn.launches = 0
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            x, info = cg(A, b, M=M, rtol=AMG_RTOL, maxiter=AMG_MAXITER)
-            end.record()
-            end.synchronize()
-            counts = {k: fn.launches for k, fn in counters.items()}
+            (x, info), seconds, counts = _timed(
+                counters, lambda: cg(A, b, M=M, rtol=AMG_RTOL, maxiter=AMG_MAXITER))
             for k, v in counts.items():
                 path_launches[k] += v
-            solves.append((start.elapsed_time(end) / 1e3, info.iterations, counts))
+            solves.append((seconds, info.iterations, counts))
         prof = None
         if nodes == AMG_KERNEL_NODES:  # where the device time of a solve goes
             prof = _profile_set(lambda: cg(A, b, M=M, rtol=AMG_RTOL, maxiter=AMG_MAXITER), top=8,
@@ -1271,10 +1359,7 @@ def phase_amg_elasticity(device, counters):
             _hold_k5_blocks(results, f"{nodes[0]}^3", _amg_blocks(M), dtype, g, device)
             oo = A.device().oo
             xs = torch.randn(1, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
-            _hold(results, "dia_spmv", dtype, lambda: dia_spmv(oo.offsets, oo.vals, xs),
-                  lambda: dia_spmv_plain(oo.offsets, oo.vals, xs),
-                  work=(xs.element_size() * (oo.vals.numel() + 2 * xs.numel()), 2 * oo.vals.numel()))
-            results[-1].update(where=f"{len(oo.offsets)} diagonals, {nodes[0]}^3 elasticity")
+            _hold_k1(results, f"{len(oo.offsets)} diagonals, {nodes[0]}^3 elasticity", oo, xs)
             _hold_k3(results, f"level 0 of {nodes[0]}^3 elasticity", M.levels[0].smoother,
                      dtype, g, device)
         del A, M, b, x, G
@@ -1290,6 +1375,201 @@ def phase_amg_elasticity(device, counters):
     if failures:
         raise AssertionError("; ".join(failures))
     return path_launches, results
+
+
+def _hold_box_levels(results, where, M, g, device, vcycle_launches):
+    """K3 (``_hold_k3``) and K4 (``_hold_k4``) against their plain versions
+    on every smoothed level of the box AMG ``M``, in its dtype; each
+    smoothed level of the flat cycle launches the same number of each per
+    V-cycle (``vcycle_launches``)."""
+    import torch
+
+    smoothed = [(l, lev) for l, lev in enumerate(M.levels) if lev.smoother is not None]
+    for l, lev in smoothed:
+        col = lev.smoother.colored
+        dtype_name = str(col.vals_d.dtype).replace("torch.", "")
+        at = f"level {l} of {where} ({lev.A.shape[0]} rows)"
+        _hold_k3(results, at, lev.smoother, dtype_name, g, device)
+        for row in results[-2:]:
+            row["launches_per_vcycle"] = vcycle_launches["gs_sweeps"] / len(smoothed)
+        x = torch.randn(col.vals_d.shape[0], col.m, col.Lq, generator=g,
+                        dtype=col.vals_d.dtype).to(device)
+        _hold_k4(results, at, col, x)
+        results[-1]["launches_per_vcycle"] = vcycle_launches["ax_core"] / len(smoothed)
+
+
+def phase_amg_box(device, counters):
+    """The box-stencil SA-AMG through the port's entry points: the 64^3
+    ``laplacian_fdm`` AMG-CG in float32 and float64 (``BOX_RUNS``) and the
+    48^3 ``cg_df64`` preconditioned by the AMG of the float32 copy.  The
+    launch counts of the solves (counters set to 0 just before each solve
+    and read just after) are returned as the two paths'; the kernel checks
+    that follow are not counted: K3 and K4 on every colored level of each
+    hierarchy (``_hold_box_levels``), K1 on the 64^3 operator, K7 on the
+    48^3 one.  Returns (launches of amg_box, of amg_box_df64, kernel
+    rows)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.gallery import laplacian_fdm
+    from partitionedarrays_tpu_torch.ops import df64 as df
+    from partitionedarrays_tpu_torch.psparse import psparse, spmv, to_global_scipy
+    from partitionedarrays_tpu_torch.pvector import PVector, pvector_df64, pvector_from_own
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+    from partitionedarrays_tpu_torch.solvers.krylov import cg, cg_df64
+
+    out, failures, results = {}, [], []
+    box_launches = {k: 0 for k in counters}
+    g = torch.Generator().manual_seed(4242)
+    for dtype, iter_range, limit in BOX_RUNS:
+        key = f"{dtype}@{BOX_NODES[0]}^3"
+        t0 = time.perf_counter()
+        I, J, V, rows, cols = laplacian_fdm(BOX_NODES, (1, 1, 1), dtype=getattr(np, dtype))
+        A = psparse(I, J, V, rows, cols, SerialBackend(1), device=device)
+        A.device()
+        torch.cuda.synchronize()
+        assembly = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        M = AMGPreconditioner(A, AMGParams(**BOX_PARAMS))
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        n = A.shape[0]
+        own = np.zeros(n, dtype=getattr(np, dtype))
+        own[:10] = 1.0
+        b = pvector_from_own([own], A.row_prange, A.backend, device=device)
+        solves = []
+        for _ in range(2):  # cold, then warm
+            (x, info), seconds, counts = _timed(
+                counters, lambda: cg(A, b, M=M, rtol=BOX_RTOL, maxiter=BOX_MAXITER))
+            for k, v in counts.items():
+                box_launches[k] += v
+            solves.append((seconds, info.iterations, counts))
+        _, vcycle_s, vcycle_launches = _timed(counters, lambda: M(b))
+        prof = _profile_set(lambda: cg(A, b, M=M, rtol=BOX_RTOL, maxiter=BOX_MAXITER), top=8,
+                            kernels=("gs_seq_grid", "ax_core", "dia_spmv_kernel"))
+        G = to_global_scipy(A).astype(np.float64)
+        x64 = x.own[0, :n].double().cpu().numpy()
+        true_relres = float(np.linalg.norm(own - G @ x64) / np.linalg.norm(own))
+        iters = solves[-1][1]
+        out[key] = {
+            "rows": n, "nnz": A.nnz(), "assembly_s": assembly, "setup_s": setup,
+            "levels": _level_info(M), "omegas": M.omegas, "iterations": iters,
+            "cg_residual": float(info.residual), "true_relres": true_relres,
+            "solve_s": {"cold": solves[0][0], "warm": solves[1][0]},
+            "launches_per_solve": solves[-1][2],
+            "vcycle_s": vcycle_s, "launches_per_vcycle": vcycle_launches,
+            "profiled_solve": prof,
+        }
+        emit(f"4e amg_box {key}", out[key])
+        if iter_range is not None and not iter_range[0] <= iters <= iter_range[1]:
+            failures.append(f"{key}: {iters} CG iterations, not in {iter_range}")
+        if iters >= BOX_MAXITER or not true_relres <= limit:
+            failures.append(f"{key}: {iters} iterations, true relres {true_relres} > {limit}")
+        if not all(lev.get("flat") for lev in out[key]["levels"][:-1]):
+            failures.append(f"{key}: a level did not take the flat cycle")
+        # K3 and K4 on every colored level; K1 on the 7-point operator of
+        # CG's A p
+        _hold_box_levels(results, f"{BOX_NODES[0]}^3 box AMG", M, g, device, vcycle_launches)
+        oo = A.device().oo
+        xs = torch.randn(1, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
+        _hold_k1(results, f"{len(oo.offsets)} diagonals, {BOX_NODES[0]}^3 laplacian_fdm", oo, xs)
+        results[-1]["launches_per_solve"] = solves[-1][2]["dia_spmv"]
+        del A, M, b, x, G, oo, xs
+        torch.cuda.empty_cache()
+
+    # the df64 solve with the AMG of the float32 copy
+    df64_launches = {k: 0 for k in counters}
+    key = f"df64@{BOX_DF64_NODES[0]}^3"
+    t0 = time.perf_counter()
+    I, J, V, rows, cols = laplacian_fdm(BOX_DF64_NODES, (1, 1, 1))
+    A = psparse(I, J, V, rows, cols, SerialBackend(1), device=device)
+    G = to_global_scipy(A)
+    xg = np.random.default_rng(7).standard_normal(A.shape[0])
+    bg = G @ xg
+    b = pvector_df64([bg], A.row_prange, A.backend, device=device)
+    torch.cuda.synchronize()
+    assembly = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    M = AMGPreconditioner(A.astype(np.float32), AMGParams(**BOX_PARAMS))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    solves = []
+    for _ in range(2):
+        (xp, info), seconds, counts = _timed(
+            counters, lambda: cg_df64(A, b, M=M, rtol=BOX_DF64_RTOL, maxiter=BOX_DF64_MAXITER))
+        for k, v in counts.items():
+            df64_launches[k] += v
+        solves.append((seconds, info.iterations, counts))
+    x64 = df.to_f64(xp[0].own, xp[1].own)
+    xv = PVector(x64, x64.new_zeros((1, A.row_layout().n_ghost_pad)), A.row_layout(), A.backend)
+    b64 = df.to_f64(b[0].own, b[1].own)
+    true_relres = (torch.linalg.vector_norm(b64 - spmv(A, xv).own)
+                   / torch.linalg.vector_norm(b64)).item()
+    host_relres = float(np.linalg.norm(G @ x64[0, : A.shape[0]].cpu().numpy() - bg)
+                        / np.linalg.norm(bg))
+    iters = solves[-1][1]
+    out[key] = {
+        "rows": A.shape[0], "assembly_s": assembly, "setup_s": setup,
+        "levels": _level_info(M), "level_dtypes": [str(lev.A.dtype) for lev in M.levels],
+        "iterations": iters, "true_relres": true_relres, "host_relres": host_relres,
+        "solve_s": {"cold": solves[0][0], "warm": solves[1][0]},
+        "launches_per_solve": solves[-1][2],
+    }
+    emit(f"4e amg_box {key}", out[key])
+    if not BOX_DF64_ITERS[0] <= iters <= BOX_DF64_ITERS[1]:
+        failures.append(f"{key}: {iters} iterations, not in {BOX_DF64_ITERS}")
+    if not (true_relres <= BOX_DF64_TRUE_RELRES and host_relres <= BOX_DF64_TRUE_RELRES):
+        failures.append(f"{key}: true relres {true_relres} / {host_relres} > {BOX_DF64_TRUE_RELRES}")
+    if any(lev.A.dtype != torch.float32 for lev in M.levels):
+        failures.append(f"{key}: the AMG of the float32 copy froze a level in another dtype")
+    # K3 and K4 on every float32 level of the preconditioner; K7 on the
+    # (hi, lo) split of the 7-point operator of cg_df64's A p
+    r32 = pvector_from_own([bg.astype(np.float32)], A.row_prange, A.backend, device=device)
+    _, _, vcycle_launches = _timed(counters, lambda: M(r32))
+    _hold_box_levels(results, f"{BOX_DF64_NODES[0]}^3 box AMG of the float32 copy", M, g, device,
+                     vcycle_launches)
+    _hold_k7(results, f"7 diagonals, {BOX_DF64_NODES[0]}^3 laplacian_fdm", A.device().oo, g, device)
+    results[-1]["launches_per_solve"] = solves[-1][2]["dia_spmv_df"]
+    del A, M, b, xp, x64, xv, G, r32
+    torch.cuda.empty_cache()
+    emit("4e kernels K3, K4, K1, K7 on the box paths", results)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return box_launches, df64_launches, results
+
+
+def _cross_amg_box(device):
+    """The box AMG-CG on the card against the CPU, float64, at 16^3: the
+    residual norm after each iteration count from 0 to CROSS_ITERATIONS
+    (``cg`` with rtol 0)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.gallery import laplacian_fdm
+    from partitionedarrays_tpu_torch.psparse import psparse
+    from partitionedarrays_tpu_torch.pvector import pvector_from_own
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+    from partitionedarrays_tpu_torch.solvers.krylov import cg
+
+    I, J, V, rows, cols = laplacian_fdm(BOX_CROSS_NODES, (1, 1, 1))
+    own = np.random.default_rng(16).standard_normal(int(np.prod(BOX_CROSS_NODES)))
+    hist = {}
+    for dev in (device, torch.device("cpu")):
+        A = psparse(I, J, V, rows, cols, SerialBackend(1), device=dev)
+        M = AMGPreconditioner(A, AMGParams(coarse_size=10))
+        b = pvector_from_own([own], A.row_prange, A.backend, device=dev)
+        hist[dev.type] = np.array([
+            float(cg(A, b, M=M, rtol=0.0, maxiter=k)[1].residual)
+            for k in range(CROSS_ITERATIONS + 1)
+        ])
+    a, c = hist["cuda"], hist["cpu"]
+    err = float(np.max(np.abs(a - c) / np.abs(c)))
+    if not err <= CROSS_RTOL:
+        raise AssertionError(f"box AMG-CG {BOX_CROSS_NODES}: cuda vs cpu differ by {err}")
+    return {"max_rel_diff": err, "levels": [lev.A.shape[0] for lev in M.levels],
+            "final_relres": float(c[-1] / c[0])}
 
 
 def _cross_df64(device):
@@ -1357,6 +1637,7 @@ def phase_cross(device):
             "final_relres": float(hist["cpu"][0][-1] / hist["cpu"][0][0]),
         }
     out[f"df64 {GHOST_PARTS}x8^3"] = _cross_df64(device)
+    out[f"amg_box {BOX_CROSS_NODES[0]}^3"] = _cross_amg_box(device)
     emit("6 cuda-vs-cpu", {
         "levels": CROSS_LEVELS, "iterations": CROSS_ITERATIONS, "rtol": CROSS_RTOL, "cases": out,
     })
@@ -1403,6 +1684,8 @@ def main() -> int:
         launches[path] = {k: fn.launches for k, fn in counters.items()}
     launches["amg_elasticity"], k6_results = phase_amg_elasticity(device, counters)
     kernel_results += k6_results
+    launches["amg_box"], launches["amg_box_df64"], box_results = phase_amg_box(device, counters)
+    kernel_results += box_results
     emit("5 launches", launches)
     missing = [
         f"{path}:{k}" for path, names in PATH_KERNELS.items() for k in names
@@ -1416,7 +1699,7 @@ def main() -> int:
     # one row per kernel: its float32 measurement (K7: df64 at the 128^3
     # one-part shape; K6: a symmetric sweep of level 1 of the 40^3
     # elasticity hierarchy; K2, K5 and their library calls with the L2
-    # flushed before each call), its launches over the four paths' runs
+    # flushed before each call), its launches over the six paths' runs
     # (calls of the kernel's C entry: K3 and K6 one per sweep sequence)
     rows = []
     for kname, (source, replaces) in KERNELS.items():

@@ -15,6 +15,12 @@ own ids: they make the ghost columns and the own-ghost block ``oh``, built
 on the host in O(surface) (:175-231) and frozen as a compressed-row ELL
 (kernel K5).  Boxes of unequal shape (a grid that the parts do not divide)
 are not supported yet (the reference's general branch :358-415).
+
+The host mirrors of the blocks (:321-337) are the own-ghost CSR and a
+scipy DIA own-own block made from the closed form on first access, for
+host consumers (``to_global_scipy``, ``dense_diag``, the AMG setup).
+``_host_dia_mirror`` and ``_LazyStencilBlocks`` are copied from
+``partitionedarrays_tpu/ops/stencil.py`` (:60-106).
 """
 from __future__ import annotations
 
@@ -52,6 +58,75 @@ def _outer_and(masks: Sequence[np.ndarray]) -> np.ndarray:
         m.reshape((1,) * d + (-1,) + (1,) * (nd - d - 1)) for d, m in enumerate(masks)
     ]
     return reduce(np.logical_and, shaped).ravel()
+
+
+def _host_dia_mirror(loc, n_own_c, all_offs, terms, dtype) -> sp.dia_matrix:
+    """scipy dia mirror of the own_own block, built from the closed form.
+    scipy's dia format indexes data by COLUMN (data[k, j] = A[j - off, j])
+    while our diagonals are row-indexed — shift accordingly."""
+    R = int(np.prod(loc))
+    n_off = len(all_offs)
+    data = np.zeros((max(n_off, 1), n_own_c), dtype=dtype)
+    for k, o in enumerate(all_offs):
+        diag = None
+        for delta, value in terms[o]:
+            in_loc, _ = _axis_masks(loc, (0,) * len(loc), loc, delta)
+            m = _outer_and(in_loc) * np.asarray(value, dtype=dtype)
+            diag = m if diag is None else diag + m
+        if diag is None:
+            continue
+        if o >= 0:
+            w = min(R, n_own_c - o)
+            if w > 0:
+                data[k, o : o + w] = diag[:w]
+        else:
+            w = min(R + o, n_own_c)
+            if w > 0:
+                data[k, :w] = diag[-o : -o + w]
+    return sp.dia_matrix((data, np.array(all_offs)), shape=(R, n_own_c))
+
+
+class _LazyStencilBlocks(dict):
+    """Host block dict whose scipy 'oo' mirror materializes on first access.
+
+    The closed-form constructor keeps the own_own diagonals device-resident;
+    host-side algebra (generic AMG setup, centralize, spmm, ...) still works
+    — it just pays the host materialization cost only when actually used.
+    Every view holds both blocks: ``in``, ``len`` and the key order never
+    materialize 'oo'; ``values`` and ``items`` do.
+    """
+
+    _KEYS = ("oh", "oo")
+
+    def __init__(self, oh, builder):
+        super().__init__(oh=oh)
+        self._builder = builder
+
+    def __getitem__(self, k):
+        if k == "oo" and not dict.__contains__(self, "oo"):
+            dict.__setitem__(self, "oo", self._builder())
+        return dict.__getitem__(self, k)
+
+    def get(self, k, default=None):
+        return self[k] if k in self._KEYS else default
+
+    def __contains__(self, k):
+        return k in self._KEYS
+
+    def __len__(self):
+        return len(self._KEYS)
+
+    def __iter__(self):
+        return iter(self._KEYS)
+
+    def keys(self):
+        return list(self._KEYS)
+
+    def values(self):
+        return [self[k] for k in self._KEYS]
+
+    def items(self):
+        return [(k, self[k]) for k in self._KEYS]
 
 
 def _terms_for(loc, stencil) -> Dict[int, List]:
@@ -114,7 +189,9 @@ def stencil_psparse(
 
     ``stencil``: iterable of (offset tuple, value), the center included.
     The own-own DIA values ``[P, n_off, n_own_pad]`` are built on ``device``,
-    the own-ghost block on the host and then frozen onto ``device``.
+    the own-ghost block on the host and then frozen onto ``device``; the
+    host mirror of the own-own block is made when a host consumer first
+    asks for it.
     """
     gshape = tuple(int(v) for v in gshape)
     parts_per_dir = tuple(int(v) for v in parts_per_dir)
@@ -159,7 +236,12 @@ def stencil_psparse(
     nnz = P * int(torch.count_nonzero(one)) + sum(m.nnz for m in oh_csrs)
     oo = make_dia_block(tuple(all_offs), clay.n_own_pad, vals)
     oh = freeze_block(oh_csrs, rlay.n_own_pad, max(clay.n_ghost_pad, 1), device=device)
-    return PSparseMatrix(DeviceSpMat(oo, oh), row_pr, col_pr, backend, nnz)
+    blocks = [
+        _LazyStencilBlocks(oh_csr, lambda ncc=cp.n_own: _host_dia_mirror(
+            loc, ncc, all_offs, terms, np_dtype))
+        for oh_csr, cp in zip(oh_csrs, col_pr.parts)
+    ]
+    return PSparseMatrix(DeviceSpMat(oo, oh), row_pr, col_pr, backend, nnz, blocks=blocks)
 
 
 def stencil_rhs_counts(

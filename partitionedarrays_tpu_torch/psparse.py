@@ -3,16 +3,19 @@ its SpMVs and the host sparse products.
 
 Counterpart of ``partitionedarrays_tpu/psparse.py``: ``_sorted_ghosts``
 :54, ``DeviceSpMat`` and ``PSparseMatrix`` :63-252 with
-``device_transpose``, ``_build_part_blocks`` and ``psparse`` :366-579,
+``device_transpose``, its blockwise ``copy``, ``astype`` and arithmetic
+:284-360, ``_build_part_blocks`` and ``psparse`` :366-579,
 ``to_global_scipy`` and ``gather_global_scipy`` :885-977, ``spmv`` and
-``spmtv`` :1568-1750, ``dense_diag`` :1757, ``spmm`` :1827 and ``spmtm``
-:1994, and the df64 SpMV ``device_df64``/``spmv_df64`` :2711-2783.
+``spmtv`` :1568-1750,
+``dense_diag`` :1757, ``spmm`` :1827 and ``spmtm`` :1994, and the df64
+SpMV ``device_df64``/``spmv_df64`` :2711-2783.
 
 A matrix has frozen device blocks, the own-own block ``oo`` and the
 own-ghost block ``oh`` (``ops/blocks.py``: DIA on kernel K1 or compressed
-rows on K5), and, when it was assembled from triplets, host mirrors
-``blocks[p]["oo"|"oh"]`` (scipy CSR) that are frozen on first use.  The
-closed-form stencil matrices (``ops/stencil.py``) have device blocks only.
+rows on K5), and host mirrors ``blocks[p]["oo"|"oh"]``: scipy CSR when it
+was assembled from triplets (frozen on first use), a lazy scipy DIA
+``oo`` for the closed-form stencil matrices (``ops/stencil.py``), whose
+device blocks are built directly.
 The device blocks may hold another dtype than the host mirrors
 (``device_dtype``): a float32 AMG hierarchy keeps the reference's host
 products, whose prolongators are float64 (the nullspace is), and runs
@@ -152,12 +155,70 @@ class PSparseMatrix:
             f"{self.row_prange.n_parts}, nnz={self.nnz()})"
         )
 
+    # -- blockwise algebra on the host blocks ------------------------------
+    def _map_blocks(self, f, dtype: Optional[torch.dtype] = None) -> "PSparseMatrix":
+        """The matrix whose host blocks are ``f`` of these, on the same
+        partitions; it freezes on first use, on this matrix's device, with
+        device values of ``dtype`` (default: this matrix's)."""
+        blocks = [{k: f(b[k]) for k in ("oo", "oh")} for b in host_blocks(self)]
+        return PSparseMatrix(
+            None, self.row_prange, self.col_prange, self.backend, blocks=blocks,
+            device=self.torch_device, device_dtype=dtype or self.dtype,
+        )
+
+    def _zip_blocks(self, other: "PSparseMatrix", f) -> "PSparseMatrix":
+        if other.shape != self.shape:
+            raise ValueError("matrix shapes/partitions do not match")
+        blocks = [
+            {k: f(ba[k], bb[k]) for k in ("oo", "oh")}
+            for ba, bb in zip(host_blocks(self), host_blocks(other))
+        ]
+        return PSparseMatrix(
+            None, self.row_prange, self.col_prange, self.backend, blocks=blocks,
+            device=self.torch_device, device_dtype=torch.promote_types(self.dtype, other.dtype),
+        )
+
+    def copy(self) -> "PSparseMatrix":
+        return self._map_blocks(lambda m: m.copy())
+
+    def astype(self, dtype) -> "PSparseMatrix":
+        """Blockwise host dtype conversion, frozen in ``dtype`` (e.g. the
+        float32 preconditioner copy of a float64 operator for ``cg_df64``)."""
+        return self._map_blocks(lambda m: m.astype(numpy_dtype(dtype)), torch_dtype(dtype))
+
+    def __mul__(self, a):
+        if not np.isscalar(a):
+            return NotImplemented
+        return self._map_blocks(lambda m: (m * a).tocsr())
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, a):
+        if not np.isscalar(a):
+            return NotImplemented
+        return self * (1.0 / a)
+
+    def __neg__(self):
+        return self * -1.0
+
+    def __add__(self, other):
+        if not isinstance(other, PSparseMatrix):
+            return NotImplemented
+        return self._zip_blocks(other, lambda a, b: (a + b).tocsr())
+
+    def __sub__(self, other):
+        if not isinstance(other, PSparseMatrix):
+            return NotImplemented
+        return self._zip_blocks(other, lambda a, b: (a - b).tocsr())
+
 
 def host_blocks(A: PSparseMatrix) -> List[dict]:
-    """A's host blocks; the closed-form stencil matrices have none."""
+    """A's host blocks (a stencil matrix's ``oo`` mirror is made on first
+    access); a matrix adopted from device arrays (``convert.py``) has
+    none."""
     if A.blocks is None:
         raise NotImplementedError(
-            "host blocks of a closed-form stencil matrix: ROADMAP Queue 1 item 10"
+            "host blocks of a matrix adopted from device arrays: ROADMAP Queue 1 item 10"
         )
     return A.blocks
 

@@ -2,36 +2,47 @@
 
 Counterpart of ``partitionedarrays_tpu/solvers/amg.py``: ``aggregate`` (the
 Python version, :51-102), ``strength_graph`` and ``aggregate_psparse``
-(:105-182), ``constant_prolongator`` and ``tentative_prolongator`` with the
+(:105-182), ``_detect_box`` and ``box_aggregate_psparse`` (:185-242),
+``constant_prolongator`` and ``tentative_prolongator`` with the
 per-aggregate nullspace QR (:249-340), ``_diag_parts`` and ``_dinv_parts``
 (:343-385), the host power method ``spectral_radius`` (:388-429), ``_make_S``
 and ``smoothed_prolongator`` (:494-545), the Galerkin product of
 ``_GalerkinCache`` (:548-631) without its reuse maps, ``AMGLevel``,
-``AMGParams`` and ``AMGPreconditioner`` (the generic branch of ``_setup``,
-``_coarse_factorize``, ``_coarse_solve``, the generic ``_cycle`` :1184-1226
-for V and W cycles, ``statistics``), ``amg`` and ``default_nullspace``.
+``AMGParams`` and ``AMGPreconditioner`` (``_setup`` with the box levels'
+``struct`` :740-794, ``_coarse_factorize``, ``_coarse_solve``, the
+structured transfers :991-1062, the flat cycle :1064-1181 and the
+dispatch of ``_cycle`` :1184-1226 for V and W cycles, ``statistics``),
+``amg`` and ``default_nullspace``.
 
 The coarsening runs on the host with numpy and scipy, the same operations
 in the same order as the reference, so aggregates, omega, P and the coarse
-operators agree with it number for number.  The cycle runs on the device:
-the level smoothers (``GaussSeidel``: the colored tier K3/K4 on a DIA band,
-the tile tier K6 on the Galerkin levels), the residuals (K1 or K5), the
-restriction by the frozen transpose of P and the prolongation by P (K5),
-and the coarsest solve as a dense inverse or LU factors applied by torch.
+operators agree with it number for number.  A box-stencil operator (a DIA
+own block on a C-ordered box) under epsilon 0, block size 1 and no
+nullspace is aggregated in 3x3x3 boxes, so every coarse operator is again
+a box stencil; its levels apply P = (I - omega D^-1 A) P0 as a 3^3 sum-pool
+or upsample (plain tensor code) beside one SpMV, and never as a matrix.
+The cycle runs on the device: the level smoothers (``GaussSeidel``: the
+colored tier K3/K4 on a DIA band, the tile tier K6 elsewhere), the
+residuals (K1 or K5), the transfers (on a box level whose smoother is
+colored, the flat cycle keeps x in the smoother's de-interleaved core and
+applies A by K4; on another box level by K1; elsewhere by the frozen P and
+its transpose on K5), and the coarsest solve as a dense inverse or LU
+factors applied by torch.
 
 Where the reference takes another branch, the port raises
 ``NotImplementedError`` naming the ROADMAP item, never silently taking a
-different one: box aggregation and the structured/flat cycle (epsilon 0,
-block size 1, no nullspace, a box-stencil DIA operator), ``update`` (the
-reuse tier), and the Schwarz level smoother.  ``ops/native.py`` is not
-ported: the Python ``aggregate`` is the reference's fallback, and the tests
-hold its aggregates against the reference's (native) ones.
+different one: the ghosted flat cycle (a box level with ghost columns),
+``update`` (the reuse tier), and the Schwarz level smoother.  The
+reference's ``zsel`` (its z-axis pool as a TPU matmul) is not ported: the
+pool pads all three axes.  ``ops/native.py`` is not ported: the Python
+``aggregate`` is the reference's fallback, and the tests hold its
+aggregates against the reference's (native) ones.
 """
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import scipy.linalg as sla
@@ -52,8 +63,6 @@ from ..psparse import (
 )
 from ..pvector import PVector
 from .smoothers import GaussSeidel
-
-_BOX = "box aggregation and the structured AMG cycle: ROADMAP Queue 1 item 13"
 
 
 def _host_dtype(A: PSparseMatrix) -> np.dtype:
@@ -182,15 +191,32 @@ def _detect_box(offsets, n_own: int):
     return None
 
 
-def _is_box_stencil(A: PSparseMatrix) -> bool:
-    """True where the reference's ``box_aggregate_psparse`` succeeds: a DIA
-    own block whose offsets are a box stencil of the same shape on every
-    part."""
+def box_aggregate_psparse(A: PSparseMatrix):
+    """3x3x3 box aggregation of a box-stencil operator: a DIA own block
+    whose offsets form a tensor-product stencil on a C-ordered box of the
+    same shape on every part.  The aggregates are the diameter-3 blocks,
+    numbered in C order (a ragged last block on an axis whose length is
+    not a multiple of 3), so every coarse operator is again a box stencil.
+    Returns (aggregate ids per part, coarse PRange, (fine box, coarse
+    box)), or None for any other operator."""
     oo = A.device().oo
     if oo.kind != "dia":
-        return False
-    shapes = {_detect_box(oo.offsets, li.n_own) for li in A.row_prange.parts}
-    return None not in shapes and len(shapes) == 1
+        return None
+    aggs, shapes, counts = [], [], []
+    for li in A.row_prange.parts:
+        shape = _detect_box(oo.offsets, li.n_own)
+        if shape is None:
+            return None
+        nx, ny, nz = shape
+        nxc, nyc, nzc = -(-nx // 3), -(-ny // 3), -(-nz // 3)
+        x, y, z = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij")
+        agg = ((x // 3) * nyc + (y // 3)) * nzc + (z // 3)
+        aggs.append(agg.reshape(-1).astype(np.int64))
+        shapes.append(((nx, ny, nz), (nxc, nyc, nzc)))
+        counts.append(nxc * nyc * nzc)
+    if len(set(shapes)) != 1:
+        return None  # the batched transfers need one box shape on every part
+    return aggs, PRange(variable_partition(counts)), shapes[0]
 
 
 # -- prolongators (host) -------------------------------------------------------
@@ -346,11 +372,23 @@ def _galerkin(A: PSparseMatrix, P0: PSparseMatrix, omega: float):
 
 # -- hierarchy -----------------------------------------------------------------
 
+class BoxTransfer(NamedTuple):
+    """What a box-aggregated level applies P = (I - omega D^-1 A) P0 with:
+    the fine and coarse box shapes, omega, and D^-1 ``[P, n_own_pad]`` in
+    the level's dtype on its device."""
+
+    fine: Tuple[int, int, int]
+    coarse: Tuple[int, int, int]
+    omega: float
+    dinv: torch.Tensor
+
+
 @dataclass
 class AMGLevel:
     A: PSparseMatrix
     P: Optional[PSparseMatrix]  # None on the coarsest level
     smoother: Optional[GaussSeidel]
+    struct: Optional[BoxTransfer] = None  # on a box-aggregated level
 
 
 @dataclass
@@ -389,9 +427,15 @@ class AMGPreconditioner:
         for _ in range(params.max_levels - 1):
             if current.shape[0] <= params.coarse_size:
                 break
-            if params.epsilon == 0 and bs == 1 and ns is None and _is_box_stencil(current):
-                raise NotImplementedError(_BOX)
-            aggs, coarse = aggregate_psparse(current, params.epsilon, bs)
+            box = (
+                box_aggregate_psparse(current)
+                if params.epsilon == 0 and bs == 1 and ns is None
+                else None
+            )
+            if box is not None:
+                aggs, coarse, shapes = box
+            else:
+                aggs, coarse = aggregate_psparse(current, params.epsilon, bs)
             self.aggregates.append((aggs, coarse))
             P0, ns, _ = tentative_prolongator(current, aggs, coarse, ns)
             # the coarse level has n_modes dofs per aggregate
@@ -402,7 +446,17 @@ class AMGPreconditioner:
                 omega = 4.0 / (3.0 * max(spectral_radius(current, _dinv_parts(current)), 1e-12))
             self.omegas.append(omega)
             P, Ac = _galerkin(current, P0, omega)
-            self.levels.append(AMGLevel(current, P, GaussSeidel(current, params.smoother_iters, "symmetric")))
+            struct = None
+            if box is not None:
+                lay = current.row_layout()
+                dinv = torch.zeros((lay.n_parts, lay.n_own_pad), dtype=torch.float64)
+                for p, d in enumerate(_dinv_parts(current)):
+                    dinv[p, : d.size] = torch.from_numpy(d)
+                struct = BoxTransfer(
+                    *shapes, omega, dinv.to(current.torch_device, current.dtype)
+                )
+            gs = GaussSeidel(current, params.smoother_iters, "symmetric")
+            self.levels.append(AMGLevel(current, P, gs, struct))
             current = Ac
             if Ac.shape[0] >= self.levels[-1].A.shape[0]:
                 break  # aggregation stalled
@@ -411,7 +465,7 @@ class AMGPreconditioner:
         self._coarse_factorize(current)
         for lev in self.levels:  # freeze every level now, as the reference
             lev.A.device()
-            if lev.P is not None:
+            if lev.P is not None and lev.struct is None:  # a box level never applies P
                 lev.P.device()
                 lev.P.device_transpose()
 
@@ -469,25 +523,127 @@ class AMGPreconditioner:
         own.view(-1)[self._coarse_slots] = z[self._coarse_gids]
         return PVector(own, torch.zeros_like(b.ghost), b.layout, b.backend)
 
+    # -- structured transfers (box-aggregated levels) ----------------------
+    # The 3^3 sum-pool and upsample of a C-ordered (fx, fy, fz) box: every
+    # axis is padded to a multiple of 3 (the ragged last block sums fewer
+    # rows), then reshaped and summed, or expanded, reshaped and cut.
+    @staticmethod
+    def _box_pool3(v: torch.Tensor, st: BoxTransfer) -> torch.Tensor:
+        (fx, fy, fz), (cx, cy, cz) = st.fine, st.coarse
+        P = v.shape[0]
+        f3 = v[:, : fx * fy * fz].reshape(P, fx, fy, fz)
+        f3 = torch.nn.functional.pad(f3, (0, 3 * cz - fz, 0, 3 * cy - fy, 0, 3 * cx - fx))
+        return f3.reshape(P, cx, 3, cy, 3, cz, 3).sum((2, 4, 6)).reshape(P, -1)
+
+    @staticmethod
+    def _box_up3(c: torch.Tensor, st: BoxTransfer) -> torch.Tensor:
+        (fx, fy, fz), (cx, cy, cz) = st.fine, st.coarse
+        P = c.shape[0]
+        c3 = c[:, : cx * cy * cz].reshape(P, cx, 1, cy, 1, cz, 1)
+        f3 = c3.expand(P, cx, 3, cy, 3, cz, 3).reshape(P, 3 * cx, 3 * cy, 3 * cz)
+        return f3[:, :fx, :fy, :fz].reshape(P, -1)
+
+    def _restrict_struct(self, level: AMGLevel, r: PVector, cl) -> PVector:
+        """rc = P^T r = P0^T (r - omega A D^-1 r): one SpMV (K1 on a DIA
+        level) and the box sum-pool."""
+        st = level.struct
+        clay = level.A.col_layout()
+        v = r.own - st.omega * spmv(level.A, _own_vec(r.own * st.dinv, clay, r.backend)).own
+        return _own_vec(_pad2(self._box_pool3(v, st), cl.n_own_pad), cl, r.backend)
+
+    def _prolong_struct(self, level: AMGLevel, ec: PVector) -> torch.Tensor:
+        """The own values of e = P ec = w - omega D^-1 A w, w = P0 ec (the
+        box upsample): one SpMV (K1 on a DIA level)."""
+        st = level.struct
+        clay = level.A.col_layout()
+        w_own = _pad2(self._box_up3(ec.own, st), level.A.row_layout().n_own_pad)
+        return w_own - st.omega * (st.dinv * spmv(level.A, _own_vec(w_own, clay, ec.backend)).own)
+
+    # -- the flat cycle: a box level whose smoother is colored runs in the
+    #    smoother's de-interleaved core, from the pre-smooth to the
+    #    post-smooth; one interleave (the restricted residual) and one
+    #    de-interleave (the prolongated correction) per level, the
+    #    transfers' A-apply by K4 with the smoother's own D^-1
+    def _flat_ok(self, l: int) -> bool:
+        level = self.levels[l]
+        return (
+            level.P is not None
+            and level.struct is not None
+            and level.smoother.colored is not None
+            and level.smoother.flat_viable()
+        )
+
+    def _restrict_flat(self, level: AMGLevel, rd: torch.Tensor, cl) -> PVector:
+        """rc = P0^T (r - omega A D^-1 r) from the core residual ``rd``."""
+        gs, st = level.smoother, level.struct
+        u = gs.flat_ax(rd * gs.colored.invd_d)
+        v_std = gs.flat_interleave(rd - st.omega * u)
+        return _own_vec(_pad2(self._box_pool3(v_std, st), cl.n_own_pad), cl, level.A.backend)
+
+    def _prolong_flat(self, level: AMGLevel, ec: PVector) -> torch.Tensor:
+        """e = w - omega D^-1 A w, w = P0 ec (the box upsample), as a core."""
+        gs, st = level.smoother, level.struct
+        w_std = _pad2(self._box_up3(ec.own, st), level.A.row_layout().n_own_pad)
+        w_core = gs.flat_deinterleave(w_std)
+        return w_core - st.omega * (gs.colored.invd_d * gs.flat_ax(w_core))
+
+    def _cycle_flat(self, l: int, bd: torch.Tensor, w: bool) -> torch.Tensor:
+        """The V- or W-cycle from level ``l`` on the core rhs ``bd``;
+        returns the core x."""
+        level = self.levels[l]
+        gs = level.smoother
+        xflat = gs.smooth_bd(None, bd)  # zero-guess pre-smooth
+        rd = gs.flat_residual(xflat, bd)
+        nxt = self.levels[l + 1]
+        cl = nxt.A.row_layout()
+        rc = self._restrict_flat(level, rd, cl)
+        if nxt.P is None:
+            ec = self._coarse_solve(rc)
+        elif self._flat_ok(l + 1):
+            xfc = self._cycle_flat(l + 1, nxt.smoother.make_bd(rc), w)
+            ec = _own_vec(nxt.smoother.flat_interleave(xfc), cl, rc.backend)
+        else:
+            ec = self._cycle(l + 1, rc, w)
+        if w and nxt.P is not None:
+            rc2 = _residual_vec(nxt.A, rc, ec)
+            ec2 = self._cycle(l + 1, rc2, w)
+            ec = PVector(ec.own + ec2.own, ec.ghost, ec.layout, ec.backend)
+        return gs.smooth_bd(xflat + self._prolong_flat(level, ec), bd)  # post-smooth
+
     def _cycle(self, l: int, b: PVector, w: bool) -> PVector:
-        """The reference's generic cycle: zero-guess pre-smooth, residual,
-        restriction by P^T, the coarser cycle (twice for a W-cycle),
-        prolongation by P, post-smooth."""
+        """One cycle from level ``l`` (twice into the coarser level for a
+        W-cycle): the flat cycle on a box level whose smoother is colored;
+        else zero-guess pre-smooth, residual, restriction (the structured
+        one on a box level, P^T elsewhere), the coarser cycle,
+        prolongation, post-smooth."""
         level = self.levels[l]
         if level.P is None:
             return self._coarse_solve(b)
+        if level.struct is not None and level.smoother.colored is not None:
+            if not self._flat_ok(l):
+                raise NotImplementedError(
+                    "the ghosted flat AMG cycle (a box level with ghost columns): "
+                    "ROADMAP Queue 1 items 10 and 13"
+                )
+            gs = level.smoother
+            x_own = gs.flat_interleave(self._cycle_flat(l, gs.make_bd(b), w))
+            return _own_vec(x_own, level.A.row_layout(), b.backend)
         x = level.smoother(b)
         r = _residual_vec(level.A, b, x)
         cl = self.levels[l + 1].A.row_layout()
-        rc = spmtv(level.P, _row_view(level.P, r))
-        rc_own = rc.own[:, : cl.n_own_pad] if rc.own.shape[1] >= cl.n_own_pad else _pad2(rc.own, cl.n_own_pad)
-        rc = PVector(rc_own, rc_own.new_zeros((rc_own.shape[0], cl.n_ghost_pad)), cl, b.backend)
+        if level.struct is not None:
+            rc = self._restrict_struct(level, r, cl)
+        else:
+            rc = _view(cl, spmtv(level.P, _row_view(level.P, r)))
         ec = self._cycle(l + 1, rc, w)
         if w and self.levels[l + 1].P is not None:
             rc2 = _residual_vec(self.levels[l + 1].A, rc, ec)
             ec2 = self._cycle(l + 1, rc2, w)
             ec = PVector(ec.own + ec2.own, ec.ghost, ec.layout, ec.backend)
-        e_own = spmv(level.P, _col_view(level.P, ec)).own
+        if level.struct is not None:
+            e_own = self._prolong_struct(level, ec)
+        else:
+            e_own = spmv(level.P, _col_view(level.P, ec)).own
         x = PVector(x.own + e_own, x.ghost, x.layout, x.backend)
         return level.smoother.apply(x, b)
 
@@ -519,8 +675,12 @@ def _view(lay, v: PVector) -> PVector:
     if v.layout is lay:
         return v
     no = lay.n_own_pad
-    own = v.own[:, :no] if v.own.shape[1] >= no else _pad2(v.own, no)
-    return PVector(own, own.new_zeros((own.shape[0], lay.n_ghost_pad)), lay, v.backend)
+    return _own_vec(v.own[:, :no] if v.own.shape[1] >= no else _pad2(v.own, no), lay, v.backend)
+
+
+def _own_vec(own: torch.Tensor, lay, backend) -> PVector:
+    """The PVector of own values ``own`` on layout ``lay``, ghosts zero."""
+    return PVector(own, own.new_zeros((own.shape[0], lay.n_ghost_pad)), lay, backend)
 
 
 def _col_view(A: PSparseMatrix, v: PVector) -> PVector:

@@ -9,10 +9,11 @@ work, so the results must be equal bit for bit (omega to 1e-12).
 
 Then the device cycle's remaining branches against the reference, float64
 at 1e-10 of the largest entry: the W-cycle, and the LU coarse solve (a
-coarsest level above 512 rows).  The branches the port does not take
-raise ``NotImplementedError`` naming the ROADMAP item: box aggregation
-(where the reference's ``box_aggregate_psparse`` succeeds), ``update`` and
-the Schwarz smoother.
+coarsest level above 512 rows).  Where the reference's
+``box_aggregate_psparse`` succeeds, the port builds the same structured
+levels (their cycles: ``test_torch_amg_box_{f64,f32}.py``); the branches
+the port does not take raise ``NotImplementedError`` naming the ROADMAP
+item: ``update`` and the Schwarz smoother.
 """
 import importlib
 
@@ -160,8 +161,12 @@ def test_unported_branches_raise():
     A, A_ref = build("laplacian_fdm", (6, 6, 6))
     M_ref = jax_amg.AMGPreconditioner(A_ref, jax_amg.AMGParams(coarse_size=10))
     assert M_ref.levels[0].struct is not None, "the reference takes box aggregation here"
+    M_box = amg.AMGPreconditioner(A, amg.AMGParams(coarse_size=10))
+    assert [lev.struct is not None for lev in M_box.levels] == [lev.struct is not None
+                                                                for lev in M_ref.levels]
+    assert M_box.levels[0].struct.fine == (6, 6, 6) and M_box._flat_ok(0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        amg.AMGPreconditioner(A, amg.AMGParams(coarse_size=10))
+        M_box.update(A)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         amg.AMGPreconditioner(A, amg.AMGParams(coarse_size=10, smoother="schwarz"))
     M = amg.AMGPreconditioner(A, amg.AMGParams(coarse_size=10), nullspace=amg.default_nullspace(A))

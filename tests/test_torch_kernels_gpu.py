@@ -6,11 +6,14 @@ color; a view that is not 16-byte aligned raises) on those of the (2,2,2) x
 16^3 one, and are compared with their plain versions on the same tensors.
 K3 runs each whole color sequence in one launch; it is also held at 27
 colors and 99 diagonals (7^3-node elasticity), on a small coarse level
-(8^3), and at every lane count: forward, backward, symmetric and twice
+(8^3), on the levels of the 64^3 and 48^3 Laplacians' box-AMG
+hierarchies (with K4, and K1 on their fine operators),
+and at every lane count: forward, backward, symmetric and twice
 symmetric, from a guess and from a zero guess.  Tolerance: rtol 1e-5 in
 float32 and 1e-12 in float64, relative to the largest plain entry, since
 only FMA contraction and the order of the sums differ.  K7 ``dia_spmv_df``
 runs on the (hi, lo) float32 pair of the float64 operator at both shapes
+and on that of the 48^3 7-point Laplacian,
 and is held to 1e-13 of ``sum_j |A_ij| |x_j|`` per row (the bound of
 ``tests/test_df64.py``); the kernel and its plain version round every
 operation alike, so they are expected to agree exactly.  K1 also runs at the 99 diagonals of the 3-D
@@ -162,6 +165,47 @@ def test_gs_sweeps_kernel_on_a_small_coarse_level(cuda, dtype):
     _hold_sweeps(col, dtype, cuda, 22)
 
 
+def _box_amg(device, dtype, n):
+    """The box AMG (coarse size 200) of the n^3 7-point Laplacian."""
+    from partitionedarrays_tpu_torch.config import numpy_dtype
+    from partitionedarrays_tpu_torch.models.gallery import laplacian_fdm
+    from partitionedarrays_tpu_torch.psparse import psparse
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+
+    I, J, V, rows, cols = laplacian_fdm((n, n, n), (1, 1, 1), dtype=numpy_dtype(dtype).type)
+    A = psparse(I, J, V, rows, cols, SerialBackend(1), device=device)
+    return A, AMGPreconditioner(A, AMGParams(coarse_size=200))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n, boxes", [(64, (64, 22, 8)), (48, (48, 16, 6))])
+def test_gs_sweeps_and_ax_core_on_the_box_amg_levels(cuda, dtype, n, boxes):
+    """The box-AMG hierarchies of the 64^3 and 48^3 7-point Laplacians
+    (coarse size 200): K3 and K4 on the 7-point fine level and on the
+    27-point Galerkin levels (22^3 and 8^3 boxes; 16^3 and 6^3), whose row
+    counts are no powers of two (10,648, 216), and K1 on the fine operator
+    (CG's A p)."""
+    A, M = _box_amg(cuda, dtype, n)
+    levels = [lev for lev in M.levels if lev.smoother is not None]
+    assert [lev.struct.fine for lev in levels] == [(k,) * 3 for k in boxes]
+    assert [len(lev.A.device().oo.offsets) for lev in levels] == [7, 27, 27]
+    g = torch.Generator().manual_seed(40)
+    oo = A.device().oo
+    x = torch.randn(1, oo.n_cols_pad, generator=g, dtype=dtype).to(cuda)
+    before = dia_spmv.launches
+    got = dia_spmv(oo.offsets, oo.vals, x)
+    assert dia_spmv.launches == before + 1
+    _assert_close(got, dia_spmv_plain(oo.offsets, oo.vals, x), dtype)
+    for i, lev in enumerate(levels):
+        col = lev.smoother.colored
+        _hold_sweeps(col, dtype, cuda, 41 + i)
+        x = torch.randn(1, col.m, col.Lq, generator=g, dtype=dtype).to(cuda)
+        before = ax_core.launches
+        got = ax_core(col.vals_d, x, col.taps)
+        assert ax_core.launches == before + 1
+        _assert_close(got, ax_core_plain(col.vals_d, x, col.taps), dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_gs_sweeps_kernel_every_lane_count(cuda, dtype):
     """Every lane count, with one CTA per part and with many, on the 16^3
@@ -277,6 +321,26 @@ def test_dia_spmv_df_kernel_matches_plain(cuda, shape, parts):
     assert err.max().item() <= 1e-13, err.max().item()
     exact = dia_spmv(oo.offsets, oo.vals, x64)  # K1 in float64
     assert ((df.to_f64(*got) - exact).abs() / scale).max().item() <= 1e-13
+
+
+def test_dia_spmv_df_kernel_on_the_7_point_laplacian(cuda):
+    """K7 on the (hi, lo) split of the 48^3 7-point Laplacian (cg_df64's
+    A p in the box-AMG df64 solve)."""
+    A, _ = _box_amg(cuda, torch.float64, 48)
+    oo = A.device().oo
+    assert len(oo.offsets) == 7
+    vh, vl = df.from_f64(oo.vals)
+    g = torch.Generator().manual_seed(20)
+    x64 = torch.randn(1, oo.n_cols_pad, generator=g, dtype=torch.float64).to(cuda)
+    x = df.from_f64(x64)
+    before = dia_spmv_df.launches
+    got = df.to_f64(*dia_spmv_df(oo.offsets, vh, vl, x))
+    assert dia_spmv_df.launches == before + 1
+    want = df.to_f64(*df.dia_spmv_df_plain(oo.offsets, vh, vl, x))
+    torch.cuda.synchronize()
+    scale = dia_spmv(oo.offsets, oo.vals.abs(), x64.abs()) + 1e-30
+    assert ((got - want).abs() / scale).max().item() <= 1e-13
+    assert ((got - dia_spmv(oo.offsets, oo.vals, x64)).abs() / scale).max().item() <= 1e-13
 
 
 def _elasticity(device, dtype, nodes=(6, 6, 6)):

@@ -6,8 +6,9 @@ on the CPU (the flat CG, the ghosted flat CG with its exchanges and
 own-ghost products, and the df64 CG), then the generic solvers (``cg``,
 ``cg_df64``, a solver of ``solvers/interfaces.py``), and the elasticity
 SA-AMG path (gallery, COO ``psparse``, the tile Gauss-Seidel tier, ``cg``
-and ``amg_solver``); afterwards ``jax`` must not be among the loaded
-modules.
+and ``amg_solver``), and the box-stencil AMG (``laplacian_fdm``, the flat
+cycle under ``cg``, and under ``cg_df64`` from an ``astype`` float32
+copy); afterwards ``jax`` must not be among the loaded modules.
 """
 import os
 import subprocess
@@ -69,6 +70,19 @@ b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device="cpu"))
 _, info = cg(A, b, M=M, rtol=1e-8)
 assert info.iterations < 20, info
 solve(amg_solver(params, ns, iterations=2), LinearProblem(A, b))
+from partitionedarrays_tpu_torch.models.gallery import laplacian_fdm
+from partitionedarrays_tpu_torch.pvector import pvector_df64
+I, J, V, rows, cols = laplacian_fdm((9, 9, 9), (1, 1, 1))
+A = psparse(I, J, V, rows, cols, SerialBackend(1), device="cpu")
+M = AMGPreconditioner(A, AMGParams(coarse_size=10))
+assert M.levels[0].struct is not None and M._flat_ok(0)
+b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device="cpu"))
+_, info = cg(A, b, M=M, rtol=1e-8)
+assert info.iterations < 20, info
+M32 = AMGPreconditioner(A.astype(np.float32), AMGParams(coarse_size=10))
+b2 = pvector_df64([b.own[0, : A.shape[0]].numpy()], A.row_prange, A.backend, device="cpu")
+_, info = cg_df64(A, b2, M=M32, rtol=1e-10)
+assert info.iterations < 30, info
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
 sys.exit(1 if loaded else 0)
