@@ -28,9 +28,9 @@ Phases, one output line each:
    read once per step), the plain version's time, the device time of a
    launch of no step and of one step, and the time under every other
    lane count;
-4. six paths through the port, each with its kernels' launch counts set to
-   0 just before it and read just after (a-c: the HPCG benchmark, 4 MG
-   levels, 50 CG iterations; d, e: the AMG paths, counted over their
+4. eight paths through the port, each with its kernels' launch counts set
+   to 0 just before it and read just after (a-c: the HPCG benchmark, 4 MG
+   levels, 50 CG iterations; d-f: the AMG paths, counted over their
    solves):
    a. one part: 128^3 in float32 and float64, 64^3 in float64; each also
       checks the standard-order operator (K1) against the de-interleaved
@@ -83,12 +83,25 @@ Phases, one output line each:
       of the 48^3 float32 one (time, bound, launches per V-cycle), K1 on
       the 7-point 64^3 operator in both dtypes and K7 on the (hi, lo) split
       of the 48^3 one (as in phase 3b);
+   f. ``amg_elasticity_parts`` and ``amg_box_parts``: the two AMG paths on
+      (2,2,2) parts of the serial backend (P = 8 on the card), uncut: the
+      40^3-node elasticity from disassembled triplets (192,000 rows) and the
+      64^3 ``laplacian_fdm`` (262,144 rows, the ghosted flat cycle), float32
+      and float64, iterations held to the JAX package's own on the CPU
+      (``AMG_PARTS_RUNS``, ``BOX_PARTS_RUNS``); host seconds of assembly
+      and setup, the hierarchy (rows, nnz, smoother tier), the true float64
+      residual, cold and warm solve seconds, the launches of a solve and of
+      a V-cycle, the exchanges of a V-cycle, a profiled warm float32 solve;
+      then K1 on both fine own-own blocks, K3 (and on the box levels K4) on
+      every colored level, K5 on every compressed-row block (the own-ghost
+      blocks and their transposes included), K6 with P = 8 on every tile
+      level, each against its plain version;
 5. the launch counts of each path, each kernel of a path required > 0;
 6. the whole port on the card against the whole port on the CPU (plain
    versions), float64, residual histories to rtol 1e-10: 32^3 on one part
    and (2,2,2) parts of 8^3, 3 levels, flat and generic CG; the df64
    CG at (2,2,2) parts of 8^3 (``DF64_CROSS_RTOL``); and the box AMG-CG at
-   16^3.
+   16^3 on one part and on (2,2,2) parts of 8^3 (the ghosted flat cycle).
 
 Then the card's name and power limit, a JSON line of per-kernel results,
 and last a JSON line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -206,6 +219,8 @@ PATH_KERNELS = {
     "amg_elasticity": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
     "amg_box": ("dia_spmv", "ax_core", "gs_sweeps"),
     "amg_box_df64": ("dia_spmv_df", "ax_core", "gs_sweeps"),
+    "amg_elasticity_parts": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
+    "amg_box_parts": ("dia_spmv", "ax_core", "gs_sweeps", "ghost_spmv"),
 }
 # the elasticity SA-AMG path: the reference's own workload (bench.py:371-430,
 # AMGParams(coarse_size=400, block_size=3, max_levels=4), CG to rtol 1e-8),
@@ -246,8 +261,26 @@ BOX_DF64_RTOL = 1e-10
 BOX_DF64_MAXITER = 300
 BOX_DF64_TRUE_RELRES = 1e-9
 # the box AMG-CG on the card against the CPU (float64, rtol 0, each
-# iteration count from 0 to CROSS_ITERATIONS)
+# iteration count from 0 to CROSS_ITERATIONS), on one part and on (2,2,2)
+# parts of 8^3
 BOX_CROSS_NODES = (16, 16, 16)
+BOX_CROSS_PARTS_NODES = (16, 16, 16)
+# phase 4f, the two AMG paths across (2,2,2) parts of the serial backend
+# (P = 8 on one card), at the reference's workload sizes, uncut:
+# - amg_elasticity_parts: bench.py:371-430's elasticity workload at 40^3
+#   nodes (192,000 rows, 24,000 per part), disassembled triplets assembled
+#   by psparse, AMG_PARAMS, CG to rtol 1e-8;
+# - amg_box_parts: bench.py:143-202's 64^3 7-point laplacian_fdm (262,144
+#   rows, 32^3 per part), box aggregation and the ghosted flat cycle, CG to
+#   rtol 1e-8 on ones in the first 10 own entries of part 0.
+# (dtype, allowed CG iterations, limit on the true float64 residual).  The
+# iterations are the JAX package's own on the CPU at the same sizes
+# (PERF.md section 4): equal in float64, within one in float32.
+AMG_PARTS = (2, 2, 2)
+AMG_PARTS_NODES = (40, 40, 40)
+AMG_PARTS_RUNS = (("float32", (12, 14), 1e-5), ("float64", (13, 13), 2e-8))
+BOX_PARTS_NODES = (64, 64, 64)
+BOX_PARTS_RUNS = (("float32", (9, 11), 1e-6), ("float64", (10, 10), 1e-7))
 
 
 def emit(phase: str, payload) -> None:
@@ -1127,15 +1160,17 @@ def _timed(counters, fn):
 
 
 def _tile_work(tg, dirs, itemsize):
-    """(bytes, operations) of ``len(dirs)`` K6 passes: each input read once
-    (the plane of every direction used, the off-tile entries and rows, b,
-    x in) and x written once; per pass 2 * 128^2 operations per tile (the
-    two triangular products) and 2 per off-tile entry."""
+    """(bytes, operations) of ``len(dirs)`` K6 passes over every part: each
+    input read once (the plane of every direction used, the off-tile
+    entries and rows, b, x in) and x written once; per pass 2 * 128^2
+    operations per tile (the two triangular products) and 2 per off-tile
+    entry."""
+    P = tg.pack.shape[0]
     n_dir = len(set(dirs))
     nnz_off = int((tg.cols >= 0).sum())
-    nbytes = (n_dir * tg.n_real_tiles * 128 * 128 * itemsize + nnz_off * (itemsize + 4)
-              + 4 * tg.rows.shape[1] + 3 * tg.Rp * itemsize)
-    ops = len(dirs) * (tg.n_real_tiles * 2 * 128 * 128 + 2 * nnz_off)
+    nbytes = (P * n_dir * tg.n_real_tiles * 128 * 128 * itemsize + nnz_off * (itemsize + 4)
+              + 4 * P * tg.rows.shape[1] + 3 * P * tg.Rp * itemsize)
+    ops = len(dirs) * (P * tg.n_real_tiles * 2 * 128 * 128 + 2 * nnz_off)
     return nbytes, ops
 
 
@@ -1151,8 +1186,9 @@ def _hold_tile(results, where, tg, dtype_name, g, device):
     from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps, tile_gs_sweeps_plain
 
     dtype = getattr(torch, dtype_name)
-    b = torch.randn(1, tg.Rp, generator=g, dtype=dtype).to(device)
-    x0 = torch.randn(1, tg.Rp, generator=g, dtype=dtype).to(device)
+    P = tg.pack.shape[0]  # one cluster per part
+    b = torch.randn(P, tg.Rp, generator=g, dtype=dtype).to(device)
+    x0 = torch.randn(P, tg.Rp, generator=g, dtype=dtype).to(device)
     worst = (0.0, 0.0)
     for dirs in (("f",), ("b",), ("f", "b")):
         for zero in (True, False):
@@ -1180,7 +1216,7 @@ def _hold_tile(results, where, tg, dtype_name, g, device):
     b_ms, b_by = bound(*work, F32_FLOPS_PER_S if dtype_name == "float32" else F64_FLOPS_PER_S)
     dev_ms = device_ms(sweep(), 20)
     results.append({
-        "kernel": "tile_gs_sweeps", "dtype": dtype_name, "where": where,
+        "kernel": "tile_gs_sweeps", "dtype": dtype_name, "where": where, "P": P,
         "tiles": tg.n_real_tiles, "W": tg.W, "B": tg.B, "K_off": tg.cols.shape[1],
         "launches_per_call": 1, "max_abs_err": worst[1], "max_rel_err": worst[0],
         "tol_rel": KERNEL_RTOL[dtype_name],
@@ -1276,7 +1312,7 @@ def _amg_blocks(M):
             continue
         if l > 0:
             out.append((f"A{l}", lev.A.device().oo))
-        out += [(f"P{l}", lev.P.device().oo), (f"P{l}^T", lev.P.device_transpose())]
+        out += [(f"P{l}", lev.P.device().oo), (f"P{l}^T", lev.P.device_transpose()[0])]
     return [(n, b) for n, b in out if b.kind == "ell"]
 
 
@@ -1539,6 +1575,253 @@ def phase_amg_box(device, counters):
     return box_launches, df64_launches, results
 
 
+def _count_exchanges(fn):
+    """``fn()``'s exchanges (``ExchangePlan.apply`` with at least one
+    round), by direction: "set" (consistent) and "add" (assemble)."""
+    from partitionedarrays_tpu_torch.parallel.exchange_plan import ExchangePlan
+
+    apply = ExchangePlan.apply
+    count = {"set": 0, "add": 0}
+
+    def counted(plan, src, dst, combine):
+        if plan.n_rounds:
+            count[combine] += 1
+        return apply(plan, src, dst, combine)
+
+    ExchangePlan.apply = counted
+    try:
+        fn()
+    finally:
+        ExchangePlan.apply = apply
+    return count
+
+
+def _parts_blocks(M):
+    """The compressed-row blocks K5 runs in the V-cycle of a hierarchy
+    across parts: the own-ghost block of every level's operator (the
+    smoother's ghost contribution, the residual), P_l and its own-ghost
+    block, their transposes (the restriction: the own-ghost one assembled
+    back to the owners), and the coarse operators A_l (0 < l)."""
+    out = []
+    for l, lev in enumerate(M.levels):
+        out.append((f"A{l} own-ghost", lev.A.device().oh))
+        if l > 0:
+            out.append((f"A{l}", lev.A.device().oo))
+        if lev.P is not None and lev.struct is None:
+            ooT, ohT = lev.P.device_transpose()
+            out += [(f"P{l}", lev.P.device().oo), (f"P{l} own-ghost", lev.P.device().oh),
+                    (f"P{l}^T", ooT), (f"P{l}^T own-ghost", ohT)]
+    return [(n, b) for n, b in out if b is not None and b.kind == "ell"]
+
+
+def _amg_parts_run(device, counters, key, make, check):
+    """One AMG path across parts: assembly (``make``: the matrix, the
+    preconditioner builder and the rhs), setup, a cold and a warm solve,
+    a V-cycle's launches and exchanges, a profiled warm solve and the true
+    float64 residual; returns (the run's record, its solves' launches, A,
+    M, b, x)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.psparse import to_global_scipy
+    from partitionedarrays_tpu_torch.pvector import collect
+    from partitionedarrays_tpu_torch.solvers.krylov import cg
+
+    t0 = time.perf_counter()
+    A, build_M, b = make()
+    A.device()
+    torch.cuda.synchronize()
+    assembly = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    M = build_M(A)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    launches = {k: 0 for k in counters}
+    solves = []
+    for _ in range(2):  # cold, then warm
+        (x, info), seconds, counts = _timed(counters, lambda: cg(A, b, M=M, rtol=AMG_RTOL,
+                                                               maxiter=AMG_MAXITER))
+        for k, v in counts.items():
+            launches[k] += v
+        solves.append((seconds, info.iterations, counts))
+    _, vcycle_s, vcycle_launches = _timed(counters, lambda: M(b))
+    exchanges = _count_exchanges(lambda: M(b))
+    prof = None
+    if A.dtype == torch.float32:
+        prof = _profile_set(lambda: cg(A, b, M=M, rtol=AMG_RTOL, maxiter=AMG_MAXITER), top=10,
+                            kernels=("gs_seq_grid", "tile_sweeps", "ghost_spmv", "ax_core",
+                                     "dia_spmv_kernel"))
+    G = to_global_scipy(A).astype(np.float64)
+    bg, xg = collect(b).astype(np.float64), collect(x).astype(np.float64)
+    true_relres = float(np.linalg.norm(bg - G @ xg) / np.linalg.norm(bg))
+    rec = {
+        "rows": A.shape[0], "nnz": A.nnz(), "parts": A.row_prange.n_parts,
+        "rows_per_part": [li.n_own for li in A.row_prange.parts],
+        "assembly_s": assembly, "setup_s": setup, "levels": _level_info(M), "omegas": M.omegas,
+        "iterations": solves[-1][1], "cg_residual": float(info.residual),
+        "true_relres": true_relres,
+        "solve_s": {"cold": solves[0][0], "warm": solves[1][0]},
+        "launches_per_solve": solves[-1][2], "vcycle_s": vcycle_s,
+        "launches_per_vcycle": vcycle_launches, "exchanges_per_vcycle": exchanges,
+        "profiled_solve": prof,
+    }
+    emit(f"4f {key}", rec)
+    check(rec)
+    return rec, launches, A, M, b, x
+
+
+def phase_amg_parts(device, counters):
+    """The two AMG paths across (2,2,2) parts (``AMG_PARTS_RUNS``,
+    ``BOX_PARTS_RUNS``) through the port's entry points, at full size:
+    host seconds of assembly and setup, the hierarchy (rows, nnz, smoother
+    tier), iterations against the JAX package's, the true float64
+    residual, cold and warm solve seconds, the launches of a solve and of
+    a V-cycle, the exchanges of a V-cycle and a profiled warm float32
+    solve.  The launch counts of the solves are the paths'; the kernel
+    checks that follow are not counted: K1 on both fine own-own blocks, K3
+    (and K4 on the box levels) on every colored level, K5 on every
+    compressed-row block with the own-ghost transposes, K6 with P = 8 on
+    every tile level.  Returns (launches of amg_elasticity_parts, of
+    amg_box_parts, kernel rows)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.gallery import (
+        laplacian_fdm, linear_elasticity_fem, node_coordinates_unit_cube,
+        nullspace_linear_elasticity,
+    )
+    from partitionedarrays_tpu_torch.psparse import psparse, spmv
+    from partitionedarrays_tpu_torch.pvector import pones, pvector_from_own
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+
+    P = int(np.prod(AMG_PARTS))
+    failures, results = [], []
+    path_launches = {"amg_elasticity_parts": {k: 0 for k in counters},
+                     "amg_box_parts": {k: 0 for k in counters}}
+    g = torch.Generator().manual_seed(4343)
+
+    def within(key, iters_range, limit):
+        def check(rec):
+            lo, hi = iters_range
+            if not lo <= rec["iterations"] <= hi:
+                failures.append(f"{key}: {rec['iterations']} CG iterations, not in {iters_range}")
+            if not rec["true_relres"] <= limit:
+                failures.append(f"{key}: true relres {rec['true_relres']} > {limit}")
+        return check
+
+    for dtype, iters_range, limit in AMG_PARTS_RUNS:
+        key = f"amg_elasticity_parts {dtype}@{AMG_PARTS_NODES[0]}^3 on {AMG_PARTS}"
+
+        def make(dtype=dtype):
+            I, J, V, rows, cols = linear_elasticity_fem(AMG_PARTS_NODES, AMG_PARTS,
+                                                        dtype=getattr(np, dtype))
+            A = psparse(I, J, V, rows, cols, SerialBackend(P), device=device)
+            coords, _ = node_coordinates_unit_cube(AMG_PARTS_NODES, AMG_PARTS)
+            ns = nullspace_linear_elasticity(coords, A.row_prange)
+            b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device=device))
+            return A, lambda A: AMGPreconditioner(A, AMGParams(**AMG_PARAMS), nullspace=ns), b
+
+        rec, launches, A, M, b, x = _amg_parts_run(device, counters, key, make,
+                                                   within(key, iters_range, limit))
+        for k, v in launches.items():
+            path_launches["amg_elasticity_parts"][k] += v
+        if rec["launches_per_solve"]["tile_gs_sweeps"] <= 0:
+            failures.append(f"{key}: K6 did not launch in the solve")
+        where = f"{AMG_PARTS_NODES[0]}^3 elasticity on {AMG_PARTS}"
+        for l, lev in enumerate(M.levels):
+            gs = lev.smoother
+            if gs is None:
+                continue
+            if gs.tile_gs is not None:
+                _hold_tile(results, f"level {l} of {where}", gs.tile_gs, dtype, g, device)
+            else:
+                _hold_k3(results, f"level {l} of {where}", gs, dtype, g, device)
+        _hold_k5_blocks(results, where, _parts_blocks(M), dtype, g, device)
+        oo = A.device().oo
+        if oo.kind == "dia":
+            xs = torch.randn(P, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
+            _hold_k1(results, f"{len(oo.offsets)} diagonals, fine level of {where}", oo, xs,
+                     library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad,
+                                                          oo.n_rows),
+                                           (P * oo.n_rows, P * oo.n_cols_pad)), xs))
+            results[-1]["launches_per_solve"] = rec["launches_per_solve"]["dia_spmv"]
+        del A, M, b, x, oo
+        torch.cuda.empty_cache()
+
+    for dtype, iters_range, limit in BOX_PARTS_RUNS:
+        key = f"amg_box_parts {dtype}@{BOX_PARTS_NODES[0]}^3 on {AMG_PARTS}"
+
+        def make(dtype=dtype):
+            I, J, V, rows, cols = laplacian_fdm(BOX_PARTS_NODES, AMG_PARTS, dtype=getattr(np, dtype))
+            A = psparse(I, J, V, rows, cols, SerialBackend(P), assembled=True, device=device)
+            own = [np.zeros(li.n_own, dtype=getattr(np, dtype)) for li in A.row_prange.parts]
+            own[0][:10] = 1.0
+            b = pvector_from_own(own, A.row_prange, A.backend, device=device)
+            return A, lambda A: AMGPreconditioner(A, AMGParams(**BOX_PARAMS)), b
+
+        rec, launches, A, M, b, x = _amg_parts_run(device, counters, key, make,
+                                                   within(key, iters_range, limit))
+        for k, v in launches.items():
+            path_launches["amg_box_parts"][k] += v
+        smoothed = [lev for lev in M.levels if lev.smoother is not None]
+        if not all(lev.struct is not None and lev.smoother.colored is not None
+                   and not lev.smoother.flat_viable() for lev in smoothed):
+            failures.append(f"{key}: a level did not take the ghosted flat cycle")
+        where = f"{BOX_PARTS_NODES[0]}^3 box AMG on {AMG_PARTS}"
+        _hold_box_levels(results, where, M, g, device, rec["launches_per_vcycle"])
+        _hold_k5_blocks(results, where, _parts_blocks(M), dtype, g, device)
+        oo = A.device().oo
+        xs = torch.randn(P, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
+        _hold_k1(results, f"{len(oo.offsets)} diagonals, fine level of {where}", oo, xs,
+                 library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad,
+                                                      oo.n_rows),
+                                       (P * oo.n_rows, P * oo.n_cols_pad)), xs))
+        results[-1]["launches_per_solve"] = rec["launches_per_solve"]["dia_spmv"]
+        del A, M, b, x, oo
+        torch.cuda.empty_cache()
+    emit("4f kernels K1, K3, K4, K5, K6 on the paths across parts", results)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return path_launches["amg_elasticity_parts"], path_launches["amg_box_parts"], results
+
+
+def _cross_amg_box_parts(device):
+    """The box AMG-CG on (2,2,2) parts of 8^3 (the ghosted flat cycle) on
+    the card against the CPU, float64: the residual norm after each
+    iteration count from 0 to CROSS_ITERATIONS (``cg`` with rtol 0)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.gallery import laplacian_fdm
+    from partitionedarrays_tpu_torch.psparse import psparse
+    from partitionedarrays_tpu_torch.pvector import pvector_from_own
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+    from partitionedarrays_tpu_torch.solvers.krylov import cg
+
+    I, J, V, rows, cols = laplacian_fdm(BOX_CROSS_PARTS_NODES, AMG_PARTS)
+    rng = np.random.default_rng(17)
+    own = [rng.standard_normal(li.n_own) for li in rows]
+    hist = {}
+    for dev in (device, torch.device("cpu")):
+        A = psparse(I, J, V, rows, cols, SerialBackend(8), assembled=True, device=dev)
+        M = AMGPreconditioner(A, AMGParams(coarse_size=10))
+        b = pvector_from_own(own, A.row_prange, A.backend, device=dev)
+        hist[dev.type] = np.array([
+            float(cg(A, b, M=M, rtol=0.0, maxiter=k)[1].residual)
+            for k in range(CROSS_ITERATIONS + 1)
+        ])
+    a, c = hist["cuda"], hist["cpu"]
+    err = float(np.max(np.abs(a - c) / np.abs(c)))
+    if not err <= CROSS_RTOL:
+        raise AssertionError(f"box AMG-CG {AMG_PARTS}: cuda vs cpu differ by {err}")
+    return {"max_rel_diff": err, "levels": [lev.A.shape[0] for lev in M.levels],
+            "ghosted_flat": [lev.struct is not None and not M._flat_ok(l)
+                             for l, lev in enumerate(M.levels[:-1])],
+            "final_relres": float(c[-1] / c[0])}
+
+
 def _cross_amg_box(device):
     """The box AMG-CG on the card against the CPU, float64, at 16^3: the
     residual norm after each iteration count from 0 to CROSS_ITERATIONS
@@ -1638,6 +1921,7 @@ def phase_cross(device):
         }
     out[f"df64 {GHOST_PARTS}x8^3"] = _cross_df64(device)
     out[f"amg_box {BOX_CROSS_NODES[0]}^3"] = _cross_amg_box(device)
+    out[f"amg_box_parts {AMG_PARTS}x8^3"] = _cross_amg_box_parts(device)
     emit("6 cuda-vs-cpu", {
         "levels": CROSS_LEVELS, "iterations": CROSS_ITERATIONS, "rtol": CROSS_RTOL, "cases": out,
     })
@@ -1686,6 +1970,9 @@ def main() -> int:
     kernel_results += k6_results
     launches["amg_box"], launches["amg_box_df64"], box_results = phase_amg_box(device, counters)
     kernel_results += box_results
+    (launches["amg_elasticity_parts"], launches["amg_box_parts"],
+     parts_results) = phase_amg_parts(device, counters)
+    kernel_results += parts_results
     emit("5 launches", launches)
     missing = [
         f"{path}:{k}" for path, names in PATH_KERNELS.items() for k in names
@@ -1699,7 +1986,7 @@ def main() -> int:
     # one row per kernel: its float32 measurement (K7: df64 at the 128^3
     # one-part shape; K6: a symmetric sweep of level 1 of the 40^3
     # elasticity hierarchy; K2, K5 and their library calls with the L2
-    # flushed before each call), its launches over the six paths' runs
+    # flushed before each call), its launches over the eight paths' runs
     # (calls of the kernel's C entry: K3 and K6 one per sweep sequence)
     rows = []
     for kname, (source, replaces) in KERNELS.items():

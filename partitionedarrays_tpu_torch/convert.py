@@ -1,8 +1,10 @@
-"""Build the port's HPCG objects from the JAX reference's state.
+"""Build the port's objects from the JAX reference's state.
 
 The reference's state arrives as numpy arrays (``np.asarray`` of the JAX
-arrays), so that both packages can be fed exactly the same operator,
-right-hand side and smoother values.  This module imports no JAX.
+arrays) and scipy matrices, so that both packages can be fed exactly the
+same operator, right-hand side and smoother values: ``from_jax_arrays``
+(an HPCG MG hierarchy) and ``psparse_from_host_blocks`` (any partitioned
+matrix, e.g. an AMG level operator).  This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -13,10 +15,11 @@ import scipy.sparse as sp
 import torch
 
 from .backends import SerialBackend
+from .config import torch_dtype
 from .models.hpcg.mg import HPCGMGPreconditioner
 from .ops.blocks import freeze_block, make_dia_block
 from .parallel.exchange_plan import layout_of
-from .parallel.partition import PRange, uniform_partition
+from .parallel.partition import INT, LocalIndices, PRange, uniform_partition
 from .psparse import DeviceSpMat, PSparseMatrix
 from .pvector import PVector
 from .solvers.gs_dia import ColoredDIAGS
@@ -101,3 +104,63 @@ def from_jax_arrays(
         gss.append(GaussSeidel(A, colored=colored))
         shapes.append(shape)
     return HPCGMGPreconditioner.from_levels(As, bs, gss, shapes, backend)
+
+
+def _local_indices(parts: Sequence[Mapping]):
+    """Per-part index maps -> ``LocalIndices`` with an owner table built
+    from every part's own ids."""
+    n_global = int(parts[0]["n_global"])
+    owner = np.full(n_global, -1, dtype=INT)
+    for p, part in enumerate(parts):
+        owner[np.asarray(part["own_to_global"], dtype=INT)] = p
+
+    def g2owner(q):
+        q = np.asarray(q, dtype=INT).ravel()
+        return np.where(q >= 0, owner[np.clip(q, 0, None)], -1).astype(INT)
+
+    return [
+        LocalIndices(
+            n_global, p, len(parts), part["own_to_global"], part.get("ghost_to_global", ()),
+            part.get("ghost_to_owner", ()), global_to_owner=g2owner,
+        )
+        for p, part in enumerate(parts)
+    ]
+
+
+def psparse_from_host_blocks(
+    blocks: Sequence[Mapping],
+    row_parts: Sequence[Mapping],
+    col_parts: Sequence[Mapping],
+    backend: Optional[SerialBackend] = None,
+    assembled: bool = True,
+    device="cuda",
+    device_dtype=None,
+) -> PSparseMatrix:
+    """A partitioned matrix built by the reference, on ``device``.
+
+    - ``blocks[p]``: part p's host blocks ``"oo"`` and ``"oh"`` (and
+      ``"ho"``, ``"hh"`` when ``assembled`` is False), scipy sparse or
+      dense numpy, in the reference's local numbering (the reference's
+      ``A.blocks[p]``);
+    - ``row_parts[p]``, ``col_parts[p]``: part p's ``n_global``,
+      ``own_to_global`` and, with ghosts, ``ghost_to_global`` and
+      ``ghost_to_owner`` (the reference's ``A.row_prange[p]`` and
+      ``A.col_prange[p]``), in the reference's order, which fixes the
+      ghost columns' order and the exchange plans.
+
+    The blocks freeze on first use, in ``device_dtype`` (default: the
+    blocks' dtype)."""
+    names = ("oo", "oh") if assembled else ("oo", "oh", "ho", "hh")
+    host = [{k: sp.csr_matrix(b[k]) for k in names} for b in blocks]
+    rows, cols = _local_indices(row_parts), _local_indices(col_parts)
+    for p, (b, li_r, li_c) in enumerate(zip(host, rows, cols)):
+        if b["oo"].shape != (li_r.n_own, li_c.n_own) or b["oh"].shape != (li_r.n_own, li_c.n_ghost):
+            raise ValueError(f"part {p}: blocks {b['oo'].shape}, {b['oh'].shape} do not fit "
+                             f"{li_r.n_own} own rows, {li_c.n_own} own and {li_c.n_ghost} ghost columns")
+    if backend is None:
+        backend = SerialBackend(len(host))
+    return PSparseMatrix(
+        None, PRange(rows), PRange(cols), backend, blocks=host, device=device,
+        device_dtype=None if device_dtype is None else torch_dtype(device_dtype),
+        assembled=assembled,
+    )

@@ -78,8 +78,8 @@ def build_hpcg_problem(
 ):
     """The partitioned 27-point matrix and rhs on ``device``: in closed
     form (``structured=True``), or through the generic triplet pipeline
-    (``psparse``), which gives the same matrix and cross-validates it; the
-    triplet pipeline is ported for one part."""
+    (``psparse``, on any number of parts), which gives the same matrix and
+    cross-validates it."""
     dtype = numpy_dtype(dtype)
     nx, ny, nz = (int(v) for v in local_shape)
     px, py, pz = (int(v) for v in parts_per_dir)
@@ -94,13 +94,13 @@ def build_hpcg_problem(
             for c in stencil_rhs_counts((px, py, pz), gshape, offdiag)
         ]
     else:
-        if px * py * pz != 1:
-            raise NotImplementedError(
-                "build_hpcg_problem(structured=False) on more than one part needs "
-                "multi-part COO assembly: ROADMAP Queue 1 item 10"
-            )
         pr = PRange(uniform_partition((px, py, pz), gshape))
-        I, J, V, b = hpcg_triplets_for_box(pr.parts[0].own_to_global, gshape, dtype)
-        A = psparse([I], [J], [V], pr, pr, backend, assembled=True, dtype=dtype, device=device)
-        bs = [b]
+        Is, Js, Vs, bs = [], [], [], []
+        for li in pr.parts:
+            I, J, V, b = hpcg_triplets_for_box(li.own_to_global, gshape, dtype)
+            Is.append(I)
+            Js.append(J)
+            Vs.append(V)
+            bs.append(b)
+        A = psparse(Is, Js, Vs, pr, pr, backend, assembled=True, dtype=dtype, device=device)
     return A, pvector_from_own(bs, A.row_prange, backend, dtype=dtype, device=device)

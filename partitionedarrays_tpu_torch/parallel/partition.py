@@ -2,7 +2,8 @@
 
 Copied from ``partitionedarrays_tpu/parallel/p_range.py``: ``GlobalLookup``
 (:45-91), ``local_range`` (:92), ``block_owner_1d`` (:118), the general
-``LocalIndices`` (:140-361), the owner map of
+``LocalIndices`` (:140-361), ``matching_own_indices`` (:443),
+``map_local_to_global`` (:464), ``find_owner`` (:495), the owner map of
 ``uniform_partition`` (:661-668), ``variable_partition`` (:718-747) and
 ``AssemblyGraph`` with the memoized ``PRange.assembly_graph`` (:520-601).
 
@@ -139,6 +140,10 @@ class BoxPart:
     @property
     def n_ghost(self) -> int:
         return int(self.ghost_to_global.shape[0])
+
+    def local_to_global(self) -> np.ndarray:
+        """Own ids, then ghost ids (a box part has no local permutation)."""
+        return np.concatenate([self.own_to_global, self.ghost_to_global])
 
     def _lookup(self, key: str, gids: np.ndarray) -> GlobalLookup:
         lk = self._lookups.get(key)
@@ -291,6 +296,31 @@ class LocalIndices:
             f"LocalIndices(part={self.part}/{self.n_parts}, n_global={self.n_global}, "
             f"n_own={self.n_own}, n_ghost={self.n_ghost})"
         )
+
+
+def matching_own_indices(a, b) -> bool:
+    """Whether two parts own the same global ids in the same order."""
+    return a is b or np.array_equal(a.own_to_global, b.own_to_global)
+
+
+def map_local_to_global(lids, li) -> np.ndarray:
+    """Local ids of part ``li`` -> global ids (negative ids stay -1)."""
+    lids = _as1d(lids)
+    l2g = li.local_to_global()
+    return np.where(lids >= 0, l2g[np.clip(lids, 0, None)], -1).astype(INT)
+
+
+def find_owner(partition: Sequence, gids_per_part) -> List[np.ndarray]:
+    """The owner part of each queried global id, per part: the partition's
+    ``global_to_owner`` where it has one, else an owner table assembled
+    from every part's own ids."""
+    g2o = next((li.global_to_owner for li in partition if li.global_to_owner is not None), None)
+    if g2o is None:
+        owner = np.empty(partition[0].n_global, dtype=INT)
+        for li in partition:
+            owner[li.own_to_global] = li.part
+        g2o = lambda q: owner[_as1d(q)]
+    return [np.asarray(g2o(_as1d(g)), dtype=INT) for g in gids_per_part]
 
 
 def variable_partition(n_own_per_part: Sequence[int], n_global: Optional[int] = None):

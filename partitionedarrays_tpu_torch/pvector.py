@@ -1,9 +1,15 @@
 """PVector: a partitioned vector in split own/ghost storage.
 
-Counterpart of ``partitionedarrays_tpu/pvector.py`` (the core at :60-160,
-:292-300 and :545-605, the df64 pairs at :715-790).  The parts are stacked
-along dim 0: ``own[P, n_own_pad]`` and ``ghost[P, n_ghost_pad]``, with
-padding lanes kept at zero so that dots and norms need no mask.
+Counterpart of ``partitionedarrays_tpu/pvector.py``: the ``Task`` shim
+(:36), the core (:60-160, :292-300), the COO constructor ``pvector``
+(:411-471), ``consistent`` and ``assemble`` as tasks (:512-536), the
+reductions (:545-598), ``collect`` (:607), the distances (:634-712) and the
+df64 pairs (:715-790).  The parts are stacked along dim 0:
+``own[P, n_own_pad]`` and ``ghost[P, n_ghost_pad]``, with padding lanes
+kept at zero so that dots and norms need no mask.  Left to ROADMAP Queue 1:
+``pvector_refill`` and the COO reuse cache (step 7), ``prand``/``prandn``,
+``pvector_local``/``_from_local``, the split-block helpers,
+``find_local_indices``, ``renumber_pvector`` and ``repartition`` (item 10).
 
 A df64 vector is a (hi, lo) pair of float32 PVectors on one layout; its
 dots and norms run compensated (``ops/df64.py``).
@@ -19,7 +25,20 @@ from .backends import SerialBackend
 from .config import numpy_dtype, torch_dtype
 from .ops import df64 as df
 from .parallel.exchange_plan import VectorLayout, layout_of
-from .parallel.partition import PRange
+from .parallel.partition import PRange, find_owner
+
+
+class Task:
+    """The reference's task calling convention (``t = consistent(v);
+    t.wait()``) around an already computed result."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def wait(self):
+        return self._value
+
+    fetch = wait
 
 
 class PVector:
@@ -90,6 +109,73 @@ def pvector_from_own(
     return PVector(torch.from_numpy(own).to(device), ghost, lay, backend)
 
 
+def pvector(I_parts, V_parts, rows, backend, assemble_result: bool = True, dtype=None,
+            reuse: bool = False, device="cuda") -> PVector:
+    """The COO constructor: per-part (global id, value) contributions,
+    summed.  An id owned by another part lands in a ghost slot (the
+    partition gains it as a ghost, by ``union_ghost``) and, with
+    ``assemble_result``, is then added to its owner.  ``reuse=True`` (the
+    fixed-structure refill) is not ported (ROADMAP Queue 1 step 7)."""
+    if reuse:
+        raise NotImplementedError("pvector(reuse=True), the reuse tier: ROADMAP Queue 1 step 7")
+    pr = rows if isinstance(rows, PRange) else PRange(list(rows))
+    owners = find_owner(pr.parts, I_parts)
+    pr2 = PRange([
+        li.union_ghost(np.asarray(g)[o != li.part], o[o != li.part])
+        for li, g, o in zip(pr.parts, I_parts, owners)
+    ])
+    lay = layout_of(pr2)
+    np_dtype = numpy_dtype(np.asarray(V_parts[0]).dtype if dtype is None else dtype)
+    own = np.zeros((lay.n_parts, lay.n_own_pad), dtype=np_dtype)
+    ghost = np.zeros((lay.n_parts, lay.n_ghost_pad), dtype=np_dtype)
+    for p, (li, gids, vals) in enumerate(zip(pr2.parts, I_parts, V_parts)):
+        vals = np.asarray(vals)
+        po = li.global_to_own(gids)
+        pg = li.global_to_ghost(gids)
+        o = np.zeros(li.n_own, dtype=vals.dtype)
+        g = np.zeros(li.n_ghost, dtype=vals.dtype)
+        np.add.at(o, po[po >= 0], vals[po >= 0])
+        np.add.at(g, pg[pg >= 0], vals[pg >= 0])
+        own[p, : li.n_own] = o
+        ghost[p, : li.n_ghost] = g
+    v = PVector(torch.from_numpy(own).to(device), torch.from_numpy(ghost).to(device), lay, backend)
+    return assemble(v).wait() if assemble_result else v
+
+
+def consistent(v: PVector) -> Task:
+    """Ghost values set from their owners' own values (one exchange)."""
+    lay = v.layout
+    if lay.n_ghost_pad == 0 or lay.consistent_plan.n_rounds == 0:
+        return Task(v)
+    ghost = lay.consistent_plan.apply(v.own, v.ghost, "set")
+    return Task(PVector(v.own, ghost, lay, v.backend))
+
+
+def assemble(v: PVector) -> Task:
+    """Ghost values added to their owners' own values, ghosts zeroed (one
+    exchange)."""
+    lay = v.layout
+    if lay.n_ghost_pad == 0 or lay.assemble_plan.n_rounds == 0:
+        return Task(v)
+    own = lay.assemble_plan.apply(v.ghost, v.own, "add")
+    return Task(PVector(own, torch.zeros_like(v.ghost), lay, v.backend))
+
+
+def collect(x: PVector) -> np.ndarray:
+    """The whole vector on the host, in global order."""
+    own = x.own.cpu().numpy()
+    out = np.zeros(x.n_global, dtype=own.dtype)
+    for p, li in enumerate(x.layout.pr.parts):
+        out[li.own_to_global] = own[p, : li.n_own]
+    return out
+
+
+def _own_mask(layout: VectorLayout, device) -> torch.Tensor:
+    """[P, n_own_pad] True on the own lanes, False on the padding."""
+    n = torch.as_tensor(layout.n_own, device=device)
+    return torch.arange(layout.n_own_pad, device=device)[None, :] < n[:, None]
+
+
 def pdot(x: PVector, y: PVector) -> torch.Tensor:
     """Global dot product over own values, as a 0-d tensor on the device."""
     return x.backend.psum((x.own * y.own).sum(dim=1))
@@ -102,6 +188,60 @@ def pnorm(x: PVector) -> torch.Tensor:
 def axpy(a, x: PVector, y: PVector) -> PVector:
     """y + a*x on own and ghost values."""
     return PVector(y.own + a * x.own, y.ghost + a * x.ghost, y.layout, y.backend)
+
+
+# -- reductions and distances over own values (0-d tensors on the device) ---
+
+def psum_reduce(x: PVector) -> torch.Tensor:
+    return x.own.sum()
+
+
+def pmaximum(x: PVector) -> torch.Tensor:
+    m = _own_mask(x.layout, x.own.device)
+    return torch.where(m, x.own, torch.full_like(x.own, -torch.inf)).max()
+
+
+def pminimum(x: PVector) -> torch.Tensor:
+    m = _own_mask(x.layout, x.own.device)
+    return torch.where(m, x.own, torch.full_like(x.own, torch.inf)).min()
+
+
+def pany(x: PVector, pred=lambda v: v != 0) -> bool:
+    return bool((_own_mask(x.layout, x.own.device) & pred(x.own)).any())
+
+
+def pall(x: PVector, pred=lambda v: v != 0) -> bool:
+    return bool((~_own_mask(x.layout, x.own.device) | pred(x.own)).all())
+
+
+def peuclidean(x: PVector, y: PVector) -> torch.Tensor:
+    return torch.sqrt(psqeuclidean(x, y))
+
+
+def psqeuclidean(x: PVector, y: PVector) -> torch.Tensor:
+    d = x.own - y.own
+    return (d * d).sum()
+
+
+def pcityblock(x: PVector, y: PVector) -> torch.Tensor:
+    return (x.own - y.own).abs().sum()
+
+
+def pchebyshev(x: PVector, y: PVector) -> torch.Tensor:
+    return (x.own - y.own).abs().max()
+
+
+def pdistance(x: PVector, y: PVector, eval_op, reduce: str = "sum", eval_end=None):
+    """A metric over own values: ``eval_op(a, b)`` elementwise on the own
+    tensors, reduced by "sum", "max" or "min" (padding lanes masked with
+    the reduction's identity), then ``eval_end`` of the result."""
+    fill = {"sum": 0.0, "max": -torch.inf, "min": torch.inf}.get(reduce)
+    if fill is None:
+        raise ValueError(f"reduce must be sum/max/min, got {reduce!r}")
+    vals = eval_op(x.own, y.own)
+    vals = torch.where(_own_mask(x.layout, vals.device), vals, torch.full_like(vals, fill))
+    s = {"sum": torch.sum, "max": torch.max, "min": torch.min}[reduce](vals)
+    return eval_end(s) if eval_end is not None else s
 
 
 # -- df64 (two-float) pairs ---------------------------------------------------

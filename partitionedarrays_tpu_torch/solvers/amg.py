@@ -29,12 +29,19 @@ applies A by K4; on another box level by K1; elsewhere by the frozen P and
 its transpose on K5), and the coarsest solve as a dense inverse or LU
 factors applied by torch.
 
-Where the reference takes another branch, the port raises
-``NotImplementedError`` naming the ROADMAP item, never silently taking a
-different one: the ghosted flat cycle (a box level with ghost columns),
-``update`` (the reuse tier), and the Schwarz level smoother.  The
-reference's ``zsel`` (its z-axis pool as a TPU matmul) is not ported: the
-pool pads all three axes.  ``ops/native.py`` is not ported: the Python
+Every step runs on any number of parts of the serial backend: aggregation
+is uncoupled per part, the power method exchanges ghosts on the host, the
+Galerkin products are the distributed ``spmm``/``spmtm``, the restriction
+``spmtv`` assembles its cross-part contributions back to their owners, and
+a box level with ghost columns takes the ghosted flat cycle
+(``_cycle_flat_g``: the frozen ghost contribution folded into the core
+rhs).  Per-part boxes of unequal shape fall back to generic aggregation,
+as in the reference.  Where the reference takes another branch, the port
+raises ``NotImplementedError`` naming the ROADMAP item, never silently
+taking a different one: ``update`` (the reuse tier, Queue 1 step 7, item
+13), the Schwarz level smoother (item 12) and per-process matrices (item
+15).  The reference's ``zsel`` (its z-axis pool as a TPU matmul) is not
+ported: the pool pads all three axes.  ``ops/native.py`` is not ported: the Python
 ``aggregate`` is the reference's fallback, and the tests hold its
 aggregates against the reference's (native) ones.
 """
@@ -51,6 +58,7 @@ import torch
 
 from ..ops.sparse_host import compresscoo
 from ..parallel.partition import PRange, variable_partition
+from ..parallel.primitives import host_consistent
 from ..psparse import (
     PSparseMatrix,
     gather_global_scipy,
@@ -290,19 +298,21 @@ def _dinv_parts(A: PSparseMatrix) -> List[np.ndarray]:
 
 def spectral_radius(A: PSparseMatrix, Dinv=None, iters: int = 20) -> float:
     """Power-method estimate of rho(D^-1 A) on the host blocks, from
-    ``np.random.default_rng(0)``.  ``Dinv``: per-part inverse diagonals
-    (default: A's)."""
+    ``np.random.default_rng(0)`` drawn part by part, with one host ghost
+    exchange per iteration (``host_consistent``).  ``Dinv``: per-part
+    inverse diagonals (default: A's)."""
     parts = A.row_prange.parts
     dinv = _dinv_parts(A) if Dinv is None else [np.asarray(d) for d in Dinv]
     blocks = host_blocks(A)
-    if A.col_layout().n_ghost_pad:
-        raise NotImplementedError("spectral_radius with ghost columns: ROADMAP Queue 1 item 10")
     rng = np.random.default_rng(0)
     x = [rng.standard_normal(li.n_own) for li in parts]
     lam = 1.0
     for _ in range(iters):
-        # no ghost columns: the reference's ghost term is the 0.0 it adds
-        y = [dv * (b["oo"] @ xo + 0.0) for b, xo, dv in zip(blocks, x, dinv)]
+        xg = host_consistent(A.col_prange, x)
+        y = [
+            dv * (b["oo"] @ xo + (b["oh"] @ g if g.size else 0.0))
+            for b, xo, g, dv in zip(blocks, x, xg, dinv)
+        ]
         ny = np.sqrt(sum(float(v @ v) for v in y))
         nx = np.sqrt(sum(float(v @ v) for v in x))
         if ny == 0:
@@ -610,24 +620,49 @@ class AMGPreconditioner:
             ec = PVector(ec.own + ec2.own, ec.ghost, ec.layout, ec.backend)
         return gs.smooth_bd(xflat + self._prolong_flat(level, ec), bd)  # post-smooth
 
+    def _cycle_flat_g(self, l: int, b: PVector, w: bool) -> torch.Tensor:
+        """The flat cycle of a box level with ghost columns (the hybrid
+        Gauss-Seidel across parts): the sweeps stay in the core with the
+        ghost-column contribution, frozen per application, folded into the
+        core rhs; the structured transfers run in standard order, their
+        SpMV doing the exchange.  Two ghost exchanges per level per cycle
+        for the smoothing (the zero-guess pre-smooth needs none), one in
+        each transfer.  Returns the core x."""
+        level = self.levels[l]
+        gs = level.smoother
+        bd0 = gs.make_bd(b)
+        xflat = gs.smooth_bd(None, bd0)  # zero-guess pre-smooth
+        gc = gs.ghost_contrib(gs.flat_interleave(xflat))
+        r_own = gs.flat_interleave(gs.flat_residual(xflat, bd0)) - gc
+        nxt = self.levels[l + 1]
+        rc = self._restrict_struct(level, _own_vec(r_own, level.A.row_layout(), b.backend),
+                                   nxt.A.row_layout())
+        ec = self._cycle(l + 1, rc, w)
+        if w and nxt.P is not None:
+            rc2 = _residual_vec(nxt.A, rc, ec)
+            ec2 = self._cycle(l + 1, rc2, w)
+            ec = PVector(ec.own + ec2.own, ec.ghost, ec.layout, ec.backend)
+        xflat = gs.flat_add_std(xflat, self._prolong_struct(level, ec))
+        gc2 = gs.ghost_contrib(gs.flat_interleave(xflat))
+        return gs.smooth_bd(xflat, gs.flat_deinterleave(b.own - gc2))  # post-smooth
+
     def _cycle(self, l: int, b: PVector, w: bool) -> PVector:
         """One cycle from level ``l`` (twice into the coarser level for a
-        W-cycle): the flat cycle on a box level whose smoother is colored;
-        else zero-guess pre-smooth, residual, restriction (the structured
-        one on a box level, P^T elsewhere), the coarser cycle,
-        prolongation, post-smooth."""
+        W-cycle): the flat cycle on a box level whose smoother is colored
+        (the ghosted flat cycle where the level has ghost columns); else
+        zero-guess pre-smooth, residual, restriction (the structured one
+        on a box level, P^T elsewhere), the coarser cycle, prolongation,
+        post-smooth."""
         level = self.levels[l]
         if level.P is None:
             return self._coarse_solve(b)
         if level.struct is not None and level.smoother.colored is not None:
-            if not self._flat_ok(l):
-                raise NotImplementedError(
-                    "the ghosted flat AMG cycle (a box level with ghost columns): "
-                    "ROADMAP Queue 1 items 10 and 13"
-                )
             gs = level.smoother
-            x_own = gs.flat_interleave(self._cycle_flat(l, gs.make_bd(b), w))
-            return _own_vec(x_own, level.A.row_layout(), b.backend)
+            if self._flat_ok(l):
+                xflat = self._cycle_flat(l, gs.make_bd(b), w)
+            else:
+                xflat = self._cycle_flat_g(l, b, w)
+            return _own_vec(gs.flat_interleave(xflat), level.A.row_layout(), b.backend)
         x = level.smoother(b)
         r = _residual_vec(level.A, b, x)
         cl = self.levels[l + 1].A.row_layout()

@@ -2,14 +2,14 @@
 
 Counterpart of ``partitionedarrays_tpu/solvers/interfaces.py``, the part
 that the ported solvers carry: ``LinearProblem``, ``LinearSolverBase``,
-``CGSolver``, ``SmootherSolver``, the constructors ``cg_solver``,
-``jacobi_solver``, ``gauss_seidel_solver`` and ``richardson_solver``, and
-``solve``, ``preconditioner``, ``smooth`` and ``history``.  A solver has
-``solve(problem)``, ``update(problem)`` (same sparsity, new values) and
-``finalize()``.  ``amg_solver`` runs ``solvers/amg.py``'s preconditioner
-as a Richardson iteration; ``lu_solver`` and ``additive_schwarz_solver``
-raise until their slices are ported; the nonlinear and ODE problems come
-with ROADMAP Queue 1 item 14.
+``CGSolver``, ``LUSolver`` (:89-110), ``SmootherSolver``, the constructors
+``cg_solver``, ``lu_solver``, ``jacobi_solver``, ``gauss_seidel_solver``
+and ``richardson_solver``, and ``solve``, ``preconditioner``, ``smooth``
+and ``history``.  A solver has ``solve(problem)``, ``update(problem)``
+(same sparsity, new values) and ``finalize()``.  ``amg_solver`` runs
+``solvers/amg.py``'s preconditioner as a Richardson iteration;
+``additive_schwarz_solver`` raises until its slice is ported (ROADMAP
+Queue 1 item 12); the nonlinear and ODE problems come with item 14.
 """
 from __future__ import annotations
 
@@ -58,6 +58,37 @@ class CGSolver(LinearSolverBase):
         )
         self.last_info = info
         return x
+
+
+class LUSolver(LinearSolverBase):
+    """A sparse LU of the centralized matrix on the host (scipy's
+    ``splu``): the reference's fallback for debugging and small systems.
+    The solution returns to b's device."""
+
+    def __init__(self):
+        self._splu = None
+        self._A = None
+
+    def _factorize(self, A: PSparseMatrix) -> None:
+        import scipy.sparse.linalg as spla
+
+        from ..psparse import centralize
+
+        self._splu = spla.splu(centralize(A).tocsc())
+        self._A = A
+
+    def solve(self, p: LinearProblem) -> PVector:
+        from ..pvector import collect, pvector_from_own
+
+        if self._splu is None or self._A is not p.A:
+            self._factorize(p.A)
+        xg = self._splu.solve(collect(p.b))
+        parts = [xg[li.own_to_global] for li in p.A.row_prange.parts]
+        return pvector_from_own(parts, p.A.row_prange, p.b.backend, dtype=xg.dtype,
+                                device=p.b.own.device)
+
+    def update(self, p: LinearProblem) -> None:
+        self._factorize(p.A)
 
 
 class SmootherSolver(LinearSolverBase):
@@ -109,8 +140,8 @@ def richardson_solver(iterations=10, omega=1.0) -> SmootherSolver:
     return SmootherSolver(lambda A: (lambda r: r), iterations, omega)
 
 
-def lu_solver():
-    raise NotImplementedError("lu_solver needs psparse centralize: ROADMAP Queue 1 item 10")
+def lu_solver() -> LUSolver:
+    return LUSolver()
 
 
 def additive_schwarz_solver(iterations=3, local_solver=None):

@@ -18,7 +18,8 @@ closed-form stencil matrices.
   reference's, the true float64 residual below 1e-9.
 - ``stencil_psparse``'s host mirrors: ``to_global_scipy`` and
   ``dense_diag`` equal to the reference's, on one part and on (2,2,2)
-  parts, and to ``build_hpcg_problem(structured=False)`` on one part; the
+  parts, and to ``build_hpcg_problem(structured=False)`` (its blocks and
+  ghosts equal to the reference's triplet pipeline's) on both; the
   AMG hierarchy of the one-part HPCG operator equal to the reference's.
 """
 import importlib
@@ -201,14 +202,17 @@ def test_stencil_host_mirror_matches_jax(local, parts):
         dia = host_blocks(A)[p]["oo"]
         want = dia @ xs[p, : dia.shape[1]]
         cases.close(got[p, : dia.shape[0]], want, 1e-15)
-    if P == 1:
-        A_coo, b_coo = build_hpcg_problem(local, parts, SerialBackend(1), structured=False, device="cpu")
-        cases.same_csr(to_global_scipy(A_coo), G)
-        _, b = build_hpcg_problem(local, parts, SerialBackend(1), device="cpu")
-        np.testing.assert_array_equal(b_coo.own.numpy(), b.own.numpy())
-    else:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            build_hpcg_problem(local, parts, SerialBackend(P), structured=False, device="cpu")
+    # the generic triplet pipeline gives the same matrix, on any number of parts
+    A_coo, b_coo = build_hpcg_problem(local, parts, SerialBackend(P), structured=False, device="cpu")
+    cases.same_csr(to_global_scipy(A_coo), G)
+    A_coo_ref, _ = jax_build_hpcg(local, parts, JaxSerialBackend(P), structured=False)
+    for p in range(P):
+        for k in ("oo", "oh"):
+            cases.same_csr(host_blocks(A_coo)[p][k], A_coo_ref.blocks[p][k])
+        np.testing.assert_array_equal(A_coo.col_prange.parts[p].ghost_to_global,
+                                      A_coo_ref.col_prange[p].ghost_to_global)
+    _, b = build_hpcg_problem(local, parts, SerialBackend(P), device="cpu")
+    np.testing.assert_array_equal(b_coo.own.numpy(), b.own.numpy())
 
 
 def test_amg_on_the_hpcg_operator_matches_jax():

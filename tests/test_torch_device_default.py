@@ -15,12 +15,13 @@ from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
 from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
 from partitionedarrays_tpu_torch.ops.blocks import freeze_block
 from partitionedarrays_tpu_torch.ops.stencil import stencil_psparse
-from partitionedarrays_tpu_torch.psparse import PSparseMatrix, psparse
+from partitionedarrays_tpu_torch.psparse import PSparseMatrix, psparse, psparse_from_global
 
 ENTRY_POINTS = [
     hpcg_benchmark, HPCGMGPreconditioner.__init__, build_hpcg_problem, stencil_psparse,
     freeze_block, pvector.pfill, pvector.pzeros, pvector.pones, pvector.pvector_from_own,
-    pvector.pvector_df64, convert.from_jax_arrays, psparse, PSparseMatrix.__init__,
+    pvector.pvector_df64, pvector.pvector, convert.from_jax_arrays,
+    convert.psparse_from_host_blocks, psparse, psparse_from_global, PSparseMatrix.__init__,
 ]
 
 

@@ -71,7 +71,7 @@ def _blocks(M):
         if l > 0:
             out[f"A{l}"] = lev.A.device().oo
         out[f"P{l}"] = lev.P.device().oo
-        out[f"P{l}^T"] = lev.P.device_transpose()
+        out[f"P{l}^T"] = lev.P.device_transpose()[0]
     return {k: b for k, b in out.items() if b.kind == "ell"}
 
 

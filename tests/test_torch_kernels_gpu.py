@@ -24,7 +24,10 @@ level whose waves hold one tile (B = 1) and of two parts stacked
 nonzero guess; one launch per call), at the same tolerances; a K6 launch
 the card cannot take raises.  K5 also runs on the prolongators,
 restrictions and coarse operators of the 8^3-node elasticity hierarchy
-under every warps-per-group count.
+under every warps-per-group count.  Across parts: K6 with P = 8 clusters
+on the fine tile level of 3-D elasticity on (2,2,2) parts of unequal size,
+and K5 on the own-ghost blocks and their transposes (``spmtv``) of that
+hierarchy and of a matrix with a part that has no ghost columns.
 
 Every test is marked ``gpu`` and skips without a CUDA card.  This module
 imports torch and the port only (no JAX), so that it also runs on a
@@ -536,7 +539,7 @@ def test_ghost_spmv_kernel_on_amg_blocks_every_g(cuda, dtype):
     blocks = []
     for l, lev in enumerate(M.levels):
         if lev.P is not None:
-            blocks += [lev.P.device().oo, lev.P.device_transpose()]
+            blocks += [lev.P.device().oo, lev.P.device_transpose()[0]]
         if l > 0:
             blocks.append(lev.A.device().oo)
     blocks = [blk for blk in blocks if blk.kind == "ell"]
@@ -552,3 +555,87 @@ def test_ghost_spmv_kernel_on_amg_blocks_every_g(cuda, dtype):
             got = ghost_spmv(blk.rows, blk.cols, blk.vals, x, y0.clone(), plan)
             assert ghost_spmv.launches == before + 1
             _assert_close(got, want, dtype)
+
+
+def _elasticity_parts(device, dtype, n):
+    """SA-AMG of 3-D elasticity at n^3 nodes on (2,2,2) parts."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.models import gallery
+    from partitionedarrays_tpu_torch.psparse import psparse
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    I, J, V, rows, cols = gallery.linear_elasticity_fem((n, n, n), (2, 2, 2), dtype=np_dtype)
+    A = psparse(I, J, V, rows, cols, SerialBackend(8), device=device)
+    coords, _ = gallery.node_coordinates_unit_cube((n, n, n), (2, 2, 2))
+    return AMGPreconditioner(A, AMGParams(coarse_size=30, block_size=3, max_levels=4),
+                             nullspace=gallery.nullspace_linear_elasticity(coords, A.row_prange))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [7, 9])
+def test_tile_gs_kernel_across_parts(cuda, dtype, n):
+    """K6 with P = 8 clusters: the tile tier of the fine level of 3-D
+    elasticity on (2,2,2) parts of unequal size (3 or 4 nodes per
+    direction at 7^3, 4 or 5 at 9^3), so the parts' off-tile lanes and
+    waves differ."""
+    M = _elasticity_parts(cuda, dtype, n)
+    tg = M.levels[0].smoother.tile_gs
+    assert tg is not None and tg.wave_tiles.shape[0] == 8
+    assert len({li.n_own for li in M.levels[0].A.row_prange.parts}) > 1
+    _hold_tile(_operands(tg), dtype, cuda, 18)
+
+
+def _with_an_empty_part(device, dtype):
+    """30 rows on 3 parts: each row of parts 0 and 1 couples to two
+    scattered rows of the other (an own-ghost block that is not banded),
+    part 2 holds only its diagonal, so it has no ghost columns (its
+    own-ghost block and that block's transpose are empty)."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.parallel.partition import variable_partition
+    from partitionedarrays_tpu_torch.psparse import psparse
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    I, J, V = [], [], []
+    for p in range(3):
+        r = np.arange(10 * p, 10 * p + 10)
+        i, j = [r], [r]
+        if p < 2:
+            other = 10 * (1 - p)
+            i += [r, r]
+            j += [other + (3 * r) % 10, other + (7 * r + 2) % 10]
+        I.append(np.concatenate(i))
+        J.append(np.concatenate(j))
+        V.append(np.linspace(1.0, 2.0, I[-1].size).astype(np_dtype))
+    rows = variable_partition([10, 10, 10])
+    return psparse(I, J, V, rows, rows, SerialBackend(3), assembled=True, device=device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ghost_spmv_kernel_across_parts(cuda, dtype):
+    """K5 on the own-ghost blocks and the own-ghost transposes (``spmtv``)
+    across parts: of a matrix with a part that has no ghost columns, and of
+    every level of the 7^3-node elasticity hierarchy on (2,2,2) parts
+    (with P and P^T), into y, with the block's own plan."""
+    A = _with_an_empty_part(cuda, dtype)
+    assert A.col_prange.parts[2].n_ghost == 0 and A.col_prange.parts[0].n_ghost == 10
+    blocks = [A.device().oh, A.device_transpose()[1]]
+    M = _elasticity_parts(cuda, dtype, 7)
+    for lev in M.levels:
+        blocks.append(lev.A.device().oh)
+        if lev.P is not None:
+            blocks += [lev.P.device().oh, *lev.P.device_transpose()]
+    blocks = [blk for blk in blocks if blk is not None and blk.kind == "ell"]
+    assert len(blocks) >= 6
+    g = torch.Generator().manual_seed(25)
+    for blk in blocks:
+        P = blk.vals.shape[0]
+        x = torch.randn(P, blk.n_cols_pad, generator=g, dtype=dtype).to(cuda)
+        y0 = torch.randn(P, blk.n_rows, generator=g, dtype=dtype).to(cuda)
+        want = ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, y0.clone())
+        before = ghost_spmv.launches
+        got = ghost_spmv(blk.rows, blk.cols, blk.vals, x, y0.clone(), blk.plan)
+        assert ghost_spmv.launches == before + 1
+        _assert_close(got, want, dtype)

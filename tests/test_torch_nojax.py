@@ -6,9 +6,14 @@ on the CPU (the flat CG, the ghosted flat CG with its exchanges and
 own-ghost products, and the df64 CG), then the generic solvers (``cg``,
 ``cg_df64``, a solver of ``solvers/interfaces.py``), and the elasticity
 SA-AMG path (gallery, COO ``psparse``, the tile Gauss-Seidel tier, ``cg``
-and ``amg_solver``), and the box-stencil AMG (``laplacian_fdm``, the flat
+and ``amg_solver``), the box-stencil AMG (``laplacian_fdm``, the flat
 cycle under ``cg``, and under ``cg_df64`` from an ``astype`` float32
-copy); afterwards ``jax`` must not be among the loaded modules.
+copy), and the partitioned matrix across parts (subassembled COO,
+``assemble_matrix``, ``consistent_matrix``, the distributed products,
+``convert.psparse_from_host_blocks``, the COO ``pvector`` and its tasks,
+``lu_solver``, the elasticity AMG-CG and the box AMG-CG with the ghosted
+flat cycle on (2,2,2) parts); afterwards ``jax`` must not be among the
+loaded modules.
 """
 import os
 import subprocess
@@ -83,6 +88,42 @@ M32 = AMGPreconditioner(A.astype(np.float32), AMGParams(coarse_size=10))
 b2 = pvector_df64([b.own[0, : A.shape[0]].numpy()], A.row_prange, A.backend, device="cpu")
 _, info = cg_df64(A, b2, M=M32, rtol=1e-10)
 assert info.iterations < 30, info
+import partitionedarrays_tpu_torch.parallel.primitives
+from partitionedarrays_tpu_torch.convert import psparse_from_host_blocks
+from partitionedarrays_tpu_torch.psparse import (
+    assemble_matrix, centralize, consistent_matrix, rap, spmm, spmtm, spmtv, transpose_psparse,
+)
+from partitionedarrays_tpu_torch.pvector import assemble, collect, consistent, pmaximum, pvector
+from partitionedarrays_tpu_torch.solvers.interfaces import lu_solver
+I, J, V, rows, cols = linear_elasticity_fem((5, 5, 5), (2, 2, 2))
+A = assemble_matrix(psparse(I, J, V, rows, cols, SerialBackend(8), assemble=False,
+                            device="cpu")).wait()
+assert consistent_matrix(A, A.col_prange).wait().blocks[0]["ho"].nnz > 0
+R = transpose_psparse(A)
+assert abs(centralize(rap(R, A, A)) - centralize(spmm(spmtm(A, A), A))).max() < 1e-9
+C = psparse_from_host_blocks(
+    A.blocks, [dict(n_global=li.n_global, own_to_global=li.own_to_global) for li in A.row_prange.parts],
+    [dict(n_global=li.n_global, own_to_global=li.own_to_global, ghost_to_global=li.ghost_to_global,
+          ghost_to_owner=li.ghost_to_owner) for li in A.col_prange.parts], device="cpu")
+x = pvector([li.own_to_global for li in A.col_prange.parts],
+            [np.ones(li.n_own) for li in A.col_prange.parts], A.col_prange, A.backend, device="cpu")
+y = consistent(x).wait()
+assert float(pmaximum(spmtv(C, y))) > 0 and collect(assemble(y).wait()).size == A.shape[0]
+b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device="cpu"))
+xs = solve(lu_solver(), LinearProblem(A, b))
+assert np.abs(collect(xs) - 1).max() < 1e-8
+coords, _ = node_coordinates_unit_cube((5, 5, 5), (2, 2, 2))
+M = AMGPreconditioner(A, AMGParams(coarse_size=30, block_size=3, max_levels=4),
+                      nullspace=nullspace_linear_elasticity(coords, A.row_prange))
+_, info = cg(A, b, M=M, rtol=1e-8)
+assert info.iterations < 30, info
+I, J, V, rows, cols = laplacian_fdm((12, 12, 12), (2, 2, 2))
+A = psparse(I, J, V, rows, cols, SerialBackend(8), assembled=True, device="cpu")
+M = AMGPreconditioner(A, AMGParams(coarse_size=10))
+assert M.levels[0].struct is not None and not M._flat_ok(0)
+b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device="cpu"))
+_, info = cg(A, b, M=M, rtol=1e-8)
+assert info.iterations < 20, info
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
 sys.exit(1 if loaded else 0)

@@ -156,17 +156,29 @@ def test_spmm_and_spmtm_equal_scipy_and_the_reference(dtype):
     assert C.shape == T.shape == A.shape
 
 
-def test_more_parts_and_ghost_columns_raise():
+def test_more_parts_and_ghost_columns_assemble():
+    """What raised before multi-part COO: two parts of a 3-D elasticity
+    operator, and one part whose triplets reach a column it does not own
+    (a ghost column), equal to the reference's."""
     I, J, V, rows, cols = gallery.linear_elasticity_fem((4, 4, 4), (2, 1, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        psparse(I, J, V, rows, cols, SerialBackend(2), device="cpu")
+    A = psparse(I, J, V, rows, cols, SerialBackend(2), device="cpu")
+    I, J, V, rows, cols = jax_gallery.linear_elasticity_fem((4, 4, 4), (2, 1, 1))
+    A_ref = jax_psparse.psparse(I, J, V, JaxPRange(rows), JaxPRange(cols), JaxSerialBackend(2))
+    for p in range(2):
+        for k in ("oo", "oh"):
+            _same_csr(A.blocks[p][k], A_ref.blocks[p][k])
+    _same_csr(to_global_scipy(A), jax_psparse.to_global_scipy(A_ref))
     from partitionedarrays_tpu_torch.parallel.partition import LocalIndices, variable_partition
 
     # column 5 lies outside the part's own columns 0..3: a ghost column
-    cols = [LocalIndices(6, 0, 1, np.arange(4))]
-    with pytest.raises(NotImplementedError, match="ghost columns"):
-        psparse([np.array([0, 1])], [np.array([1, 5])], [np.ones(2)], variable_partition([4]),
+    owner = lambda q: np.where(np.asarray(q) < 4, 0, 1)
+    cols = [LocalIndices(6, 0, 1, np.arange(4), global_to_owner=owner)]
+    A = psparse([np.array([0, 1])], [np.array([1, 5])], [np.ones(2)], variable_partition([4]),
                 cols, SerialBackend(1), device="cpu")
+    li = A.col_prange.parts[0]
+    assert li.ghost_to_global.tolist() == [5] and li.ghost_to_owner.tolist() == [1]
+    assert A.blocks[0]["oo"].toarray()[0].tolist() == [0, 1, 0, 0]
+    assert A.blocks[0]["oh"].toarray().tolist() == [[0], [1], [0], [0]]
 
 
 def test_colored_plan_of_the_99_offsets_matches():
