@@ -28,7 +28,7 @@ Phases, one output line each:
    read once per step), the plain version's time, the device time of a
    launch of no step and of one step, and the time under every other
    lane count;
-4. eight paths through the port, each with its kernels' launch counts set
+4. eleven paths through the port, each with its kernels' launch counts set
    to 0 just before it and read just after (a-c: the HPCG benchmark, 4 MG
    levels, 50 CG iterations; d-f: the AMG paths, counted over their
    solves):
@@ -96,6 +96,21 @@ Phases, one output line each:
       every colored level, K5 on every compressed-row block (the own-ghost
       blocks and their transposes included), K6 with P = 8 on every tile
       level, each against its plain version;
+   g. the reuse tier, through the user code of ``examples/implicit_reuse.py``
+      (the same code runs the JAX package): ``reaction_diffusion_parts``
+      (backward Euler over Newton over ``psparse_refill`` and
+      ``AMGPreconditioner.update`` over the AMG-CG, 64^3 on (2,2,2) parts,
+      float64; Newton and CG iterations held to the JAX package's),
+      ``newton_reuse`` (bench.py:547-580: the 64^3 float32 Laplacian
+      refilled with 1.1 V and updated, 10 +- 1 CG iterations; and
+      ``DeviceRefill`` against the host refill, bit for bit) and
+      ``elasticity_update`` (40^3 float32 elasticity refilled with a
+      mass-like shift, within one CG iteration of a fresh setup): host
+      seconds of refill and update, CUDA-event seconds of each solve, the
+      true residuals, a V-cycle's launches and device time; every
+      refreshed operand (smoother arrays, D^-1, A, P, P^T, the coarse
+      factors) against a fresh build; then K1, K3, K4, K5 and K6 against
+      their plain versions on the refreshed operands (``REFRESH_RTOL``);
 5. the launch counts of each path, each kernel of a path required > 0;
 6. the whole port on the card against the whole port on the CPU (plain
    versions), float64, residual histories to rtol 1e-10: 32^3 on one part
@@ -110,7 +125,9 @@ and a directory that does not hold the port.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -181,6 +198,8 @@ PER_COLOR_K3_SET = {"device_events": 9684, "device_ms": 100.6}
 # kernel against plain version, relative to the largest plain entry: only
 # FMA contraction and the order of the sums differ
 KERNEL_RTOL = {"float32": 1e-5, "float64": 1e-12}
+# a library call against the plain version (its own order of the sums)
+LIBRARY_RTOL = dict(KERNEL_RTOL)
 KERNELS = {
     "dia_spmv": (
         "partitionedarrays_tpu_torch/csrc/dia_spmv.cu",
@@ -221,6 +240,9 @@ PATH_KERNELS = {
     "amg_box_df64": ("dia_spmv_df", "ax_core", "gs_sweeps"),
     "amg_elasticity_parts": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
     "amg_box_parts": ("dia_spmv", "ax_core", "gs_sweeps", "ghost_spmv"),
+    "reaction_diffusion_parts": ("dia_spmv", "ax_core", "gs_sweeps", "ghost_spmv"),
+    "newton_reuse": ("dia_spmv", "ax_core", "gs_sweeps"),
+    "elasticity_update": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
 }
 # the elasticity SA-AMG path: the reference's own workload (bench.py:371-430,
 # AMGParams(coarse_size=400, block_size=3, max_levels=4), CG to rtol 1e-8),
@@ -281,6 +303,35 @@ AMG_PARTS_NODES = (40, 40, 40)
 AMG_PARTS_RUNS = (("float32", (12, 14), 1e-5), ("float64", (13, 13), 2e-8))
 BOX_PARTS_NODES = (64, 64, 64)
 BOX_PARTS_RUNS = (("float32", (9, 11), 1e-6), ("float64", (10, 10), 1e-7))
+# phase 4g, the reuse tier, through the user code of examples/implicit_reuse.py
+# (the same code runs the JAX package):
+# - reaction_diffusion_parts: backward Euler over Newton over refill and
+#   AMGPreconditioner.update over the AMG-CG, u_t - Delta_h u + c u^3 = 0 on
+#   laplacian_fdm((64,)*3, (2,2,2)) in float64, 3 steps of 1e-2; the Newton
+#   iterations per step and CG iterations per solve of the JAX package on the
+#   CPU at the same size (its CG compiled anew for each solve, PERF.md
+#   section 4), held exactly, and every solve's true residual;
+# - newton_reuse: bench.py:547-580 (the 64^3 float32 Laplacian on one part,
+#   psparse(reuse=True), refill with 1.1 V, update), then CG to 1e-8 on phase
+#   4e's rhs: 10 +- 1 iterations, phase 4e's anchor;
+# - elasticity_update: phase 4d's 40^3 float32 elasticity refilled with a
+#   mass-like shift, update, CG to 1e-8: within one of a fresh setup on the
+#   refilled operator (the JAX package's update fails there, ROADMAP Queue 3).
+REUSE_RD_NODES = (64, 64, 64)
+REUSE_RD_PARTS = (2, 2, 2)
+REUSE_RD_NEWTON = (9, 4, 2)
+REUSE_RD_CG = (9, 9, 11, 13, 14, 15, 16, 16, 16, 16, 16, 16, 16, 16, 16)
+REUSE_RD_RELRES = 1e-9
+NEWTON_REUSE_NODES = (64, 64, 64)
+NEWTON_REUSE_ITERS = (9, 11)
+ELASTICITY_UPDATE_NODES = (40, 40, 40)
+# kernel against plain version on the refreshed operands of phase 4g, relative
+# to the largest plain entry: in float64 two ulps (the largest difference
+# phases 3-4f measured, ROADMAP Queue 2); in float32 KERNEL_RTOL, since a
+# 27-color K3 sweep sequence (54 color steps) on the 40^3 elasticity level
+# differs from its plain version by more than two ulps through FMA
+# contraction alone (PERF.md, section 6)
+REFRESH_RTOL = {"float32": KERNEL_RTOL["float32"], "float64": 4.4e-16}
 
 
 def emit(phase: str, payload) -> None:
@@ -446,7 +497,7 @@ def _hold(results, kname, dtype_name, kernel, plain, timed=None, library=None, w
                        device_ms=device_ms(k_t, 20))
     if library is not None:
         lib_err = (library().reshape(want.shape) - want).abs().max().item()
-        if not (lib_err <= tol):
+        if not (lib_err <= LIBRARY_RTOL[dtype_name] * scale):
             raise AssertionError(f"{kname} {dtype_name}: the library call differs by {lib_err}")
         results[-1].update(library_ms=time_ms(library, 20), library_max_abs_err=lib_err,
                            library_device_ms=device_ms(library, 20))
@@ -764,7 +815,8 @@ def _hold_k3(results, where, gs, dtype_name, g, device):
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         if not err <= KERNEL_RTOL[dtype_name] * scale:
-            raise AssertionError(f"gs_sweeps {where} {dtype_name}: max |kernel - plain| {err}")
+            raise AssertionError(f"gs_sweeps {where} {dtype_name}: max |kernel - plain| {err}, "
+                                 f"{err / scale} of the largest entry")
         row = {
             "kernel": "gs_sweeps", "dtype": dtype_name, "where": where,
             "guess": "zero" if start is None else "random",
@@ -1279,7 +1331,7 @@ def _hold_k5_blocks(results, where, blocks, dtype_name, g, device):
                             (part * n_cols + blk.cols)[live], blk.vals[live], (P * R, P * n_cols)),
                        x, y0)
         lib_err = (lib().reshape(want.shape) - want).abs().max().item()
-        if not lib_err <= tol:
+        if not lib_err <= LIBRARY_RTOL[dtype_name] * scale:
             raise AssertionError(f"ghost_spmv {name} of {where}: the library call differs by {lib_err}")
         itemsize = x.element_size()
         nbytes = itemsize * (nnz + P * n_cols + 2 * n_live) + 4 * (nnz + n_live)
@@ -1786,6 +1838,305 @@ def phase_amg_parts(device, counters):
     return path_launches["amg_elasticity_parts"], path_launches["amg_box_parts"], results
 
 
+# -- phase 4g: the reuse tier ------------------------------------------------------
+
+class _StepTimes:
+    """The ``timer(name)`` of examples/implicit_reuse.py on the card: the
+    seconds of each step on the host clock, the device synchronized at
+    both ends, and of each solve by CUDA events."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        import torch
+
+        torch.cuda.synchronize()
+        if name == "solve":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        self.seconds.setdefault(name, []).append(seconds)
+
+
+@contextlib.contextmanager
+def _tolerance(rtol):
+    """The kernel holds inside with ``rtol`` instead of ``KERNEL_RTOL``
+    (the library calls keep ``LIBRARY_RTOL``)."""
+    global KERNEL_RTOL
+    saved = KERNEL_RTOL
+    KERNEL_RTOL = rtol
+    try:
+        yield
+    finally:
+        KERNEL_RTOL = saved
+
+
+def _example():
+    """examples/implicit_reuse.py, the user code of phase 4g."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    import implicit_reuse
+
+    return implicit_reuse
+
+
+def _fresh(A):
+    """A new matrix of A's host values (copied), frozen anew."""
+    from partitionedarrays_tpu_torch.psparse import PSparseMatrix, host_blocks
+
+    blocks = [{k: b[k].copy() for k in ("oo", "oh")} for b in host_blocks(A)]
+    return PSparseMatrix(None, A.row_prange, A.col_prange, A.backend, blocks=blocks,
+                         device=A.torch_device, device_dtype=A.dtype)
+
+
+def _rel_diff(A, B) -> float:
+    from partitionedarrays_tpu_torch.psparse import to_global_scipy
+
+    G1, G2 = to_global_scipy(A), to_global_scipy(B)
+    d = abs(G1 - G2)
+    return float(d.max() if d.nnz else 0.0) / float(abs(G1).max())
+
+
+def _check_refreshed(M, where, failures) -> list:
+    """Every operand ``update`` refreshed, against a fresh build from the
+    new matrices: each level's smoother arrays (the colored tier's values
+    and inverse diagonal, or the tile tier's planes, off-tile values and
+    tables), its box transfer's D^-1, its frozen A, P and P^T, bit for bit;
+    its host P and coarse operator against a fresh ``_GalerkinCache`` at the
+    frozen omega (1e-12 relative for a float64 operator, 1e-5 for a float32
+    one); and the
+    coarse factors, bit for bit."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.solvers import amg
+    from partitionedarrays_tpu_torch.solvers.smoothers import GaussSeidel
+
+    def same(a, b):
+        return bool(torch.equal(a, b))
+
+    def same_blocks(d, e):
+        return all(same(getattr(d, k).vals, getattr(e, k).vals) for k in ("oo", "oh")
+                   if getattr(d, k) is not None)
+
+    out = []
+    current = M.levels[0].A
+    for l, (lev, gk) in enumerate(zip(M.levels, M._galerkin)):
+        A_new = _fresh(lev.A)
+        gs, gs_new = lev.smoother, GaussSeidel(A_new, lev.smoother.iterations, lev.smoother.sweep)
+        if gs.colored is not None:
+            ok = {"smoother": same(gs.colored.vals_d, gs_new.colored.vals_d)
+                  and same(gs.colored.invd_d, gs_new.colored.invd_d)}
+        else:
+            ok = {"smoother": all(same(getattr(gs.tile_gs, n), getattr(gs_new.tile_gs, n)) for n in
+                                  ("pack", "vals", "rows", "cols", "tile_ptr", "wave_tiles",
+                                   "tile_lanes"))}
+        ok["A"] = same_blocks(lev.A.device(), A_new.device())
+        if lev.struct is not None:
+            ok["dinv"] = same(lev.struct.dinv, amg._box_dinv(A_new))
+        else:
+            P_new = _fresh(lev.P)
+            ok["P"] = same_blocks(lev.P.device(), P_new.device())
+            ok["P^T"] = all(same(a.vals, b.vals) for a, b in zip(
+                lev.P.device_transpose(), P_new.device_transpose()) if a is not None)
+        # the level's operator sets the precision of S and of the products
+        tol = 1e-12 if lev.A.blocks[0]["oo"].dtype == np.float64 else 1e-5
+        fresh = amg._GalerkinCache(_fresh(current), gk.P0, gk.omega)
+        errs = {"P": _rel_diff(fresh.P, lev.P), "Ac": _rel_diff(fresh.Ac, gk.Ac)}
+        current = gk.Ac
+        for k, v in ok.items():
+            if not v:
+                failures.append(f"{where} level {l}: the refreshed {k} differs from a fresh build")
+        for k, v in errs.items():
+            if not v <= tol:
+                failures.append(f"{where} level {l}: the updated {k} is {v} from a fresh build")
+        out.append({"level": l, "equal": ok, "rel_diff": errs, "tol": tol})
+    tmp = amg.AMGPreconditioner.__new__(amg.AMGPreconditioner)
+    tmp._coarse_factorize(_fresh(M.levels[-1].A))
+    coarse_ok = tmp.coarse_kind == M.coarse_kind and all(
+        same(a, b) for a, b in zip(tmp._coarse, M._coarse))
+    if not coarse_ok:
+        failures.append(f"{where}: the refreshed coarse factors differ from a fresh build")
+    out.append({"coarse": M.coarse_kind, "equal": coarse_ok})
+    return out
+
+
+def _vcycle(counters, M, b):
+    """One V-cycle's seconds (CUDA events), launches and device ms."""
+    _, seconds, launches = _timed(counters, lambda: M(b))
+    return {"s": seconds, "launches": launches, "device_ms": device_ms(lambda: M(b), 5)}
+
+
+def phase_reuse(device, counters):
+    """The reuse tier through the user code of examples/implicit_reuse.py:
+    ``reaction_diffusion_parts``, ``newton_reuse`` and
+    ``elasticity_update``, each with the launch counts set to 0 just before
+    it and read just after.  Then each refreshed operand against a fresh
+    build, and K1, K3, K4, K5 and K6 against their plain versions on the
+    refreshed operands (``REFRESH_RTOL``; those calls are not counted).
+    Returns (the three paths' launches, kernel rows)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.psparse import device_refill_plan
+
+    ir = _example()
+    ns = ir.port(device)
+    failures, results = [], []
+    launches = {}
+    g = torch.Generator().manual_seed(4747)
+
+    # reaction_diffusion_parts
+    timer = _StepTimes()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rd = ir.reaction_diffusion(ns, nodes=REUSE_RD_NODES, parts=REUSE_RD_PARTS, timer=timer)
+    wall = time.perf_counter() - t0
+    launches["reaction_diffusion_parts"] = {k: c.launches for k, c in counters.items()}
+    M, J = rd["M"], rd["J"]
+    where = f"reaction-diffusion {REUSE_RD_NODES[0]}^3 on {REUSE_RD_PARTS}"
+    b = ns.from_own([np.random.default_rng(5).standard_normal(li.n_own)
+                     for li in J.row_prange.parts], J.row_prange, J.backend)
+    rec = {
+        "rows": J.shape[0], "parts": J.row_prange.n_parts, "newton": rd["newton"],
+        "cg": rd["cg"], "true_relres": rd["relres"], "wall_s": wall,
+        "anchor": {"newton": REUSE_RD_NEWTON, "cg": REUSE_RD_CG},
+        "refill_ms": [1e3 * t for t in timer.seconds["refill"]],
+        "setup_s": timer.seconds["setup"], "update_s": timer.seconds.get("update", []),
+        "solve_s": timer.seconds["solve"], "levels": _level_info(M), "omegas": M.omegas,
+        "vcycle": _vcycle(counters, M, b),
+    }
+    if tuple(rd["newton"]) != REUSE_RD_NEWTON:
+        failures.append(f"{where}: Newton iterations {rd['newton']}, not {REUSE_RD_NEWTON}")
+    if tuple(rd["cg"]) != REUSE_RD_CG:
+        failures.append(f"{where}: CG iterations {rd['cg']}, not {REUSE_RD_CG}")
+    if not max(rd["relres"]) <= REUSE_RD_RELRES:
+        failures.append(f"{where}: true relres {max(rd['relres'])} > {REUSE_RD_RELRES}")
+    if len(rec["update_s"]) != len(rd["cg"]) - 1:
+        failures.append(f"{where}: {len(rec['update_s'])} updates for {len(rd['cg'])} solves")
+    rec["refreshed"] = _check_refreshed(M, where, failures)
+    emit("4g reuse reaction_diffusion_parts", rec)
+    with _tolerance(REFRESH_RTOL):
+        _hold_box_levels(results, f"refreshed {where}", M, g, device, rec["vcycle"]["launches"])
+        _hold_k5_blocks(results, f"refreshed {where}", _parts_blocks(M), "float64", g, device)
+        oo = J.device().oo
+        P = oo.vals.shape[0]
+        xs = torch.randn(P, oo.n_cols_pad, generator=g, dtype=J.dtype).to(device)
+        _hold_k1(results, f"refilled Jacobian of {where}", oo, xs,
+                 library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad,
+                                                      oo.n_rows),
+                                       (P * oo.n_rows, P * oo.n_cols_pad)), xs))
+    del rd, M, J, oo, b
+    torch.cuda.empty_cache()
+
+    # newton_reuse
+    timer = _StepTimes()
+    for c in counters.values():
+        c.launches = 0
+    nr = ir.newton_reuse(ns, nodes=NEWTON_REUSE_NODES, timer=timer, fresh=False)
+    launches["newton_reuse"] = {k: c.launches for k, c in counters.items()}
+    A, M = nr["A"], nr["M"]
+    where = f"newton_reuse {NEWTON_REUSE_NODES[0]}^3 float32"
+    plan = device_refill_plan(A, nr["cache"])
+    Vs = plan.stack_values(nr["V2"])
+    dev = plan(Vs)
+    exact = all(bool(torch.equal(getattr(dev, k).vals, getattr(A.device(), k).vals))
+                for k in ("oo", "oh"))
+    if not exact:
+        failures.append(f"{where}: DeviceRefill differs from the host refill and refreeze")
+    fresh_its = int(ns.cg(A, nr["b"], M=ns.AMGPreconditioner(A, ns.AMGParams(**BOX_PARAMS)),
+                          rtol=BOX_RTOL, maxiter=BOX_MAXITER)[1].iterations)
+    rec = {
+        "rows": A.shape[0], "iterations": nr["iterations"], "fresh_iterations": fresh_its,
+        "true_relres": nr["relres"],
+        "reuse_cache_build_s": timer.seconds["cache_build"][0],
+        "setup_s": timer.seconds["setup"][0], "newton_refill_s": timer.seconds["refill"][0],
+        "newton_update_s": timer.seconds["update"][0], "solve_s": timer.seconds["solve"][0],
+        "device_refill_ms": time_ms(lambda: plan(Vs), 10), "device_refill_exact": exact,
+        "device_refill_rank_scatters": {k: len(v) for k, v in plan.ranks.items()},
+        "levels": _level_info(M), "vcycle": _vcycle(counters, M, nr["b"]),
+    }
+    lo, hi = NEWTON_REUSE_ITERS
+    if not lo <= nr["iterations"] <= hi:
+        failures.append(f"{where}: {nr['iterations']} CG iterations, not in {NEWTON_REUSE_ITERS}")
+    rec["refreshed"] = _check_refreshed(M, where, failures)
+    emit("4g reuse newton_reuse", rec)
+    with _tolerance(REFRESH_RTOL):
+        _hold_box_levels(results, f"refreshed {where}", M, g, device, rec["vcycle"]["launches"])
+        oo = A.device().oo
+        xs = torch.randn(1, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
+        _hold_k1(results, f"refilled operator of {where}", oo, xs,
+                 library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad,
+                                                      oo.n_rows), (oo.n_rows, oo.n_cols_pad)),
+                                  xs))
+    del nr, A, M, dev, plan, Vs, oo
+    torch.cuda.empty_cache()
+
+    # elasticity_update
+    timer = _StepTimes()
+    for c in counters.values():
+        c.launches = 0
+    eu = ir.elasticity_update(ns, nodes=ELASTICITY_UPDATE_NODES, timer=timer, fresh=False)
+    launches["elasticity_update"] = {k: c.launches for k, c in counters.items()}
+    A, M = eu["A"], eu["M"]
+    where = f"elasticity_update {ELASTICITY_UPDATE_NODES[0]}^3 float32"
+    t0 = time.perf_counter()
+    fresh_M = ns.AMGPreconditioner(A, ns.AMGParams(**AMG_PARAMS), nullspace=eu["nullspace"])
+    fresh_setup = time.perf_counter() - t0
+    fresh_its = int(ns.cg(A, eu["b"], M=fresh_M, rtol=AMG_RTOL, maxiter=AMG_MAXITER)[1].iterations)
+    del fresh_M
+    rec = {
+        "rows": A.shape[0], "shift": eu["shift"], "iterations": eu["iterations"],
+        "fresh_iterations": fresh_its, "true_relres": eu["relres"],
+        "cache_build_s": timer.seconds["cache_build"][0], "setup_s": timer.seconds["setup"][0],
+        "fresh_setup_s": fresh_setup, "refill_s": timer.seconds["refill"][0],
+        "update_s": timer.seconds["update"][0], "solve_s": timer.seconds["solve"][0],
+        "levels": _level_info(M), "vcycle": _vcycle(counters, M, eu["b"]),
+    }
+    if abs(eu["iterations"] - fresh_its) > 1:
+        failures.append(f"{where}: {eu['iterations']} CG iterations after update, "
+                        f"{fresh_its} after a fresh setup")
+    if not eu["relres"] <= 1e-5:
+        failures.append(f"{where}: true relres {eu['relres']} > 1e-5")
+    rec["refreshed"] = _check_refreshed(M, where, failures)
+    emit("4g reuse elasticity_update", rec)
+    with _tolerance(REFRESH_RTOL):
+        for l, lev in enumerate(M.levels):
+            gs = lev.smoother
+            if gs is None:
+                continue
+            if gs.tile_gs is not None:
+                _hold_tile(results, f"refreshed level {l} of {where}", gs.tile_gs, "float32", g,
+                           device)
+            else:
+                _hold_k3(results, f"refreshed level {l} of {where}", gs, "float32", g, device)
+        _hold_k5_blocks(results, f"refreshed {where}", _amg_blocks(M), "float32", g, device)
+        oo = A.device().oo
+        if oo.kind == "dia":
+            xs = torch.randn(1, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
+            _hold_k1(results, f"refilled operator of {where}", oo, xs,
+                     library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad,
+                                                          oo.n_rows),
+                                           (oo.n_rows, oo.n_cols_pad)), xs))
+    del eu, A, M, oo
+    torch.cuda.empty_cache()
+    emit("4g kernels K1, K3, K4, K5, K6 on refreshed operands", results)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, results
+
+
 def _cross_amg_box_parts(device):
     """The box AMG-CG on (2,2,2) parts of 8^3 (the ghosted flat cycle) on
     the card against the CPU, float64: the residual norm after each
@@ -1973,6 +2324,9 @@ def main() -> int:
     (launches["amg_elasticity_parts"], launches["amg_box_parts"],
      parts_results) = phase_amg_parts(device, counters)
     kernel_results += parts_results
+    reuse_launches, reuse_results = phase_reuse(device, counters)
+    launches.update(reuse_launches)
+    kernel_results += reuse_results
     emit("5 launches", launches)
     missing = [
         f"{path}:{k}" for path, names in PATH_KERNELS.items() for k in names
@@ -1986,7 +2340,7 @@ def main() -> int:
     # one row per kernel: its float32 measurement (K7: df64 at the 128^3
     # one-part shape; K6: a symmetric sweep of level 1 of the 40^3
     # elasticity hierarchy; K2, K5 and their library calls with the L2
-    # flushed before each call), its launches over the eight paths' runs
+    # flushed before each call), its launches over the eleven paths' runs
     # (calls of the kernel's C entry: K3 and K6 one per sweep sequence)
     rows = []
     for kname, (source, replaces) in KERNELS.items():

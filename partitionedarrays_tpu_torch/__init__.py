@@ -11,15 +11,21 @@ kernel's plain PyTorch version instead.
 
 So far the port covers the HPCG benchmark on one part and on many parts
 stacked on one device (ghost exchange, own-ghost block) in float32,
-float64 and df64, the Krylov solvers of ``solvers/krylov.py``, and on one
-part the COO assembly of ``models/gallery.py``'s problems with
-smoothed-aggregation AMG (``solvers/amg.py``); see ROADMAP.md.
+float64 and df64, the Krylov solvers of ``solvers/krylov.py``, the COO
+assembly of ``models/gallery.py``'s problems and smoothed-aggregation AMG
+(``solvers/amg.py``) on one part and on many parts of the serial backend,
+the fixed-sparsity reuse tier (``psparse_refill``, ``psystem_refill``,
+the ``_into`` products, ``AMGPreconditioner.update``) and the Newton and
+backward-Euler layers (``solvers/nonlinear.py``, ``solvers/ode.py``); see
+ROADMAP.md.
 """
 from . import config
 from .backends import SerialBackend
 from .models.hpcg import HPCGMGPreconditioner, build_hpcg_problem, hpcg_benchmark
-from .psparse import PSparseMatrix, spmv
+from .psparse import PSparseMatrix, psparse_refill, psystem, psystem_refill, spmv
 from .pvector import PVector, axpy, pdot, pnorm, pones, pvector_from_own, pzeros
+from .solvers.nonlinear import newton_raphson
+from .solvers.ode import backward_euler
 
 __all__ = [
     "config",
@@ -28,7 +34,12 @@ __all__ = [
     "build_hpcg_problem",
     "hpcg_benchmark",
     "PSparseMatrix",
+    "psparse_refill",
+    "psystem",
+    "psystem_refill",
     "spmv",
+    "newton_raphson",
+    "backward_euler",
     "PVector",
     "axpy",
     "pdot",

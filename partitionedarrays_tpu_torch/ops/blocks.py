@@ -16,6 +16,12 @@ freezes into one of two kinds:
 
 A df64 (two-float) block is a pair of float32 blocks of one structure
 (``freeze_block_pair``, ``block_spmv_df``, the reference's :275-335).
+
+After a refill at fixed sparsity ``refreeze_block`` restacks only the
+values into a frozen block's structure: the counterpart of the
+reference's fixed-sparsity fast path (``blocks.py:209-240``,
+``ell.py:69-88 stack_ell_values``).  The reference's TPU slot format
+(``refill_slot_vals``) is not mirrored.
 """
 from __future__ import annotations
 
@@ -75,33 +81,45 @@ def make_dia_block(offsets, n_cols_pad: int, vals: torch.Tensor) -> DeviceBlock:
     return DeviceBlock("dia", offsets, vals.shape[2], int(n_cols_pad), vals.contiguous())
 
 
+def _row_slots(b: sp.csr_matrix):
+    """The compressed-row slots of a CSR block's entries in storage order:
+    (live rows, compressed row of each entry, lane of each entry)."""
+    live = np.flatnonzero(np.diff(b.indptr))
+    counts = np.diff(b.indptr)[live]
+    i = np.repeat(np.arange(live.size), counts)  # compressed row of each entry
+    k = np.arange(b.nnz) - np.repeat(b.indptr[live], counts)  # lane in its row
+    return live, i, k
+
+
 def stack_rows(blocks: Sequence[sp.spmatrix], n_cols: int):
     """Per-part CSR blocks -> the compressed-row ELL host arrays ``rows[P,
     Nr]``, ``cols[P, K, Nr]``, ``vals[P, K, Nr]`` with Nr (a multiple of 8)
     and K common to all parts.  Lanes keep each row's CSR order; padding
     lanes hold column -1 and value 0, padding rows hold row -1."""
     csrs = [b.tocsr() for b in blocks]
-    live = [np.flatnonzero(np.diff(b.indptr)) for b in csrs]
-    Nr = max((r.size for r in live), default=0)
-    Nr = ((Nr + 7) // 8) * 8
-    K = max((int(np.diff(b.indptr).max()) if b.nnz else 0 for b in csrs), default=0)
+    Nr, K = _ell_shape(csrs)
     dtype = csrs[0].dtype if csrs else np.float32
     P = len(csrs)
     rows = np.full((P, Nr), -1, dtype=np.int32)
     cols = np.full((P, K, Nr), -1, dtype=np.int32)
     vals = np.zeros((P, K, Nr), dtype=dtype)
-    for p, (b, r) in enumerate(zip(csrs, live)):
+    for p, b in enumerate(csrs):
         if b.nnz == 0:
             continue
         if b.indices.max() >= n_cols:
             raise ValueError(f"part {p}: a column index >= {n_cols}")
-        rows[p, : r.size] = r
-        counts = np.diff(b.indptr)[r]
-        i = np.repeat(np.arange(r.size), counts)  # compressed row of each entry
-        k = np.arange(b.nnz) - np.repeat(b.indptr[r], counts)  # lane in its row
+        live, i, k = _row_slots(b)
+        rows[p, : live.size] = live
         cols[p, k, i] = b.indices
         vals[p, k, i] = b.data
     return rows, cols, vals
+
+
+def _ell_shape(csrs) -> Tuple[int, int]:
+    """(Nr, K) of the compressed-row layout of per-part CSR blocks."""
+    Nr = max((int(np.count_nonzero(np.diff(b.indptr))) for b in csrs), default=0)
+    K = max((int(np.diff(b.indptr).max()) if b.nnz else 0 for b in csrs), default=0)
+    return ((Nr + 7) // 8) * 8, K
 
 
 def freeze_block(
@@ -139,6 +157,39 @@ def freeze_block(
         rows=torch.from_numpy(rows).to(device), cols=torch.from_numpy(cols).to(device),
         plan=plan_of(cols, torch.device(device)),
     )
+
+
+def refreeze_block(block: DeviceBlock, blocks: Sequence[sp.spmatrix]) -> DeviceBlock:
+    """The values of per-part host blocks restacked into the structure of
+    ``block``, frozen from blocks of the same sparsity: a DIA block keeps
+    its offsets, a compressed-row block its ``rows``, ``cols`` and K5's
+    ``plan``, and the values keep its device and dtype.  The result equals
+    ``freeze_block`` of the same host blocks bit for bit; a block whose
+    structure no longer fits raises."""
+    csrs = [b.tocsr() for b in blocks]
+    for b in csrs:
+        b.sort_indices()
+    dev, dt = block.vals.device, block.vals.dtype
+    if block.kind == "dia":
+        offsets = np.asarray(block.offsets, dtype=np.int64)
+        for b in csrs:
+            coo = b.tocoo()
+            off = coo.col.astype(np.int64) - coo.row.astype(np.int64)
+            if not np.isin(off, offsets).all():
+                raise ValueError("refreeze_block: an entry outside the block's diagonals")
+        vals = stack_dia(csrs, block.n_rows, offsets)
+        return make_dia_block(block.offsets, block.n_cols_pad, torch.from_numpy(vals).to(dev, dt))
+    P, K, Nr = block.vals.shape
+    if _ell_shape(csrs) != (Nr, K) or len(csrs) != P:
+        raise ValueError("refreeze_block: the compressed-row structure changed")
+    vals = np.zeros((P, K, Nr), dtype=csrs[0].dtype if csrs else np.float32)
+    for p, b in enumerate(csrs):
+        if b.nnz:
+            _, i, k = _row_slots(b)
+            vals[p, k, i] = b.data
+    return DeviceBlock("ell", None, block.n_rows, block.n_cols_pad,
+                       torch.from_numpy(vals).to(dev, dt), rows=block.rows, cols=block.cols,
+                       plan=block.plan)
 
 
 def freeze_block_pair(block: DeviceBlock) -> Tuple[DeviceBlock, DeviceBlock]:

@@ -1,7 +1,11 @@
 """Host-side (setup-time) sparse helpers over scipy CSR matrices.
 
-Copied from ``partitionedarrays_tpu/ops/sparse_host.py`` (``compresscoo``
-:26); the rest of that module comes with the generic slice.
+Copied from ``partitionedarrays_tpu/ops/sparse_host.py``: ``compresscoo``
+:26, ``precompute_nzindex`` :73-110, ``sparse_matrix`` :113-123 and
+``sparse_matrix_refill`` :125-134.  Unlike the reference,
+``precompute_nzindex`` does not sort its argument in place: it takes a CSR
+with sorted indices and raises otherwise, so positions it returns always
+address the caller's own data order.
 """
 from __future__ import annotations
 
@@ -22,3 +26,49 @@ def compresscoo(I, J, V, m: int, n: int) -> sp.csr_matrix:
     A.sum_duplicates()
     A.sort_indices()
     return A
+
+
+def precompute_nzindex(A: sp.csr_matrix, I, J) -> np.ndarray:
+    """For each triplet (I[k], J[k]) its position in ``A.data`` (-1 for a
+    negative id or an entry A does not store).  A must be CSR with sorted
+    indices (``compresscoo``'s output is); it is left untouched."""
+    if not (sp.issparse(A) and A.format == "csr" and A.has_sorted_indices):
+        raise ValueError("precompute_nzindex needs a CSR matrix with sorted indices")
+    I = np.asarray(I)
+    J = np.asarray(J)
+    K = np.full(I.shape[0], -1, dtype=np.int64)
+    valid = (I >= 0) & (J >= 0)
+    # sorted unique CSR entries are sorted by the key row*(n+1)+col: one
+    # searchsorted answers every query
+    n1 = np.int64(A.shape[1] + 1)
+    entry_keys = (
+        np.repeat(np.arange(A.shape[0], dtype=np.int64), np.diff(A.indptr)) * n1
+        + A.indices.astype(np.int64)
+    )
+    query_keys = I[valid].astype(np.int64) * n1 + J[valid].astype(np.int64)
+    pos = np.searchsorted(entry_keys, query_keys)
+    if entry_keys.size:
+        safe = np.minimum(pos, entry_keys.size - 1)
+        found = (pos < entry_keys.size) & (entry_keys[safe] == query_keys)
+    else:
+        found = np.zeros(pos.shape, dtype=bool)
+    K[valid] = np.where(found, pos, -1)
+    return K
+
+
+def sparse_matrix(I, J, V, m: int, n: int, reuse: bool = False):
+    """CSR from COO; with ``reuse=True`` also the refill positions of the
+    triplets (``precompute_nzindex``)."""
+    A = compresscoo(I, J, V, m, n)
+    if reuse:
+        return A, precompute_nzindex(A, I, J)
+    return A
+
+
+def sparse_matrix_refill(A: sp.csr_matrix, V, K, reset: bool = True) -> None:
+    """A's values refilled in place from triplet values V at the positions
+    K (duplicates summed in triplet order)."""
+    if reset:
+        A.data[:] = 0
+    valid = K >= 0
+    np.add.at(A.data, K[valid], np.asarray(V)[valid])

@@ -32,11 +32,21 @@ ids; ghost columns are discovered from the triplets and ordered by owner,
 then global id, after the partition's existing ghosts.  The sparse
 products are the reference's distributed algorithms, part by part on the
 host: the same scipy products on the same operands in the same order, so
-the host blocks agree with the reference's number for number.  Left to
-ROADMAP Queue 1: the reuse tier (``reuse=True``, the ``_into`` forms;
-step 7, items 10 and 13), ``replicate_psparse``, ``split_format``,
-``renumber_matrix``, ``repartition_*`` and ``psystem`` (item 10), and the
-per-process matrices of the multi-process backend (item 15).
+the host blocks agree with the reference's number for number.
+
+The reuse tier (the reference's :453-780, :1048-1444 and :1791-2101,
+``psystem`` :2673-2710): ``psparse(reuse=True)`` returns a cache that
+refills the same triplets' new values (``psparse_refill`` on the host,
+``DeviceRefill`` on the device); ``assemble_matrix``,
+``consistent_matrix``, ``spmm``, ``spmtm`` and ``rap`` with
+``reuse=True`` return a plan that their ``_into`` forms refill at fixed
+sparsity, through frozen value routes (``_MatRoutes``) and fill positions,
+never re-running ghost discovery or classification.  A refilled matrix
+drops its frozen blocks (``invalidate_device``) and restacks the new
+values into their structure on next use.  Left to ROADMAP Queue 1:
+``replicate_psparse``, ``split_format``, ``renumber_matrix`` and
+``repartition_*`` (item 10), and the per-process matrices of the
+multi-process backend with their cross-process refill (item 15).
 """
 from __future__ import annotations
 
@@ -49,13 +59,18 @@ import torch
 from .backends import SerialBackend
 from .config import numpy_dtype, torch_dtype
 from .ops import df64 as df
-from .ops.blocks import DeviceBlock, block_spmv_df, freeze_block, freeze_block_pair
-from .ops.sparse_host import compresscoo
+from .ops.blocks import (
+    DeviceBlock,
+    block_spmv_df,
+    freeze_block,
+    freeze_block_pair,
+    refreeze_block,
+)
+from .ops.sparse_host import compresscoo, precompute_nzindex
 from .parallel.exchange_plan import VectorLayout, layout_of
 from .parallel.partition import INT, PRange, find_owner, map_local_to_global, matching_own_indices
 from .pvector import PVector, Task, pvector_from_own
 
-_REUSE = "the reuse tier: ROADMAP Queue 1 step 7 (items 10 and 13)"
 _BLOCK_NAMES = ("oo", "oh", "ho", "hh")
 
 
@@ -114,6 +129,10 @@ class PSparseMatrix:
         self._nnz = int(nnz)
         self._device_T = None  # the frozen transposes of oo and oh, built once
         self._device_df = None  # the (hi, lo) pair of device_df64, built once
+        # the dropped frozen blocks and transposes of invalidate_device: the
+        # structure the next freeze restacks the new values into
+        self._frozen_structure = (None, None)
+        self.values_version = 0  # counts the refills (invalidate_device)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -149,36 +168,63 @@ class PSparseMatrix:
     def device(self) -> DeviceSpMat:
         """The frozen blocks; a matrix built from host blocks freezes them
         on first call (``freeze_block``: DIA when banded, else compressed
-        rows)."""
+        rows), and after ``invalidate_device`` restacks the new values into
+        the structure of the blocks it dropped (``refreeze_block``)."""
         if self._device is None:
+            old = self._frozen_structure[0]
             rlay, clay = self.row_layout(), self.col_layout()
             ngc = max(clay.n_ghost_pad, 1)
-            oo = self._freeze("oo", rlay.n_own_pad, clay.n_own_pad)
-            oh = self._freeze("oh", rlay.n_own_pad, ngc)
-            ho = hh = None
-            if not self.assembled:
-                ngr = max(rlay.n_ghost_pad, 1)
-                ho = self._freeze("ho", ngr, clay.n_own_pad)
-                hh = self._freeze("hh", ngr, ngc)
-            self._device = DeviceSpMat(oo, oh, ho, hh)
+            ngr = max(rlay.n_ghost_pad, 1)
+            shapes = {"oo": (rlay.n_own_pad, clay.n_own_pad), "oh": (rlay.n_own_pad, ngc),
+                      "ho": (ngr, clay.n_own_pad), "hh": (ngr, ngc)}
+            names = _BLOCK_NAMES if not self.assembled else ("oo", "oh")
+            frozen = {}
+            for name in names:
+                parts = [b[name] for b in self.blocks]
+                if old is not None:
+                    frozen[name] = refreeze_block(getattr(old, name), parts)
+                else:
+                    frozen[name] = freeze_block(parts, *shapes[name], device=self._target,
+                                                dtype=self.dtype)
+            self._device = DeviceSpMat(**frozen)
+            self._frozen_structure = (None, self._frozen_structure[1])  # free the old values
         return self._device
 
     def device_transpose(self) -> Tuple[DeviceBlock, Optional[DeviceBlock]]:
         """The frozen transposes ``(oo^T, oh^T)`` of the own blocks (the
         products of ``spmtv``; ``oh^T`` is None without ghost columns),
-        built once from the host blocks."""
+        built once from the host blocks (restacked into the dropped
+        structure after ``invalidate_device``)."""
         if self._device_T is None:
             if not self.assembled:
                 raise ValueError("the transpose SpMV needs an assembled matrix")
             rlay, clay = self.row_layout(), self.col_layout()
             blocks = host_blocks(self)
-            freeze = lambda name, n_rows: freeze_block(
-                [b[name].T.tocsr() for b in blocks], n_rows, rlay.n_own_pad,
-                device=self.torch_device, dtype=self.dtype,
-            )
-            ohT = freeze("oh", clay.n_ghost_pad) if clay.n_ghost_pad else None
-            self._device_T = (freeze("oo", clay.n_own_pad), ohT)
+            old = self._frozen_structure[1]
+
+            def freeze(name, n_rows, k):
+                parts = [b[name].T.tocsr() for b in blocks]
+                if old is not None:
+                    return refreeze_block(old[k], parts)
+                return freeze_block(parts, n_rows, rlay.n_own_pad, device=self.torch_device,
+                                    dtype=self.dtype)
+
+            ohT = freeze("oh", clay.n_ghost_pad, 1) if clay.n_ghost_pad else None
+            self._device_T = (freeze("oo", clay.n_own_pad, 0), ohT)
+            self._frozen_structure = (self._frozen_structure[0], None)
         return self._device_T
+
+    def invalidate_device(self) -> None:
+        """After new values at fixed sparsity (a refill): drop the frozen
+        blocks, their transposes and the df64 pair.  The next ``device()``
+        and ``device_transpose()`` restack the host values into the
+        structure dropped here (offsets, compressed rows, K5's plans),
+        never re-planning it."""
+        dev, devT = self._frozen_structure
+        self._frozen_structure = (self._device if self._device is not None else dev,
+                                  self._device_T if self._device_T is not None else devT)
+        self._device = self._device_T = self._device_df = None
+        self.values_version += 1
 
     def __repr__(self):
         return (
@@ -267,16 +313,21 @@ def _build_part_blocks(li_row, li_col, I, J, V, subassembled: bool, dtype):
     parts extended by the ghosts the triplets touch (new ghosts by owner,
     then global id, after the existing ones).  ``compresscoo`` sums
     duplicates in triplet order and sorts the columns.  Negative ids mark
-    entries to skip.  Returns (blocks, row part, column part)."""
+    entries to skip.  Returns (blocks, row part, column part, the
+    classification of the triplets that ``_dst_maps`` reads)."""
     I = np.asarray(I, dtype=INT)
     J = np.asarray(J, dtype=INT)
     V = np.asarray(V, dtype=dtype)
+    n_in = I.shape[0]
     keep = (I >= 0) & (J >= 0)
+    kept = None
     if not keep.all():
-        I, J, V = I[keep], J[keep], V[keep]
+        kept = np.flatnonzero(keep)
+        I, J, V = I[kept], J[kept], V[kept]
     iro = li_row.global_to_own(I)
     row_is_own = iro >= 0
     li_row2 = li_row
+    irg = np.full(I.shape, -1, dtype=INT)
     if subassembled:
         gids = np.unique(I[~row_is_own])
         new_g = gids[li_row.global_to_ghost(gids) < 0]
@@ -308,14 +359,17 @@ def _build_part_blocks(li_row, li_col, I, J, V, subassembled: bool, dtype):
     if subassembled:
         blocks["ho"] = block(~row_is_own & col_is_own, irg, jco, li_row2.n_ghost, li_col2.n_own)
         blocks["hh"] = block(~row_is_own & ~col_is_own, irg, jcg, li_row2.n_ghost, li_col2.n_ghost)
-    return blocks, li_row2, li_col2
+    info = (n_in, kept, iro, irg, jco, jcg, row_is_own, col_is_own)
+    return blocks, li_row2, li_col2, info
 
 
 def _shuffle_to_owners(rows_pr: PRange, I_parts, J_parts, V_parts, dtype):
     """The disassembled triplets moved to their row owners: for each
     destination part, the triplets of every source part in source-part
     order (a stable argsort by owner within each source), so that
-    ``compresscoo`` sums the duplicates in the reference's order."""
+    ``compresscoo`` sums the duplicates in the reference's order.  Each
+    destination also gets the source part and source position of its
+    triplets (the reuse cache's origins)."""
     P = rows_pr.n_parts
     owners = find_owner(rows_pr.parts, I_parts)
     by_src = []
@@ -325,16 +379,20 @@ def _shuffle_to_owners(rows_pr: PRange, I_parts, J_parts, V_parts, dtype):
         bounds = np.searchsorted(o[order], np.arange(P + 1))
         by_src.append((np.asarray(I_parts[p], dtype=INT)[order],
                        np.asarray(J_parts[p], dtype=INT)[order],
-                       np.asarray(V_parts[p], dtype=dtype)[order], bounds))
-    tri = []
+                       np.asarray(V_parts[p], dtype=dtype)[order], order, bounds))
+    tri, origins = [], []
     for d in range(P):
-        segs = [(sI[b[d]:b[d + 1]], sJ[b[d]:b[d + 1]], sV[b[d]:b[d + 1]])
-                for sI, sJ, sV, b in by_src if b[d + 1] > b[d]]
+        segs = [(sI[b[d]:b[d + 1]], sJ[b[d]:b[d + 1]], sV[b[d]:b[d + 1]],
+                 np.full(b[d + 1] - b[d], q, dtype=INT), so[b[d]:b[d + 1]])
+                for q, (sI, sJ, sV, so, b) in enumerate(by_src) if b[d + 1] > b[d]]
         if segs:
-            tri.append(tuple(np.concatenate([s[k] for s in segs]) for k in range(3)))
+            cat = [np.concatenate([s[k] for s in segs]) for k in range(5)]
         else:
-            tri.append((np.zeros(0, INT), np.zeros(0, INT), np.zeros(0, dtype)))
-    return tri
+            cat = [np.zeros(0, INT), np.zeros(0, INT), np.zeros(0, dtype),
+                   np.zeros(0, INT), np.zeros(0, INT)]
+        tri.append(tuple(cat[:3]))
+        origins.append(tuple(cat[3:]))
+    return tri, origins
 
 
 def psparse(
@@ -351,7 +409,7 @@ def psparse(
     indices: str = "global",
     device="cuda",
     device_dtype=None,
-) -> PSparseMatrix:
+):
     """The COO constructor: per-part triplets (I, J, V), duplicates summed,
     on ``rows`` and ``cols`` (PRanges or lists of parts).
 
@@ -366,10 +424,9 @@ def psparse(
     whose parts already hold every ghost the triplets touch.  The columns
     the triplets reach on other parts become ghost columns.  The blocks are
     frozen on ``device`` at first use, in ``device_dtype`` (default: the
-    host dtype).  ``reuse=True`` (the fixed-sparsity refill) is not ported
-    (ROADMAP Queue 1 step 7)."""
-    if reuse:
-        raise NotImplementedError(f"psparse(reuse=True), {_REUSE}")
+    host dtype).  ``reuse=True`` returns ``(A, cache)``: the cache routes
+    new values of the same triplets into A (``psparse_refill``,
+    ``device_refill_plan``)."""
     if indices not in ("global", "local"):
         raise ValueError(f"indices must be 'global' or 'local', got {indices!r}")
     rows_pr = _as_prange(rows)
@@ -381,19 +438,171 @@ def psparse(
         J_parts = [map_local_to_global(J_parts[p], cols_pr.parts[p]) for p in range(P)]
     if assembled or not assemble:
         tri = [(I_parts[p], J_parts[p], np.asarray(V_parts[p], dtype=dtype)) for p in range(P)]
+        origins = [(np.full(len(tri[p][0]), p, dtype=INT), np.arange(len(tri[p][0]), dtype=INT))
+                   for p in range(P)]
     else:
-        tri = _shuffle_to_owners(rows_pr, I_parts, J_parts, V_parts, dtype)
+        tri, origins = _shuffle_to_owners(rows_pr, I_parts, J_parts, V_parts, dtype)
     subassembled = not (assembled or assemble)
     built = [
         _build_part_blocks(rows_pr.parts[p], cols_pr.parts[p], *tri[p], subassembled, dtype)
         for p in range(P)
     ]
-    return PSparseMatrix(
+    A = PSparseMatrix(
         None, PRange([b[1] for b in built]) if subassembled else rows_pr,
         PRange([b[2] for b in built]), backend, blocks=[b[0] for b in built],
         device=device, device_dtype=None if device_dtype is None else torch_dtype(device_dtype),
         assembled=not subassembled,
     )
+    if not reuse:
+        return A
+    n_orig = [len(np.asarray(I_parts[q])) for q in range(P)]
+    return A, _build_reuse_cache(A.blocks, origins, [b[3] for b in built], n_orig)
+
+
+def _build_reuse_cache(blocks, origins, infos, n_orig):
+    """Per original part q: for each of its triplets the destination part,
+    block id (``_BLOCK_NAMES`` order) and position in that block's data,
+    -1 for a dropped triplet."""
+    P = len(blocks)
+    offsets = np.zeros(P + 1, dtype=np.int64)
+    np.cumsum(n_orig, out=offsets[1:])
+    dp = np.full(offsets[-1], -1, dtype=np.int64)
+    db = np.full(offsets[-1], -1, dtype=np.int64)
+    dx = np.full(offsets[-1], -1, dtype=np.int64)
+    for p in range(P):
+        src_p, src_i = origins[p]
+        dst_block, dst_pos = _dst_maps(blocks[p], infos[p])
+        flat = offsets[src_p] + src_i
+        dp[flat] = np.where(dst_block >= 0, p, -1)
+        db[flat] = dst_block
+        dx[flat] = dst_pos
+    cut = lambda a: [a[offsets[q]:offsets[q + 1]] for q in range(P)]
+    return cut(dp), cut(db), cut(dx)
+
+
+def psparse_refill(A: PSparseMatrix, V_parts, cache) -> None:
+    """New values of the triplets of ``psparse(..., reuse=True)``, summed
+    into A's host blocks in place (duplicates in the order of the build:
+    source part, then triplet); A's frozen blocks are dropped and restack
+    the new values on next use (``invalidate_device``)."""
+    dest_part, dest_block, dest_pos = cache
+    for b in host_blocks(A):
+        for name in _BLOCK_NAMES:
+            if b.get(name) is not None:
+                b[name].data[:] = 0
+    for q, V in enumerate(V_parts):
+        V = np.asarray(V)
+        dp, db, dx = dest_part[q], dest_block[q], dest_pos[q]
+        ok = dx >= 0
+        key = dp[ok] * 4 + db[ok]
+        for k in np.unique(key):
+            m = key == k
+            np.add.at(A.blocks[int(k) // 4][_BLOCK_NAMES[int(k) % 4]].data, dx[ok][m], V[ok][m])
+    A.invalidate_device()
+
+
+class DeviceRefill:
+    """The refill of the frozen device blocks on the device: from the
+    stacked new triplet values ``V[P, n_orig_pad]`` (``stack_values``) a
+    new ``DeviceSpMat`` of A's structure, for ``spmv(A, x, dev=...)``.
+
+    Built once from A and its ``psparse(reuse=True)`` cache: each triplet's
+    destination part and flat slot in the frozen values, the cache's data
+    position composed with the freeze layout (DIA ``vals[P, n_off, R]``:
+    slot ``d * R + row``; compressed rows ``vals[P, K, Nr]``: slot ``lane *
+    Nr + r``, r the row's place among the rows with nonzeros).  The sum is
+    plain torch and deterministic: the triplets of one slot are ranked in
+    the host refill's order, and rank k of every slot is added by one
+    ``index_add_`` whose indices are unique, so each slot is summed in the
+    order ``psparse_refill`` sums it, in the host dtype, and then cast to
+    the blocks' device dtype: the result equals the host refill and
+    refreeze bit for bit."""
+
+    def __init__(self, A: PSparseMatrix, cache):
+        dev = A.device()
+        blocks = host_blocks(A)
+        dest_part, dest_block, dest_pos = cache
+        P = len(blocks)
+        self._dev = {name: getattr(dev, name) for name in _BLOCK_NAMES}
+        self.n_orig_pad = max([1] + [dp.shape[0] for dp in dest_part])
+        self.dtype = torch_dtype(_host_dtype(A))
+        self.device = A.torch_device
+        self.ranks = {}
+        for bi, name in enumerate(_BLOCK_NAMES):
+            db = self._dev[name]
+            if db is None:
+                continue
+            slot_of_pos = [_freeze_slots(db, blocks[p][name]) for p in range(P)]
+            flat_n = int(np.prod(db.vals.shape[1:]))
+            src, out = [], []
+            for q in range(P):
+                sel = np.flatnonzero((dest_block[q] == bi) & (dest_pos[q] >= 0))
+                dps = dest_part[q][sel]
+                slot = np.empty(sel.size, dtype=np.int64)
+                for p in np.unique(dps):
+                    m = dps == p
+                    slot[m] = slot_of_pos[int(p)][dest_pos[q][sel[m]]]
+                src.append(q * self.n_orig_pad + sel)
+                out.append(dps * flat_n + slot)
+            src, out = np.concatenate(src), np.concatenate(out)
+            order = np.argsort(out, kind="stable")  # keeps (q, t) order in a slot
+            so = out[order]
+            first = np.r_[True, so[1:] != so[:-1]]
+            start = np.maximum.accumulate(np.where(first, np.arange(so.size), 0))
+            rank = np.arange(so.size) - start
+            self.ranks[name] = [
+                (torch.from_numpy(src[order][rank == r]).to(self.device),
+                 torch.from_numpy(so[rank == r]).to(self.device))
+                for r in range(int(rank.max()) + 1 if rank.size else 0)
+            ]
+
+    def stack_values(self, V_parts) -> torch.Tensor:
+        """Per-part triplet values -> ``[P, n_orig_pad]`` on A's device, in
+        the host dtype."""
+        out = np.zeros((len(V_parts), self.n_orig_pad), dtype=numpy_dtype(self.dtype))
+        for q, v in enumerate(V_parts):
+            v = np.asarray(v)
+            out[q, : v.size] = v
+        return torch.from_numpy(out).to(self.device)
+
+    def __call__(self, V_stacked: torch.Tensor) -> DeviceSpMat:
+        flat_v = V_stacked.reshape(-1)
+        new = {}
+        for name in _BLOCK_NAMES:
+            db = self._dev[name]
+            if db is None:
+                new[name] = None
+                continue
+            vals = flat_v.new_zeros(db.vals.numel())
+            for src, out in self.ranks[name]:
+                vals.index_add_(0, out, flat_v[src])
+            vals = vals.reshape(db.vals.shape).to(db.vals.dtype)
+            new[name] = DeviceBlock(db.kind, db.offsets, db.n_rows, db.n_cols_pad, vals,
+                                    rows=db.rows, cols=db.cols, plan=db.plan)
+        return DeviceSpMat(new["oo"], new["oh"], new["ho"], new["hh"])
+
+
+def _freeze_slots(db: DeviceBlock, blk) -> np.ndarray:
+    """Flat slot in ``db.vals[p]`` of each data position of the part's
+    canonical CSR block ``blk``."""
+    csr = _canon_csr(blk)
+    nnz_row = np.diff(csr.indptr)
+    rows = np.repeat(np.arange(csr.shape[0], dtype=np.int64), nnz_row)
+    if db.kind == "dia":
+        offs = np.asarray(db.offsets, dtype=np.int64)
+        d = np.searchsorted(offs, csr.indices.astype(np.int64) - rows)
+        return d * db.vals.shape[-1] + rows
+    Nr = db.vals.shape[-1]
+    live = np.flatnonzero(nnz_row)
+    r_of_row = np.full(csr.shape[0], -1, dtype=np.int64)
+    r_of_row[live] = np.arange(live.size)
+    lane = np.arange(csr.nnz) - np.repeat(csr.indptr[:-1].astype(np.int64), nnz_row)
+    return lane * Nr + r_of_row[rows]
+
+
+def device_refill_plan(A: PSparseMatrix, cache) -> DeviceRefill:
+    """The device refill of A's frozen blocks (``DeviceRefill``)."""
+    return DeviceRefill(A, cache)
 
 
 def psparse_from_global(G: sp.spmatrix, rows, cols, backend: SerialBackend,
@@ -479,56 +688,279 @@ def gather_global_scipy(A: PSparseMatrix, max_rows: Optional[int] = None) -> sp.
     return to_global_scipy(A)
 
 
+# -- the routing tier of the reuse forms ----------------------------------------
+# A value's source is tagged ``(part * 4 + block) << 40 | position``, its
+# position in the source block's canonical CSR data; a refill scatters the
+# sources' current values through the frozen (source, destination) pairs.
+
+_TAG_SHIFT = 40
+_TAG_MASK = np.int64((1 << _TAG_SHIFT) - 1)
+
+
+def _canon_csr(blk) -> sp.csr_matrix:
+    """The canonical (sorted-indices) CSR of a host block: a CSR block is
+    sorted in place (the matrix owns it and stays canonical), another
+    format converts."""
+    m = blk.tocsr()
+    if not m.has_sorted_indices:
+        m.sort_indices()
+    return m
+
+
+def _canon_data(blk) -> np.ndarray:
+    return _canon_csr(blk).data
+
+
+def _canonicalize_blocks(A: PSparseMatrix) -> None:
+    """Every host block of A as canonical CSR, in place: tags and refills
+    address ``.data`` directly."""
+    for b in host_blocks(A):
+        for name in _BLOCK_NAMES:
+            v = b.get(name)
+            if v is None:
+                continue
+            if not sp.issparse(v) or v.format != "csr":
+                b[name] = _canon_csr(v)
+            elif not v.has_sorted_indices:
+                v.sort_indices()
+
+
+def _tag_base(p: int, bi: int) -> np.int64:
+    return np.int64((p * 4 + bi) << _TAG_SHIFT)
+
+
+def _part_triplets_tagged(b: dict, li_r, li_c, p: int, names=("oo", "oh")):
+    """``_part_triplets`` of the canonical blocks, with each triplet's
+    source tag."""
+    maps = {
+        "oo": (li_r.own_to_global, li_c.own_to_global),
+        "oh": (li_r.own_to_global, li_c.ghost_to_global),
+        "ho": (li_r.ghost_to_global, li_c.own_to_global),
+        "hh": (li_r.ghost_to_global, li_c.ghost_to_global),
+    }
+    Is, Js, Vs, Ts = [], [], [], []
+    for name in names:
+        blk = b.get(name)
+        if blk is None or blk.nnz == 0:
+            continue
+        m = _canon_csr(blk)
+        coo = m.tocoo()
+        Is.append(maps[name][0][coo.row])
+        Js.append(maps[name][1][coo.col])
+        Vs.append(coo.data)
+        Ts.append(_tag_base(p, _BLOCK_NAMES.index(name)) | np.arange(m.nnz, dtype=np.int64))
+    if not Is:
+        z = np.zeros(0, INT)
+        return z, z, np.zeros(0, b["oo"].dtype), np.zeros(0, np.int64)
+    return tuple(np.concatenate(a) for a in (Is, Js, Vs, Ts))
+
+
+def _dst_maps(blocks: dict, info):
+    """(destination block id, destination data position) of every input
+    triplet of a ``_build_part_blocks`` call, -1 for a dropped one."""
+    n_in, kept, iro, irg, jco, jcg, rown, coln = info
+    n = rown.shape[0]
+    dst_block = np.full(n, -1, dtype=np.int64)
+    dst_pos = np.full(n, -1, dtype=np.int64)
+    sels = {
+        "oo": (rown & coln, iro, jco),
+        "oh": (rown & ~coln, iro, jcg),
+        "ho": (~rown & coln, irg, jco),
+        "hh": (~rown & ~coln, irg, jcg),
+    }
+    for bi, name in enumerate(_BLOCK_NAMES):
+        blk = blocks.get(name)
+        if blk is None:
+            continue
+        sel, ri, ci = sels[name]
+        if not sel.any():
+            continue
+        rsel, csel = ri[sel], ci[sel]
+        pos = None
+        # the common case: the selected triplets are the block's canonical
+        # storage order (one equality check instead of the binary search)
+        if rsel.size == blk.nnz:
+            blk_rows = np.repeat(np.arange(blk.shape[0], dtype=rsel.dtype), np.diff(blk.indptr))
+            if np.array_equal(blk_rows, rsel) and np.array_equal(blk.indices, csel):
+                pos = np.arange(blk.nnz, dtype=np.int64)
+        if pos is None:
+            pos = precompute_nzindex(blk, rsel, csel)
+        idx = np.flatnonzero(sel)
+        dst_block[idx] = bi
+        dst_pos[idx] = pos
+    if kept is None:
+        return dst_block, dst_pos
+    full_block = np.full(n_in, -1, dtype=np.int64)
+    full_pos = np.full(n_in, -1, dtype=np.int64)
+    full_block[kept] = dst_block
+    full_pos[kept] = dst_pos
+    return full_block, full_pos
+
+
+class _MatRoutes:
+    """The frozen value routing between two matrices of fixed sparsity:
+    ``refill`` zeroes the destination's data and adds every source value at
+    its recorded position, in the order of the build."""
+
+    def __init__(self):
+        self._acc: dict = {}
+        self.routes: list = []
+
+    def add(self, dst_p: int, tags, dst_block, dst_pos) -> None:
+        ok = (dst_pos >= 0) & (dst_block >= 0)
+        tags, dst_block, dst_pos = tags[ok], dst_block[ok], dst_pos[ok]
+        if not tags.size:
+            return
+        key = (tags >> _TAG_SHIFT) * 4 + dst_block
+        spos = tags & _TAG_MASK
+        order = np.argsort(key, kind="stable")
+        ks = key[order]
+        cuts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+        for i, st in enumerate(cuts):
+            en = cuts[i + 1] if i + 1 < cuts.size else ks.size
+            sk = int(ks[st])
+            src_p, src_bi, dbi = sk // 16, (sk // 4) % 4, sk % 4
+            sel = order[st:en]
+            self._acc.setdefault((dst_p, dbi, src_p, src_bi), []).append((spos[sel], dst_pos[sel]))
+
+    def finalize(self) -> "_MatRoutes":
+        for k, segs in self._acc.items():
+            self.routes.append(k + (np.concatenate([a for a, _ in segs]),
+                                    np.concatenate([d for _, d in segs])))
+        self._acc = {}
+        return self
+
+    def finalize_multiprocess(self, backend, P: int, dtype):
+        raise NotImplementedError(
+            "the cross-process refill exchange of per-process matrices: ROADMAP Queue 1 item 15"
+        )
+
+    def refill(self, src: PSparseMatrix, out: PSparseMatrix, data_of=None) -> None:
+        """``data_of(part, block name) -> values`` replaces the source
+        matrix's canonical block data (the ``spmtm`` refill routes its
+        recomputed local products)."""
+        if data_of is None:
+            _canonicalize_blocks(src)
+            data_of = lambda p, name: src.blocks[p][name].data
+        for b in out.blocks:
+            for name in _BLOCK_NAMES:
+                if b.get(name) is not None:
+                    b[name].data[:] = 0
+        for dst_p, dbi, src_p, sbi, spos, dpos in self.routes:
+            np.add.at(out.blocks[dst_p][_BLOCK_NAMES[dbi]].data, dpos,
+                      data_of(src_p, _BLOCK_NAMES[sbi])[spos])
+        out.invalidate_device()
+
+
+def _hstack_with_tags(b: dict, p: int, names=("oo", "oh"), want_tags=True):
+    """The part's rows as ``[block0 | block1 | ...]`` canonical CSR (a copy:
+    the refills overwrite its data), each block's fill positions in it
+    (``loc.data[fill[bi]] = block.data``) and, optionally, every entry's
+    source tag.  With canonical blocks each row's entries of block k are
+    contiguous and precede block k+1's, so the positions follow from the
+    row pointers."""
+    mats = [(name, _canon_csr(b[name])) for name in names if b.get(name) is not None]
+    nrows = mats[0][1].shape[0]
+    if len(mats) == 1:
+        name, m = mats[0]
+        bi = _BLOCK_NAMES.index(name)
+        tags = _tag_base(p, bi) | np.arange(m.nnz, dtype=np.int64) if want_tags else None
+        return m.copy(), tags, {bi: np.arange(m.nnz, dtype=np.int64)}
+    loc = sp.hstack([m for _, m in mats], format="csr")
+    indptr = loc.indptr.astype(np.int64)
+    tags = np.empty(loc.nnz, dtype=np.int64) if want_tags else None
+    fill = {}
+    acc = np.zeros(nrows, dtype=np.int64)
+    for name, m in mats:
+        cnt = np.diff(m.indptr).astype(np.int64)
+        within = np.arange(m.nnz, dtype=np.int64) - np.repeat(m.indptr[:-1].astype(np.int64), cnt)
+        out_pos = np.repeat(indptr[:-1] + acc, cnt) + within
+        bi = _BLOCK_NAMES.index(name)
+        if want_tags:
+            tags[out_pos] = _tag_base(p, bi) | np.arange(m.nnz, dtype=np.int64)
+        fill[bi] = out_pos
+        acc += cnt
+    return loc, tags, fill
+
+
+def _csr_row_slice_positions(M: sp.csr_matrix, rows: np.ndarray) -> np.ndarray:
+    """Positions in ``M.data`` of the entries of ``M[rows]``, in its order."""
+    rows = np.asarray(rows)
+    cnt = (M.indptr[rows + 1] - M.indptr[rows]).astype(np.int64)
+    starts = np.repeat(M.indptr[rows].astype(np.int64), cnt)
+    csum = np.cumsum(cnt) - cnt
+    return starts + np.arange(int(cnt.sum()), dtype=np.int64) - np.repeat(csum, cnt)
+
+
 # -- state changes -------------------------------------------------------------
 
-def assemble_matrix(A: PSparseMatrix) -> Task:
+def assemble_matrix(A: PSparseMatrix, reuse: bool = False) -> Task:
     """Subassembled -> assembled: each part sends the triplets of its ghost
     rows (``ho``, ``hh``) to their owners, which merge them after their own
     ``oo``/``oh`` triplets (source parts in order).  An assembled matrix is
-    returned as it is.  ``reuse`` and ``assemble_matrix_into`` are the
-    reuse tier (ROADMAP Queue 1 step 7)."""
+    returned as it is.  ``reuse=True``: the task yields ``(out, cache)``
+    for ``assemble_matrix_into`` (the cache is None for an assembled A)."""
     if A.assembled:
-        return Task(A)
+        return Task((A, None)) if reuse else Task(A)
     dtype = _host_dtype(A)
+    if reuse:
+        _canonicalize_blocks(A)
     row_parts, col_parts = A.row_prange.parts, A.col_prange.parts
+    triplets = _part_triplets_tagged if reuse else (lambda b, r, c, p, n: _part_triplets(b, r, c, n))
     msgs, own_tri = {}, []
     for p, (b, li_r, li_c) in enumerate(zip(host_blocks(A), row_parts, col_parts)):
-        own_tri.append(_part_triplets(b, li_r, li_c, ("oo", "oh")))
-        Ig, Jg, Vg = _part_triplets(b, li_r, li_c, ("ho", "hh"))
-        if Ig.size:
-            owners = li_r.ghost_to_owner[li_r.global_to_ghost(Ig)]
+        own_tri.append(triplets(b, li_r, li_c, p, ("oo", "oh")))
+        ghost = triplets(b, li_r, li_c, p, ("ho", "hh"))
+        if ghost[0].size:
+            owners = li_r.ghost_to_owner[li_r.global_to_ghost(ghost[0])]
             order = np.argsort(owners, kind="stable")
             cuts = np.flatnonzero(np.diff(owners[order])) + 1
             for grp in np.split(order, cuts):
-                msgs[(p, int(owners[grp[0]]))] = (Ig[grp], Jg[grp], Vg[grp])
+                msgs[(p, int(owners[grp[0]]))] = tuple(a[grp] for a in ghost)
+    routes = _MatRoutes() if reuse else None
     blocks, new_cols = [], []
     for p in range(A.row_prange.n_parts):
         chunks = [own_tri[p]] + [msgs[k] for k in sorted(msgs) if k[1] == p]
-        b2, _, li_c2 = _build_part_blocks(
+        b2, _, li_c2, info = _build_part_blocks(
             row_parts[p].remove_ghost(), col_parts[p],
             *(np.concatenate([c[k] for c in chunks]) for k in range(3)), False, dtype,
         )
         blocks.append(b2)
         new_cols.append(li_c2)
-    return Task(PSparseMatrix(
+        if reuse:
+            routes.add(p, np.concatenate([c[3] for c in chunks]), *_dst_maps(b2, info))
+    out = PSparseMatrix(
         None, PRange([li.remove_ghost() for li in row_parts]), PRange(new_cols), A.backend,
         blocks=blocks, device=A.torch_device, device_dtype=A.dtype,
-    ))
+    )
+    return Task((out, routes.finalize())) if reuse else Task(out)
 
 
-def consistent_matrix(A: PSparseMatrix, rows_co) -> Task:
+def assemble_matrix_into(out: PSparseMatrix, A: PSparseMatrix, cache) -> None:
+    """``out`` refilled from new values of the subassembled A (same
+    sparsity) through the frozen routes of ``assemble_matrix(A,
+    reuse=True)``: a value scatter, no ghost discovery."""
+    if cache is None:
+        if out is not A:
+            raise ValueError("assemble_matrix_into without a cache: A was assembled, out must be A")
+        return
+    cache.refill(A, out)
+
+
+def consistent_matrix(A: PSparseMatrix, rows_co, reuse: bool = False) -> Task:
     """Assembled -> subassembled with the ghost rows of ``rows_co`` (a row
     partition with the wanted ghosts): each owner replies with the
     triplets of the rows other parts ghost, and each part classifies its
     own triplets and the fetched rows (by source part) into the four
-    blocks, adding any new ghost column.  ``reuse`` and
-    ``consistent_matrix_into`` are the reuse tier (ROADMAP Queue 1 step
-    7)."""
+    blocks, adding any new ghost column.  ``reuse=True``: the task yields
+    ``(out, cache)`` for ``consistent_matrix_into``."""
     if not A.assembled:
         raise ValueError("consistent_matrix needs an assembled matrix")
     rows_co = _as_prange(rows_co)
     P = rows_co.n_parts
     dtype = _host_dtype(A)
+    if reuse:
+        _canonicalize_blocks(A)
     col_parts = A.col_prange.parts
     blocks_in = host_blocks(A)
     wanted = {}  # owner -> [(requester, gids)]
@@ -546,7 +978,10 @@ def consistent_matrix(A: PSparseMatrix, rows_co) -> Task:
                 wanted.setdefault(o, []).append((p, li.ghost_to_global[order[start:end]]))
     msgs = {}
     for o, reqs in wanted.items():
-        loc = _hstack_local(blocks_in[o])
+        if reuse:
+            loc, loc_tags, _ = _hstack_with_tags(blocks_in[o], o)
+        else:
+            loc = _hstack_local(blocks_in[o])
         li_r, li_c = A.row_prange.parts[o], col_parts[o]
         col_g = np.concatenate([li_c.own_to_global, li_c.ghost_to_global])
         for p, gids in reqs:
@@ -555,20 +990,35 @@ def consistent_matrix(A: PSparseMatrix, rows_co) -> Task:
                 raise ValueError("consistent_matrix: a wanted row is not owned by its owner")
             sub = loc[pos].tocoo()
             msgs[(o, p)] = (gids[sub.row], col_g[sub.col], sub.data)
+            if reuse:
+                msgs[(o, p)] += (loc_tags[_csr_row_slice_positions(loc, pos)],)
+    routes = _MatRoutes() if reuse else None
     blocks, new_cols = [], []
     for p in range(P):
-        own = _part_triplets(blocks_in[p], A.row_prange.parts[p], col_parts[p])
+        li_r, li_c = A.row_prange.parts[p], col_parts[p]
+        own = (_part_triplets_tagged(blocks_in[p], li_r, li_c, p) if reuse
+               else _part_triplets(blocks_in[p], li_r, li_c))
         chunks = [own] + [msgs[k] for k in sorted(msgs) if k[1] == p]
-        b2, _, li_c2 = _build_part_blocks(
-            rows_co.parts[p], col_parts[p],
+        b2, _, li_c2, info = _build_part_blocks(
+            rows_co.parts[p], li_c,
             *(np.concatenate([c[k] for c in chunks]) for k in range(3)), True, dtype,
         )
         blocks.append(b2)
         new_cols.append(li_c2)
-    return Task(PSparseMatrix(
+        if reuse:
+            routes.add(p, np.concatenate([c[3] for c in chunks]), *_dst_maps(b2, info))
+    out = PSparseMatrix(
         None, PRange(list(rows_co.parts)), PRange(new_cols), A.backend, blocks=blocks,
         device=A.torch_device, device_dtype=A.dtype, assembled=False,
-    ))
+    )
+    return Task((out, routes.finalize())) if reuse else Task(out)
+
+
+def consistent_matrix_into(out: PSparseMatrix, A: PSparseMatrix, cache) -> None:
+    """``out`` refreshed from new values of the assembled A (same
+    sparsity) through the frozen routes of ``consistent_matrix(A, rows_co,
+    reuse=True)``."""
+    cache.refill(A, out)
 
 
 # -- derived operators (host) ------------------------------------------------
@@ -602,14 +1052,77 @@ def _check_assembled(*mats) -> None:
         raise ValueError("the sparse products need assembled matrices")
 
 
-def spmm(A: PSparseMatrix, B: PSparseMatrix) -> PSparseMatrix:
+def _refilled_product(L: sp.csr_matrix, R: sp.csr_matrix, indptr: np.ndarray,
+                      indices: np.ndarray) -> np.ndarray:
+    """The values of the recomputed local product ``L @ R`` on the pattern
+    of its build (``indptr``, ``indices``).
+
+    scipy's product drops the entries whose sum is exactly zero, so the
+    build's pattern lacks an entry whose terms cancelled then.  New values
+    may leave a rounding residue there: an entry within k eps of its row's
+    largest (k the most terms a sum has, eps that of the operands' lower
+    precision) stands for the same zero and is not kept.  A larger entry
+    outside the pattern is a change of sparsity and raises; an entry of the
+    pattern that now cancels is stored as zero."""
+    C = L @ R
+    C.sum_duplicates()
+    C.sort_indices()
+    if np.array_equal(C.indptr, indptr) and np.array_equal(C.indices, indices):
+        return C.data
+    frozen = sp.csr_matrix((np.zeros(indices.size, C.dtype), indices, indptr), shape=C.shape)
+    coo = C.tocoo()
+    pos = precompute_nzindex(frozen, coo.row, coo.col)
+    out = np.zeros(indices.size, dtype=C.dtype)
+    out[pos[pos >= 0]] = coo.data[pos >= 0]
+    extra = np.flatnonzero(pos < 0)
+    if extra.size:
+        eps = max(np.finfo(L.dtype).eps, np.finfo(R.dtype).eps)
+        k = max(int(np.diff(L.indptr).max(initial=0)), 1)
+        row_max = np.zeros(C.shape[0])
+        np.maximum.at(row_max, coo.row, np.abs(coo.data))
+        if (np.abs(coo.data[extra]) > k * eps * row_max[coo.row[extra]]).any():
+            raise ValueError("a refilled product has an entry outside the sparsity of its build")
+    return out
+
+
+class _SpmmCache:
+    """The frozen plan of C = A @ B at fixed sparsity of both operands:
+    the consistent fetch of B refreshes through its routes, the local
+    ``[A | ghost]`` and ``[[B], [B ghost]]`` operands through their fill
+    positions, the scipy product is recomputed and its canonical values
+    land in C's blocks at their recorded positions."""
+
+    def __init__(self, Bc, bc_cache):
+        self.Bc = Bc
+        self.bc_cache = bc_cache
+        self.parts: dict = {}
+
+    def refill(self, C: PSparseMatrix, A: PSparseMatrix, B: PSparseMatrix,
+               refresh_b: bool = True) -> None:
+        _canonicalize_blocks(A)
+        if refresh_b:
+            consistent_matrix_into(self.Bc, B, self.bc_cache)
+        for p, (A_loc, a_fill, B_loc, b_fill, pattern, dst) in self.parts.items():
+            for bi, idx in a_fill.items():
+                A_loc.data[idx] = A.blocks[p][_BLOCK_NAMES[bi]].data
+            for bi, idx in b_fill.items():
+                B_loc.data[idx] = _canon_data(self.Bc.blocks[p][_BLOCK_NAMES[bi]])
+            data = _refilled_product(A_loc, B_loc, *pattern)
+            for name, cpos, dpos in dst:
+                d = C.blocks[p][name].data
+                d[:] = 0
+                d[dpos] = data[cpos]
+        C.invalidate_device()
+
+
+def spmm(A: PSparseMatrix, B: PSparseMatrix, reuse: bool = False):
     """C = A @ B, part by part: ``consistent_matrix(B)`` fetches the rows
     of B at A's ghost columns, then each part multiplies its ``[oo|oh]``
     rows of A by its ``[[oo, oh], [ho, hh]]`` rows of the fetched B (A's
     local columns and B's local rows align by construction), and its
     product is re-split by ``compresscoo``.  C's host dtype is the result
-    type of the operands', its device dtype A's.  The reuse form is not
-    ported (ROADMAP Queue 1 step 7)."""
+    type of the operands', its device dtype A's.  ``reuse=True`` returns
+    ``(C, cache)`` for ``spmm_into``."""
     _check_assembled(A, B)
     for lb, lc in zip(B.row_prange.parts, A.col_prange.parts):
         if not matching_own_indices(lb, lc):
@@ -618,35 +1131,94 @@ def spmm(A: PSparseMatrix, B: PSparseMatrix) -> PSparseMatrix:
         lb.replace_ghost(lc.ghost_to_global, lc.ghost_to_owner)
         for lb, lc in zip(B.row_prange.parts, A.col_prange.parts)
     ])
-    Bc = consistent_matrix(B, rows_co).wait()
+    if reuse:
+        _canonicalize_blocks(A)
+        Bc, bc_cache = consistent_matrix(B, rows_co, reuse=True).wait()
+        cache = _SpmmCache(Bc, bc_cache)
+    else:
+        Bc = consistent_matrix(B, rows_co).wait()
     dtype = np.result_type(_host_dtype(A), _host_dtype(B))
     blocks, new_cols = [], []
-    for ba, bb, li_ra, li_rb, li_cb in zip(host_blocks(A), Bc.blocks, A.row_prange.parts,
-                                          Bc.row_prange.parts, Bc.col_prange.parts):
-        B_loc = _hstack_local(bb, ("oo", "oh"))
-        if li_rb.n_ghost:
-            B_loc = sp.vstack([B_loc, _hstack_local(bb, ("ho", "hh"))], format="csr")
-        C = _hstack_local(ba) @ B_loc
+    for p, (ba, bb, li_ra, li_rb, li_cb) in enumerate(zip(
+            host_blocks(A), Bc.blocks, A.row_prange.parts, Bc.row_prange.parts,
+            Bc.col_prange.parts)):
+        if reuse:
+            A_loc, _, a_fill = _hstack_with_tags(ba, p, want_tags=False)
+            B_loc, _, b_fill = _hstack_with_tags(bb, p, ("oo", "oh"), want_tags=False)
+            if li_rb.n_ghost:
+                bot, _, bot_fill = _hstack_with_tags(bb, p, ("ho", "hh"), want_tags=False)
+                b_fill.update({bi: idx + B_loc.nnz for bi, idx in bot_fill.items()})
+                B_loc = sp.vstack([B_loc, bot], format="csr")
+        else:
+            A_loc = _hstack_local(ba)
+            B_loc = _hstack_local(bb, ("oo", "oh"))
+            if li_rb.n_ghost:
+                B_loc = sp.vstack([B_loc, _hstack_local(bb, ("ho", "hh"))], format="csr")
+        C = A_loc @ B_loc
         C.sum_duplicates()
         C.sort_indices()
-        C = C.tocoo()
+        coo = C.tocoo()
         col_g = np.concatenate([li_cb.own_to_global, li_cb.ghost_to_global])
-        b2, _, li_c2 = _build_part_blocks(
-            li_ra.remove_ghost(), li_cb.remove_ghost(), li_ra.own_to_global[C.row],
-            col_g[C.col], C.data.astype(dtype, copy=False), False, dtype,
+        b2, _, li_c2, info = _build_part_blocks(
+            li_ra.remove_ghost(), li_cb.remove_ghost(), li_ra.own_to_global[coo.row],
+            col_g[coo.col], coo.data.astype(dtype, copy=False), False, dtype,
         )
         blocks.append(b2)
         new_cols.append(li_c2)
-    return PSparseMatrix(
+        if reuse:
+            dst_block, dst_pos = _dst_maps(b2, info)
+            dst = []
+            for bi, name in enumerate(_BLOCK_NAMES[:2]):
+                sel = np.flatnonzero((dst_block == bi) & (dst_pos >= 0))
+                if sel.size:
+                    dst.append((name, sel, dst_pos[sel]))
+            cache.parts[p] = (A_loc, a_fill, B_loc, b_fill, (C.indptr.copy(), C.indices.copy()),
+                              dst)
+    out = PSparseMatrix(
         None, PRange([li.remove_ghost() for li in A.row_prange.parts]), PRange(new_cols),
         A.backend, blocks=blocks, device=A.torch_device, device_dtype=A.dtype,
     )
+    return (out, cache) if reuse else out
 
 
-def spmtm(A: PSparseMatrix, B: PSparseMatrix) -> PSparseMatrix:
+def spmm_into(C: PSparseMatrix, A: PSparseMatrix, B: PSparseMatrix, cache: _SpmmCache,
+              refresh_b: bool = True) -> None:
+    """C = A @ B in place, for new values of A and B at the sparsity of
+    ``spmm(A, B, reuse=True)``.  ``refresh_b=False`` skips the refresh of
+    B's fetched rows: only for a B whose values have not changed since the
+    build (the AMG's tentative prolongator)."""
+    cache.refill(C, A, B, refresh_b=refresh_b)
+
+
+class _SpmtmCache:
+    """The frozen plan of C = A^T @ B at fixed sparsity: the local operands
+    refresh through their fill positions, the transpose through a fixed
+    permutation of its data, and the canonical local products refill C
+    through the psparse reuse cache (the owner shuffle is frozen)."""
+
+    def __init__(self):
+        self.parts: dict = {}
+        self.pcache = None
+
+    def refill(self, C: PSparseMatrix, A: PSparseMatrix, B: PSparseMatrix) -> None:
+        _canonicalize_blocks(A)
+        _canonicalize_blocks(B)
+        V_parts = []
+        for p, (A_loc, a_fill, AT, tpos, B_loc, b_fill, pattern) in sorted(self.parts.items()):
+            for bi, idx in a_fill.items():
+                A_loc.data[idx] = A.blocks[p][_BLOCK_NAMES[bi]].data
+            for bi, idx in b_fill.items():
+                B_loc.data[idx] = B.blocks[p][_BLOCK_NAMES[bi]].data
+            AT.data[tpos] = A_loc.data
+            V_parts.append(_refilled_product(AT, B_loc, *pattern))
+        psparse_refill(C, V_parts, self.pcache)
+
+
+def spmtm(A: PSparseMatrix, B: PSparseMatrix, reuse: bool = False):
     """C = A^T @ B: each part's ``[oo|oh]_A^T @ [oo|oh]_B`` (rows on A's
     local columns, ghosts included), whose triplets the disassembled
-    constructor moves to their owners.  Dtypes as ``spmm``.
+    constructor moves to their owners.  Dtypes as ``spmm``.  ``reuse=True``
+    returns ``(C, cache)`` for ``spmtm_into``.
 
     Each part's product is sorted before the move, as in the reference's
     Galerkin product (its reuse form): the order in which ``compresscoo``
@@ -657,28 +1229,65 @@ def spmtm(A: PSparseMatrix, B: PSparseMatrix) -> PSparseMatrix:
     if A.row_prange.n_global != B.row_prange.n_global:
         raise ValueError("spmtm: A and B must share the row partition")
     dtype = np.result_type(_host_dtype(A), _host_dtype(B))
+    cache = _SpmtmCache() if reuse else None
+    if reuse:
+        _canonicalize_blocks(A)
+        _canonicalize_blocks(B)
     I_parts, J_parts, V_parts = [], [], []
-    for ba, bb, li_ca, li_cb in zip(host_blocks(A), host_blocks(B), A.col_prange.parts,
-                                    B.col_prange.parts):
-        AT = _hstack_local(ba).T.tocsr()
+    for p, (ba, bb, li_ca, li_cb) in enumerate(zip(host_blocks(A), host_blocks(B),
+                                                   A.col_prange.parts, B.col_prange.parts)):
+        if reuse:
+            A_loc, _, a_fill = _hstack_with_tags(ba, p, want_tags=False)
+            B_loc, _, b_fill = _hstack_with_tags(bb, p, want_tags=False)
+        else:
+            A_loc, B_loc = _hstack_local(ba), _hstack_local(bb)
+        AT = A_loc.T.tocsr()
         AT.sort_indices()
-        C = AT @ _hstack_local(bb)
+        C = AT @ B_loc
         C.sum_duplicates()
         C.sort_indices()
+        if reuse:
+            acoo = A_loc.tocoo()
+            tpos = precompute_nzindex(AT, acoo.col, acoo.row)
+            cache.parts[p] = (A_loc, a_fill, AT, tpos, B_loc, b_fill,
+                              (C.indptr.copy(), C.indices.copy()))
         C = C.tocoo()
         I_parts.append(np.concatenate([li_ca.own_to_global, li_ca.ghost_to_global])[C.row])
         J_parts.append(np.concatenate([li_cb.own_to_global, li_cb.ghost_to_global])[C.col])
         V_parts.append(C.data.astype(dtype, copy=False))
-    return psparse(
+    out = psparse(
         I_parts, J_parts, V_parts, PRange([li.remove_ghost() for li in A.col_prange.parts]),
         PRange([li.remove_ghost() for li in B.col_prange.parts]), A.backend, dtype=dtype,
-        device=A.torch_device, device_dtype=A.dtype,
+        reuse=reuse, device=A.torch_device, device_dtype=A.dtype,
     )
+    if not reuse:
+        return out
+    C, cache.pcache = out
+    return C, cache
 
 
-def rap(R: PSparseMatrix, A: PSparseMatrix, Pm: PSparseMatrix) -> PSparseMatrix:
-    """The triple product R @ A @ P as two ``spmm``."""
-    return spmm(R, spmm(A, Pm))
+def spmtm_into(C: PSparseMatrix, A: PSparseMatrix, B: PSparseMatrix, cache: _SpmtmCache) -> None:
+    """C = A^T @ B in place, for new values of A and B at the sparsity of
+    ``spmtm(A, B, reuse=True)``."""
+    cache.refill(C, A, B)
+
+
+def rap(R: PSparseMatrix, A: PSparseMatrix, Pm: PSparseMatrix, reuse: bool = False):
+    """The triple product R @ A @ P as two ``spmm``; ``reuse=True`` returns
+    ``(Ac, cache)`` for ``rap_into``."""
+    if not reuse:
+        return spmm(R, spmm(A, Pm))
+    AP, c1 = spmm(A, Pm, reuse=True)
+    Ac, c2 = spmm(R, AP, reuse=True)
+    return Ac, (AP, c1, c2)
+
+
+def rap_into(Ac: PSparseMatrix, R: PSparseMatrix, A: PSparseMatrix, Pm: PSparseMatrix,
+             cache) -> None:
+    """Ac = R @ A @ P in place at the sparsity of ``rap(..., reuse=True)``."""
+    AP, c1, c2 = cache
+    spmm_into(AP, A, Pm, c1)
+    spmm_into(Ac, R, AP, c2)
 
 
 def transpose_psparse(A: PSparseMatrix) -> PSparseMatrix:
@@ -713,15 +1322,45 @@ def identity_minus(A: PSparseMatrix) -> PSparseMatrix:
                          device=A.torch_device, device_dtype=A.dtype)
 
 
+def psystem(I_parts, J_parts, V_parts, Ib_parts, Vb_parts, rows, cols, backend: SerialBackend,
+            reuse: bool = False, device="cuda"):
+    """The matrix (disassembled triplets, assembled by ``psparse``) and its
+    rhs (``pvector`` contributions on A's rows) together: ``(A, b)``, or
+    ``(A, b, cache)`` with ``reuse=True`` for ``psystem_refill``."""
+    from .pvector import pvector
+
+    if reuse:
+        A, mcache = psparse(I_parts, J_parts, V_parts, rows, cols, backend, reuse=True,
+                            device=device)
+        b, vcache = pvector(Ib_parts, Vb_parts, A.row_prange, backend, reuse=True, device=device)
+        return A, b, (mcache, vcache)
+    A = psparse(I_parts, J_parts, V_parts, rows, cols, backend, device=device)
+    return A, pvector(Ib_parts, Vb_parts, A.row_prange, backend, device=device)
+
+
+def psystem_refill(A: PSparseMatrix, V_parts, Vb_parts, cache) -> PVector:
+    """New matrix and rhs values at the structure of ``psystem(...,
+    reuse=True)``: A is refilled in place (``psparse_refill``), the rhs is
+    returned (``pvector_refill``)."""
+    from .pvector import pvector_refill
+
+    mcache, vcache = cache
+    psparse_refill(A, V_parts, mcache)
+    return pvector_refill(Vb_parts, vcache)
+
+
 # -- SpMV ----------------------------------------------------------------------
 
 def _col_ghosts(A: PSparseMatrix, x: PVector):
-    """x's column layout and ghost values: a vector on the row range of a
-    square matrix with matching own parts is re-homed to the column layout
-    with zero ghosts, which the exchange fills (keeping the row layout
-    would drop every own-ghost term)."""
-    if x.layout is not A.col_layout() and x.layout is A.row_layout():
-        clay = A.col_layout()
+    """x's column layout and ghost values: a vector on another layout with
+    the same own parts (the row range of a square matrix, or the range of
+    another matrix built on the same partition) is re-homed to the column
+    layout with zero ghosts, which the exchange fills (keeping its own
+    layout would drop every own-ghost term of A)."""
+    clay = A.col_layout()
+    if x.layout is not clay:
+        if x.own.shape[1] != clay.n_own_pad:
+            raise ValueError("spmv: x's own parts do not match A's columns")
         return clay, x.own.new_zeros((clay.n_parts, clay.n_ghost_pad))
     return x.layout, x.ghost
 
@@ -731,22 +1370,23 @@ def _has_exchange(clay: VectorLayout) -> bool:
 
 
 def spmv(
-    A: PSparseMatrix, x: PVector, alpha=1.0, beta=None, y: Optional[PVector] = None
+    A: PSparseMatrix, x: PVector, alpha=1.0, beta=None, y: Optional[PVector] = None, dev=None
 ) -> PVector:
     """``alpha * A @ x [+ beta * y]`` (the reference's 5-argument form;
     ``beta`` defaults to 1 when ``y`` is given).  x is partitioned by
-    ``A.col_prange``, or by the row range of a square matrix (re-homed,
+    ``A.col_prange``, or by another layout of the same own parts (re-homed,
     see ``_col_ghosts``); y by ``A.row_prange``.
 
     With ghost columns, ``g = consistent(x)`` (one exchange) and
     ``A x = A_oo x + A_oh g``: the own-own product is kernel K1 and the
     own-ghost product, kernel K5, accumulates into K1's output.  A
     subassembled matrix also forms its ghost rows ``A_ho x + A_hh g`` and
-    adds them to their owners (one assemble exchange).  The reference's
-    ``dev`` substitute is not ported."""
+    adds them to their owners (one assemble exchange).  ``dev``: device
+    blocks of A's structure to use instead of A's own (a ``DeviceRefill``
+    result)."""
     clay, xg = _col_ghosts(A, x)
     rlay = A.row_layout()
-    dev = A.device()
+    dev = A.device() if dev is None else dev
     out = dev.oo.spmv(x.own)
     g = clay.consistent_plan.apply(x.own, xg, "set") if _has_exchange(clay) else xg
     if _has_exchange(clay):

@@ -3,11 +3,14 @@
 Counterpart of ``partitionedarrays_tpu/pvector.py``: the ``Task`` shim
 (:36), the core (:60-160, :292-300), the COO constructor ``pvector``
 (:411-471), ``consistent`` and ``assemble`` as tasks (:512-536), the
-reductions (:545-598), ``collect`` (:607), the distances (:634-712) and the
-df64 pairs (:715-790).  The parts are stacked along dim 0:
+reductions (:545-598), ``collect`` (:607), the distances (:634-712), the
+df64 pairs (:715-790), and the reuse form of the COO constructor
+(``PVectorAssemblyCache``, ``pvector(reuse=True)``, ``pvector_refill``,
+:396-484), which does not copy the reference's silent downcast of wider
+values.  The parts are stacked along dim 0:
 ``own[P, n_own_pad]`` and ``ghost[P, n_ghost_pad]``, with padding lanes
 kept at zero so that dots and norms need no mask.  Left to ROADMAP Queue 1:
-``pvector_refill`` and the COO reuse cache (step 7), ``prand``/``prandn``,
+``prand``/``prandn``,
 ``pvector_local``/``_from_local``, the split-block helpers,
 ``find_local_indices``, ``renumber_pvector`` and ``repartition`` (item 10).
 
@@ -109,15 +112,29 @@ def pvector_from_own(
     return PVector(torch.from_numpy(own).to(device), ghost, lay, backend)
 
 
+class PVectorAssemblyCache:
+    """The frozen plan of a COO vector: the ghosted layout, each part's own
+    and ghost scatter positions, the assemble flag and the values' dtype.
+    A refill is one scatter-add per part and the assemble exchange, no
+    ``find_owner`` or ``union_ghost``."""
+
+    def __init__(self, layout: VectorLayout, backend, positions, assemble_result: bool, dtype,
+                 device):
+        self.layout = layout
+        self.backend = backend
+        self.positions = positions  # per part: (own slots, own mask, ghost slots, ghost mask)
+        self.assemble_result = assemble_result
+        self.dtype = np.dtype(dtype)
+        self.device = device
+
+
 def pvector(I_parts, V_parts, rows, backend, assemble_result: bool = True, dtype=None,
-            reuse: bool = False, device="cuda") -> PVector:
+            reuse: bool = False, device="cuda"):
     """The COO constructor: per-part (global id, value) contributions,
     summed.  An id owned by another part lands in a ghost slot (the
     partition gains it as a ghost, by ``union_ghost``) and, with
-    ``assemble_result``, is then added to its owner.  ``reuse=True`` (the
-    fixed-structure refill) is not ported (ROADMAP Queue 1 step 7)."""
-    if reuse:
-        raise NotImplementedError("pvector(reuse=True), the reuse tier: ROADMAP Queue 1 step 7")
+    ``assemble_result``, is then added to its owner.  ``reuse=True``
+    returns ``(v, cache)`` for ``pvector_refill``."""
     pr = rows if isinstance(rows, PRange) else PRange(list(rows))
     owners = find_owner(pr.parts, I_parts)
     pr2 = PRange([
@@ -126,20 +143,49 @@ def pvector(I_parts, V_parts, rows, backend, assemble_result: bool = True, dtype
     ])
     lay = layout_of(pr2)
     np_dtype = numpy_dtype(np.asarray(V_parts[0]).dtype if dtype is None else dtype)
-    own = np.zeros((lay.n_parts, lay.n_own_pad), dtype=np_dtype)
-    ghost = np.zeros((lay.n_parts, lay.n_ghost_pad), dtype=np_dtype)
-    for p, (li, gids, vals) in enumerate(zip(pr2.parts, I_parts, V_parts)):
-        vals = np.asarray(vals)
+    positions = []
+    for li, gids in zip(pr2.parts, I_parts):
         po = li.global_to_own(gids)
         pg = li.global_to_ghost(gids)
+        positions.append((po[po >= 0], po >= 0, pg[pg >= 0], pg >= 0))
+    cache = PVectorAssemblyCache(lay, backend, positions, assemble_result, np_dtype, device)
+    v = _assemble_parts(V_parts, cache)
+    return (v, cache) if reuse else v
+
+
+def _assemble_parts(V_parts, cache: PVectorAssemblyCache) -> PVector:
+    """The vector of contributions ``V_parts`` at the cached positions, in
+    the cache's dtype (summed in the contributions' own dtype per part, as
+    the build does)."""
+    lay = cache.layout
+    own = np.zeros((lay.n_parts, lay.n_own_pad), dtype=cache.dtype)
+    ghost = np.zeros((lay.n_parts, lay.n_ghost_pad), dtype=cache.dtype)
+    for p, ((po, mo, pg, mg), vals) in enumerate(zip(cache.positions, V_parts)):
+        vals = np.asarray(vals)
+        li = lay.pr.parts[p]
         o = np.zeros(li.n_own, dtype=vals.dtype)
         g = np.zeros(li.n_ghost, dtype=vals.dtype)
-        np.add.at(o, po[po >= 0], vals[po >= 0])
-        np.add.at(g, pg[pg >= 0], vals[pg >= 0])
+        np.add.at(o, po, vals[mo])
+        np.add.at(g, pg, vals[mg])
         own[p, : li.n_own] = o
         ghost[p, : li.n_ghost] = g
-    v = PVector(torch.from_numpy(own).to(device), torch.from_numpy(ghost).to(device), lay, backend)
-    return assemble(v).wait() if assemble_result else v
+    dev = cache.device
+    v = PVector(torch.from_numpy(own).to(dev), torch.from_numpy(ghost).to(dev), lay, cache.backend)
+    return assemble(v).wait() if cache.assemble_result else v
+
+
+def pvector_refill(V_parts, cache: PVectorAssemblyCache) -> PVector:
+    """The COO vector of new contributions at the structure of
+    ``pvector(..., reuse=True)``: a scatter-add through the cached
+    positions and the assemble exchange.  The values keep the cache's
+    dtype; contributions of a wider type (float64 into a float32 vector)
+    raise instead of being rounded silently."""
+    for vals in V_parts:
+        if np.result_type(np.asarray(vals).dtype, cache.dtype) != cache.dtype:
+            raise TypeError(
+                f"pvector_refill: {np.asarray(vals).dtype} values into a {cache.dtype} vector"
+            )
+    return _assemble_parts(V_parts, cache)
 
 
 def consistent(v: PVector) -> Task:

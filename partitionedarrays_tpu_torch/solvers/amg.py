@@ -6,13 +6,13 @@ Python version, :51-102), ``strength_graph`` and ``aggregate_psparse``
 ``constant_prolongator`` and ``tentative_prolongator`` with the
 per-aggregate nullspace QR (:249-340), ``_diag_parts`` and ``_dinv_parts``
 (:343-385), the host power method ``spectral_radius`` (:388-429), ``_make_S``
-and ``smoothed_prolongator`` (:494-545), the Galerkin product of
-``_GalerkinCache`` (:548-631) without its reuse maps, ``AMGLevel``,
-``AMGParams`` and ``AMGPreconditioner`` (``_setup`` with the box levels'
-``struct`` :740-794, ``_coarse_factorize``, ``_coarse_solve``, the
-structured transfers :991-1062, the flat cycle :1064-1181 and the
-dispatch of ``_cycle`` :1184-1226 for V and W cycles, ``statistics``),
-``amg`` and ``default_nullspace``.
+and ``smoothed_prolongator`` (:494-545), ``_GalerkinCache`` with its
+reuse plans (:548-664), ``AMGLevel``, ``AMGParams`` and
+``AMGPreconditioner`` (``_setup`` with ``reuse_aggregates`` and the box
+levels' ``struct`` :717-800, ``_coarse_factorize``, ``update``
+:905-942, ``_coarse_solve``, the structured transfers :991-1062, the flat
+cycle :1064-1181 and the dispatch of ``_cycle`` :1184-1226 for V and W
+cycles, ``statistics``), ``amg`` and ``default_nullspace``.
 
 The coarsening runs on the host with numpy and scipy, the same operations
 in the same order as the reference, so aggregates, omega, P and the coarse
@@ -38,11 +38,18 @@ a box level with ghost columns takes the ghosted flat cycle
 rhs).  Per-part boxes of unequal shape fall back to generic aggregation,
 as in the reference.  Where the reference takes another branch, the port
 raises ``NotImplementedError`` naming the ROADMAP item, never silently
-taking a different one: ``update`` (the reuse tier, Queue 1 step 7, item
-13), the Schwarz level smoother (item 12) and per-process matrices (item
-15).  The reference's ``zsel`` (its z-axis pool as a TPU matmul) is not
-ported: the pool pads all three axes.  ``ops/native.py`` is not ported: the Python
-``aggregate`` is the reference's fallback, and the tests hold its
+taking a different one: the Schwarz level smoother (item 12) and
+per-process matrices (item 15).
+
+``update(A)`` re-coarsens for new values of A at the setup's sparsity:
+each level's P, AP and Ac are refilled through its ``_GalerkinCache`` (at
+the frozen aggregates and omega), its smoother and box transfer are
+refreshed, the coarse factors recomputed and every frozen block restacked;
+it never falls back to a new setup.
+
+The reference's ``zsel`` (its z-axis pool as a TPU matmul) is not ported:
+the pool pads all three axes.  ``ops/native.py`` is not ported: the
+Python ``aggregate`` is the reference's fallback, and the tests hold its
 aggregates against the reference's (native) ones.
 """
 from __future__ import annotations
@@ -56,16 +63,19 @@ import scipy.linalg as sla
 import scipy.sparse as sp
 import torch
 
-from ..ops.sparse_host import compresscoo
+from ..ops.sparse_host import compresscoo, precompute_nzindex
 from ..parallel.partition import PRange, variable_partition
 from ..parallel.primitives import host_consistent
 from ..psparse import (
     PSparseMatrix,
+    _canonicalize_blocks,
     gather_global_scipy,
     host_blocks,
     psparse,
     spmm,
+    spmm_into,
     spmtm,
+    spmtm_into,
     spmtv,
     spmv,
 )
@@ -296,6 +306,16 @@ def _dinv_parts(A: PSparseMatrix) -> List[np.ndarray]:
     return [np.where(d != 0, 1.0 / np.where(d != 0, d, 1.0), 0.0) for d in _diag_parts(A)]
 
 
+def _box_dinv(A: PSparseMatrix) -> torch.Tensor:
+    """A's inverse diagonal ``[P, n_own_pad]`` in its device dtype on its
+    device (a box level's ``BoxTransfer.dinv``)."""
+    lay = A.row_layout()
+    dinv = torch.zeros((lay.n_parts, lay.n_own_pad), dtype=torch.float64)
+    for p, d in enumerate(_dinv_parts(A)):
+        dinv[p, : d.size] = torch.from_numpy(d)
+    return dinv.to(A.torch_device, A.dtype)
+
+
 def spectral_radius(A: PSparseMatrix, Dinv=None, iters: int = 20) -> float:
     """Power-method estimate of rho(D^-1 A) on the host blocks, from
     ``np.random.default_rng(0)`` drawn part by part, with one host ghost
@@ -350,34 +370,72 @@ def smoothed_prolongator(A: PSparseMatrix, P0: PSparseMatrix, omega: Optional[fl
     return (P, float(omega)) if return_omega else P
 
 
-def _galerkin(A: PSparseMatrix, P0: PSparseMatrix, omega: float):
-    """(P, Ac) as the reference's setup builds them (``_GalerkinCache``):
-    S = I - omega D^-1 A over the full stored pattern of A plus the
-    identity (no pruning), P = S P0, AP = A P, Ac = P^T AP."""
-    dtype = _host_dtype(A)
-    dinv = _dinv_parts(A)
-    s_blocks = []
-    for ab, dv, li_r, li_c in zip(host_blocks(A), dinv, A.row_prange.parts, A.col_prange.parts):
-        a_oo, a_oh = ab["oo"], ab["oh"]
-        jco = li_c.global_to_own(li_r.own_to_global)
-        drows = np.flatnonzero(jco >= 0)
-        coo = a_oo.tocoo()
-        I_s = np.concatenate([coo.row, drows])
-        J_s = np.concatenate([coo.col, jco[drows]])
-        V_s = np.concatenate([-omega * dv[coo.row] * coo.data, np.ones(drows.size)])
-        s_oo = compresscoo(I_s, J_s, V_s, *a_oo.shape).astype(dtype)
-        rows_oh = np.repeat(np.arange(a_oh.shape[0], dtype=np.int64), np.diff(a_oh.indptr))
-        s_oh = sp.csr_matrix(
-            ((-omega * dv[rows_oh] * a_oh.data).astype(dtype), a_oh.indices.copy(), a_oh.indptr.copy()),
-            shape=a_oh.shape,
+class _GalerkinCache:
+    """One level's re-coarsening plan at fixed sparsity: the tentative
+    prolongator P0 (aggregates and nullspace frozen), omega (frozen), S = I
+    - omega D^-1 A with its refill maps, and the reuse plans of P = S P0,
+    AP = A P and Ac = P^T AP.  Setup builds P and Ac through it and
+    ``refill`` recomputes the same objects' values for a new A, as a fresh
+    setup at the same omega would.
+
+    S's pattern is the union of A's full stored pattern and the identity,
+    whatever the values: a scaling product would prune A's stored zeros
+    (and the rows of a zero diagonal), and a later refill that puts a
+    value there would then be dropped."""
+
+    def __init__(self, A: PSparseMatrix, P0: PSparseMatrix, omega: float):
+        _canonicalize_blocks(A)
+        self.P0 = P0
+        self.omega = float(omega)
+        dtype = _host_dtype(A)
+        s_blocks, self._s_maps = [], []
+        for ab, dv, li_r, li_c in zip(host_blocks(A), _dinv_parts(A), A.row_prange.parts,
+                                      A.col_prange.parts):
+            a_oo, a_oh = ab["oo"], ab["oh"]
+            jco = li_c.global_to_own(li_r.own_to_global)
+            drows = np.flatnonzero(jco >= 0)
+            coo = a_oo.tocoo()
+            I_s = np.concatenate([coo.row, drows])
+            J_s = np.concatenate([coo.col, jco[drows]])
+            V_s = np.concatenate([-self.omega * dv[coo.row] * coo.data, np.ones(drows.size)])
+            s_oo = compresscoo(I_s, J_s, V_s, *a_oo.shape).astype(dtype)
+            rows_oh = np.repeat(np.arange(a_oh.shape[0], dtype=np.int64), np.diff(a_oh.indptr))
+            s_oh = sp.csr_matrix(
+                ((-self.omega * dv[rows_oh] * a_oh.data).astype(dtype), a_oh.indices.copy(),
+                 a_oh.indptr.copy()),
+                shape=a_oh.shape,
+            )
+            s_blocks.append({"oo": s_oo, "oh": s_oh})
+            map_a = precompute_nzindex(s_oo, coo.row, coo.col)
+            diag_pos = precompute_nzindex(s_oo, drows, jco[drows])
+            if (map_a < 0).any() or (diag_pos < 0).any():
+                raise AssertionError("S misses an entry of A or of the identity")
+            self._s_maps.append((map_a, coo.row.astype(np.int64), diag_pos, rows_oh))
+        self.S = PSparseMatrix(
+            None, A.row_prange, A.col_prange, A.backend, blocks=s_blocks,
+            device=A.torch_device, device_dtype=A.dtype,
         )
-        s_blocks.append({"oo": s_oo, "oh": s_oh})
-    S = PSparseMatrix(
-        None, A.row_prange, A.col_prange, A.backend, blocks=s_blocks,
-        device=A.torch_device, device_dtype=A.dtype,
-    )
-    P = spmm(S, P0)
-    return P, spmtm(P, spmm(A, P))
+        self.P, self._cP = spmm(self.S, P0, reuse=True)
+        self.AP, self._c1 = spmm(A, self.P, reuse=True)
+        self.Ac, self._c2 = spmtm(self.P, self.AP, reuse=True)
+
+    def refill(self, A: PSparseMatrix) -> PSparseMatrix:
+        """S from A's new values, then P, AP and Ac through their frozen
+        plans; returns the refilled coarse operator."""
+        _canonicalize_blocks(A)
+        for sb, ab, dv, (map_a, rows_a, diag_pos, rows_oh) in zip(
+                self.S.blocks, host_blocks(A), _dinv_parts(A), self._s_maps):
+            soo = sb["oo"].data
+            soo[:] = 0
+            soo[map_a] = -self.omega * dv[rows_a] * ab["oo"].data
+            np.add.at(soo, diag_pos, 1.0)
+            sb["oh"].data[:] = -self.omega * dv[rows_oh] * ab["oh"].data
+        self.S.invalidate_device()
+        # P0 is frozen: its fetched rows need no refresh
+        spmm_into(self.P, self.S, self.P0, self._cP, refresh_b=False)
+        spmm_into(self.AP, A, self.P, self._c1)
+        spmtm_into(self.Ac, self.P, self.AP, self._c2)
+        return self.Ac
 
 
 # -- hierarchy -----------------------------------------------------------------
@@ -422,31 +480,45 @@ class AMGPreconditioner:
     def __init__(self, A: PSparseMatrix, params: Optional[AMGParams] = None, nullspace=None):
         self.params = params or AMGParams()
         self.nullspace = nullspace
-        self._setup(A)
+        self._setup(A, reuse_aggregates=False)
 
-    def _setup(self, A: PSparseMatrix) -> None:
+    @property
+    def aggregates(self):
+        """(aggregates per part, coarse PRange) of every coarsened level."""
+        return [(aggs, coarse) for aggs, coarse, _ in self._aggs]
+
+    def _setup(self, A: PSparseMatrix, reuse_aggregates: bool = False) -> None:
+        """The hierarchy from A; ``reuse_aggregates``: with the aggregates
+        (and box shapes) of the previous setup instead of aggregating."""
         params = self.params
         if params.smoother != "gs":
             raise NotImplementedError(f"AMG smoother {params.smoother!r}: ROADMAP Queue 1 item 12")
         self.levels: List[AMGLevel] = []
-        self.aggregates = []  # (aggregates, coarse PRange) per level
+        self._galerkin: List[_GalerkinCache] = []
+        if not reuse_aggregates:
+            self._aggs = []  # (aggregates, coarse PRange, box shapes or None) per level
         self.omegas = []
         current = A
         ns = self.nullspace
         bs = params.block_size if ns is not None else 1
-        for _ in range(params.max_levels - 1):
+        for l in range(params.max_levels - 1):
             if current.shape[0] <= params.coarse_size:
                 break
-            box = (
-                box_aggregate_psparse(current)
-                if params.epsilon == 0 and bs == 1 and ns is None
-                else None
-            )
-            if box is not None:
-                aggs, coarse, shapes = box
+            if reuse_aggregates:
+                if l >= len(self._aggs):
+                    break
+                aggs, coarse, shapes = self._aggs[l]
             else:
-                aggs, coarse = aggregate_psparse(current, params.epsilon, bs)
-            self.aggregates.append((aggs, coarse))
+                box = (
+                    box_aggregate_psparse(current)
+                    if params.epsilon == 0 and bs == 1 and ns is None
+                    else None
+                )
+                if box is not None:
+                    aggs, coarse, shapes = box
+                else:
+                    (aggs, coarse), shapes = aggregate_psparse(current, params.epsilon, bs), None
+                self._aggs.append((aggs, coarse, shapes))
             P0, ns, _ = tentative_prolongator(current, aggs, coarse, ns)
             # the coarse level has n_modes dofs per aggregate
             bs = len(next(m for m in ns if m is not None)) if ns is not None else 1
@@ -455,29 +527,53 @@ class AMGPreconditioner:
             else:
                 omega = 4.0 / (3.0 * max(spectral_radius(current, _dinv_parts(current)), 1e-12))
             self.omegas.append(omega)
-            P, Ac = _galerkin(current, P0, omega)
+            gk = _GalerkinCache(current, P0, omega)
+            self._galerkin.append(gk)
             struct = None
-            if box is not None:
-                lay = current.row_layout()
-                dinv = torch.zeros((lay.n_parts, lay.n_own_pad), dtype=torch.float64)
-                for p, d in enumerate(_dinv_parts(current)):
-                    dinv[p, : d.size] = torch.from_numpy(d)
-                struct = BoxTransfer(
-                    *shapes, omega, dinv.to(current.torch_device, current.dtype)
-                )
+            if shapes is not None:
+                struct = BoxTransfer(*shapes, omega, _box_dinv(current))
             gs = GaussSeidel(current, params.smoother_iters, "symmetric")
-            self.levels.append(AMGLevel(current, P, gs, struct))
-            current = Ac
-            if Ac.shape[0] >= self.levels[-1].A.shape[0]:
+            self.levels.append(AMGLevel(current, gk.P, gs, struct))
+            current = gk.Ac
+            if current.shape[0] >= self.levels[-1].A.shape[0]:
                 break  # aggregation stalled
         self.levels.append(AMGLevel(current, None, None))
         self.backend = A.backend
         self._coarse_factorize(current)
-        for lev in self.levels:  # freeze every level now, as the reference
+        self._freeze_levels()
+
+    def _freeze_levels(self) -> None:
+        """Freeze every level now, as the reference (a box level never
+        applies P)."""
+        for lev in self.levels:
             lev.A.device()
-            if lev.P is not None and lev.struct is None:  # a box level never applies P
+            if lev.P is not None and lev.struct is None:
                 lev.P.device()
                 lev.P.device_transpose()
+
+    def update(self, A: PSparseMatrix) -> "AMGPreconditioner":
+        """The hierarchy for new values of A at the sparsity of the setup,
+        with no aggregation, no power method and no symbolic product: each
+        level refills S (at its frozen omega), P, AP and Ac through its
+        ``_GalerkinCache``, refreshes its smoother's values and its box
+        transfer's D^-1, then the coarse factors are recomputed and every
+        level's frozen blocks restack their new values.  The result equals
+        a fresh setup at the same omegas and aggregates."""
+        if len(self._galerkin) != len(self.levels) - 1:
+            raise RuntimeError("AMGPreconditioner.update: the hierarchy has no reuse plans")
+        current = A
+        for lev, gk in zip(self.levels, self._galerkin):
+            lev.A = current
+            Ac = gk.refill(current)
+            lev.P = gk.P
+            lev.smoother.refresh_values(current)
+            if lev.struct is not None:
+                lev.struct = lev.struct._replace(dinv=_box_dinv(current))
+            current = Ac
+        self.levels[-1].A = current
+        self._coarse_factorize(current)
+        self._freeze_levels()
+        return self
 
     def _coarse_factorize(self, current: PSparseMatrix) -> None:
         """Dense LU of the gathered coarsest operator: an explicit inverse
@@ -684,9 +780,6 @@ class AMGPreconditioner:
 
     def __call__(self, r: PVector) -> PVector:
         return self._cycle(0, r, self.params.cycle == "w")
-
-    def update(self, A: PSparseMatrix):
-        raise NotImplementedError("AMGPreconditioner.update (the reuse tier): ROADMAP Queue 1 item 13")
 
     def statistics(self) -> dict:
         nnzs = [lev.A.nnz() for lev in self.levels]

@@ -89,8 +89,18 @@ class ColoredDIAGS:
         """Build from the block's values ``vals[P, n_off, R]`` and diagonal
         ``diag[P, R]``, on their device."""
         self = cls.__new__(cls)
+        self._plan(offsets, vals.shape[2])
+        self.set_values(vals, diag)
+        return self
+
+    def set_values(self, vals: torch.Tensor, diag: torch.Tensor) -> None:
+        """De-interleave new values of the same block (``vals[P, n_off,
+        R]``, ``diag[P, R]``) into ``vals_d`` and ``invd_d``, keeping the
+        coloring and the tap table."""
         P, n_off, R = vals.shape
-        self._plan(offsets, R)
+        if (n_off, R) != (len(self.offsets), self.R):
+            raise ValueError(f"set_values: values {tuple(vals.shape)} for n_off, R = "
+                             f"{(len(self.offsets), self.R)}")
         m, Lq = self.m, self.Lq
         Rq = m * Lq
         vp = vals.new_zeros((P, n_off, Rq))
@@ -103,7 +113,6 @@ class ColoredDIAGS:
         self.invd_d = torch.where(
             dd != 0, 1.0 / torch.where(dd != 0, dd, torch.ones_like(dd)), torch.zeros_like(dd)
         ).contiguous()
-        return self
 
     @classmethod
     def from_arrays(

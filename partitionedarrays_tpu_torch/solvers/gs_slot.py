@@ -3,7 +3,9 @@ a colorable DIA band.
 
 Counterpart of ``partitionedarrays_tpu/solvers/gs_slot.py``:
 ``_wave_schedule`` (:73-105, copied verbatim) and ``NaturalTileGS.build``
-(:259-495) with its sweeps (:542-641).  The rows of a part are cut into
+(:259-495) with its sweeps (:542-641), split into its structure half
+(``_plan``) and its values half (``refresh``), so that a refresh for new
+values at fixed sparsity keeps the schedule and K6's tables.  The rows of a part are cut into
 128-row tiles.  Tiles are packed greedily into waves of at most B mutually
 uncoupled tiles (no off-tile nonzero joins two tiles of a wave), and a sweep
 visits the waves in order, each tile solved exactly with dense triangular
@@ -85,33 +87,39 @@ class NaturalTileGS:
     def build(cls, A) -> "NaturalTileGS":
         """From A's host own-own blocks (``psparse``), computed in their
         dtype as the reference does and stored on A's device in A's device
-        dtype."""
+        dtype: the structure (``_plan``), then the values
+        (``refresh``)."""
+        self = cls.__new__(cls)
+        self._plan(A)
+        self.refresh(A)
+        return self
+
+    def _plan(self, A) -> None:
+        """The structure half: the tiles, their wave schedule, the
+        off-tile compressed rows and K6's tables, from the sparsity of A's
+        own-own blocks only."""
         from ..psparse import host_blocks
 
         blocks = host_blocks(A)
         lay = A.row_layout()
-        dtype = blocks[0]["oo"].dtype
         Rp = _round_up(lay.n_own_pad, TILE)
         nt = Rp // TILE
         P = len(blocks)
         B = min(8, max(nt, 1))
-
-        off_blocks = []
-        dense = np.zeros((P, nt, TILE, TILE), dtype)
+        inside_at, off_src = [], []
         schedules: List[List[List[int]]] = []
-        for k, b in enumerate(blocks):
+        for b in blocks:
             oo = b["oo"].tocoo()
             tr = oo.row // TILE
             tc = oo.col // TILE
             inside = tr == tc
-            # dense within-tile blocks
-            np.add.at(
-                dense[k], (tr[inside], oo.row[inside] % TILE, oo.col[inside] % TILE),
-                oo.data[inside],
-            )
-            off_blocks.append(
-                sp.csr_matrix((oo.data[~inside], (oo.row[~inside], oo.col[~inside])), shape=(Rp, Rp))
-            )
+            inside_at.append((np.flatnonzero(inside), tr[inside], oo.row[inside] % TILE,
+                              oo.col[inside] % TILE))
+            # the off-tile entries as a CSR whose values are their positions
+            # in oo's entries (+1: 0 marks a padding lane)
+            out = np.flatnonzero(~inside)
+            off_src.append(sp.csr_matrix((out.astype(np.int64) + 1, (oo.row[out], oo.col[out])),
+                                         shape=(Rp, Rp)))
             adj = [set() for _ in range(nt)]
             for a, b_ in set(zip(tr[~inside].tolist(), tc[~inside].tolist())):
                 adj[a].add(b_)
@@ -121,11 +129,51 @@ class NaturalTileGS:
         # shrink B to the largest wave: on densely coupled tile graphs the
         # waves degenerate toward single tiles
         B = max(max((len(w) for s in schedules for w in s), default=1), 1)
+        rows, cols, src = stack_rows(off_src, Rp)
+        tile_ptr = np.zeros((P, nt + 1), dtype=np.int32)
+        wave_tiles = np.full((P, W, B), -1, dtype=np.int32)
+        for k in range(P):
+            live = rows[k][rows[k] >= 0]
+            tile_ptr[k] = np.searchsorted(live // TILE, np.arange(nt + 1))
+            for w, wave in enumerate(schedules[k]):
+                wave_tiles[k, w, : len(wave)] = wave
+        self.Rp = Rp
+        self.n_real_tiles = nt
+        self.W = W
+        self.B = B
+        self.schedules = schedules
+        self._inside_at = inside_at
+        self._off_src = src  # [P, K, Nr]: position + 1 of each off-tile lane's entry
+        dev = A.torch_device
+        self.rows = torch.from_numpy(rows).to(dev)
+        self.cols = torch.from_numpy(cols).to(dev)
+        self.tile_ptr = torch.from_numpy(tile_ptr).to(dev)
+        self.wave_tiles = torch.from_numpy(wave_tiles).to(dev)
+        self.tile_lanes = torch.from_numpy(tile_lane_counts(cols, tile_ptr)).to(dev)
+
+    def refresh(self, A) -> None:
+        """The values half: the packed inverse planes ``pack`` and the
+        off-tile values ``vals`` of K6 from the values of A's own-own
+        blocks, whose sparsity must be the one planned; the schedule and
+        the tables are kept."""
+        from ..psparse import host_blocks
+
+        blocks = host_blocks(A)
+        P, nt = len(blocks), self.n_real_tiles
+        datas = [b["oo"].tocoo().data for b in blocks]
+        dtype = datas[0].dtype
+        if len(datas) != len(self._inside_at) or any(
+            d.size != at[0].size + int(np.count_nonzero(s)) for d, at, s in
+            zip(datas, self._inside_at, self._off_src)
+        ):
+            raise ValueError("NaturalTileGS.refresh: the own-own sparsity changed")
+        dense = np.zeros((P, nt, TILE, TILE), dtype)
+        for k, (data, (at, t, r, c)) in enumerate(zip(datas, self._inside_at)):
+            np.add.at(dense[k], (t, r, c), data[at])
         # identity on empty diagonals (padding rows) so the factors exist
         di = np.arange(TILE)
         dvals = dense[:, :, di, di]
         dense[:, :, di, di] = np.where(dvals == 0, 1.0, dvals)
-
         # the packed planes, stored transposed as the reference's:
         # fwd = (D+L)^-T (q <= r) + U^T (q > r), bwd = (D+U)^-T + L^T
         m_fwd_t = np.swapaxes(np.linalg.inv(np.tril(dense)), -1, -2)
@@ -136,31 +184,13 @@ class NaturalTileGS:
         pack = np.ascontiguousarray(
             np.stack([(m_fwd_t + u_t).astype(dtype), (m_bwd_t + l_t).astype(dtype)], axis=1)
         )
-
-        rows, cols, vals = stack_rows(off_blocks, Rp)
-        tile_ptr = np.zeros((P, nt + 1), dtype=np.int32)
-        wave_tiles = np.full((P, W, B), -1, dtype=np.int32)
-        for k in range(P):
-            live = rows[k][rows[k] >= 0]
-            tile_ptr[k] = np.searchsorted(live // TILE, np.arange(nt + 1))
-            for w, wave in enumerate(schedules[k]):
-                wave_tiles[k, w, : len(wave)] = wave
-
-        self = cls.__new__(cls)
-        self.Rp = Rp
-        self.n_real_tiles = nt
-        self.W = W
-        self.B = B
-        self.schedules = schedules
+        vals = np.zeros(self._off_src.shape, dtype=dtype)
+        for k, data in enumerate(datas):
+            lanes = self._off_src[k] > 0
+            vals[k][lanes] = data[self._off_src[k][lanes] - 1]
         dev, dt = A.torch_device, A.dtype
         self.pack = torch.from_numpy(pack).to(dev, dt)
-        self.rows = torch.from_numpy(rows).to(dev)
-        self.cols = torch.from_numpy(cols).to(dev)
         self.vals = torch.from_numpy(vals).to(dev, dt)
-        self.tile_ptr = torch.from_numpy(tile_ptr).to(dev)
-        self.wave_tiles = torch.from_numpy(wave_tiles).to(dev)
-        self.tile_lanes = torch.from_numpy(tile_lane_counts(cols, tile_ptr)).to(dev)
-        return self
 
     def operands(self):
         """K6's operands, in the order of ``tile_gs_sweeps``."""

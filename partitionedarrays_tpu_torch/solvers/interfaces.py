@@ -9,7 +9,8 @@ and ``history``.  A solver has ``solve(problem)``, ``update(problem)``
 (same sparsity, new values) and ``finalize()``.  ``amg_solver`` runs
 ``solvers/amg.py``'s preconditioner as a Richardson iteration;
 ``additive_schwarz_solver`` raises until its slice is ported (ROADMAP
-Queue 1 item 12); the nonlinear and ODE problems come with item 14.
+Queue 1 item 12).  ``NonlinearProblem`` and ``ODEProblem`` (:37-57) are
+the problems of ``solvers/nonlinear.py`` and ``solvers/ode.py``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,28 @@ class LinearProblem:
     b: PVector
     x0: Optional[PVector] = None
     nullspace: Optional[Any] = None
+    attributes: Dict = field(default_factory=dict)
+
+
+@dataclass
+class NonlinearProblem:
+    """residual(x) = 0, with its Jacobian matrix at x."""
+
+    residual: Callable[[PVector], PVector]
+    jacobian: Callable[[PVector], PSparseMatrix]
+    x0: PVector
+    attributes: Dict = field(default_factory=dict)
+
+
+@dataclass
+class ODEProblem:
+    """residual(t, x, v) = 0 over ``interval``, v = dx/dt, with the Jacobian
+    a_x dR/dx + a_v dR/dv for weights ``(a_x, a_v)``."""
+
+    residual: Callable[[float, PVector, PVector], PVector]
+    jacobian: Callable[[float, PVector, PVector, tuple], PSparseMatrix]
+    x0: PVector
+    interval: tuple
     attributes: Dict = field(default_factory=dict)
 
 
@@ -63,11 +86,16 @@ class CGSolver(LinearSolverBase):
 class LUSolver(LinearSolverBase):
     """A sparse LU of the centralized matrix on the host (scipy's
     ``splu``): the reference's fallback for debugging and small systems.
-    The solution returns to b's device."""
+    The solution returns to b's device.  The factors are redone for
+    another matrix and for a matrix refilled in place since
+    (``values_version``); the reference keys them on the matrix object
+    alone, so a Newton step that refills its Jacobian in place would
+    solve with the factors of the first one."""
 
     def __init__(self):
         self._splu = None
         self._A = None
+        self._version = None
 
     def _factorize(self, A: PSparseMatrix) -> None:
         import scipy.sparse.linalg as spla
@@ -76,11 +104,12 @@ class LUSolver(LinearSolverBase):
 
         self._splu = spla.splu(centralize(A).tocsc())
         self._A = A
+        self._version = A.values_version
 
     def solve(self, p: LinearProblem) -> PVector:
         from ..pvector import collect, pvector_from_own
 
-        if self._splu is None or self._A is not p.A:
+        if self._splu is None or self._A is not p.A or self._version != p.A.values_version:
             self._factorize(p.A)
         xg = self._splu.solve(collect(p.b))
         parts = [xg[li.own_to_global] for li in p.A.row_prange.parts]
@@ -101,11 +130,15 @@ class SmootherSolver(LinearSolverBase):
         self.omega = omega
         self._M = None
         self._A = None
+        self._version = None
 
     def _get_M(self, A):
-        if self._M is None or self._A is not A:
+        """The preconditioner of A, rebuilt for another matrix or for one
+        refilled in place since (``values_version``)."""
+        if self._M is None or self._A is not A or self._version != A.values_version:
             self._M = self.make_M(A)
             self._A = A
+            self._version = A.values_version
         return self._M
 
     def solve(self, p: LinearProblem) -> PVector:

@@ -3,8 +3,9 @@
 Counterpart of ``partitionedarrays_tpu/solvers/smoothers.py``:
 ``JacobiCorrection`` and ``jacobi`` (:83-115), ``GaussSeidel`` with its
 colored DIA tier (:123-204) and its tier 1, the wave-scheduled tile sweep
-(:205-218, :537-571), ``_order_seq``, ``ghost_contrib``, the flat-space
-methods (:313-461), ``apply`` (:463-535) and ``__call__`` (:600-604).  The
+(:205-218, :537-571), ``refresh_values`` (:267-291), ``_order_seq``,
+``ghost_contrib``, the flat-space methods (:313-461), ``apply``
+(:463-535) and ``__call__`` (:600-604).  The
 flat-space methods let the MG V-cycle keep x in the de-interleaved core
 layout of ``solvers/gs_dia.py`` between smoothing steps; the names keep the
 reference's "flat" although the state is the ``[P, m, Lq]`` core.
@@ -96,6 +97,29 @@ class GaussSeidel:
         else:
             self.tile_gs = NaturalTileGS.build(A)
             self.n_colors = 1
+
+    def refresh_values(self, A: PSparseMatrix) -> None:
+        """The smoother for new values of a matrix of the same sparsity
+        (the smoother leg of the AMG ``update``): the colored tier
+        de-interleaves A's new DIA values and inverse diagonal (the
+        coloring and K3's tap table kept), the tile tier recomputes its
+        packed inverse planes and off-tile values (``NaturalTileGS.refresh``:
+        the schedule and K6's tables kept).  A matrix that would select the
+        other tier, or another band, raises."""
+        oo = A.device().oo
+        colored = oo.kind == "dia" and find_mod_coloring(oo.offsets) is not None
+        if colored != (self.colored is not None) or (
+            colored and tuple(int(o) for o in oo.offsets) != self.colored.offsets
+        ):
+            raise ValueError(
+                "refresh_values: the new matrix selects another smoother tier or band "
+                "(sparsity changed?); build a new smoother instead"
+            )
+        self.A = A
+        if self.colored is not None:
+            self.colored.set_values(oo.vals, _own_diagonal(A))
+        else:
+            self.tile_gs.refresh(A)
 
     def _order_seq(self):
         fwd = list(range(self.n_colors))

@@ -165,10 +165,12 @@ def test_unported_branches_raise():
     assert [lev.struct is not None for lev in M_box.levels] == [lev.struct is not None
                                                                 for lev in M_ref.levels]
     assert M_box.levels[0].struct.fine == (6, 6, 6) and M_box._flat_ok(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M_box.update(A)
+    # update is ported: it refills the hierarchy in place, never re-setting up
+    galerkin = list(M_box._galerkin)
+    assert M_box.update(A) is M_box and M_box._galerkin == galerkin
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         amg.AMGPreconditioner(A, amg.AMGParams(coarse_size=10, smoother="schwarz"))
     M = amg.AMGPreconditioner(A, amg.AMGParams(coarse_size=10), nullspace=amg.default_nullspace(A))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    M._galerkin.pop()
+    with pytest.raises(RuntimeError, match="no reuse plans"):
         M.update(A)

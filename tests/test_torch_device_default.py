@@ -15,13 +15,20 @@ from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
 from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
 from partitionedarrays_tpu_torch.ops.blocks import freeze_block
 from partitionedarrays_tpu_torch.ops.stencil import stencil_psparse
-from partitionedarrays_tpu_torch.psparse import PSparseMatrix, psparse, psparse_from_global
+from partitionedarrays_tpu_torch.psparse import (
+    PSparseMatrix,
+    device_refill_plan,
+    psparse,
+    psparse_from_global,
+    psystem,
+)
 
 ENTRY_POINTS = [
     hpcg_benchmark, HPCGMGPreconditioner.__init__, build_hpcg_problem, stencil_psparse,
     freeze_block, pvector.pfill, pvector.pzeros, pvector.pones, pvector.pvector_from_own,
     pvector.pvector_df64, pvector.pvector, convert.from_jax_arrays,
     convert.psparse_from_host_blocks, psparse, psparse_from_global, PSparseMatrix.__init__,
+    psystem,
 ]
 
 
@@ -62,3 +69,32 @@ def test_elasticity_amg_without_device_does_not_run_on_the_cpu():
     with pytest.raises(AssertionError, match="CUDA"):
         AMGPreconditioner(A, AMGParams(coarse_size=20, block_size=3),
                           nullspace=nullspace_linear_elasticity(coords))
+
+
+def test_reuse_tier_without_device_does_not_run_on_the_cpu():
+    """``psystem`` and ``pvector(reuse=True)`` build their vectors on the
+    card, ``device_refill_plan`` freezes its matrix there, and the example's
+    user code runs the port on the card: without one, each raises."""
+    import os
+    import sys
+
+    from partitionedarrays_tpu_torch.models.gallery import laplacian_fdm
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    I, J, V, rows, cols = laplacian_fdm((4, 4), (1, 1))
+    Ib = [np.arange(16)]
+    with pytest.raises(AssertionError, match="CUDA"):
+        psystem(I, J, V, Ib, [np.ones(16)], rows, cols, SerialBackend(1), reuse=True)
+    with pytest.raises(AssertionError, match="CUDA"):
+        pvector.pvector(Ib, [np.ones(16)], rows, SerialBackend(1), reuse=True)
+    A, cache = psparse(I, J, V, rows, cols, SerialBackend(1), assembled=True, reuse=True)
+    with pytest.raises(AssertionError, match="CUDA"):
+        device_refill_plan(A, cache)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "examples"))
+    import implicit_reuse
+
+    assert inspect.signature(implicit_reuse.port).parameters["device"].default == "cuda"
+    with pytest.raises(AssertionError, match="CUDA"):
+        implicit_reuse.reaction_diffusion(implicit_reuse.port(), nodes=(4, 4, 4), steps=1)

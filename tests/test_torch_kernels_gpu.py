@@ -639,3 +639,125 @@ def test_ghost_spmv_kernel_across_parts(cuda, dtype):
         got = ghost_spmv(blk.rows, blk.cols, blk.vals, x, y0.clone(), blk.plan)
         assert ghost_spmv.launches == before + 1
         _assert_close(got, want, dtype)
+
+
+# -- the reuse tier: kernels on refreshed operands -----------------------------
+
+def _box_updated(device, dtype):
+    """The box AMG of the 7-point Laplacian at 12^3 on (2,2,2) parts, set
+    up, refilled with a diagonal shift through the psparse cache and
+    updated: every operand of its kernels refreshed."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.models import gallery
+    from partitionedarrays_tpu_torch.psparse import psparse, psparse_refill
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    I, J, V, rows, cols = gallery.laplacian_fdm((12, 12, 12), (2, 2, 2), dtype=np_dtype)
+    A, cache = psparse(I, J, V, rows, cols, SerialBackend(8), assembled=True, reuse=True,
+                       device=device)
+    M = AMGPreconditioner(A, AMGParams(coarse_size=10))
+    psparse_refill(A, [(v + (i == j) * (0.5 + (i % 7) / 7.0) * v).astype(np_dtype)
+                       for i, j, v in zip(I, J, V)], cache)
+    return A, M.update(A)
+
+
+def _fresh_copy(A):
+    from partitionedarrays_tpu_torch.psparse import PSparseMatrix, host_blocks
+
+    blocks = [{k: b[k].copy() for k in ("oo", "oh")} for b in host_blocks(A)]
+    return PSparseMatrix(None, A.row_prange, A.col_prange, A.backend, blocks=blocks,
+                         device=A.torch_device, device_dtype=A.dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_on_refreshed_box_hierarchy(cuda, dtype):
+    """After ``update``: K3 and K4 on every colored level's refreshed
+    values (equal to a fresh smoother's), K1 on the refilled operator, K5
+    on the refilled own-ghost blocks and their transposes."""
+    A, M = _box_updated(cuda, dtype)
+    g = torch.Generator().manual_seed(31)
+    for l, lev in enumerate(M.levels[:-1]):
+        col = lev.smoother.colored
+        fresh = GaussSeidel(_fresh_copy(lev.A)).colored
+        assert torch.equal(col.vals_d, fresh.vals_d) and torch.equal(col.invd_d, fresh.invd_d)
+        _hold_sweeps(col, dtype, cuda, 32 + l)
+        x = torch.randn(col.vals_d.shape[0], col.m, col.Lq, generator=g, dtype=dtype).to(cuda)
+        _assert_close(ax_core(col.vals_d, x, col.taps), ax_core_plain(col.vals_d, x, col.taps),
+                      dtype)
+    oo = A.device().oo
+    x = torch.randn(oo.vals.shape[0], oo.n_cols_pad, generator=g, dtype=dtype).to(cuda)
+    _assert_close(dia_spmv(oo.offsets, oo.vals, x), dia_spmv_plain(oo.offsets, oo.vals, x), dtype)
+    blocks = [A.device().oh, *A.device_transpose()]
+    blocks = [b for b in blocks if b is not None and b.kind == "ell"]
+    assert blocks
+    for blk in blocks:
+        P = blk.vals.shape[0]
+        x = torch.randn(P, blk.n_cols_pad, generator=g, dtype=dtype).to(cuda)
+        y0 = torch.randn(P, blk.n_rows, generator=g, dtype=dtype).to(cuda)
+        _assert_close(ghost_spmv(blk.rows, blk.cols, blk.vals, x, y0.clone(), blk.plan),
+                      ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, y0.clone()), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_on_refreshed_tile_level(cuda, dtype):
+    """3-D elasticity on (2,2,2) parts of unequal size, refilled with a
+    mass-like shift and updated: K6 on the refreshed tile tier (equal to a
+    fresh build's planes), K5 on the refilled P and P^T."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.models import gallery
+    from partitionedarrays_tpu_torch.psparse import psparse, psparse_refill
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+    from partitionedarrays_tpu_torch.solvers.gs_slot import NaturalTileGS
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    I, J, V, rows, cols = gallery.linear_elasticity_fem((7, 7, 7), (2, 2, 2), dtype=np_dtype)
+    A, cache = psparse(I, J, V, rows, cols, SerialBackend(8), reuse=True, device=cuda)
+    coords, _ = gallery.node_coordinates_unit_cube((7, 7, 7), (2, 2, 2))
+    M = AMGPreconditioner(A, AMGParams(coarse_size=30, block_size=3, max_levels=4),
+                          nullspace=gallery.nullspace_linear_elasticity(coords, A.row_prange))
+    psparse_refill(A, [(v + 0.1 * (i == j)).astype(np_dtype) for i, j, v in zip(I, J, V)], cache)
+    M.update(A)
+    tg = M.levels[0].smoother.tile_gs
+    fresh = NaturalTileGS.build(_fresh_copy(A))
+    assert torch.equal(tg.pack, fresh.pack) and torch.equal(tg.vals, fresh.vals)
+    _hold_tile(_operands(tg), dtype, cuda, 33)
+    g = torch.Generator().manual_seed(34)
+    lev = M.levels[0]
+    for blk in (lev.P.device().oo, *lev.P.device_transpose()):
+        if blk is None or blk.kind != "ell":
+            continue
+        P = blk.vals.shape[0]
+        x = torch.randn(P, blk.n_cols_pad, generator=g, dtype=dtype).to(cuda)
+        y0 = torch.randn(P, blk.n_rows, generator=g, dtype=dtype).to(cuda)
+        _assert_close(ghost_spmv(blk.rows, blk.cols, blk.vals, x, y0.clone(), blk.plan),
+                      ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, y0.clone()), dtype)
+
+
+@pytest.mark.parametrize("case", ["dia", "ell"])
+def test_device_refill_on_the_card(cuda, case):
+    """``DeviceRefill`` on CUDA tensors: each slot summed in the host
+    refill's order by unique-index scatters, so it equals the host refill
+    and refreeze bit for bit, duplicates included (disassembled
+    elasticity)."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.models import gallery
+    from partitionedarrays_tpu_torch.psparse import device_refill_plan, psparse, psparse_refill
+
+    if case == "dia":
+        I, J, V, rows, cols = gallery.laplacian_fdm((12, 12, 12), (2, 2, 2))
+        A, cache = psparse(I, J, V, rows, cols, SerialBackend(8), assembled=True, reuse=True,
+                           device=cuda)
+    else:
+        I, J, V, rows, cols = gallery.linear_elasticity_fem((7, 7, 7), (2, 2, 2))
+        A, cache = psparse(I, J, V, rows, cols, SerialBackend(8), reuse=True, device=cuda)
+    plan = device_refill_plan(A, cache)
+    rng = np.random.default_rng(6)
+    V2 = [rng.standard_normal(v.size) for v in V]
+    dev = plan(plan.stack_values(V2))
+    psparse_refill(A, V2, cache)
+    for name in ("oo", "oh"):
+        assert torch.equal(getattr(dev, name).vals, getattr(A.device(), name).vals)

@@ -12,8 +12,12 @@ copy), and the partitioned matrix across parts (subassembled COO,
 ``assemble_matrix``, ``consistent_matrix``, the distributed products,
 ``convert.psparse_from_host_blocks``, the COO ``pvector`` and its tasks,
 ``lu_solver``, the elasticity AMG-CG and the box AMG-CG with the ghosted
-flat cycle on (2,2,2) parts); afterwards ``jax`` must not be among the
-loaded modules.
+flat cycle on (2,2,2) parts), and the reuse tier (``psparse(reuse=True)``,
+``DeviceRefill``, ``psparse_refill``, ``AMGPreconditioner.update``,
+``psystem`` and its refill, and the implicit reaction-diffusion run of
+``examples/implicit_reuse.py`` through ``backward_euler`` and
+``newton_raphson``); afterwards ``jax`` must not be among the loaded
+modules.
 """
 import os
 import subprocess
@@ -124,6 +128,28 @@ assert M.levels[0].struct is not None and not M._flat_ok(0)
 b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device="cpu"))
 _, info = cg(A, b, M=M, rtol=1e-8)
 assert info.iterations < 20, info
+from partitionedarrays_tpu_torch import backward_euler, newton_raphson, psystem, psystem_refill
+from partitionedarrays_tpu_torch.psparse import device_refill_plan, psparse_refill, spmm_into
+from partitionedarrays_tpu_torch.pvector import pvector_refill
+A, cache = psparse(I, J, V, rows, cols, SerialBackend(8), assembled=True, reuse=True, device="cpu")
+M = AMGPreconditioner(A, AMGParams(coarse_size=10))
+V2 = [v * (1.0 + 0.5 * (i == j)) for i, j, v in zip(I, J, V)]
+plan = device_refill_plan(A, cache)
+dev = plan(plan.stack_values(V2))
+psparse_refill(A, V2, cache)
+assert torch.equal(dev.oo.vals, A.device().oo.vals)
+M.update(A)
+_, info = cg(A, b, M=M, rtol=1e-8)
+assert info.iterations < 20, info
+Ib = [li.own_to_global for li in A.row_prange.parts]
+A2, b2, sc = psystem(I, J, V, Ib, [np.ones(i.size) for i in Ib], rows, cols, SerialBackend(8),
+                     reuse=True, device="cpu")
+b3 = psystem_refill(A2, V2, [np.full(i.size, 2.0) for i in Ib], sc)
+assert float(pmaximum(b3)) == 2.0
+sys.path.insert(0, "examples")
+import implicit_reuse
+r = implicit_reuse.reaction_diffusion(implicit_reuse.port("cpu"), nodes=(4, 4, 4), steps=1)
+assert r["newton"] and max(r["relres"]) < 1e-9, r["relres"]
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
 sys.exit(1 if loaded else 0)

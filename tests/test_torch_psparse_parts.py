@@ -308,10 +308,15 @@ def test_filtered_negative_ids():
 
 
 def test_reuse_raises_with_its_item():
+    """The reuse forms now build their caches; what is left of the reuse
+    tier, the cross-process refill of per-process matrices, raises naming
+    its ROADMAP item."""
     from partitionedarrays_tpu_torch.pvector import pvector
 
     I, J, V, rows, cols = gallery.laplacian_fem((6, 6), (2, 2))
-    with pytest.raises(NotImplementedError, match="step 7"):
-        ps.psparse(I, J, V, rows, cols, SerialBackend(4), reuse=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 7"):
-        pvector(I, V, rows, SerialBackend(4), reuse=True, device="cpu")
+    A, cache = ps.psparse(I, J, V, rows, cols, SerialBackend(4), reuse=True, device="cpu")
+    assert len(cache) == 3 and A.assembled
+    v, vcache = pvector(I, V, rows, SerialBackend(4), reuse=True, device="cpu")
+    assert vcache.layout is v.layout
+    with pytest.raises(NotImplementedError, match="item 15"):
+        ps._MatRoutes().finalize_multiprocess(SerialBackend(4), 4, np.float64)
