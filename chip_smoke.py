@@ -198,8 +198,6 @@ PER_COLOR_K3_SET = {"device_events": 9684, "device_ms": 100.6}
 # kernel against plain version, relative to the largest plain entry: only
 # FMA contraction and the order of the sums differ
 KERNEL_RTOL = {"float32": 1e-5, "float64": 1e-12}
-# a library call against the plain version (its own order of the sums)
-LIBRARY_RTOL = dict(KERNEL_RTOL)
 KERNELS = {
     "dia_spmv": (
         "partitionedarrays_tpu_torch/csrc/dia_spmv.cu",
@@ -326,12 +324,10 @@ NEWTON_REUSE_NODES = (64, 64, 64)
 NEWTON_REUSE_ITERS = (9, 11)
 ELASTICITY_UPDATE_NODES = (40, 40, 40)
 # kernel against plain version on the refreshed operands of phase 4g, relative
-# to the largest plain entry: in float64 two ulps (the largest difference
-# phases 3-4f measured, ROADMAP Queue 2); in float32 KERNEL_RTOL, since a
-# 27-color K3 sweep sequence (54 color steps) on the 40^3 elasticity level
-# differs from its plain version by more than two ulps through FMA
-# contraction alone (PERF.md, section 6)
-REFRESH_RTOL = {"float32": KERNEL_RTOL["float32"], "float64": 4.4e-16}
+# to the largest plain entry: in float64 two ulps; in float32 1e-6, above the
+# 3.5e-7 that a 27-color K3 sweep sequence (54 color steps) on the 40^3
+# elasticity level reached through FMA contraction (PERF.md, section 6)
+REFRESH_RTOL = {"float32": 1e-6, "float64": 4.4e-16}
 
 
 def emit(phase: str, payload) -> None:
@@ -470,12 +466,12 @@ def bound(nbytes: float, ops: float, flops_per_s: float = F32_FLOPS_PER_S):
 
 
 def _hold(results, kname, dtype_name, kernel, plain, timed=None, library=None, work=None,
-          flushed=False):
+          flushed=False, rtol=KERNEL_RTOL):
     """Run ``kernel`` and ``plain`` on the same inputs, hold the largest
-    difference to the tolerance relative to the largest plain entry, and
-    time both (or the pair ``timed``, calls without the set-up copies).
-    ``library``: one PyTorch call computing the same function, held to the
-    same tolerance and timed; ``work``: (bytes, operations) of the call,
+    difference to ``rtol`` of the largest plain entry, and time both (or
+    the pair ``timed``, calls without the set-up copies).  ``library``: one
+    PyTorch call computing the same function, held to ``KERNEL_RTOL`` and
+    timed; ``work``: (bytes, operations) of the call,
     for its bound; ``flushed``: also time the kernel and the library call
     with the L2 flushed before each call (``flushed_ms``)."""
     import torch
@@ -485,19 +481,19 @@ def _hold(results, kname, dtype_name, kernel, plain, timed=None, library=None, w
     want = plain()
     max_abs = (got - want).abs().max().item()
     scale = want.abs().max().item()
-    tol = KERNEL_RTOL[dtype_name] * scale
+    tol = rtol[dtype_name] * scale
     if not (max_abs <= tol):
         raise AssertionError(f"{kname} {dtype_name}: max |kernel - plain| {max_abs} > {tol}")
     results.append({
         "kernel": kname, "dtype": dtype_name, "max_abs_err": max_abs,
-        "max_rel_err": max_abs / scale, "tol_rel": KERNEL_RTOL[dtype_name],
+        "max_rel_err": max_abs / scale, "tol_rel": rtol[dtype_name],
     })
     k_t, p_t = timed if timed is not None else (kernel, plain)
     results[-1].update(ms=time_ms(k_t, 20), plain_ms=time_ms(p_t, 5),
                        device_ms=device_ms(k_t, 20))
     if library is not None:
         lib_err = (library().reshape(want.shape) - want).abs().max().item()
-        if not (lib_err <= LIBRARY_RTOL[dtype_name] * scale):
+        if not (lib_err <= KERNEL_RTOL[dtype_name] * scale):
             raise AssertionError(f"{kname} {dtype_name}: the library call differs by {lib_err}")
         results[-1].update(library_ms=time_ms(library, 20), library_max_abs_err=lib_err,
                            library_device_ms=device_ms(library, 20))
@@ -556,7 +552,7 @@ def _flops(dtype_name: str) -> float:
     return F32_FLOPS_PER_S if dtype_name == "float32" else F64_FLOPS_PER_S
 
 
-def _hold_k1(results, where, oo, x, library=None):
+def _hold_k1(results, where, oo, x, library=None, rtol=KERNEL_RTOL):
     """K1 against its plain version on the DIA block ``oo`` and the x of
     its columns (``_hold``); bound: the values, x and y, each moved once."""
     from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
@@ -567,13 +563,13 @@ def _hold_k1(results, where, oo, x, library=None):
     _hold(results, "dia_spmv", dtype_name,
           lambda: dia_spmv(oo.offsets, oo.vals, x),
           lambda: dia_spmv_plain(oo.offsets, oo.vals, x),
-          library=library,
+          library=library, rtol=rtol,
           work=(x.element_size() * (oo.vals.numel() + x.numel() + P * R), 2 * oo.vals.numel(),
                 _flops(dtype_name)))
     results[-1].update(where=where, n_diags=len(oo.offsets), rows=P * R)
 
 
-def _hold_k4(results, where, col, x, library=None):
+def _hold_k4(results, where, col, x, library=None, rtol=KERNEL_RTOL):
     """K4 against its plain version on a colored smoother's core ``col``
     and the core x (``_hold``); bound: the values once, x read and y
     written once."""
@@ -583,7 +579,7 @@ def _hold_k4(results, where, col, x, library=None):
     _hold(results, "ax_core", dtype_name,
           lambda: ax_core(col.vals_d, x, col.taps),
           lambda: ax_core_plain(col.vals_d, x, col.taps),
-          library=library,
+          library=library, rtol=rtol,
           work=(x.element_size() * (col.vals_d.numel() + 2 * x.numel()), 2 * col.vals_d.numel(),
                 _flops(dtype_name)))
     results[-1].update(where=where, m=col.m, n_off=len(col.offsets), Lq=col.Lq)
@@ -784,7 +780,7 @@ def _k3_plans(col, itemsize: int):
     return [SweepPlan(lanes, -(-groups * lanes // THREADS)) for lanes in (1, 2, 4, 8, 16)]
 
 
-def _hold_k3(results, where, gs, dtype_name, g, device):
+def _hold_k3(results, where, gs, dtype_name, g, device, rtol=KERNEL_RTOL):
     """K3 against its plain version on one level's smoother, symmetric
     order, from a guess and from a zero guess (plain: on a zero core); the
     kernel's time under its default plan and, from the guess, under every
@@ -814,7 +810,7 @@ def _hold_k3(results, where, gs, dtype_name, g, device):
         want = gs_sweeps_plain(col.vals_d, bd, col.invd_d, plain_start, col.taps, order)
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
-        if not err <= KERNEL_RTOL[dtype_name] * scale:
+        if not err <= rtol[dtype_name] * scale:
             raise AssertionError(f"gs_sweeps {where} {dtype_name}: max |kernel - plain| {err}, "
                                  f"{err / scale} of the largest entry")
         row = {
@@ -822,7 +818,7 @@ def _hold_k3(results, where, gs, dtype_name, g, device):
             "guess": "zero" if start is None else "random",
             "P": P, "m": m, "n_off": n_off, "Lq": Lq, "steps": len(order),
             "plan": list(plan), "launches_per_call": launches,
-            "max_abs_err": err, "max_rel_err": err / scale, "tol_rel": KERNEL_RTOL[dtype_name],
+            "max_abs_err": err, "max_rel_err": err / scale, "tol_rel": rtol[dtype_name],
             "ms": time_ms(lambda: gs_sweeps(col.vals_d, bd, col.invd_d, start, col.taps, order), 20),
             "device_ms": device_ms(
                 lambda: gs_sweeps(col.vals_d, bd, col.invd_d, start, col.taps, order), 20),
@@ -1226,7 +1222,7 @@ def _tile_work(tg, dirs, itemsize):
     return nbytes, ops
 
 
-def _hold_tile(results, where, tg, dtype_name, g, device):
+def _hold_tile(results, where, tg, dtype_name, g, device, rtol=KERNEL_RTOL):
     """K6 against its plain version on one tile smoother: forward, backward
     and symmetric, from a zero and a nonzero guess, one launch per call;
     then the symmetric sweep from a nonzero guess (the post-smoothing)
@@ -1255,7 +1251,7 @@ def _hold_tile(results, where, tg, dtype_name, g, device):
             want = tile_gs_sweeps_plain(*tg.operands(), start.clone(), b, dirs, zero_guess=zero)
             err = (got - want).abs().max().item()
             rel = err / want.abs().max().item()
-            if not rel <= KERNEL_RTOL[dtype_name]:
+            if not rel <= rtol[dtype_name]:
                 raise AssertionError(f"tile_gs_sweeps {where} {dtype_name} {dirs} zero={zero}: {rel}")
             worst = max(worst, (rel, err))
     x_t = x0.clone()
@@ -1271,7 +1267,7 @@ def _hold_tile(results, where, tg, dtype_name, g, device):
         "kernel": "tile_gs_sweeps", "dtype": dtype_name, "where": where, "P": P,
         "tiles": tg.n_real_tiles, "W": tg.W, "B": tg.B, "K_off": tg.cols.shape[1],
         "launches_per_call": 1, "max_abs_err": worst[1], "max_rel_err": worst[0],
-        "tol_rel": KERNEL_RTOL[dtype_name],
+        "tol_rel": rtol[dtype_name],
         "ms": time_ms(sweep(), 20), "device_ms": dev_ms,
         "plain_ms": time_ms(lambda: tile_gs_sweeps_plain(*tg.operands(), x_t, b, ("f", "b")), 3),
         "library_ms": None, "bytes": work[0], "ops": work[1], "bound_ms": b_ms, "bound_by": b_by,
@@ -1297,7 +1293,7 @@ def _every_g(blk, x, y):
     return out
 
 
-def _hold_k5_blocks(results, where, blocks, dtype_name, g, device):
+def _hold_k5_blocks(results, where, blocks, dtype_name, g, device, rtol=KERNEL_RTOL):
     """K5 against its plain version on the compressed-row blocks ``blocks``
     ((name, DeviceBlock) pairs: the AMG path's P, P^T and coarse A),
     accumulating into y: the largest difference, the kernel's and the
@@ -1320,7 +1316,7 @@ def _hold_k5_blocks(results, where, blocks, dtype_name, g, device):
         want = ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, y0.clone())
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
-        tol = KERNEL_RTOL[dtype_name] * scale
+        tol = rtol[dtype_name] * scale
         if not err <= tol:
             raise AssertionError(f"ghost_spmv {name} of {where} {dtype_name}: {err} > {tol}")
         live = blk.cols >= 0
@@ -1331,7 +1327,7 @@ def _hold_k5_blocks(results, where, blocks, dtype_name, g, device):
                             (part * n_cols + blk.cols)[live], blk.vals[live], (P * R, P * n_cols)),
                        x, y0)
         lib_err = (lib().reshape(want.shape) - want).abs().max().item()
-        if not lib_err <= LIBRARY_RTOL[dtype_name] * scale:
+        if not lib_err <= KERNEL_RTOL[dtype_name] * scale:
             raise AssertionError(f"ghost_spmv {name} of {where}: the library call differs by {lib_err}")
         itemsize = x.element_size()
         nbytes = itemsize * (nnz + P * n_cols + 2 * n_live) + 4 * (nnz + n_live)
@@ -1345,7 +1341,7 @@ def _hold_k5_blocks(results, where, blocks, dtype_name, g, device):
             "groups": blk.plan.group_lanes.numel(),
             "mean_group_lanes": blk.plan.group_lanes.double().mean().item(),
             "lanes": blk.plan.lanes, "max_abs_err": err, "max_rel_err": err / scale,
-            "tol_rel": KERNEL_RTOL[dtype_name],
+            "tol_rel": rtol[dtype_name],
             "ms_flushed": flushed_ms(kernel, 20), "device_ms": device_ms(kernel, 20),
             "plain_ms": time_ms(lambda: ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, y_t), 3),
             "library_ms_flushed": flushed_ms(lib, 20), "library_max_abs_err": lib_err,
@@ -1465,11 +1461,11 @@ def phase_amg_elasticity(device, counters):
     return path_launches, results
 
 
-def _hold_box_levels(results, where, M, g, device, vcycle_launches):
-    """K3 (``_hold_k3``) and K4 (``_hold_k4``) against their plain versions
-    on every smoothed level of the box AMG ``M``, in its dtype; each
-    smoothed level of the flat cycle launches the same number of each per
-    V-cycle (``vcycle_launches``)."""
+def _hold_box_levels(results, where, M, g, device, vcycle_launches, rtol=KERNEL_RTOL):
+    """K3 (``_hold_k3``) and K4 (``_hold_k4``) against their plain versions,
+    to ``rtol``, on every smoothed level of the box AMG ``M``, in its dtype;
+    each smoothed level of the flat cycle launches the same number of each
+    per V-cycle (``vcycle_launches``)."""
     import torch
 
     smoothed = [(l, lev) for l, lev in enumerate(M.levels) if lev.smoother is not None]
@@ -1477,12 +1473,12 @@ def _hold_box_levels(results, where, M, g, device, vcycle_launches):
         col = lev.smoother.colored
         dtype_name = str(col.vals_d.dtype).replace("torch.", "")
         at = f"level {l} of {where} ({lev.A.shape[0]} rows)"
-        _hold_k3(results, at, lev.smoother, dtype_name, g, device)
+        _hold_k3(results, at, lev.smoother, dtype_name, g, device, rtol)
         for row in results[-2:]:
             row["launches_per_vcycle"] = vcycle_launches["gs_sweeps"] / len(smoothed)
         x = torch.randn(col.vals_d.shape[0], col.m, col.Lq, generator=g,
                         dtype=col.vals_d.dtype).to(device)
-        _hold_k4(results, at, col, x)
+        _hold_k4(results, at, col, x, rtol=rtol)
         results[-1]["launches_per_vcycle"] = vcycle_launches["ax_core"] / len(smoothed)
 
 
@@ -1869,34 +1865,12 @@ class _StepTimes:
         self.seconds.setdefault(name, []).append(seconds)
 
 
-@contextlib.contextmanager
-def _tolerance(rtol):
-    """The kernel holds inside with ``rtol`` instead of ``KERNEL_RTOL``
-    (the library calls keep ``LIBRARY_RTOL``)."""
-    global KERNEL_RTOL
-    saved = KERNEL_RTOL
-    KERNEL_RTOL = rtol
-    try:
-        yield
-    finally:
-        KERNEL_RTOL = saved
-
-
 def _example():
     """examples/implicit_reuse.py, the user code of phase 4g."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
     import implicit_reuse
 
     return implicit_reuse
-
-
-def _fresh(A):
-    """A new matrix of A's host values (copied), frozen anew."""
-    from partitionedarrays_tpu_torch.psparse import PSparseMatrix, host_blocks
-
-    blocks = [{k: b[k].copy() for k in ("oo", "oh")} for b in host_blocks(A)]
-    return PSparseMatrix(None, A.row_prange, A.col_prange, A.backend, blocks=blocks,
-                         device=A.torch_device, device_dtype=A.dtype)
 
 
 def _rel_diff(A, B) -> float:
@@ -1932,7 +1906,7 @@ def _check_refreshed(M, where, failures) -> list:
     out = []
     current = M.levels[0].A
     for l, (lev, gk) in enumerate(zip(M.levels, M._galerkin)):
-        A_new = _fresh(lev.A)
+        A_new = lev.A.copy()
         gs, gs_new = lev.smoother, GaussSeidel(A_new, lev.smoother.iterations, lev.smoother.sweep)
         if gs.colored is not None:
             ok = {"smoother": same(gs.colored.vals_d, gs_new.colored.vals_d)
@@ -1945,13 +1919,13 @@ def _check_refreshed(M, where, failures) -> list:
         if lev.struct is not None:
             ok["dinv"] = same(lev.struct.dinv, amg._box_dinv(A_new))
         else:
-            P_new = _fresh(lev.P)
+            P_new = lev.P.copy()
             ok["P"] = same_blocks(lev.P.device(), P_new.device())
             ok["P^T"] = all(same(a.vals, b.vals) for a, b in zip(
                 lev.P.device_transpose(), P_new.device_transpose()) if a is not None)
         # the level's operator sets the precision of S and of the products
         tol = 1e-12 if lev.A.blocks[0]["oo"].dtype == np.float64 else 1e-5
-        fresh = amg._GalerkinCache(_fresh(current), gk.P0, gk.omega)
+        fresh = amg._GalerkinCache(current.copy(), gk.P0, gk.omega)
         errs = {"P": _rel_diff(fresh.P, lev.P), "Ac": _rel_diff(fresh.Ac, gk.Ac)}
         current = gk.Ac
         for k, v in ok.items():
@@ -1962,7 +1936,7 @@ def _check_refreshed(M, where, failures) -> list:
                 failures.append(f"{where} level {l}: the updated {k} is {v} from a fresh build")
         out.append({"level": l, "equal": ok, "rel_diff": errs, "tol": tol})
     tmp = amg.AMGPreconditioner.__new__(amg.AMGPreconditioner)
-    tmp._coarse_factorize(_fresh(M.levels[-1].A))
+    tmp._coarse_factorize(M.levels[-1].A.copy())
     coarse_ok = tmp.coarse_kind == M.coarse_kind and all(
         same(a, b) for a, b in zip(tmp._coarse, M._coarse))
     if not coarse_ok:
@@ -2027,16 +2001,17 @@ def phase_reuse(device, counters):
         failures.append(f"{where}: {len(rec['update_s'])} updates for {len(rd['cg'])} solves")
     rec["refreshed"] = _check_refreshed(M, where, failures)
     emit("4g reuse reaction_diffusion_parts", rec)
-    with _tolerance(REFRESH_RTOL):
-        _hold_box_levels(results, f"refreshed {where}", M, g, device, rec["vcycle"]["launches"])
-        _hold_k5_blocks(results, f"refreshed {where}", _parts_blocks(M), "float64", g, device)
-        oo = J.device().oo
-        P = oo.vals.shape[0]
-        xs = torch.randn(P, oo.n_cols_pad, generator=g, dtype=J.dtype).to(device)
-        _hold_k1(results, f"refilled Jacobian of {where}", oo, xs,
-                 library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad,
-                                                      oo.n_rows),
-                                       (P * oo.n_rows, P * oo.n_cols_pad)), xs))
+    _hold_box_levels(results, f"refreshed {where}", M, g, device, rec["vcycle"]["launches"],
+                     REFRESH_RTOL)
+    _hold_k5_blocks(results, f"refreshed {where}", _parts_blocks(M), "float64", g, device,
+                    REFRESH_RTOL)
+    oo = J.device().oo
+    P = oo.vals.shape[0]
+    xs = torch.randn(P, oo.n_cols_pad, generator=g, dtype=J.dtype).to(device)
+    _hold_k1(results, f"refilled Jacobian of {where}", oo, xs,
+             library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad, oo.n_rows),
+                                   (P * oo.n_rows, P * oo.n_cols_pad)), xs),
+             rtol=REFRESH_RTOL)
     del rd, M, J, oo, b
     torch.cuda.empty_cache()
 
@@ -2072,14 +2047,14 @@ def phase_reuse(device, counters):
         failures.append(f"{where}: {nr['iterations']} CG iterations, not in {NEWTON_REUSE_ITERS}")
     rec["refreshed"] = _check_refreshed(M, where, failures)
     emit("4g reuse newton_reuse", rec)
-    with _tolerance(REFRESH_RTOL):
-        _hold_box_levels(results, f"refreshed {where}", M, g, device, rec["vcycle"]["launches"])
-        oo = A.device().oo
-        xs = torch.randn(1, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
-        _hold_k1(results, f"refilled operator of {where}", oo, xs,
-                 library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad,
-                                                      oo.n_rows), (oo.n_rows, oo.n_cols_pad)),
-                                  xs))
+    _hold_box_levels(results, f"refreshed {where}", M, g, device, rec["vcycle"]["launches"],
+                     REFRESH_RTOL)
+    oo = A.device().oo
+    xs = torch.randn(1, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
+    _hold_k1(results, f"refilled operator of {where}", oo, xs,
+             library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad, oo.n_rows),
+                                   (oo.n_rows, oo.n_cols_pad)), xs),
+             rtol=REFRESH_RTOL)
     del nr, A, M, dev, plan, Vs, oo
     torch.cuda.empty_cache()
 
@@ -2111,24 +2086,25 @@ def phase_reuse(device, counters):
         failures.append(f"{where}: true relres {eu['relres']} > 1e-5")
     rec["refreshed"] = _check_refreshed(M, where, failures)
     emit("4g reuse elasticity_update", rec)
-    with _tolerance(REFRESH_RTOL):
-        for l, lev in enumerate(M.levels):
-            gs = lev.smoother
-            if gs is None:
-                continue
-            if gs.tile_gs is not None:
-                _hold_tile(results, f"refreshed level {l} of {where}", gs.tile_gs, "float32", g,
-                           device)
-            else:
-                _hold_k3(results, f"refreshed level {l} of {where}", gs, "float32", g, device)
-        _hold_k5_blocks(results, f"refreshed {where}", _amg_blocks(M), "float32", g, device)
-        oo = A.device().oo
-        if oo.kind == "dia":
-            xs = torch.randn(1, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
-            _hold_k1(results, f"refilled operator of {where}", oo, xs,
-                     library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad,
-                                                          oo.n_rows),
-                                           (oo.n_rows, oo.n_cols_pad)), xs))
+    for l, lev in enumerate(M.levels):
+        gs = lev.smoother
+        if gs is None:
+            continue
+        if gs.tile_gs is not None:
+            _hold_tile(results, f"refreshed level {l} of {where}", gs.tile_gs, "float32", g,
+                       device, REFRESH_RTOL)
+        else:
+            _hold_k3(results, f"refreshed level {l} of {where}", gs, "float32", g, device,
+                     REFRESH_RTOL)
+    _hold_k5_blocks(results, f"refreshed {where}", _amg_blocks(M), "float32", g, device,
+                    REFRESH_RTOL)
+    oo = A.device().oo
+    if oo.kind == "dia":
+        xs = torch.randn(1, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
+        _hold_k1(results, f"refilled operator of {where}", oo, xs,
+                 library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad,
+                                                      oo.n_rows), (oo.n_rows, oo.n_cols_pad)), xs),
+                 rtol=REFRESH_RTOL)
     del eu, A, M, oo
     torch.cuda.empty_cache()
     emit("4g kernels K1, K3, K4, K5, K6 on refreshed operands", results)

@@ -1058,12 +1058,15 @@ def _refilled_product(L: sp.csr_matrix, R: sp.csr_matrix, indptr: np.ndarray,
     of its build (``indptr``, ``indices``).
 
     scipy's product drops the entries whose sum is exactly zero, so the
-    build's pattern lacks an entry whose terms cancelled then.  New values
-    may leave a rounding residue there: an entry within k eps of its row's
+    build's pattern (the reference's, which the AMG hierarchies match entry
+    for entry) lacks an entry whose terms cancelled then.  New values may
+    leave a rounding residue there: an entry within k eps of its row's
     largest (k the most terms a sum has, eps that of the operands' lower
     precision) stands for the same zero and is not kept.  A larger entry
-    outside the pattern is a change of sparsity and raises; an entry of the
-    pattern that now cancels is stored as zero."""
+    there raises: new values made real a product the build saw cancel, as
+    in an elasticity hierarchy built at constant coefficients and refilled
+    with variable ones (ROADMAP Queue 3).  An entry of the pattern that now
+    cancels is stored as zero."""
     C = L @ R
     C.sum_duplicates()
     C.sort_indices()
@@ -1081,7 +1084,9 @@ def _refilled_product(L: sp.csr_matrix, R: sp.csr_matrix, indptr: np.ndarray,
         row_max = np.zeros(C.shape[0])
         np.maximum.at(row_max, coo.row, np.abs(coo.data))
         if (np.abs(coo.data[extra]) > k * eps * row_max[coo.row[extra]]).any():
-            raise ValueError("a refilled product has an entry outside the sparsity of its build")
+            raise ValueError(
+                "a refilled product has an entry outside the sparsity of its build: its terms "
+                "cancelled exactly at the build (ROADMAP Queue 3)")
     return out
 
 

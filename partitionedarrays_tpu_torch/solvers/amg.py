@@ -8,9 +8,11 @@ per-aggregate nullspace QR (:249-340), ``_diag_parts`` and ``_dinv_parts``
 (:343-385), the host power method ``spectral_radius`` (:388-429), ``_make_S``
 and ``smoothed_prolongator`` (:494-545), ``_GalerkinCache`` with its
 reuse plans (:548-664), ``AMGLevel``, ``AMGParams`` and
-``AMGPreconditioner`` (``_setup`` with ``reuse_aggregates`` and the box
-levels' ``struct`` :717-800, ``_coarse_factorize``, ``update``
-:905-942, ``_coarse_solve``, the structured transfers :991-1062, the flat
+``AMGPreconditioner`` (``_setup`` with the box levels' ``struct``
+:717-800, without the reference's ``reuse_aggregates``, whose one caller
+is the re-setup of per-process matrices, ROADMAP Queue 1 item 15;
+``_coarse_factorize``, ``update`` :905-942, ``_coarse_solve``, the
+structured transfers :991-1062, the flat
 cycle :1064-1181 and the dispatch of ``_cycle`` :1184-1226 for V and W
 cycles, ``statistics``), ``amg`` and ``default_nullspace``.
 
@@ -480,45 +482,38 @@ class AMGPreconditioner:
     def __init__(self, A: PSparseMatrix, params: Optional[AMGParams] = None, nullspace=None):
         self.params = params or AMGParams()
         self.nullspace = nullspace
-        self._setup(A, reuse_aggregates=False)
+        self._setup(A)
 
     @property
     def aggregates(self):
         """(aggregates per part, coarse PRange) of every coarsened level."""
-        return [(aggs, coarse) for aggs, coarse, _ in self._aggs]
+        return list(self._aggs)
 
-    def _setup(self, A: PSparseMatrix, reuse_aggregates: bool = False) -> None:
-        """The hierarchy from A; ``reuse_aggregates``: with the aggregates
-        (and box shapes) of the previous setup instead of aggregating."""
+    def _setup(self, A: PSparseMatrix) -> None:
+        """The hierarchy from A."""
         params = self.params
         if params.smoother != "gs":
             raise NotImplementedError(f"AMG smoother {params.smoother!r}: ROADMAP Queue 1 item 12")
         self.levels: List[AMGLevel] = []
         self._galerkin: List[_GalerkinCache] = []
-        if not reuse_aggregates:
-            self._aggs = []  # (aggregates, coarse PRange, box shapes or None) per level
+        self._aggs = []  # (aggregates, coarse PRange) per level
         self.omegas = []
         current = A
         ns = self.nullspace
         bs = params.block_size if ns is not None else 1
-        for l in range(params.max_levels - 1):
+        for _ in range(params.max_levels - 1):
             if current.shape[0] <= params.coarse_size:
                 break
-            if reuse_aggregates:
-                if l >= len(self._aggs):
-                    break
-                aggs, coarse, shapes = self._aggs[l]
+            box = (
+                box_aggregate_psparse(current)
+                if params.epsilon == 0 and bs == 1 and ns is None
+                else None
+            )
+            if box is not None:
+                aggs, coarse, shapes = box
             else:
-                box = (
-                    box_aggregate_psparse(current)
-                    if params.epsilon == 0 and bs == 1 and ns is None
-                    else None
-                )
-                if box is not None:
-                    aggs, coarse, shapes = box
-                else:
-                    (aggs, coarse), shapes = aggregate_psparse(current, params.epsilon, bs), None
-                self._aggs.append((aggs, coarse, shapes))
+                (aggs, coarse), shapes = aggregate_psparse(current, params.epsilon, bs), None
+            self._aggs.append((aggs, coarse))
             P0, ns, _ = tentative_prolongator(current, aggs, coarse, ns)
             # the coarse level has n_modes dofs per aggregate
             bs = len(next(m for m in ns if m is not None)) if ns is not None else 1

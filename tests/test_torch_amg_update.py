@@ -13,7 +13,10 @@ against a fresh build, float64, on the serial backend:
   nodes refilled with a mass-like diagonal shift: there the reference's
   refill fails (its refilled products assume scipy's pattern of the
   build, which dropped the entries whose terms cancelled exactly; ROADMAP
-  Queue 3).
+  Queue 3);
+- a box Laplacian and that elasticity set up at constant coefficients and
+  refilled with variable ones: the first updates, the second raises where
+  its build's products cancelled exactly (ROADMAP Queue 3).
 
 Each updated hierarchy (every level's operator and P, omega, the box
 transfers' D^-1, the coarse factors) equals the reference's updated one
@@ -61,6 +64,14 @@ CASES = {
 }
 # the tile tier under a mass-like shift, on the port alone
 ELASTICITY = ((7, 7, 7), (2, 2, 2), dict(coarse_size=30, block_size=3, max_levels=2))
+# constant-coefficient builds refilled with variable coefficients:
+# name -> (generator, nodes, parts, psparse keywords, AMGParams, nullspace)
+CONSTANT_BUILDS = {
+    "box": ("laplacian_fdm", (12, 12, 12), (2, 2, 2), dict(assembled=True),
+            dict(coarse_size=20), False),
+    "elasticity": ("linear_elasticity_fem", ELASTICITY[0], ELASTICITY[1], {}, ELASTICITY[2],
+                   True),
+}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -133,13 +144,6 @@ def _close_global(A, B, rtol):
     assert (d.max() if d.nnz else 0.0) <= rtol * abs(G1).max()
 
 
-def _fresh(A):
-    """A new matrix of A's host values (copied), frozen anew."""
-    blocks = [{k: b[k].copy() for k in ("oo", "oh")} for b in ps.host_blocks(A)]
-    return ps.PSparseMatrix(None, A.row_prange, A.col_prange, A.backend, blocks=blocks,
-                            device="cpu", device_dtype=A.dtype)
-
-
 def check_update(M, M_ref=None):
     """The updated hierarchies agree with each other (``M_ref`` None: the
     port's alone) and with a fresh Galerkin product at the frozen omegas;
@@ -154,7 +158,7 @@ def check_update(M, M_ref=None):
             _same_blocks(lev.A, lev_ref.A)
             _same_blocks(lev.P, lev_ref.P)
             assert gk.omega == M_ref._galerkin[l].omega
-        fresh = amg._GalerkinCache(_fresh(current), gk.P0, gk.omega)
+        fresh = amg._GalerkinCache(current.copy(), gk.P0, gk.omega)
         _close_global(fresh.P, lev.P, 1e-12)
         _close_global(fresh.Ac, gk.Ac, 1e-12)
         current = gk.Ac
@@ -162,8 +166,8 @@ def check_update(M, M_ref=None):
             if M_ref is not None:
                 np.testing.assert_array_equal(lev.struct.dinv.numpy(),
                                               np.asarray(lev_ref.struct[3]))
-            assert torch.equal(lev.struct.dinv, amg._box_dinv(_fresh(lev.A)))
-        A_new = _fresh(lev.A)
+            assert torch.equal(lev.struct.dinv, amg._box_dinv(lev.A.copy()))
+        A_new = lev.A.copy()
         gs, gs_new = lev.smoother, GaussSeidel(A_new, lev.smoother.iterations, "symmetric")
         assert gs.A is lev.A
         if gs.colored is not None:
@@ -239,7 +243,7 @@ def test_update_mass_shift_tile():
     ps.psparse_refill(A, [v + 0.1 * (i == j) for i, j, v in zip(I, J, V)], cache)
     M.update(A)
     check_update(M)
-    fresh = amg.AMGPreconditioner(_fresh(A), amg.AMGParams(**params), nullspace=null)
+    fresh = amg.AMGPreconditioner(A.copy(), amg.AMGParams(**params), nullspace=null)
     rng = np.random.default_rng(5)
     b = pvector_from_own([rng.standard_normal(li.n_own) for li in A.row_prange.parts],
                          A.row_prange, A.backend, device="cpu")
@@ -273,7 +277,7 @@ def test_tile_refresh_equals_build():
     rng = np.random.default_rng(2)
     ps.psparse_refill(A, [v * (1.0 + 0.3 * rng.random(v.size)) for v in V], cache)
     tg.refresh(A)
-    fresh = NaturalTileGS.build(_fresh(A))
+    fresh = NaturalTileGS.build(A.copy())
     assert torch.equal(tg.pack, fresh.pack) and torch.equal(tg.vals, fresh.vals)
     assert all(a is b for a, b in zip(plan, (tg.rows, tg.cols, tg.tile_ptr, tg.wave_tiles,
                                               tg.tile_lanes, tg.schedules)))
@@ -283,22 +287,29 @@ def test_tile_refresh_equals_build():
         gs.refresh_values(A)
 
 
-def test_setup_on_the_aggregates_of_the_last():
-    """``_setup(A2, reuse_aggregates=True)``: a new hierarchy for A2 on the
-    kept aggregates and box shapes (omega estimated anew), equal to a fresh
-    setup of A2, whose box aggregation does not depend on the values."""
-    I, J, V, rows, cols = gallery.laplacian_fdm((12, 12, 12), (2, 2, 2))
-    A = ps.psparse(I, J, V, rows, cols, SerialBackend(8), assembled=True, device="cpu")
-    M = amg.AMGPreconditioner(A, amg.AMGParams(coarse_size=20))
-    kept = [entry for entry in M._aggs]
-    V2 = [v + (np.asarray(i) == np.asarray(j)) * v for i, j, v in zip(I, J, V)]
-    A2 = ps.psparse(I, J, V2, rows, cols, SerialBackend(8), assembled=True, device="cpu")
-    M._setup(A2, reuse_aggregates=True)
-    assert all(a is b for a, b in zip(kept, M._aggs)) and len(M._aggs) == len(kept)
-    fresh = amg.AMGPreconditioner(_fresh(A2), amg.AMGParams(coarse_size=20))
-    assert M.omegas == fresh.omegas and M.statistics() == fresh.statistics()
-    for lev, lev_f in zip(M.levels, fresh.levels):
-        _close_global(lev_f.A, lev.A, 0.0)
-        if lev.P is not None:
-            _close_global(lev_f.P, lev.P, 0.0)
-            assert torch.equal(lev.struct.dinv, lev_f.struct.dinv)
+@pytest.mark.parametrize("name", ["box", "elasticity"])
+def test_update_after_a_constant_coefficient_build(name):
+    """A hierarchy set up at constant coefficients and refilled with
+    variable ones (D A D, D a seeded random diagonal).  No product of the
+    box Laplacian's build cancels exactly, so ``update`` equals a fresh
+    build.  The elasticity build's products cancel exactly at some entries
+    (scipy's pattern, the reference's, lacks them); the refilled products
+    are real there, outside the frozen sparsity, and ``update`` raises
+    (ROADMAP Queue 3)."""
+    gen, nodes, parts, kw, params, with_ns = CONSTANT_BUILDS[name]
+    I, J, V, rows, cols = getattr(gallery, gen)(nodes, parts)
+    A, cache = ps.psparse(I, J, V, rows, cols, SerialBackend(8), reuse=True, device="cpu", **kw)
+    null = None
+    if with_ns:
+        coords, _ = gallery.node_coordinates_unit_cube(nodes, parts)
+        null = gallery.nullspace_linear_elasticity(coords, A.row_prange)
+    M = amg.AMGPreconditioner(A, amg.AMGParams(**params), nullspace=null)
+    d = 1.0 + 0.5 * np.random.default_rng(6).random(A.shape[0])
+    ps.psparse_refill(A, [v * d[np.asarray(i)] * d[np.asarray(j)] for i, j, v in zip(I, J, V)],
+                      cache)
+    if name == "elasticity":
+        with pytest.raises(ValueError, match="outside the sparsity of its build"):
+            M.update(A)
+        return
+    M.update(A)
+    check_update(M)

@@ -663,14 +663,6 @@ def _box_updated(device, dtype):
     return A, M.update(A)
 
 
-def _fresh_copy(A):
-    from partitionedarrays_tpu_torch.psparse import PSparseMatrix, host_blocks
-
-    blocks = [{k: b[k].copy() for k in ("oo", "oh")} for b in host_blocks(A)]
-    return PSparseMatrix(None, A.row_prange, A.col_prange, A.backend, blocks=blocks,
-                         device=A.torch_device, device_dtype=A.dtype)
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_kernels_on_refreshed_box_hierarchy(cuda, dtype):
     """After ``update``: K3 and K4 on every colored level's refreshed
@@ -680,7 +672,7 @@ def test_kernels_on_refreshed_box_hierarchy(cuda, dtype):
     g = torch.Generator().manual_seed(31)
     for l, lev in enumerate(M.levels[:-1]):
         col = lev.smoother.colored
-        fresh = GaussSeidel(_fresh_copy(lev.A)).colored
+        fresh = GaussSeidel(lev.A.copy()).colored
         assert torch.equal(col.vals_d, fresh.vals_d) and torch.equal(col.invd_d, fresh.invd_d)
         _hold_sweeps(col, dtype, cuda, 32 + l)
         x = torch.randn(col.vals_d.shape[0], col.m, col.Lq, generator=g, dtype=dtype).to(cuda)
@@ -721,7 +713,7 @@ def test_kernels_on_refreshed_tile_level(cuda, dtype):
     psparse_refill(A, [(v + 0.1 * (i == j)).astype(np_dtype) for i, j, v in zip(I, J, V)], cache)
     M.update(A)
     tg = M.levels[0].smoother.tile_gs
-    fresh = NaturalTileGS.build(_fresh_copy(A))
+    fresh = NaturalTileGS.build(A.copy())
     assert torch.equal(tg.pack, fresh.pack) and torch.equal(tg.vals, fresh.vals)
     _hold_tile(_operands(tg), dtype, cuda, 33)
     g = torch.Generator().manual_seed(34)
