@@ -28,7 +28,7 @@ Phases, one output line each:
    read once per step), the plain version's time, the device time of a
    launch of no step and of one step, and the time under every other
    lane count;
-4. eleven paths through the port, each with its kernels' launch counts set
+4. fourteen paths through the port, each with its kernels' launch counts set
    to 0 just before it and read just after (a-c: the HPCG benchmark, 4 MG
    levels, 50 CG iterations; d-f: the AMG paths, counted over their
    solves):
@@ -111,6 +111,21 @@ Phases, one output line each:
       refreshed operand (smoother arrays, D^-1, A, P, P^T, the coarse
       factors) against a fresh build; then K1, K3, K4, K5 and K6 against
       their plain versions on the refreshed operands (``REFRESH_RTOL``);
+   h. the Schwarz tier (``AdditiveSchwarz``, its ILU(0) factors applied as
+      two K6 launches of one direction each on the level schedule):
+      ``schwarz_ilu0`` (bench.py:580-617: the 27-point operator at 32^3 on
+      one part, CG to 1e-6, float32 and float64, 20 iterations, the JAX
+      package's count on the CPU), ``schwarz_ilu0_parts`` (64^3 on (2,2,2)
+      parts, K6 with P = 8; the JAX package's count) and
+      ``amg_schwarz_elasticity`` (phase 4d's elasticity with Schwarz level
+      smoothers: 16^3 float32 held to the JAX package's count, 40^3 float32
+      and float64 to phase 4d's residual limits, both Schwarz tiers): the
+      factors' W and B, setup seconds, iterations, true residual, solve
+      seconds, an apply's time and launches; then K6's triangular solves
+      against their plain version (``TRI_RTOL``) and, in float64, against
+      scipy's ``spsolve_triangular``, timed beside their bound, their
+      latency floor (W wave steps) and PyTorch's sparse triangular solve
+      where the card's PyTorch has one; K1 and K5 on those paths' operands;
 5. the launch counts of each path, each kernel of a path required > 0;
 6. the whole port on the card against the whole port on the CPU (plain
    versions), float64, residual histories to rtol 1e-10: 32^3 on one part
@@ -241,6 +256,9 @@ PATH_KERNELS = {
     "reaction_diffusion_parts": ("dia_spmv", "ax_core", "gs_sweeps", "ghost_spmv"),
     "newton_reuse": ("dia_spmv", "ax_core", "gs_sweeps"),
     "elasticity_update": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
+    "schwarz_ilu0": ("dia_spmv", "tile_gs_sweeps"),
+    "schwarz_ilu0_parts": ("dia_spmv", "ghost_spmv", "tile_gs_sweeps"),
+    "amg_schwarz_elasticity": ("dia_spmv", "ghost_spmv", "tile_gs_sweeps"),
 }
 # the elasticity SA-AMG path: the reference's own workload (bench.py:371-430,
 # AMGParams(coarse_size=400, block_size=3, max_levels=4), CG to rtol 1e-8),
@@ -323,6 +341,38 @@ REUSE_RD_RELRES = 1e-9
 NEWTON_REUSE_NODES = (64, 64, 64)
 NEWTON_REUSE_ITERS = (9, 11)
 ELASTICITY_UPDATE_NODES = (40, 40, 40)
+# phase 4h, the Schwarz tier through the port's entry points:
+# - schwarz_ilu0: bench.py:580-617, the 27-point operator at 32^3 on one part
+#   (32,768 rows), AdditiveSchwarz(mode="ilu0"), cg(rtol=1e-6, maxiter=200), b
+#   from build_hpcg_problem, float32 and float64; anchor: 20 iterations (the
+#   JAX package on the CPU, both dtypes), held exactly in float64 and within
+#   one in float32;
+# - schwarz_ilu0_parts: the same operator at 64^3 on (2,2,2) parts (8 parts of
+#   32^3, 262,144 rows; K6 with P = 8 clusters); anchor: the JAX package on
+#   the CPU at this size: 47 iterations in float64 (158 s) and in float32
+#   (203 s), held exactly in float64 and within one in float32;
+# - amg_schwarz_elasticity: phase 4d's elasticity with AMGParams(smoother=
+#   "schwarz"), CG to 1e-8: 16^3 float32 (the JAX package on the CPU: 6
+#   iterations, held within one), 40^3 float32 and float64 with phase 4d's
+#   residual limits; the ilu0 tier on levels 0 and 1, dense on level 2.
+# (dtype, allowed CG iterations)
+SCHWARZ_LOCAL = (32, 32, 32)
+SCHWARZ_PARTS = (2, 2, 2)
+SCHWARZ_RTOL = 1e-6
+SCHWARZ_MAXITER = 200
+SCHWARZ_RUNS = (("float32", (19, 21)), ("float64", (20, 20)))
+SCHWARZ_PARTS_RUNS = (("float32", (46, 48)), ("float64", (47, 47)))
+AMG_SCHWARZ_RUNS = (
+    ((16, 16, 16), "float32", (5, 7), 1e-5),
+    ((40, 40, 40), "float32", None, 1e-5),
+    ((40, 40, 40), "float64", None, 2e-8),
+)
+# K6's triangular solves against their plain version, relative to the
+# largest plain entry: float32 as every kernel; float64 1e-15 (4.5 ulps):
+# the 32^3 solves (70 dependent waves) stay within two ulps (4.4e-16), the
+# backward solve of the 40^3 elasticity fine level (835 waves) reached
+# 4.53e-16 (PERF.md, section 6)
+TRI_RTOL = {"float32": 1e-5, "float64": 1e-15}
 # kernel against plain version on the refreshed operands of phase 4g, relative
 # to the largest plain entry: in float64 two ulps; in float32 1e-6, above the
 # 3.5e-7 that a 27-color K3 sweep sequence (54 color steps) on the 40^3
@@ -1182,6 +1232,10 @@ def _level_info(M):
         gs = lev.smoother
         if gs is None:
             info["smoother"] = f"coarse {M.coarse_kind}"
+        elif hasattr(gs, "sgsL"):  # AdditiveSchwarz
+            info["smoother"] = f"schwarz {gs.mode}"
+            if gs.mode == "ilu0":
+                info["factors"] = _schwarz_factors(gs)
         elif gs.colored is not None:
             info.update(smoother="colored", m=gs.colored.m)
         else:
@@ -1364,6 +1418,31 @@ def _amg_blocks(M):
     return [(n, b) for n, b in out if b.kind == "ell"]
 
 
+def _aggregation_seconds(M) -> dict:
+    """Host seconds of the aggregation of every coarsened level of the
+    elasticity hierarchy ``M`` (``AMG_PARAMS``: block size 3 on the fine
+    level, 6 nullspace modes below), by the native library (``aggregate``,
+    the setup's) and by the Python version (``aggregate_plain``, the
+    setup's until the native library was ported); the aggregates agree."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.psparse import host_blocks
+    from partitionedarrays_tpu_torch.solvers import amg
+
+    out = {"native": 0.0, "python": 0.0}
+    for l, lev in enumerate(M.levels[:-1]):
+        G = amg.strength_graph(host_blocks(lev.A)[0]["oo"], AMG_PARAMS["block_size"] if l == 0
+                               else 6)
+        got = {}
+        for name, fn in (("native", amg.aggregate), ("python", amg.aggregate_plain)):
+            t0 = time.perf_counter()
+            got[name] = fn(G, 0.0)
+            out[name] += time.perf_counter() - t0
+        if not np.array_equal(got["native"], got["python"]):
+            raise AssertionError(f"level {l}: native and Python aggregates differ")
+    return out
+
+
 def phase_amg_elasticity(device, counters):
     """Elasticity SA-AMG through the port's entry points (``AMG_RUNS``).
     The launch counts of the solves (``counters`` set to 0 just before each
@@ -1410,6 +1489,10 @@ def phase_amg_elasticity(device, counters):
                 path_launches[k] += v
             solves.append((seconds, info.iterations, counts))
         prof = None
+        if nodes == AMG_KERNEL_NODES and dtype == "float32":
+            out_agg = _aggregation_seconds(M)
+        else:
+            out_agg = None
         if nodes == AMG_KERNEL_NODES:  # where the device time of a solve goes
             prof = _profile_set(lambda: cg(A, b, M=M, rtol=AMG_RTOL, maxiter=AMG_MAXITER), top=8,
                                 kernels=("gs_seq_grid", "tile_sweeps", "ghost_spmv"))
@@ -1424,8 +1507,12 @@ def phase_amg_elasticity(device, counters):
             "levels": _level_info(M), "omegas": M.omegas, "iterations": iters,
             "cg_residual": float(info.residual), "true_relres": true_relres,
             "solve_s": [s[0] for s in solves], "launches_per_solve": solves[-1][2],
-            "profiled_solve": prof,
+            "profiled_solve": prof, "aggregation_s": out_agg,
         }
+        if out_agg is not None:
+            # the setup as it was with the Python aggregation
+            out[key]["setup_s_python_aggregation"] = (setup - out_agg["native"]
+                                                      + out_agg["python"])
         emit(f"4d amg_elasticity {key}", out[key])
         if iter_range is not None and not iter_range[0] <= iters <= iter_range[1]:
             failures.append(f"{key}: {iters} CG iterations, not in {iter_range}")
@@ -2113,6 +2200,269 @@ def phase_reuse(device, counters):
     return launches, results
 
 
+def _schwarz_factors(S) -> dict:
+    """W, B and tiles of the ILU(0) Schwarz smoother's two K6 factors."""
+    return {name: {"tiles": tg.n_real_tiles, "W": tg.W, "B": tg.B, "parts": tg.pack.shape[0]}
+            for name, tg in (("L", S.sgsL), ("U", S.sgsU))}
+
+
+def _sparse_triangular_library(tg, L, b):
+    """One PyTorch call that solves with the factor of part 0 (a one-part
+    smoother), where the card's PyTorch has one: ``torch.triangular_solve``
+    with a sparse CSR matrix (cuSPARSE's triangular solve).  Returns (the
+    call, None) or (None, why not)."""
+    import torch
+
+    if tg.pack.shape[0] != 1:
+        return None, "more than one part"
+    C = L.tocsr()
+    A = torch.sparse_csr_tensor(torch.from_numpy(C.indptr.astype("int64")),
+                                torch.from_numpy(C.indices.astype("int64")),
+                                torch.from_numpy(C.data), size=C.shape,
+                                dtype=b.dtype, device=b.device)
+    rhs = b[0, : C.shape[0]].unsqueeze(1).contiguous()
+    upper = tg.directions == ("b",)
+
+    def call():
+        return torch.triangular_solve(rhs, A, upper=upper).solution
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:  # no such kernel on this build
+        return None, f"{type(exc).__name__}: {str(exc)[:200]}"
+    return call, None
+
+
+def _hold_tri(results, where, S, dtype_name, g, device, scipy_check=True):
+    """K6 in one-direction mode on an ILU(0) Schwarz smoother: the forward
+    solve with L and the backward solve with U from a zero guess, one
+    launch each, against the plain version (``TRI_RTOL``) and, in float64
+    with ``scipy_check``, against scipy's ``spsolve_triangular`` (1e-10 of
+    the largest entry); then each solve timed: CUDA events, device time,
+    the plain version, the bound (one direction's planes, the off-tile
+    entries, b and x, each moved once), the device time of a launch of no
+    wave step and of one (the latency floor is W such steps), and a sparse
+    triangular solve of PyTorch where there is one."""
+    import numpy as np
+    import torch
+    from scipy.sparse.linalg import spsolve_triangular
+
+    from partitionedarrays_tpu_torch.ops.native import ilu0
+    from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps, tile_gs_sweeps_plain
+    from partitionedarrays_tpu_torch.psparse import host_blocks
+
+    dtype = getattr(torch, dtype_name)
+    factors = [ilu0(blk["oo"]) for blk in host_blocks(S.A)]
+    for k, (tg, d, name) in enumerate(((S.sgsL, "f", "L"), (S.sgsU, "b", "U"))):
+        P = tg.pack.shape[0]
+        b = torch.randn(P, tg.Rp, generator=g, dtype=dtype).to(device)
+        zero = torch.zeros_like(b)
+        before = tile_gs_sweeps.launches
+        got = tile_gs_sweeps(*tg.operands(), zero.clone(), b, (d,), zero_guess=True,
+                             tile_lanes=tg.tile_lanes)
+        if tile_gs_sweeps.launches != before + 1:
+            raise AssertionError(f"tile_gs_sweeps {name} of {where}: "
+                                 f"{tile_gs_sweeps.launches - before} launches for one solve")
+        torch.cuda.synchronize()
+        want = tile_gs_sweeps_plain(*tg.operands(), zero.clone(), b, (d,), zero_guess=True)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not err <= TRI_RTOL[dtype_name] * scale:
+            raise AssertionError(f"tile_gs_sweeps {name} of {where} {dtype_name}: "
+                                 f"{err / scale} > {TRI_RTOL[dtype_name]}")
+        scipy_err = None
+        if scipy_check and dtype_name == "float64":
+            scipy_err = 0.0
+            for p, li in enumerate(S.A.row_prange.parts):
+                n = li.n_own
+                xe = spsolve_triangular(factors[p][k].tocsr(), b[p, :n].cpu().numpy(),
+                                        lower=d == "f")
+                e = np.abs(got[p, :n].cpu().numpy() - xe).max() / max(np.abs(xe).max(), 1.0)
+                scipy_err = max(scipy_err, float(e))
+            if not scipy_err < 1e-10:
+                raise AssertionError(f"tile_gs_sweeps {name} of {where}: {scipy_err} from "
+                                     "spsolve_triangular")
+        x_t = zero.clone()
+
+        def solve(**kw):
+            return lambda: tile_gs_sweeps(*tg.operands(), x_t, b, (d,), zero_guess=True,
+                                          tile_lanes=tg.tile_lanes, **kw)
+
+        work = _tile_work(tg, (d,), b.element_size())
+        b_ms, b_by = bound(*work, _flops(dtype_name))
+        dev_ms = device_ms(solve(), 10)
+        step0, step1 = (device_ms(solve(_n_steps=n), 10) for n in (0, 1))
+        row = {
+            "kernel": "tile_gs_sweeps", "mode": "triangular solve (topo, one direction)",
+            "dtype": dtype_name, "where": f"{name} of {where}", "P": P,
+            "tiles": tg.n_real_tiles, "W": tg.W, "B": tg.B, "K_off": tg.cols.shape[1],
+            "launches_per_call": 1, "max_abs_err": err, "max_rel_err": err / scale,
+            "tol_rel": TRI_RTOL[dtype_name], "spsolve_triangular_rel_err": scipy_err,
+            "ms": time_ms(solve(), 10), "device_ms": dev_ms,
+            "plain_ms": time_ms(lambda: tile_gs_sweeps_plain(*tg.operands(), zero.clone(), b,
+                                                             (d,), zero_guess=True), 2),
+            "bytes": work[0], "ops": work[1], "bound_ms": b_ms, "bound_by": b_by,
+            "steps_device_ms": [[0, step0], [1, step1], [tg.W, dev_ms]],
+            "latency_floor_ms": None if step0 is None or step1 is None
+            else tg.W * (step1 - step0),
+        }
+        lib, why = _sparse_triangular_library(tg, factors[0][k], b)
+        if lib is not None:
+            xe = lib()[:, 0]
+            n = xe.shape[0]
+            row["library_max_abs_err"] = (xe - want[0, :n]).abs().max().item()
+            row["library_ms"] = time_ms(lib, 5)
+            row["library_device_ms"] = device_ms(lib, 5)
+        else:
+            row["library_ms"] = None
+            row["library_none"] = why
+        results.append(row)
+
+
+def _schwarz_solve(counters, A, b, S, rtol, maxiter):
+    """CG on A x = b preconditioned by S, launches counted: (x, info,
+    seconds, launches) and the true float64 relative residual."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.psparse import to_global_scipy
+    from partitionedarrays_tpu_torch.pvector import collect
+    from partitionedarrays_tpu_torch.solvers.krylov import cg
+
+    (x, info), seconds, counts = _timed(counters, lambda: cg(A, b, M=S, rtol=rtol,
+                                                            maxiter=maxiter))
+    G = to_global_scipy(A).astype(np.float64)
+    bg, xg = collect(b).astype(np.float64), collect(x).astype(np.float64)
+    relres = float(np.linalg.norm(bg - G @ xg) / np.linalg.norm(bg))
+    return x, info, seconds, counts, relres
+
+
+def phase_schwarz(device, counters):
+    """The Schwarz tier through the port's entry points (``SCHWARZ_RUNS``,
+    ``SCHWARZ_PARTS_RUNS``, ``AMG_SCHWARZ_RUNS``), each path's launch counts
+    set to 0 just before its solves and read just after: ``schwarz_ilu0``
+    (bench.py:580-617), ``schwarz_ilu0_parts`` and
+    ``amg_schwarz_elasticity``.  Then K6 in one-direction mode, K1 (A.p, a
+    residual) and K5 (the own-ghost block, a coarse residual) on those
+    paths' operands against their plain versions (not counted).  Returns
+    (the three paths' launches, kernel rows)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.gallery import (
+        linear_elasticity_fem, node_coordinates_unit_cube, nullspace_linear_elasticity,
+    )
+    from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
+    from partitionedarrays_tpu_torch.psparse import psparse, spmv
+    from partitionedarrays_tpu_torch.pvector import pones
+    from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
+    from partitionedarrays_tpu_torch.solvers.smoothers import AdditiveSchwarz
+
+    failures, results = [], []
+    launches = {p: {k: 0 for k in counters}
+                for p in ("schwarz_ilu0", "schwarz_ilu0_parts", "amg_schwarz_elasticity")}
+    g = torch.Generator().manual_seed(1010)
+
+    def add(path, counts):
+        for k, v in counts.items():
+            launches[path][k] += v
+
+    for path, local, parts, runs in (
+        ("schwarz_ilu0", SCHWARZ_LOCAL, (1, 1, 1), SCHWARZ_RUNS),
+        ("schwarz_ilu0_parts", SCHWARZ_LOCAL, SCHWARZ_PARTS, SCHWARZ_PARTS_RUNS),
+    ):
+        for dtype, (lo, hi) in runs:
+            key = f"{path} {dtype}"
+            A, b = build_hpcg_problem(local, parts, SerialBackend(int(np.prod(parts))),
+                                      dtype=getattr(np, dtype), device=device)
+            A.device()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            S = AdditiveSchwarz(A, mode="ilu0")
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t0
+            x, info, seconds, counts, relres = _schwarz_solve(counters, A, b, S, SCHWARZ_RTOL,
+                                                              SCHWARZ_MAXITER)
+            add(path, counts)
+            rec = {
+                "rows": A.shape[0], "parts": A.row_prange.n_parts, "mode": S.mode,
+                "factors": _schwarz_factors(S), "setup_s": setup,
+                "iterations": info.iterations, "anchor": [lo, hi],
+                "cg_residual": float(info.residual), "true_relres": relres, "solve_s": seconds,
+                "launches_per_solve": counts, "apply_ms": time_ms(lambda: S(b), 10),
+                "apply_device_ms": device_ms(lambda: S(b), 10),
+            }
+            emit(f"4h {key}", rec)
+            if not lo <= info.iterations <= hi:
+                failures.append(f"{key}: {info.iterations} CG iterations, not in [{lo}, {hi}]")
+            if counts["tile_gs_sweeps"] != 2 * (info.iterations + 1):
+                failures.append(f"{key}: {counts['tile_gs_sweeps']} K6 launches for "
+                                f"{info.iterations} iterations (2 per Schwarz apply)")
+            _hold_tri(results, f"{key} {'x'.join(map(str, parts))}x{local[0]}^3", S, dtype,
+                      g, device)
+            oo = A.device().oo
+            xs = torch.randn(oo.vals.shape[0], oo.n_cols_pad, generator=g,
+                             dtype=A.dtype).to(device)
+            _hold_k1(results, f"A.p of {key}", oo, xs)
+            if A.col_layout().n_ghost_pad:
+                _hold_k5_blocks(results, key, [("own-ghost", A.device().oh)], dtype, g, device)
+            del A, b, S, x
+            torch.cuda.empty_cache()
+
+    # amg_schwarz_elasticity: phase 4d's workload with Schwarz level smoothers
+    for nodes, dtype, iter_range, limit in AMG_SCHWARZ_RUNS:
+        key = f"amg_schwarz_elasticity {dtype}@{nodes[0]}^3"
+        t0 = time.perf_counter()
+        A = psparse(*linear_elasticity_fem(nodes, (1, 1, 1), dtype=getattr(np, dtype)),
+                    SerialBackend(1), device=device)
+        A.device()
+        torch.cuda.synchronize()
+        assembly = time.perf_counter() - t0
+        coords, _ = node_coordinates_unit_cube(nodes, (1, 1, 1))
+        t0 = time.perf_counter()
+        M = AMGPreconditioner(A, AMGParams(smoother="schwarz", **AMG_PARAMS),
+                              nullspace=nullspace_linear_elasticity(coords))
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device=device))
+        x, info, seconds, counts, relres = _schwarz_solve(counters, A, b, M, AMG_RTOL,
+                                                          AMG_MAXITER)
+        add("amg_schwarz_elasticity", counts)
+        tiers = [lev.smoother.mode for lev in M.levels if lev.smoother is not None]
+        rec = {
+            "rows": A.shape[0], "assembly_s": assembly, "setup_s": setup,
+            "levels": _level_info(M), "tiers": tiers, "iterations": info.iterations,
+            "anchor": iter_range, "cg_residual": float(info.residual), "true_relres": relres,
+            "solve_s": seconds, "launches_per_solve": counts,
+            "vcycle": _vcycle(counters, M, b) if nodes == AMG_KERNEL_NODES else None,
+        }
+        emit(f"4h {key}", rec)
+        if iter_range is not None and not iter_range[0] <= info.iterations <= iter_range[1]:
+            failures.append(f"{key}: {info.iterations} CG iterations, not in {iter_range}")
+        if info.iterations >= AMG_MAXITER or not relres <= limit:
+            failures.append(f"{key}: {info.iterations} iterations, true relres {relres} > {limit}")
+        if nodes == AMG_KERNEL_NODES:
+            if not {"ilu0", "dense"} <= set(tiers):
+                failures.append(f"{key}: Schwarz tiers {tiers}, not both ilu0 and dense")
+            for l, lev in enumerate(M.levels):
+                if lev.smoother is not None and lev.smoother.mode == "ilu0":
+                    _hold_tri(results, f"level {l} of {key}", lev.smoother, dtype, g, device,
+                              scipy_check=False)
+            # K1: the fine operator (A.p and the level-0 residual); K5: the
+            # level-1 residual (P and P^T: phase 4d, the same matrices)
+            oo = A.device().oo
+            xs = torch.randn(1, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
+            _hold_k1(results, f"A of {key}", oo, xs)
+            _hold_k5_blocks(results, key, [("A1", M.levels[1].A.device().oo)], dtype, g, device)
+        del A, M, b, x
+        torch.cuda.empty_cache()
+    emit("4h kernels K6 (triangular solves), K1, K5", results)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, results
+
+
 def _cross_amg_box_parts(device):
     """The box AMG-CG on (2,2,2) parts of 8^3 (the ghosted flat cycle) on
     the card against the CPU, float64: the residual norm after each
@@ -2303,6 +2653,9 @@ def main() -> int:
     reuse_launches, reuse_results = phase_reuse(device, counters)
     launches.update(reuse_launches)
     kernel_results += reuse_results
+    schwarz_launches, schwarz_results = phase_schwarz(device, counters)
+    launches.update(schwarz_launches)
+    kernel_results += schwarz_results
     emit("5 launches", launches)
     missing = [
         f"{path}:{k}" for path, names in PATH_KERNELS.items() for k in names
@@ -2316,7 +2669,7 @@ def main() -> int:
     # one row per kernel: its float32 measurement (K7: df64 at the 128^3
     # one-part shape; K6: a symmetric sweep of level 1 of the 40^3
     # elasticity hierarchy; K2, K5 and their library calls with the L2
-    # flushed before each call), its launches over the eleven paths' runs
+    # flushed before each call), its launches over the fourteen paths' runs
     # (calls of the kernel's C entry: K3 and K6 one per sweep sequence)
     rows = []
     for kname, (source, replaces) in KERNELS.items():

@@ -16,7 +16,10 @@ assembly of ``models/gallery.py``'s problems and smoothed-aggregation AMG
 (``solvers/amg.py``) on one part and on many parts of the serial backend,
 the fixed-sparsity reuse tier (``psparse_refill``, ``psystem_refill``,
 the ``_into`` products, ``AMGPreconditioner.update``) and the Newton and
-backward-Euler layers (``solvers/nonlinear.py``, ``solvers/ode.py``); see
+backward-Euler layers (``solvers/nonlinear.py``, ``solvers/ode.py``), and
+additive Schwarz (``AdditiveSchwarz``: dense LU or ILU(0) local solves, the
+latter as exact triangular solves on the tile kernel; also as AMG level
+smoothers) with the native host setup library (``ops/native.py``); see
 ROADMAP.md.
 """
 from . import config
@@ -24,8 +27,11 @@ from .backends import SerialBackend
 from .models.hpcg import HPCGMGPreconditioner, build_hpcg_problem, hpcg_benchmark
 from .psparse import PSparseMatrix, psparse_refill, psystem, psystem_refill, spmv
 from .pvector import PVector, axpy, pdot, pnorm, pones, pvector_from_own, pzeros
+from .solvers.amg import AMGParams, AMGPreconditioner
+from .solvers.interfaces import additive_schwarz_solver
 from .solvers.nonlinear import newton_raphson
 from .solvers.ode import backward_euler
+from .solvers.smoothers import AdditiveSchwarz, additive_schwarz
 
 __all__ = [
     "config",
@@ -40,6 +46,11 @@ __all__ = [
     "spmv",
     "newton_raphson",
     "backward_euler",
+    "AMGParams",
+    "AMGPreconditioner",
+    "AdditiveSchwarz",
+    "additive_schwarz",
+    "additive_schwarz_solver",
     "PVector",
     "axpy",
     "pdot",

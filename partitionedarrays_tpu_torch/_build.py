@@ -68,11 +68,11 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, _VP, _VP, ctypes.POINTER(_INT), _INT, _I64, _I64, _INT, _VP,
     ],
     # pack, rows, cols, vals, tile_ptr, tile_lanes, wave_tiles, steps
-    # (device int [n_steps]), b, x, n_steps, nt, B, W, Nr, K, P, x in
-    # shared memory (1, 0, -1: where it fits), stream
+    # (device int [n_steps]), b, x, n_steps, nt, D (planes per tile), B, W,
+    # Nr, K, P, x in shared memory (1, 0, -1: where it fits), stream
     "pat_tile_gs_sweeps": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-        _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP,
+        _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP,
     ],
 }
 DTYPE_SUFFIX = {"float32": "f32", "float64": "f64"}

@@ -19,6 +19,16 @@
 // wave step never read each other's rows: reading the live x is exact, as
 // the TPU's sequential grid made it there (gs_slot.py:612-617).
 //
+// The same kernel runs the exact triangular solves of the ILU(0) Schwarz
+// tier (solvers/smoothers.py::AdditiveSchwarz): with the level schedule
+// (topo) every tile's off-tile neighbours of lower index lie in earlier
+// waves, so a zero-guess forward sweep on the unit-lower factor L reads
+// only rows that earlier steps finished (published to every CTA's copy of
+// x before the cluster barrier that ends their step) and rows still at
+// the zero guess that L does not couple: the forward substitution.  The
+// reverse sweep on U is the backward one.  D = 1 there (one direction per
+// factor).
+//
 // One launch runs a whole sequence of wave steps (every direction of a
 // call), as the TPU's one pallas_call does.  The steps travel as a device
 // int32 array, step s = w * 4 + zero_old * 2 + dir (ops/tile_gs.py::
@@ -27,12 +37,17 @@
 // direction.
 //
 // Layouts (all contiguous, P parts stacked first):
-//   pack       [P, 2, nt, 128, 128]: per part, direction (0 forward, 1
-//              backward) and tile, one packed plane F with F[q][r] the
-//              entry (r, q) of M + N.  M and N are disjoint triangles: for
-//              forward M holds q <= r and N q > r, for backward M holds
-//              q >= r and N q < r (the reference's transposed storage,
-//              gs_slot.py:384-389).
+//   pack       [P, D, nt, 128, 128]: per part, direction and tile, one
+//              packed plane F with F[q][r] the entry (r, q) of M + N.  M
+//              and N are disjoint triangles: for forward M holds q <= r and
+//              N q > r, for backward M holds q >= r and N q < r (the
+//              reference's transposed storage, gs_slot.py:384-389).  D = 2
+//              holds both directions (plane 0 forward, 1 backward); D = 1
+//              one direction's planes, read by every step of the call
+//              whatever its direction (the reference's slab 0 of a
+//              one-direction pack, gs_slot.py:513-515).  The direction of
+//              a step, which picks the triangles, comes from its step
+//              entry, never from the plane index.
 //   rows       [P, Nr], cols [P, K, Nr], vals [P, K, Nr]: the off-tile
 //              entries as compressed rows (the K5 layout of
 //              ops/blocks.py::stack_rows), the rows ascending, so tile t's
@@ -140,6 +155,7 @@ struct Part {
   const int* waves;  // [W, B]
   const T* b;
   T* x;
+  int D;  // planes per tile: 2 (one per direction) or 1
 };
 
 // What a CTA's step reads of its tile: the tile (-1: none), its compressed
@@ -186,7 +202,8 @@ __device__ __forceinline__ void tile_step(const Part<T>& pt, T* small, T* x_s, i
   const int row = on && j == 0 ? __ldg(pt.rows + c) - row0 : 0;
   const int r = tid % kTile;
   const int q0 = (tid / kTile) * kQ;
-  const T* F = pt.pack + ((long long)dir * nt + t) * (kTile * kTile) + r;
+  const int plane = pt.D == 2 ? dir : 0;
+  const T* F = pt.pack + ((long long)plane * nt + t) * (kTile * kTile) + r;
   T f[kQ];
   if (sizeof(T) == 4) load_plane(f, F, q0);  // float64: after (1), for registers
   T bt = T(0);
@@ -268,8 +285,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const int* __restrict__ tile_lanes,
                        const int* __restrict__ wave_tiles,
                        const int* __restrict__ steps, int n_steps,
-                       const T* __restrict__ b, T* x, int nt, int B, int W, int Nr,
-                       int K) {
+                       const T* __restrict__ b, T* x, int nt, int D, int B, int W,
+                       int Nr, int K) {
   // shared memory: the step table, red/ys/rs/xt, and x (X_SMEM)
   Step* meta = reinterpret_cast<Step*>(tile_smem);
   T* small = reinterpret_cast<T*>(meta + kMetaSteps);
@@ -277,10 +294,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const long long p = blockIdx.y;
   const int Rp = nt * kTile;
   const Part<T> pt = {
-      pack + p * 2 * nt * (long long)(kTile * kTile), rows + p * Nr,
+      pack + p * D * nt * (long long)(kTile * kTile), rows + p * Nr,
       cols + p * K * (long long)Nr, vals + p * K * (long long)Nr,
       tile_ptr + p * (nt + 1), tile_lanes + p * nt, wave_tiles + p * W * (long long)B,
-      b + p * Rp, x + p * Rp,
+      b + p * Rp, x + p * Rp, D,
   };
   const int j = blockIdx.x;
   for (int s0 = 0; s0 < n_steps; s0 += kMetaSteps) {
@@ -332,8 +349,8 @@ size_t smem_bytes(bool x_smem, int nt) {
 template <typename T, bool X_SMEM>
 int launch_x(const T* pack, const int* rows, const int* cols, const T* vals,
              const int* tile_ptr, const int* tile_lanes, const int* wave_tiles,
-             const int* steps, int n_steps, const T* b, T* x, int nt, int B, int W,
-             int Nr, int K, int P, cudaStream_t stream) {
+             const int* steps, int n_steps, const T* b, T* x, int nt, int D, int B,
+             int W, int Nr, int K, int P, cudaStream_t stream) {
   auto kernel = tile_sweeps_kernel<T, X_SMEM>;
   const size_t smem = smem_bytes<T>(X_SMEM, nt);
   if (smem > (size_t)max_smem_optin()) return (int)cudaErrorInvalidValue;
@@ -357,7 +374,7 @@ int launch_x(const T* pack, const int* rows, const int* cols, const T* vals,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, kernel, pack, rows, cols, vals, tile_ptr, tile_lanes,
-                                 wave_tiles, steps, n_steps, b, x, nt, B, W, Nr, K);
+                                 wave_tiles, steps, n_steps, b, x, nt, D, B, W, Nr, K);
 }
 
 // x_smem: 1 keeps x in shared memory (refused if it does not fit), 0 reads
@@ -365,20 +382,21 @@ int launch_x(const T* pack, const int* rows, const int* cols, const T* vals,
 template <typename T>
 int launch(const T* pack, const int* rows, const int* cols, const T* vals,
            const int* tile_ptr, const int* tile_lanes, const int* wave_tiles,
-           const int* steps, int n_steps, const T* b, T* x, int nt, int B, int W,
+           const int* steps, int n_steps, const T* b, T* x, int nt, int D, int B, int W,
            int Nr, int K, int P, int x_smem, cudaStream_t stream) {
   int code = (int)cudaErrorInvalidValue;
   // B <= 8: one cluster of B CTAs per part, the portable cluster size
-  if (n_steps >= 0 && nt >= 1 && B >= 1 && B <= 8 && W >= 1 && Nr >= 0 && K >= 0 &&
+  if (n_steps >= 0 && nt >= 1 && (D == 1 || D == 2) && B >= 1 && B <= 8 && W >= 1 &&
+      Nr >= 0 && K >= 0 &&
       P >= 1 && P <= 65535 && (long long)nt * kTile <= INT_MAX &&
       (long long)K * Nr <= INT_MAX) {
     if (x_smem < 0) x_smem = smem_bytes<T>(true, nt) <= (size_t)max_smem_optin();
     code = x_smem ? launch_x<T, true>(pack, rows, cols, vals, tile_ptr, tile_lanes,
-                                      wave_tiles, steps, n_steps, b, x, nt, B, W, Nr, K,
-                                      P, stream)
+                                      wave_tiles, steps, n_steps, b, x, nt, D, B, W, Nr,
+                                      K, P, stream)
                   : launch_x<T, false>(pack, rows, cols, vals, tile_ptr, tile_lanes,
-                                       wave_tiles, steps, n_steps, b, x, nt, B, W, Nr, K,
-                                       P, stream);
+                                       wave_tiles, steps, n_steps, b, x, nt, D, B, W, Nr,
+                                       K, P, stream);
   }
   // a refused launch must not leave its error behind for the next launch's
   // cudaGetLastError()
@@ -394,12 +412,12 @@ int pat_tile_gs_sweeps_f32(const void* pack, const void* rows, const void* cols,
                            const void* vals, const void* tile_ptr,
                            const void* tile_lanes, const void* wave_tiles,
                            const void* steps, const void* b, void* x, int n_steps,
-                           int nt, int B, int W, int Nr, int K, int P, int x_smem,
-                           void* stream) {
+                           int nt, int D, int B, int W, int Nr, int K, int P,
+                           int x_smem, void* stream) {
   return launch<float>((const float*)pack, (const int*)rows, (const int*)cols,
                        (const float*)vals, (const int*)tile_ptr, (const int*)tile_lanes,
                        (const int*)wave_tiles, (const int*)steps, n_steps,
-                       (const float*)b, (float*)x, nt, B, W, Nr, K, P, x_smem,
+                       (const float*)b, (float*)x, nt, D, B, W, Nr, K, P, x_smem,
                        (cudaStream_t)stream);
 }
 
@@ -407,13 +425,13 @@ int pat_tile_gs_sweeps_f64(const void* pack, const void* rows, const void* cols,
                            const void* vals, const void* tile_ptr,
                            const void* tile_lanes, const void* wave_tiles,
                            const void* steps, const void* b, void* x, int n_steps,
-                           int nt, int B, int W, int Nr, int K, int P, int x_smem,
-                           void* stream) {
+                           int nt, int D, int B, int W, int Nr, int K, int P,
+                           int x_smem, void* stream) {
   return launch<double>((const double*)pack, (const int*)rows, (const int*)cols,
                         (const double*)vals, (const int*)tile_ptr,
                         (const int*)tile_lanes, (const int*)wave_tiles,
-                        (const int*)steps, n_steps, (const double*)b, (double*)x, nt, B,
-                        W, Nr, K, P, x_smem, (cudaStream_t)stream);
+                        (const int*)steps, n_steps, (const double*)b, (double*)x, nt, D,
+                        B, W, Nr, K, P, x_smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -9,11 +9,18 @@ tiles; each wave step sets, for every tile t of the wave,
     x_t <- M_t (b_t - y_t - N_t x_t)
 
 with y_t the off-tile coupling against the live x and, forward,
-M = (D+L)^-1, N = U, backward M = (D+U)^-1, N = L (waves reversed).  The
+M = (D+L)^-1, N = U, backward M = (D+U)^-1, N = L (waves reversed).  Under
+the level schedule of a triangular factor (``NaturalTileGS.build(...,
+topo=True)``) a zero-guess forward sweep is the exact forward substitution
+and a backward sweep the exact backward one: the ILU(0) Schwarz tier.  The
 operands (all with the part axis first):
 
-- ``pack[P, 2, nt, 128, 128]``: per direction and tile the packed plane
+- ``pack[P, D, nt, 128, 128]``: per direction and tile the packed plane
   ``F[q, r]`` = entry (r, q) of M + N (the reference's transposed storage);
+  D = 2 holds forward then backward, D = 1 one direction's planes, which
+  every step of the call reads (the reference's one-direction pack,
+  ``gs_slot.py:513-515``); a step's direction always comes from
+  ``dir_seq``;
 - ``rows[P, Nr]``, ``cols[P, K, Nr]``, ``vals[P, K, Nr]``: the off-tile
   entries as compressed rows (the K5 layout), rows ascending;
 - ``tile_ptr[P, nt + 1]``: tile t's compressed rows are
@@ -95,7 +102,7 @@ def tile_gs_sweeps_plain(
     product with rhs, as the reference's XLA twin (``gs_slot.py:611-640``).
     ``zero_guess`` is accepted for the kernel's signature: x_old is then
     zero, so the product with N adds zeros.  Returns x."""
-    P, _, nt = pack.shape[:3]
+    P, D, nt = pack.shape[:3]
     W = wave_tiles.shape[1]
     xt = x.view(P, nt, TILE)
     bt = b.view(P, nt, TILE)
@@ -111,7 +118,7 @@ def tile_gs_sweeps_plain(
                 if not tiles:
                     continue
                 T = torch.tensor(tiles, device=x.device)
-                F = pack[p, di, T]  # [nb, q, r]
+                F = pack[p, di if D == 2 else 0, T]  # [nb, q, r]
                 M = torch.where(masks[di], F, torch.zeros_like(F))
                 N = F - M
                 contrib = torch.einsum("tq,tqr->tr", xt[p, T], N)
@@ -139,11 +146,11 @@ def tile_gs_sweeps(
     ``_x_in_smem`` forces where x lives (True raises where it does not
     fit): private hooks for the GPU tests and ``chip_smoke.py``, which time
     a launch of 0 and 1 step and both places of x."""
-    P, two, nt = pack.shape[:3]
+    P, D, nt = pack.shape[:3]
     Nr = rows.shape[1]
     K = cols.shape[1]
     W, B = wave_tiles.shape[1:]
-    if two != 2 or tuple(pack.shape[3:]) != (TILE, TILE):
+    if D not in (1, 2) or tuple(pack.shape[3:]) != (TILE, TILE):
         raise ValueError(f"tile_gs_sweeps: pack {tuple(pack.shape)}")
     if tuple(x.shape) != (P, nt * TILE) or tuple(b.shape) != (P, nt * TILE):
         raise ValueError(f"tile_gs_sweeps: x {tuple(x.shape)}, b {tuple(b.shape)} for {nt} tiles")
@@ -184,7 +191,7 @@ def tile_gs_sweeps(
     code = _build.entry("pat_tile_gs_sweeps", x.dtype)(
         pack.data_ptr(), rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), tile_ptr.data_ptr(),
         tile_lanes.data_ptr(), wave_tiles.data_ptr(), steps.data_ptr(), b.data_ptr(),
-        x.data_ptr(), steps.numel(), nt, B, W, Nr, K, P,
+        x.data_ptr(), steps.numel(), nt, D, B, W, Nr, K, P,
         -1 if _x_in_smem is None else int(_x_in_smem), _build.stream_of(x),
     )
     tile_gs_sweeps.launches += 1

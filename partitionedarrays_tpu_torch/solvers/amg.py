@@ -1,16 +1,17 @@
 """Smoothed-aggregation algebraic multigrid.
 
-Counterpart of ``partitionedarrays_tpu/solvers/amg.py``: ``aggregate`` (the
-Python version, :51-102), ``strength_graph`` and ``aggregate_psparse``
-(:105-182), ``_detect_box`` and ``box_aggregate_psparse`` (:185-242),
+Counterpart of ``partitionedarrays_tpu/solvers/amg.py``: ``aggregate``
+(:51-102, the native library; its Python body is ``aggregate_plain``),
+``strength_graph`` and ``aggregate_psparse`` (:105-182), ``_detect_box`` and ``box_aggregate_psparse`` (:185-242),
 ``constant_prolongator`` and ``tentative_prolongator`` with the
 per-aggregate nullspace QR (:249-340), ``_diag_parts`` and ``_dinv_parts``
 (:343-385), the host power method ``spectral_radius`` (:388-429), ``_make_S``
 and ``smoothed_prolongator`` (:494-545), ``_GalerkinCache`` with its
 reuse plans (:548-664), ``AMGLevel``, ``AMGParams`` and
-``AMGPreconditioner`` (``_setup`` with the box levels' ``struct``
-:717-800, without the reference's ``reuse_aggregates``, whose one caller
-is the re-setup of per-process matrices, ROADMAP Queue 1 item 15;
+``AMGPreconditioner`` (``_setup`` with the box levels' ``struct`` and the
+Schwarz level smoother :717-805, without the reference's
+``reuse_aggregates``, whose one caller is the re-setup of per-process
+matrices, ROADMAP Queue 1 item 15;
 ``_coarse_factorize``, ``update`` :905-942, ``_coarse_solve``, the
 structured transfers :991-1062, the flat
 cycle :1064-1181 and the dispatch of ``_cycle`` :1184-1226 for V and W
@@ -24,8 +25,10 @@ nullspace is aggregated in 3x3x3 boxes, so every coarse operator is again
 a box stencil; its levels apply P = (I - omega D^-1 A) P0 as a 3^3 sum-pool
 or upsample (plain tensor code) beside one SpMV, and never as a matrix.
 The cycle runs on the device: the level smoothers (``GaussSeidel``: the
-colored tier K3/K4 on a DIA band, the tile tier K6 elsewhere), the
-residuals (K1 or K5), the transfers (on a box level whose smoother is
+colored tier K3/K4 on a DIA band, the tile tier K6 elsewhere; or, under
+``smoother="schwarz"``, ``AdditiveSchwarz``: ILU(0) solves on K6 or dense
+LU factors, with which a box level keeps no ``struct`` and applies P as a
+matrix, as in the reference), the residuals (K1 or K5), the transfers (on a box level whose smoother is
 colored, the flat cycle keeps x in the smoother's de-interleaved core and
 applies A by K4; on another box level by K1; elsewhere by the frozen P and
 its transpose on K5), and the coarsest solve as a dense inverse or LU
@@ -40,8 +43,7 @@ a box level with ghost columns takes the ghosted flat cycle
 rhs).  Per-part boxes of unequal shape fall back to generic aggregation,
 as in the reference.  Where the reference takes another branch, the port
 raises ``NotImplementedError`` naming the ROADMAP item, never silently
-taking a different one: the Schwarz level smoother (item 12) and
-per-process matrices (item 15).
+taking a different one: per-process matrices (item 15).
 
 ``update(A)`` re-coarsens for new values of A at the setup's sparsity:
 each level's P, AP and Ac are refilled through its ``_GalerkinCache`` (at
@@ -50,21 +52,20 @@ refreshed, the coarse factors recomputed and every frozen block restacked;
 it never falls back to a new setup.
 
 The reference's ``zsel`` (its z-axis pool as a TPU matmul) is not ported:
-the pool pads all three axes.  ``ops/native.py`` is not ported: the
-Python ``aggregate`` is the reference's fallback, and the tests hold its
-aggregates against the reference's (native) ones.
+the pool pads all three axes.
 """
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import scipy.linalg as sla
 import scipy.sparse as sp
 import torch
 
+from ..ops.native import vanek_aggregate_native
 from ..ops.sparse_host import compresscoo, precompute_nzindex
 from ..parallel.partition import PRange, variable_partition
 from ..parallel.primitives import host_consistent
@@ -82,7 +83,7 @@ from ..psparse import (
     spmv,
 )
 from ..pvector import PVector
-from .smoothers import GaussSeidel
+from .smoothers import AdditiveSchwarz, GaussSeidel
 
 
 def _host_dtype(A: PSparseMatrix) -> np.dtype:
@@ -93,7 +94,16 @@ def _host_dtype(A: PSparseMatrix) -> np.dtype:
 
 def aggregate(A: sp.csr_matrix, epsilon: float = 0.0) -> np.ndarray:
     """Vanek et al. alg. 5.1 aggregation of a local sparse matrix: node ->
-    aggregate id.  Strength: |a_ij| > epsilon * sqrt(a_ii * a_jj)."""
+    aggregate id.  Strength: |a_ij| > epsilon * sqrt(a_ii * a_jj).  Runs
+    the native library (``ops/native.py``), as the reference does."""
+    if A.shape[0] == 0:
+        return np.zeros(0, dtype=np.int64)
+    return vanek_aggregate_native(A, epsilon)
+
+
+def aggregate_plain(A: sp.csr_matrix, epsilon: float = 0.0) -> np.ndarray:
+    """``aggregate`` in Python (the reference's fallback, amg.py:67-102):
+    the plain version the tests hold the native library to."""
     n = A.shape[0]
     if n == 0:
         return np.zeros(0, dtype=np.int64)
@@ -457,14 +467,15 @@ class BoxTransfer(NamedTuple):
 class AMGLevel:
     A: PSparseMatrix
     P: Optional[PSparseMatrix]  # None on the coarsest level
-    smoother: Optional[GaussSeidel]
+    smoother: Optional[Union[GaussSeidel, AdditiveSchwarz]]
     struct: Optional[BoxTransfer] = None  # on a box-aggregated level
 
 
 @dataclass
 class AMGParams:
-    """Level parameters, as the reference's (its ``smoother="schwarz"``
-    raises here: ROADMAP Queue 1 item 12)."""
+    """Level parameters, as the reference's.  ``smoother``: "gs" (the
+    symmetric Gauss-Seidel) or "schwarz" (``AdditiveSchwarz`` of each
+    level, ``smoother_iters`` Richardson corrections an application)."""
 
     max_levels: int = 6
     coarse_size: int = 100
@@ -492,8 +503,8 @@ class AMGPreconditioner:
     def _setup(self, A: PSparseMatrix) -> None:
         """The hierarchy from A."""
         params = self.params
-        if params.smoother != "gs":
-            raise NotImplementedError(f"AMG smoother {params.smoother!r}: ROADMAP Queue 1 item 12")
+        if params.smoother not in ("gs", "schwarz"):
+            raise ValueError(f"AMG smoother {params.smoother!r}: 'gs' or 'schwarz'")
         self.levels: List[AMGLevel] = []
         self._galerkin: List[_GalerkinCache] = []
         self._aggs = []  # (aggregates, coarse PRange) per level
@@ -525,10 +536,15 @@ class AMGPreconditioner:
             gk = _GalerkinCache(current, P0, omega)
             self._galerkin.append(gk)
             struct = None
-            if shapes is not None:
-                struct = BoxTransfer(*shapes, omega, _box_dinv(current))
-            gs = GaussSeidel(current, params.smoother_iters, "symmetric")
-            self.levels.append(AMGLevel(current, gk.P, gs, struct))
+            if params.smoother == "schwarz":
+                # the structured transfers assume a Gauss-Seidel smoother:
+                # a box level then applies P as a matrix
+                smoother = AdditiveSchwarz(current, iterations=params.smoother_iters)
+            else:
+                if shapes is not None:
+                    struct = BoxTransfer(*shapes, omega, _box_dinv(current))
+                smoother = GaussSeidel(current, params.smoother_iters, "symmetric")
+            self.levels.append(AMGLevel(current, gk.P, smoother, struct))
             current = gk.Ac
             if current.shape[0] >= self.levels[-1].A.shape[0]:
                 break  # aggregation stalled

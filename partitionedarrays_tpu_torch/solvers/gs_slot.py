@@ -3,9 +3,10 @@ a colorable DIA band.
 
 Counterpart of ``partitionedarrays_tpu/solvers/gs_slot.py``:
 ``_wave_schedule`` (:73-105, copied verbatim) and ``NaturalTileGS.build``
-(:259-495) with its sweeps (:542-641), split into its structure half
-(``_plan``) and its values half (``refresh``), so that a refresh for new
-values at fixed sparsity keeps the schedule and K6's tables.  The rows of a part are cut into
+(:259-495, with its ``topo`` schedule and its ``directions``) with its
+sweeps (:542-641), split into its structure half (``_plan``) and its values
+half (``refresh``), so that a refresh for new values at fixed sparsity
+keeps the schedule and K6's tables.  The rows of a part are cut into
 128-row tiles.  Tiles are packed greedily into waves of at most B mutually
 uncoupled tiles (no off-tile nonzero joins two tiles of a wave), and a sweep
 visits the waves in order, each tile solved exactly with dense triangular
@@ -20,8 +21,17 @@ reference's transposed layout and cast to the working type (:379-389).
 What is not: the slot plan (``ops/slot_spmv.py::build_slot_plan``, a TPU
 layout; the off-tile coupling is compressed rows here) and the TPU's
 VMEM/HBM viability gates (:356-362, :374-375, :401-419), so the port never
-declines a block.  The ``topo`` schedule and single-direction packing serve
-the Schwarz ILU(0) tier, which is not ported (ROADMAP Queue 1 item 12).
+declines a block.
+
+``topo=True`` serves the ILU(0) tier of ``smoothers.py::AdditiveSchwarz``:
+the level schedule puts every tile in a wave after all its lower-index
+neighbours, so a zero-guess forward sweep on a unit-lower factor L is its
+exact forward substitution and a reverse sweep on an upper factor U its
+exact backward one.  Each factor needs one direction only, so ``directions``
+packs only those planes (``pack[P, D, nt, 128, 128]``, D = 1 or 2; a
+one-direction pack keeps its planes at index 0 whatever the direction, as
+the reference's slab 0), and a sweep in a direction that was not packed
+raises (:509-512, :599-602).
 """
 from __future__ import annotations
 
@@ -79,25 +89,33 @@ class NaturalTileGS:
     """Sweep state of one matrix: ``schedules[p]`` (part p's forward waves,
     tile ids), ``W`` waves of at most ``B`` tiles, ``n_real_tiles`` tiles of
     ``TILE`` rows (``Rp`` rows with padding), and the device operands of K6
-    (``pack``, ``rows``, ``cols``, ``vals``, ``tile_ptr``,
-    ``wave_tiles``, and the off-tile lanes of each tile's longest row,
-    ``tile_lanes``)."""
+    (``pack`` with one plane per tile for each of ``directions``, ``rows``,
+    ``cols``, ``vals``, ``tile_ptr``, ``wave_tiles``, and the off-tile
+    lanes of each tile's longest row, ``tile_lanes``)."""
 
     @classmethod
-    def build(cls, A) -> "NaturalTileGS":
+    def build(cls, A, topo: bool = False, directions: Sequence[str] = ("f", "b")
+              ) -> "NaturalTileGS":
         """From A's host own-own blocks (``psparse``), computed in their
         dtype as the reference does and stored on A's device in A's device
-        dtype: the structure (``_plan``), then the values
-        (``refresh``)."""
+        dtype: the structure (``_plan``), then the values (``refresh``).
+        ``topo``: the level schedule of the triangular solves;
+        ``directions``: the sweep directions to pack planes for, ("f",),
+        ("b",) or ("f", "b")."""
+        directions = tuple(directions)
+        if directions not in (("f",), ("b",), ("f", "b")):
+            raise ValueError(f"NaturalTileGS: directions {directions}")
         self = cls.__new__(cls)
+        self.topo = bool(topo)
+        self.directions = directions
         self._plan(A)
         self.refresh(A)
         return self
 
     def _plan(self, A) -> None:
-        """The structure half: the tiles, their wave schedule, the
-        off-tile compressed rows and K6's tables, from the sparsity of A's
-        own-own blocks only."""
+        """The structure half: the tiles, their wave schedule (``topo``:
+        the level schedule), the off-tile compressed rows and K6's tables,
+        from the sparsity of A's own-own blocks only."""
         from ..psparse import host_blocks
 
         blocks = host_blocks(A)
@@ -120,11 +138,15 @@ class NaturalTileGS:
             out = np.flatnonzero(~inside)
             off_src.append(sp.csr_matrix((out.astype(np.int64) + 1, (oo.row[out], oo.col[out])),
                                          shape=(Rp, Rp)))
+            # the tile graph from the distinct coupled tile pairs (numpy's
+            # unique: the reference's set of zipped pairs, without a Python
+            # tuple per off-tile entry)
             adj = [set() for _ in range(nt)]
-            for a, b_ in set(zip(tr[~inside].tolist(), tc[~inside].tolist())):
+            pairs = np.unique(tr[out].astype(np.int64) * nt + tc[out])
+            for a, b_ in zip(*(v.tolist() for v in np.divmod(pairs, nt))):
                 adj[a].add(b_)
                 adj[b_].add(a)
-            schedules.append(_wave_schedule(adj, nt, B))
+            schedules.append(_wave_schedule(adj, nt, B, topo=self.topo))
         W = max(max((len(s) for s in schedules), default=1), 1)
         # shrink B to the largest wave: on densely coupled tile graphs the
         # waves degenerate toward single tiles
@@ -152,10 +174,10 @@ class NaturalTileGS:
         self.tile_lanes = torch.from_numpy(tile_lane_counts(cols, tile_ptr)).to(dev)
 
     def refresh(self, A) -> None:
-        """The values half: the packed inverse planes ``pack`` and the
-        off-tile values ``vals`` of K6 from the values of A's own-own
-        blocks, whose sparsity must be the one planned; the schedule and
-        the tables are kept."""
+        """The values half: the packed inverse planes ``pack`` (of the
+        packed directions only) and the off-tile values ``vals`` of K6 from
+        the values of A's own-own blocks, whose sparsity must be the one
+        planned; the schedule and the tables are kept."""
         from ..psparse import host_blocks
 
         blocks = host_blocks(A)
@@ -176,14 +198,17 @@ class NaturalTileGS:
         dense[:, :, di, di] = np.where(dvals == 0, 1.0, dvals)
         # the packed planes, stored transposed as the reference's:
         # fwd = (D+L)^-T (q <= r) + U^T (q > r), bwd = (D+U)^-T + L^T
-        m_fwd_t = np.swapaxes(np.linalg.inv(np.tril(dense)), -1, -2)
-        m_bwd_t = np.swapaxes(np.linalg.inv(np.triu(dense)), -1, -2)
-        u_t = np.swapaxes(np.triu(dense, 1), -1, -2)
-        l_t = np.swapaxes(np.tril(dense, -1), -1, -2)
+        planes = []
+        for d in self.directions:
+            if d == "f":
+                m_t = np.swapaxes(np.linalg.inv(np.tril(dense)), -1, -2)
+                n_t = np.swapaxes(np.triu(dense, 1), -1, -2)
+            else:
+                m_t = np.swapaxes(np.linalg.inv(np.triu(dense)), -1, -2)
+                n_t = np.swapaxes(np.tril(dense, -1), -1, -2)
+            planes.append((m_t + n_t).astype(dtype))
         # (stack keeps the transposed memory order: K6 reads the logical one)
-        pack = np.ascontiguousarray(
-            np.stack([(m_fwd_t + u_t).astype(dtype), (m_bwd_t + l_t).astype(dtype)], axis=1)
-        )
+        pack = np.ascontiguousarray(np.stack(planes, axis=1))
         vals = np.zeros(self._off_src.shape, dtype=dtype)
         for k, data in enumerate(datas):
             lanes = self._off_src[k] > 0
@@ -199,7 +224,11 @@ class NaturalTileGS:
     def sweeps(self, xo: Optional[torch.Tensor], bo: torch.Tensor, dir_seq: Sequence[str]):
         """The sweeps of ``dir_seq`` on own values ``xo`` [P, n] (None: a
         zero guess) for the rhs ``bo`` [P, n]; returns the new own values
-        [P, n].  x and b are padded to ``Rp`` rows with zeros."""
+        [P, n].  x and b are padded to ``Rp`` rows with zeros.  A direction
+        that was not packed raises."""
+        for d in dir_seq:
+            if d not in self.directions:
+                raise ValueError(f"direction {d!r} was not packed (directions={self.directions})")
         P, n = bo.shape
         x = bo.new_zeros((P, self.Rp))
         if xo is not None:

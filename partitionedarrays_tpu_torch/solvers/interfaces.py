@@ -7,9 +7,9 @@ that the ported solvers carry: ``LinearProblem``, ``LinearSolverBase``,
 and ``richardson_solver``, and ``solve``, ``preconditioner``, ``smooth``
 and ``history``.  A solver has ``solve(problem)``, ``update(problem)``
 (same sparsity, new values) and ``finalize()``.  ``amg_solver`` runs
-``solvers/amg.py``'s preconditioner as a Richardson iteration;
-``additive_schwarz_solver`` raises until its slice is ported (ROADMAP
-Queue 1 item 12).  ``NonlinearProblem`` and ``ODEProblem`` (:37-57) are
+``solvers/amg.py``'s preconditioner as a Richardson iteration, and
+``additive_schwarz_solver`` (:173-176) ``smoothers.py::AdditiveSchwarz``.
+``NonlinearProblem`` and ``ODEProblem`` (:37-57) are
 the problems of ``solvers/nonlinear.py`` and ``solvers/ode.py``.
 """
 from __future__ import annotations
@@ -177,8 +177,10 @@ def lu_solver() -> LUSolver:
     return LUSolver()
 
 
-def additive_schwarz_solver(iterations=3, local_solver=None):
-    raise NotImplementedError("additive_schwarz_solver: ROADMAP Queue 1 item 12")
+def additive_schwarz_solver(iterations=3, local_solver=None) -> SmootherSolver:
+    from .smoothers import AdditiveSchwarz
+
+    return SmootherSolver(lambda A: AdditiveSchwarz(A, local_solver), iterations)
 
 
 def amg_solver(params=None, nullspace=None, iterations=1) -> SmootherSolver:

@@ -11,9 +11,9 @@ Then the device cycle's remaining branches against the reference, float64
 at 1e-10 of the largest entry: the W-cycle, and the LU coarse solve (a
 coarsest level above 512 rows).  Where the reference's
 ``box_aggregate_psparse`` succeeds, the port builds the same structured
-levels (their cycles: ``test_torch_amg_box_{f64,f32}.py``); the branches
-the port does not take raise ``NotImplementedError`` naming the ROADMAP
-item: ``update`` and the Schwarz smoother.
+levels (their cycles: ``test_torch_amg_box_{f64,f32}.py``); with the
+Schwarz level smoother the same box operator keeps no structured
+transfer, and its levels and V-cycle match the reference's (1e-10).
 """
 import importlib
 
@@ -168,8 +168,20 @@ def test_unported_branches_raise():
     # update is ported: it refills the hierarchy in place, never re-setting up
     galerkin = list(M_box._galerkin)
     assert M_box.update(A) is M_box and M_box._galerkin == galerkin
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        amg.AMGPreconditioner(A, amg.AMGParams(coarse_size=10, smoother="schwarz"))
+    # the Schwarz level smoother (dense tier on these small levels): no
+    # struct, P applied as a matrix, the reference's levels and cycle
+    params = dict(coarse_size=10, smoother="schwarz")
+    S = amg.AMGPreconditioner(A, amg.AMGParams(**params))
+    S_ref = jax_amg.AMGPreconditioner(A_ref, jax_amg.AMGParams(**params))
+    assert S.statistics() == S_ref.statistics()
+    assert all(lev.struct is None for lev in S.levels) and not S._flat_ok(0)
+    assert ([getattr(lev.smoother, "mode", None) for lev in S.levels]
+            == [getattr(lev.smoother, "mode", None) for lev in S_ref.levels][: len(S.levels)])
+    own = [np.random.default_rng(9).standard_normal(A.shape[0])]
+    z = cases.own(S(pvector_from_own(own, A.row_prange, A.backend, device="cpu")), A.shape[0])
+    z_ref = cases.own(S_ref(jax_pvector.pvector_from_own(own, A_ref.row_prange, A_ref.backend)),
+                      A.shape[0])
+    np.testing.assert_allclose(z, z_ref, rtol=0, atol=1e-10 * np.abs(z_ref).max())
     M = amg.AMGPreconditioner(A, amg.AMGParams(coarse_size=10), nullspace=amg.default_nullspace(A))
     M._galerkin.pop()
     with pytest.raises(RuntimeError, match="no reuse plans"):

@@ -27,7 +27,10 @@ restrictions and coarse operators of the 8^3-node elasticity hierarchy
 under every warps-per-group count.  Across parts: K6 with P = 8 clusters
 on the fine tile level of 3-D elasticity on (2,2,2) parts of unequal size,
 and K5 on the own-ghost blocks and their transposes (``spmtv``) of that
-hierarchy and of a matrix with a part that has no ghost columns.
+hierarchy and of a matrix with a part that has no ghost columns.  K6 in
+one-direction mode: the triangular solves of the ILU(0) Schwarz tier on
+four parts and on the 16^3 HPCG operator, against the plain version and,
+in float64, against scipy's ``spsolve_triangular``.
 
 Every test is marked ``gpu`` and skips without a CUDA card.  This module
 imports torch and the port only (no JAX), so that it also runs on a
@@ -555,6 +558,65 @@ def test_ghost_spmv_kernel_on_amg_blocks_every_g(cuda, dtype):
             got = ghost_spmv(blk.rows, blk.cols, blk.vals, x, y0.clone(), plan)
             assert ghost_spmv.launches == before + 1
             _assert_close(got, want, dtype)
+
+
+def _schwarz_ilu0(device, dtype):
+    """The ILU(0) Schwarz smoothers of the 2-D FEM Laplacian on (4,1) parts
+    (576 rows a part: W >= 3 for both factors, four clusters) and of the
+    16^3 HPCG operator on one part (32 tiles, waves of one tile)."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.models import gallery
+    from partitionedarrays_tpu_torch.psparse import psparse
+    from partitionedarrays_tpu_torch.solvers.smoothers import AdditiveSchwarz
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    A = psparse(*gallery.laplacian_fem((48, 48), (4, 1), dtype=np_dtype), SerialBackend(4),
+                device=device)
+    H, _ = build_hpcg_problem((16, 16, 16), (1, 1, 1), SerialBackend(1), dtype=dtype,
+                              device=device, structured=False)
+    return [AdditiveSchwarz(M, mode="ilu0") for M in (A, H)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tile_gs_kernel_triangular_solves(cuda, dtype):
+    """K6 in one-direction mode (D = 1, the level schedule): the forward
+    solve with L and the backward solve with U from a zero guess, one
+    launch each, with x in shared memory and in L2, against the plain
+    version; in float64 the two solves are also scipy's
+    ``spsolve_triangular`` to 1e-10 of the largest entry."""
+    import numpy as np
+    from scipy.sparse.linalg import spsolve_triangular
+
+    from partitionedarrays_tpu_torch.ops.native import ilu0
+    from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps, tile_gs_sweeps_plain
+
+    g = torch.Generator().manual_seed(18)
+    for S in _schwarz_ilu0(cuda, dtype):
+        assert S.sgsL.W >= 3 and S.sgsU.W >= 3
+        P, n = S.sgsL.pack.shape[0], S.sgsL.Rp
+        b = torch.randn(P, n, generator=g, dtype=dtype).to(cuda)
+        for tg, d in ((S.sgsL, "f"), (S.sgsU, "b")):
+            assert tg.pack.shape[1] == 1 and tg.directions == (d,)
+            want = tile_gs_sweeps_plain(*tg.operands(), torch.zeros_like(b), b, (d,),
+                                        zero_guess=True)
+            for x_in_smem in (True, False):
+                before = tile_gs_sweeps.launches
+                got = tile_gs_sweeps(*tg.operands(), torch.zeros_like(b), b, (d,),
+                                     zero_guess=True, tile_lanes=tg.tile_lanes,
+                                     _x_in_smem=x_in_smem)
+                assert tile_gs_sweeps.launches == before + 1
+                _assert_close(got, want, dtype)
+        if dtype != torch.float64:
+            continue
+        bo = b[:, : S.A.row_layout().n_own_pad]
+        z = S.sgsU.sweeps(None, S.sgsL.sweeps(None, bo, ("f",)), ("b",)).cpu().numpy()
+        for p, (blk, li) in enumerate(zip(S.A.blocks, S.A.row_prange.parts)):
+            L, U = ilu0(blk["oo"])
+            r = bo[p, : li.n_own].cpu().numpy()
+            xe = spsolve_triangular(U.tocsr(), spsolve_triangular(L.tocsr(), r, lower=True),
+                                    lower=False)
+            assert np.abs(z[p, : li.n_own] - xe).max() < 1e-10 * max(np.abs(xe).max(), 1.0)
 
 
 def _elasticity_parts(device, dtype, n):

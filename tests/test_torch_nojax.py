@@ -16,8 +16,10 @@ flat cycle on (2,2,2) parts), and the reuse tier (``psparse(reuse=True)``,
 ``DeviceRefill``, ``psparse_refill``, ``AMGPreconditioner.update``,
 ``psystem`` and its refill, and the implicit reaction-diffusion run of
 ``examples/implicit_reuse.py`` through ``backward_euler`` and
-``newton_raphson``); afterwards ``jax`` must not be among the loaded
-modules.
+``newton_raphson``), and the Schwarz tier (the native setup library,
+``AdditiveSchwarz`` in its ilu0 and dense tiers under ``cg``,
+``additive_schwarz_solver``, AMG with Schwarz level smoothers and its
+``update``); afterwards ``jax`` must not be among the loaded modules.
 """
 import os
 import subprocess
@@ -150,6 +152,29 @@ sys.path.insert(0, "examples")
 import implicit_reuse
 r = implicit_reuse.reaction_diffusion(implicit_reuse.port("cpu"), nodes=(4, 4, 4), steps=1)
 assert r["newton"] and max(r["relres"]) < 1e-9, r["relres"]
+from partitionedarrays_tpu_torch.ops.native import (
+    coo_to_csr_native, greedy_coloring_native, ilu0, vanek_aggregate_native,
+)
+from partitionedarrays_tpu_torch.solvers.interfaces import additive_schwarz_solver
+from partitionedarrays_tpu_torch.solvers.smoothers import AdditiveSchwarz, additive_schwarz
+from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
+I, J, V, _, _ = laplacian_fdm((6, 6, 6), (1, 1, 1))
+G = coo_to_csr_native(I[0], J[0], V[0], 216, 216)
+assert ilu0(G)[1].nnz > 0 and greedy_coloring_native(G).max() > 0
+assert vanek_aggregate_native(G, 0.0).max() > 0
+A, b = build_hpcg_problem((16, 16, 16), (2, 1, 1), SerialBackend(2), device="cpu")
+for S in (AdditiveSchwarz(A, mode="ilu0"), additive_schwarz(A, mode="dense")):
+    _, info = cg(A, b, M=S, rtol=1e-6)
+    assert info.iterations < 30, info
+solve(additive_schwarz_solver(iterations=2), LinearProblem(A, b))
+I, J, V, rows, cols = laplacian_fdm((40, 40), (1, 1))
+A = psparse(I, J, V, rows, cols, SerialBackend(1), device="cpu")
+M = AMGPreconditioner(A, AMGParams(coarse_size=20, smoother="schwarz"))
+assert [lev.smoother.mode for lev in M.levels[:2]] == ["ilu0", "dense"]
+b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device="cpu"))
+_, info = cg(A, b, M=M, rtol=1e-8)
+assert info.iterations < 30, info
+M.update(A)
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
 sys.exit(1 if loaded else 0)
