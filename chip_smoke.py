@@ -28,7 +28,7 @@ Phases, one output line each:
    read once per step), the plain version's time, the device time of a
    launch of no step and of one step, and the time under every other
    lane count;
-4. fourteen paths through the port, each with its kernels' launch counts set
+4. fifteen paths through the port, each with its kernels' launch counts set
    to 0 just before it and read just after (a-c: the HPCG benchmark, 4 MG
    levels, 50 CG iterations; d-f: the AMG paths, counted over their
    solves):
@@ -126,6 +126,22 @@ Phases, one output line each:
       scipy's ``spsolve_triangular``, timed beside their bound, their
       latency floor (W wave steps) and PyTorch's sparse triangular solve
       where the card's PyTorch has one; K1 and K5 on those paths' operands;
+   i. ``precond_values``: the HPCG benchmark with ``precond_dtype``, the
+      MG smoothers' values stored narrower than the vectors
+      (``PRECOND_RUNS``): 128^3 on one part in float32 with bfloat16 values
+      (raw and rated GF/s, s/set, a profiled set beside a float32-valued
+      one, the history within rtol 1e-4 of the float32-valued run's),
+      (2,2,2) parts of 64^3 on ``flat_g`` (with the standalone sweep, K2
+      per color, against K3 on the narrow values), df64 at 64^3 with the
+      bfloat16-valued float32 MG, float64 at 64^3 with float32 and with
+      bfloat16 values; then K2, K3 and K4 for every narrow pair (bfloat16
+      values under float32 and float64 vectors, float32 under float64) on
+      random values of the 27-point pattern against their plain versions
+      (``KERNEL_RTOL`` of the vector dtype), timed at the 128^3 level (K3,
+      K4) and at one color of the (2,2,2) x 64^3 level with the L2 flushed
+      (K2) beside the full-value kernels on the same operators, and on
+      HPCG's own values (exact in bfloat16) against the full-value kernels
+      (``NARROW_HPCG_RTOL``);
 5. the launch counts of each path, each kernel of a path required > 0;
 6. the whole port on the card against the whole port on the CPU (plain
    versions), float64, residual histories to rtol 1e-10: 32^3 on one part
@@ -259,6 +275,7 @@ PATH_KERNELS = {
     "schwarz_ilu0": ("dia_spmv", "tile_gs_sweeps"),
     "schwarz_ilu0_parts": ("dia_spmv", "ghost_spmv", "tile_gs_sweeps"),
     "amg_schwarz_elasticity": ("dia_spmv", "ghost_spmv", "tile_gs_sweeps"),
+    "precond_values": ("ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv", "dia_spmv_df"),
 }
 # the elasticity SA-AMG path: the reference's own workload (bench.py:371-430,
 # AMGParams(coarse_size=400, block_size=3, max_levels=4), CG to rtol 1e-8),
@@ -378,6 +395,29 @@ TRI_RTOL = {"float32": 1e-5, "float64": 1e-15}
 # 3.5e-7 that a 27-color K3 sweep sequence (54 color steps) on the 40^3
 # elasticity level reached through FMA contraction (PERF.md, section 6)
 REFRESH_RTOL = {"float32": 1e-6, "float64": 4.4e-16}
+# phase 4i, the reduced-precision preconditioner values through
+# hpcg_benchmark(precond_dtype=...): (local shape, parts per direction,
+# vector dtype or "df64", values dtype, limit on the final relative
+# residual).  HPCG's 26 and -1 are exact in bfloat16, so each run is held
+# to its full-value twin's limit: 128^3 to phase 4a's 2e-6, (2,2,2) parts
+# of 64^3 to phase 4b's 1e-5, df64 and float64 at 64^3 to 1e-8.
+PRECOND_RUNS = (
+    (LOCAL, (1, 1, 1), "float32", "bfloat16", 2e-6),
+    (GHOST_LOCAL, GHOST_PARTS, "float32", "bfloat16", 1e-5),
+    ((64, 64, 64), (1, 1, 1), "df64", "bfloat16", 1e-8),
+    ((64, 64, 64), (1, 1, 1), "float64", "float32", 1e-8),
+    ((64, 64, 64), (1, 1, 1), "float64", "bfloat16", 1e-8),
+)
+# the 128^3 bfloat16-valued float32 history against the float32-valued one
+# of the same phase (the timed sets' own consistency bound, chain_consistent)
+PRECOND_HISTORY_RTOL = 1e-4
+# (values, vectors) of the narrow-value kernels
+NARROW_PAIRS = (("bfloat16", "float32"), ("bfloat16", "float64"), ("float32", "float64"))
+# narrow-value kernels on HPCG's own values (exact in bfloat16) against the
+# full-value kernels, relative to the largest full-value entry: they run
+# the same plan and the same order of the sums, so they are expected to
+# agree exactly; the bound leaves room for FMA contraction alone
+NARROW_HPCG_RTOL = {"float32": 1e-6, "float64": 1e-12}
 
 
 def emit(phase: str, payload) -> None:
@@ -804,20 +844,23 @@ def phase_kernel_df(device):
     return results
 
 
-def _k3_work(col, order, itemsize: int, zero_guess: bool):
+def _k3_work(col, order, itemsize: int, zero_guess: bool, values_itemsize=None):
     """(bytes, operations, streaming-floor bytes) of one K3 call running
     the color steps ``order``.  Bytes: each input the call reads, once
     (the values of every color that a step taps, bd and invd of every
     color it updates, x in unless the guess is zero) and x written once.
     The streaming floor: each step reads its color's values (none at a
     zero guess's first step), bd and invd once, and x is read (unless the
-    guess is zero) and written once."""
+    guess is zero) and written once.  Values of ``values_itemsize`` bytes
+    (default: ``itemsize``, the vectors')."""
     P, m, n_off, Lq = col.vals_d.shape
+    vsize = values_itemsize or itemsize
     z = int(zero_guess)
     tapped = len(set(order[z:]))
-    nbytes = itemsize * P * Lq * (n_off * tapped + 2 * len(set(order)) + (2 - z) * m)
-    ops = P * Lq * ((len(order) - z) * (2 * n_off + 3) + z)
-    floor = itemsize * P * Lq * ((len(order) - z) * (n_off + 2) + 2 * z + (2 - z) * m)
+    steps = len(order) - z
+    nbytes = P * Lq * (vsize * n_off * tapped + itemsize * (2 * len(set(order)) + (2 - z) * m))
+    ops = P * Lq * (steps * (2 * n_off + 3) + z)
+    floor = P * Lq * (vsize * steps * n_off + itemsize * (2 * steps + 2 * z + (2 - z) * m))
     return nbytes, ops, floor
 
 
@@ -2463,6 +2506,256 @@ def phase_schwarz(device, counters):
     return launches, results
 
 
+# -- phase 4i: reduced-precision preconditioner values ----------------------------
+
+
+def _random_colored(A, values_dtype, g):
+    """The colored GS state of ``A``'s DIA pattern with random values
+    (off-diagonals scaled by [0.5, 1), the diagonal by [1, 1.5)), stored in
+    ``values_dtype``, and the same values stored in the vectors' dtype."""
+    import torch
+
+    from partitionedarrays_tpu_torch.solvers.gs_dia import ColoredDIAGS
+
+    oo = A.device().oo
+    scale = (0.5 + 0.5 * torch.rand(oo.vals.shape, generator=g, dtype=oo.vals.dtype))
+    k0 = oo.offsets.index(0)
+    scale[:, k0] += 0.5
+    vals = oo.vals * scale.to(oo.vals.device)
+    diag = vals[:, k0].contiguous()
+    return (ColoredDIAGS.from_device(oo.offsets, vals, diag, values_dtype),
+            ColoredDIAGS.from_device(oo.offsets, vals, diag))
+
+
+def _hold_narrow(results, where, col, full, g, device, timed):
+    """K4 and K3 (symmetric, from a random guess) on the narrow values of
+    ``col`` against their plain versions, beside the full-value kernels on
+    the same operator ``full``; with ``timed`` each row also gets its time,
+    device time, plain time and bound (values read in their own dtype)."""
+    import torch
+
+    from partitionedarrays_tpu_torch.ops.gs_dia_kernels import (
+        ax_core, ax_core_plain, gs_sweeps, gs_sweeps_plain,
+    )
+
+    P, m, n_off, Lq = col.vals_d.shape
+    dtype = col.invd_d.dtype
+    name = str(dtype).replace("torch.", "")
+    x = torch.randn(P, m, Lq, generator=g, dtype=dtype).to(device)
+    bd = torch.randn(P, m, Lq, generator=g, dtype=dtype).to(device)
+    fwd = tuple(range(m))
+    order = fwd + fwd[::-1]
+    itemsize = x.element_size()
+    for c in (full, col):
+        vsize = c.vals_d.element_size()
+        k4 = (itemsize * 2 * x.numel() + vsize * c.vals_d.numel(), 2 * c.vals_d.numel(),
+              _flops(name))
+        nbytes, ops, _ = _k3_work(c, order, itemsize, False, vsize)
+        for kname, kernel, plain, work in (
+            ("ax_core", lambda c=c: ax_core(c.vals_d, x, c.taps),
+             lambda c=c: ax_core_plain(c.vals_d, x, c.taps), k4),
+            ("gs_sweeps", lambda c=c: gs_sweeps(c.vals_d, bd, c.invd_d, x, c.taps, order),
+             lambda c=c: gs_sweeps_plain(c.vals_d, bd, c.invd_d, x, c.taps, order),
+             (nbytes, ops, _flops(name))),
+        ):
+            if timed:
+                _hold(results, kname, name, kernel, plain, work=work)
+            else:
+                _hold_check(results, kname, name, kernel, plain)
+            results[-1].update(where=where, values=str(c.vals_d.dtype).replace("torch.", ""),
+                               m=m, n_off=n_off, Lq=Lq)
+
+
+def _hold_check(results, kname, dtype_name, kernel, plain, rtol=KERNEL_RTOL):
+    """``kernel`` against ``plain`` on the same inputs (no timing), held to
+    ``rtol`` of the largest plain entry."""
+    import torch
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if not err <= rtol[dtype_name] * scale:
+        raise AssertionError(f"{kname} {dtype_name}: max |kernel - plain| {err} > "
+                             f"{rtol[dtype_name]} of {scale}")
+    results.append({"kernel": kname, "dtype": dtype_name, "max_abs_err": err,
+                    "max_rel_err": err / scale, "tol_rel": rtol[dtype_name]})
+
+
+def _narrow_on_hpcg(A, b, values, g, device) -> dict:
+    """HPCG's own values (exact in bfloat16): the narrow-value K4, K3 and
+    the standalone sweep (K2 per color) against the full-value kernels,
+    relative to the largest full-value entry (``NARROW_HPCG_RTOL``)."""
+    import torch
+
+    from partitionedarrays_tpu_torch.solvers.smoothers import GaussSeidel
+
+    full, narrow = GaussSeidel(A), GaussSeidel(A, values_dtype=getattr(torch, values))
+    col = full.colored
+    x = torch.randn(col.vals_d.shape[0], col.m, col.Lq, generator=g, dtype=A.dtype).to(device)
+    bd = full.make_bd(b)
+    order = full._order_seq()
+
+    def outputs(gs):
+        c = gs.colored
+        return {"ax_core": gs.flat_ax(x), "gs_sweeps": gs.smooth_bd(x, bd),
+                "dia_spmv_strided": c.sweep_flat(x.clone(), bd, c.vals_d, c.invd_d, order)}
+
+    want, got = outputs(full), outputs(narrow)
+    torch.cuda.synchronize()
+    name = str(A.dtype).replace("torch.", "")
+    errs = {k: ((got[k] - want[k]).abs().max() / want[k].abs().max()).item() for k in want}
+    bad = {k: e for k, e in errs.items() if not e <= NARROW_HPCG_RTOL[name]}
+    if bad:
+        raise AssertionError(f"narrow {values} values on HPCG's operator vs full values: {bad}")
+    return errs
+
+
+def phase_precond_values(device, counters):
+    """The reduced-precision preconditioner values through the port's entry
+    point (``PRECOND_RUNS``), the launch counts set to 0 just before each
+    benchmark and read just after (the float32-valued comparison set at
+    128^3 runs outside that window); then the narrow-value K2, K3 and K4
+    against their plain versions and the full-value kernels (not
+    counted).  Returns (the path's launches, kernel rows)."""
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg_flat
+    from partitionedarrays_tpu_torch.models.hpcg.driver import cg_route, hpcg_benchmark
+    from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
+    from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
+    from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
+    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv_strided
+
+    launches = {k: 0 for k in counters}
+    failures, results = [], []
+    for shape, parts, vectors, values, limit in PRECOND_RUNS:
+        P = int(np.prod(parts))
+        key = f"{vectors}@{'x'.join(map(str, parts))}x{shape[0]}^3 {values} values"
+        precision = "df64" if vectors == "df64" else None
+        dtype = np.float32 if precision else getattr(np, vectors)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mg = HPCGMGPreconditioner(shape, parts, SerialBackend(P), n_levels=LEVELS, dtype=dtype,
+                                  precond_dtype=values, device=device)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        route = cg_route(mg, precision)
+
+        def run(mg=mg, setup=setup, precision=precision, shape=shape, parts=parts):
+            report = hpcg_benchmark(
+                None, local_shape=shape, parts_per_dir=parts, n_levels=LEVELS,
+                iterations=ITERATIONS, ref_sets=1, timed_sets=3, precision=precision,
+                mg=mg, setup_time=setup, device=device,
+            )
+            sweep_err = None
+            if route == "flat_g":  # the standalone sweep (K2) against K3, narrow values
+                gs, col = mg.gss[-1], mg.gss[-1].colored
+                x = mg.b.own * 0.5
+                gc = gs.ghost_contrib(x)
+                order = gs._order_seq()
+                via_k2 = col.sweep(x, mg.b.own, gc, col.vals_d, col.invd_d, order)
+                via_k3 = gs.flat_interleave(col.sweeps_core(
+                    gs.flat_deinterleave(x), gs.flat_deinterleave(mg.b.own - gc),
+                    col.vals_d, col.invd_d, order))
+                sweep_err = ((via_k2 - via_k3).abs().max() / via_k3.abs().max()).item()
+            return report, sweep_err
+
+        (report, sweep_err), _, counts = _timed(counters, run)
+        for k, v in counts.items():
+            launches[k] += v
+        s = report.summary()
+        gf = report.gflops()
+        rec = {
+            "cg_route": route, "precond_values_dtype": s["precond_values_dtype"],
+            "raw_gflops": gf["raw"], "rated_gflops": gf["rated"],
+            "final_relres": s["final_relres"], "relres_limit": limit,
+            "validation_passed": s["validation_passed"],
+            "chain_consistent": s["chain_consistent"],
+            "seconds_per_set": report.time_solve / report.n_sets, "setup_s": setup,
+            "launches": counts, "nrow": s["nrow"],
+        }
+        if sweep_err is not None:
+            rec["sweep_k2_vs_k3_rel_err"] = sweep_err
+            if not sweep_err <= KERNEL_RTOL[vectors]:
+                failures.append(f"{key}: sweep (K2) vs sweeps_core (K3) differ by {sweep_err}")
+        if shape == LOCAL:  # a profiled set and the history beside float32 values
+            rec["profiled_set"] = _profile_set(
+                lambda: hpcg_cg_flat(mg, mg.b, iterations=ITERATIONS), top=8,
+                kernels=("gs_seq", "ax_core"))
+            _, narrow = hpcg_cg_flat(mg, mg.b, iterations=ITERATIONS)
+            del mg
+            torch.cuda.empty_cache()
+            mg = HPCGMGPreconditioner(shape, parts, SerialBackend(P), n_levels=LEVELS,
+                                      dtype=dtype, device=device)
+            rec["profiled_set_float32_values"] = _profile_set(
+                lambda: hpcg_cg_flat(mg, mg.b, iterations=ITERATIONS), top=8,
+                kernels=("gs_seq", "ax_core"))
+            _, wide = hpcg_cg_flat(mg, mg.b, iterations=ITERATIONS)
+            diff = ((narrow - wide).abs() / wide.abs()).max().item()
+            rec["history_vs_float32_values_max_rel_diff"] = diff
+            if not diff <= PRECOND_HISTORY_RTOL:
+                failures.append(f"{key}: history differs from float32 values by {diff}")
+        emit(f"4i {key}", rec)
+        if route != ("df64" if precision else "flat" if P == 1 else "flat_g"):
+            failures.append(f"{key}: the benchmark took the {route} CG")
+        if s["precond_values_dtype"] != values:
+            failures.append(f"{key}: report says {s['precond_values_dtype']}")
+        if not s["final_relres"] <= limit:
+            failures.append(f"{key}: relres {s['final_relres']} > {limit}")
+        if not (s["validation_passed"] and s["chain_consistent"]):
+            failures.append(f"{key}: HPCG validation or chain consistency failed")
+        del mg, report
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    # the kernels: K4 and K3 at the 128^3 level, K2 at one color of the
+    # (2,2,2) x 64^3 level, random values of the 27-point pattern
+    g = torch.Generator().manual_seed(1111)
+    hpcg_errs = {}
+    for values, vectors in NARROW_PAIRS:
+        dtype = getattr(torch, vectors)
+        timed = (values, vectors) == ("bfloat16", "float32")
+        A, b = build_hpcg_problem(LOCAL, (1, 1, 1), SerialBackend(1), dtype=dtype, device=device)
+        col, full = _random_colored(A, getattr(torch, values), g)
+        _hold_narrow(results, f"random values, one part of {LOCAL[0]}^3", col, full, g, device,
+                     timed)
+        hpcg_errs[f"{values}/{vectors} one part"] = _narrow_on_hpcg(A, b, values, g, device)
+        del A, b, col, full
+        torch.cuda.empty_cache()
+        A, b = build_hpcg_problem(GHOST_LOCAL, GHOST_PARTS, SerialBackend(8), dtype=dtype,
+                                  device=device)
+        col, full = _random_colored(A, getattr(torch, values), g)
+        core = torch.randn(8, col.m * col.Lq, generator=g, dtype=dtype).to(device)
+        c = col.m // 2
+        for cc in (full, col):
+            taps, vals_c = cc.taps.host[c], cc.vals_d[:, c]
+            kernel = partial(dia_spmv_strided, taps, vals_c, core)
+            plain = partial(dia_spmv_plain, taps, vals_c, core)
+            if timed:
+                _hold(results, "dia_spmv_strided", vectors, kernel, plain, flushed=True,
+                      work=(vals_c.element_size() * vals_c.numel()
+                            + core.element_size() * (core.numel() + 8 * col.Lq),
+                            2 * vals_c.numel(), _flops(vectors)))
+            else:
+                _hold_check(results, "dia_spmv_strided", vectors, kernel, plain)
+            results[-1].update(where=f"random values, one color of {GHOST_PARTS}x{GHOST_LOCAL[0]}^3",
+                               values=str(cc.vals_d.dtype).replace("torch.", ""),
+                               shape=list(vals_c.shape), m=col.m, color=c)
+        hpcg_errs[f"{values}/{vectors} (2,2,2)"] = _narrow_on_hpcg(A, b, values, g, device)
+        del A, b, col, full, core
+        torch.cuda.empty_cache()
+    emit("4i kernels narrow values", {"rows": results, "hpcg_values_vs_full": hpcg_errs,
+                                      "hpcg_rtol": NARROW_HPCG_RTOL})
+    return launches, results
+
+
 def _cross_amg_box_parts(device):
     """The box AMG-CG on (2,2,2) parts of 8^3 (the ghosted flat cycle) on
     the card against the CPU, float64: the residual norm after each
@@ -2656,6 +2949,7 @@ def main() -> int:
     schwarz_launches, schwarz_results = phase_schwarz(device, counters)
     launches.update(schwarz_launches)
     kernel_results += schwarz_results
+    launches["precond_values"], narrow_results = phase_precond_values(device, counters)
     emit("5 launches", launches)
     missing = [
         f"{path}:{k}" for path, names in PATH_KERNELS.items() for k in names
@@ -2669,8 +2963,10 @@ def main() -> int:
     # one row per kernel: its float32 measurement (K7: df64 at the 128^3
     # one-part shape; K6: a symmetric sweep of level 1 of the 40^3
     # elasticity hierarchy; K2, K5 and their library calls with the L2
-    # flushed before each call), its launches over the fourteen paths' runs
-    # (calls of the kernel's C entry: K3 and K6 one per sweep sequence)
+    # flushed before each call), its launches over the fifteen paths' runs
+    # (calls of the kernel's C entry: K3 and K6 one per sweep sequence);
+    # K2, K3 and K4 also with bfloat16 values under float32 vectors (phase
+    # 4i, at the same shapes), launches on the precond_values path
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         r = next(r for r in kernel_results
@@ -2682,6 +2978,15 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms_flushed", r.get("library_ms")),
         })
+        narrow = [r for r in narrow_results if r["kernel"] == kname
+                  and r["values"] == "bfloat16" and r["dtype"] == "float32" and "ms" in r]
+        if narrow:
+            n = narrow[0]
+            rows[-1]["values_bf16"] = {
+                "ms": n.get("ms_flushed", n["ms"]), "plain_ms": n["plain_ms"],
+                "bound_ms": n["bound_ms"], "max_abs_err": n["max_abs_err"],
+                "launches": launches["precond_values"][kname],
+            }
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -75,9 +75,47 @@ _SIGNATURES = {
         _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP,
     ],
 }
-DTYPE_SUFFIX = {"float32": "f32", "float64": "f64"}
-# entry points that exist for some dtypes only (df64 pairs are float32 words)
-_SUFFIXES = {"pat_dia_spmv_df": ("f32",)}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+# (values dtype, vector dtype) pairs whose values are narrower than the
+# vectors: the reduced-precision preconditioner values, which K2, K3 and K4
+# read and widen exactly to the vector dtype
+NARROW_PAIRS = (
+    (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.float64),
+    (torch.float32, torch.float64),
+)
+_PAIRS = ((torch.float32, torch.float32), (torch.float64, torch.float64)) + NARROW_PAIRS
+
+
+def _suffix(values: torch.dtype, vectors: torch.dtype) -> str:
+    """An entry's suffix: the vector dtype's where the values share it
+    (``f32``), else the values' and the vectors' (``bf16_f32``)."""
+    if values == vectors:
+        return _SUFFIX[vectors]
+    return f"{_SUFFIX[values]}_{_SUFFIX[vectors]}"
+
+
+# the dtype suffixes of each entry point: K2, K3 and K4 take every pair,
+# K7 its one float32 entry (df64 pairs are float32 words), the others
+# float32 and float64 (_SAME)
+_SUFFIXES = {
+    base: tuple(_suffix(v, t) for v, t in _PAIRS)
+    for base in ("pat_dia_spmv_strided", "pat_ax_core", "pat_gs_sweeps")
+}
+_SUFFIXES["pat_dia_spmv_df"] = ("f32",)
+_SAME = ("f32", "f64")
+
+
+def check_pair(name: str, values: torch.dtype, vectors: torch.dtype) -> None:
+    """Raise TypeError unless values of dtype ``values`` may go with vectors
+    of dtype ``vectors``: the same dtype, or one of ``NARROW_PAIRS``."""
+    if values != vectors and (values, vectors) not in NARROW_PAIRS:
+        pairs = ", ".join(f"{_SUFFIX[v]} values with {_SUFFIX[t]} vectors"
+                          for v, t in NARROW_PAIRS)
+        raise TypeError(
+            f"{name}: values {values} with vectors {vectors}; the supported pairs are "
+            f"one dtype for both, or {pairs}"
+        )
 
 # the loaded library: a process-wide resource, built and opened once
 _lib: Optional[ctypes.CDLL] = None
@@ -168,7 +206,7 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for base, argtypes in _SIGNATURES.items():
-            for suffix in _SUFFIXES.get(base, DTYPE_SUFFIX.values()):
+            for suffix in _SUFFIXES.get(base, _SAME):
                 fn = getattr(lib, f"{base}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = _INT
@@ -179,12 +217,14 @@ def library() -> ctypes.CDLL:
 _entries = {}
 
 
-def entry(base: str, dtype: torch.dtype):
-    """The C entry point ``base`` for a torch dtype (float32 or float64)."""
-    fn = _entries.get((base, dtype))
+def entry(base: str, dtype: torch.dtype, values_dtype: Optional[torch.dtype] = None):
+    """The C entry point ``base`` for vectors of ``dtype`` (float32 or
+    float64) and values of ``values_dtype`` (default: ``dtype``; K2, K3 and
+    K4 also take the ``NARROW_PAIRS``)."""
+    key = (base, dtype, values_dtype or dtype)
+    fn = _entries.get(key)
     if fn is None:
-        name = str(dtype).replace("torch.", "")
-        fn = _entries[(base, dtype)] = getattr(library(), f"{base}_{DTYPE_SUFFIX[name]}")
+        fn = _entries[key] = getattr(library(), f"{base}_{_suffix(key[2], dtype)}")
     return fn
 
 

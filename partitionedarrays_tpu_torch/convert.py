@@ -15,7 +15,7 @@ import scipy.sparse as sp
 import torch
 
 from .backends import SerialBackend
-from .config import torch_dtype
+from .config import torch_dtype, values_dtype
 from .models.hpcg.mg import HPCGMGPreconditioner
 from .ops.blocks import freeze_block, make_dia_block
 from .parallel.exchange_plan import layout_of
@@ -27,7 +27,14 @@ from .solvers.smoothers import GaussSeidel
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """A numpy array as a tensor on ``device``; a bfloat16 array (the
+    reference's reduced-precision values: ``ml_dtypes``' dtype, which torch
+    cannot read) through its bits, so that ``ml_dtypes`` is never
+    imported."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def from_jax_arrays(
@@ -42,8 +49,12 @@ def from_jax_arrays(
     - ``oo_vals``: ``A.device().oo.vals``, ``[P, n_off, R]``;
     - ``b_own``: ``b.own``, ``[P, n_own_pad]``;
     - ``vals_d``: the ``ColoredDIAGS`` values, ``[P, m, n_off, Lq]`` (the
-      reference's layout when its ``flat_vals`` is False);
+      reference's layout when its ``flat_vals`` is False), in the vectors'
+      dtype or narrower (its ``values_dtype``: bfloat16 arrays of
+      ``ml_dtypes`` are taken bit for bit);
     - ``invd_d``: the ``ColoredDIAGS`` inverse diagonal, ``[P, m, Lq]``;
+    - optionally ``values_dtype``: the storage dtype of ``vals_d`` (a torch
+      or numpy dtype or its name), to which it is rounded;
 
     and, with more than one part,
 
@@ -97,7 +108,8 @@ def from_jax_arrays(
         own = _tensor(lev["b_own"], device)
         b = PVector(own, own.new_zeros((P, rlay.n_ghost_pad)), rlay, backend)
         colored = ColoredDIAGS.from_arrays(
-            offsets, rlay.n_own_pad, _tensor(lev["vals_d"], device), _tensor(lev["invd_d"], device)
+            offsets, rlay.n_own_pad, _tensor(lev["vals_d"], device), _tensor(lev["invd_d"], device),
+            values_dtype(lev.get("values_dtype")),
         )
         As.append(A)
         bs.append(b)

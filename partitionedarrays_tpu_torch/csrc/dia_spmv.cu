@@ -47,6 +47,20 @@
 //     contributes 0: no zero-padded copy of x is made.
 // One thread per output row, grid-stride loop; the sum runs over the
 // diagonals in the order of the offsets, as the plain version's does.
+//
+// Narrow values.  K2 also reads values narrower than x and y, the
+// reference's reduced-precision preconditioner values (ColoredDIAGS with
+// values_dtype; its kernel promotes the output type,
+// ops/spmv_pallas.py:74): bfloat16 values with float or double vectors,
+// float values with double vectors, each value widened to the vector type
+// exactly and summed in it (dia_rows.cuh).  K1 keeps one type: no path
+// applies A through K1 with a smoother's stored values.  The port's
+// V-cycle is flat on every level, so each level applies A_oo through K4
+// on the core; the ghost contribution of a smoother (K5) reads A's full
+// values, as the reference's does (solvers/smoothers.py:329-350); and the
+// reference's narrow standard-order operators (devs_pc, models/hpcg/
+// mg.py:90-93) feed only its generic V-cycle branch (mg.py:160-164),
+// which no HPCG level reaches.  So K5 keeps one type too.
 
 #include <climits>
 
@@ -97,11 +111,11 @@ __global__ void dia_spmv_kernel(const T* __restrict__ vals,
 }
 
 // K2: the row engine over one tile of rows of part blockIdx.y; the values
-// of part p start at p * vals_stride and its x at p * x_stride; y is
-// [P, R] contiguous
-template <typename T, int VEC, int G>
+// (type V) of part p start at p * vals_stride and its x at p * x_stride;
+// y is [P, R] contiguous
+template <typename V, typename T, int VEC, int G>
 __global__ void __launch_bounds__(kThreads)
-    dia_rows_strided_kernel(const T* __restrict__ vals, const T* x,
+    dia_rows_strided_kernel(const V* __restrict__ vals, const T* x,
                             T* __restrict__ y, const DiaOffsets offs, int R,
                             int n_cols, long long vals_stride,
                             long long x_stride) {
@@ -119,7 +133,7 @@ __global__ void __launch_bounds__(kThreads)
   const int g = t % G;
   T acc[VEC];
   if (on) {
-    pat::rows_partial<T, VEC, G>(acc, vals, R, x, n_cols, s_off, offs.n, i, g);
+    pat::rows_partial<V, T, VEC, G>(acc, vals, R, x, n_cols, s_off, offs.n, i, g);
   } else {
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[v] = T(0);
@@ -154,25 +168,26 @@ int launch(const T* vals, const T* x, T* y, const int* offsets, int n_off,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC, int G>
-int launch_rows(const T* vals, const T* x, T* y, const DiaOffsets& offs, int R,
+template <typename V, typename T, int G>
+int launch_rows(const V* vals, const T* x, T* y, const DiaOffsets& offs, int R,
                 int n_cols, int P, long long vals_stride, long long x_stride,
                 cudaStream_t stream) {
+  constexpr int VEC = pat::vec_of<T>();
   const int total = (R / VEC) * G;
   if (total > 0 && P > 0) {
-    dia_rows_strided_kernel<T, VEC, G>
+    dia_rows_strided_kernel<V, T, VEC, G>
         <<<dim3((total + kThreads - 1) / kThreads, P), kThreads, 0, stream>>>(
             vals, x, y, offs, R, n_cols, vals_stride, x_stride);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_strided(const T* vals, const T* x, T* y, const int* offsets,
+template <typename V, typename T>
+int launch_strided(const V* vals, const T* x, T* y, const int* offsets,
                    int n_off, long long R, long long n_cols, int P,
                    long long vals_stride, long long x_stride, int lanes,
                    cudaStream_t stream) {
-  constexpr int VEC = pat::kVecBytes / sizeof(T);
+  constexpr int VEC = pat::vec_of<T>();
   DiaOffsets offs;
   if (!load_offsets(&offs, offsets, n_off)) return (int)cudaErrorInvalidValue;
   if (R < 0 || n_cols < 0 || P < 0 || (long long)n_off * R > INT_MAX ||
@@ -181,8 +196,8 @@ int launch_strided(const T* vals, const T* x, T* y, const int* offsets,
     return (int)cudaErrorInvalidValue;
 #define PAT_K2_LANES(G)                                                      \
   case G:                                                                    \
-    return launch_rows<T, VEC, G>(vals, x, y, offs, (int)R, (int)n_cols, P,  \
-                                  vals_stride, x_stride, stream);
+    return launch_rows<V, T, G>(vals, x, y, offs, (int)R, (int)n_cols, P,    \
+                                vals_stride, x_stride, stream);
   switch (lanes) {
     PAT_K2_LANES(1)
     PAT_K2_LANES(2)
@@ -196,6 +211,17 @@ int launch_strided(const T* vals, const T* x, T* y, const int* offsets,
 }
 
 }  // namespace
+
+// K2's C entries, one per (values, vectors) pair, named as gs_dia.cu's
+#define PAT_K2_ENTRY(SUFFIX, V, T)                                            \
+  int pat_dia_spmv_strided_##SUFFIX(                                          \
+      const void* vals, const void* x, void* y, const int* offsets,           \
+      int n_off, long long R, long long n_cols, int P, long long vals_stride, \
+      long long x_stride, int lanes, void* stream) {                          \
+    return launch_strided<V, T>((const V*)vals, (const T*)x, (T*)y, offsets,  \
+                                n_off, R, n_cols, P, vals_stride, x_stride,   \
+                                lanes, (cudaStream_t)stream);                 \
+  }
 
 extern "C" {
 
@@ -213,23 +239,10 @@ int pat_dia_spmv_f64(const void* vals, const void* x, void* y,
                         offsets, n_off, R, n_cols, P, (cudaStream_t)stream);
 }
 
-int pat_dia_spmv_strided_f32(const void* vals, const void* x, void* y,
-                             const int* offsets, int n_off, long long R,
-                             long long n_cols, int P, long long vals_stride,
-                             long long x_stride, int lanes, void* stream) {
-  return launch_strided<float>((const float*)vals, (const float*)x, (float*)y,
-                               offsets, n_off, R, n_cols, P, vals_stride,
-                               x_stride, lanes, (cudaStream_t)stream);
-}
-
-int pat_dia_spmv_strided_f64(const void* vals, const void* x, void* y,
-                             const int* offsets, int n_off, long long R,
-                             long long n_cols, int P, long long vals_stride,
-                             long long x_stride, int lanes, void* stream) {
-  return launch_strided<double>((const double*)vals, (const double*)x,
-                                (double*)y, offsets, n_off, R, n_cols, P,
-                                vals_stride, x_stride, lanes,
-                                (cudaStream_t)stream);
-}
+PAT_K2_ENTRY(f32, float, float)
+PAT_K2_ENTRY(f64, double, double)
+PAT_K2_ENTRY(bf16_f32, __nv_bfloat16, float)
+PAT_K2_ENTRY(bf16_f64, __nv_bfloat16, double)
+PAT_K2_ENTRY(f32_f64, float, double)
 
 }  // extern "C"

@@ -12,6 +12,16 @@
 // Layouts (all contiguous): vals [P, m, n_off, Lq]; x, bd, invd, out
 // [P, m, Lq]; tap int32 [m, n_off] in device memory.
 //
+// Types: the values are V, everything else T.  Besides V = T (float,
+// double) there are three narrow-value pairs, the reference's
+// reduced-precision preconditioner values (partitionedarrays_tpu/solvers/
+// gs_dia.py:111-199, widened at ops/gs_pallas.py:101-110 and :171-180):
+// bfloat16 values with float or double vectors, float values with double
+// vectors.  Each value is widened to T exactly before its FMA and the sums
+// run in T (dia_rows.cuh), so narrow values change only the bytes read:
+// bfloat16 values halve the bytes of the values, which are nine tenths of
+// K3's and K4's at the 27-point stencil.  bd, invd and x stay in T.
+//
 // K4 ax_core replaces partitionedarrays_tpu/ops/gs_pallas.py::
 // ax_core_pallas (body _ax_kernel):
 //     out[p, c, i] = sum_d vals[p, c, d, i] * core[p, tap[c][d] + i]
@@ -105,8 +115,8 @@ int blocks_for(long long work) {
   return b < 1 ? 1 : (int)b;
 }
 
-template <typename T>
-__global__ void ax_core_kernel(const T* __restrict__ vals,
+template <typename V, typename T>
+__global__ void ax_core_kernel(const V* __restrict__ vals,
                                const T* __restrict__ x, T* __restrict__ out,
                                const int* __restrict__ tap, int P, int m,
                                int n_off, long long Lq) {
@@ -119,31 +129,31 @@ __global__ void ax_core_kernel(const T* __restrict__ vals,
     const long long r = t - p * core;
     const int c = (int)(r / Lq);
     const long long i = r - (long long)c * Lq;
-    const T* vp = vals + ((p * m + c) * n_off) * Lq + i;
+    const V* vp = vals + ((p * m + c) * n_off) * Lq + i;
     const T* xp = x + p * core;
     const int* tc = tap + c * n_off;
     T acc = T(0);
     for (int d = 0; d < n_off; ++d) {
       const long long j = (long long)__ldg(tc + d) + i;
       const T xv = (j >= 0 && j < core) ? __ldg(xp + j) : T(0);
-      acc += vp[d * Lq] * xv;
+      acc += pat::widen<T>(vp[d * Lq]) * xv;
     }
     out[t] = acc;
   }
 }
 
 // What a thread of a color step can load before x is ready, for the row
-// group t0 + lane: the values of its first chunk of taps and, for the
-// group's writer, bd and invd.
+// group t0 + lane: the values of its first chunk of taps (widened to T)
+// and, for the group's writer, bd and invd.
 template <typename T, int VEC, int G>
 struct StepLoads {
   T vv[pat::Chunk<G>::value][VEC];
   T b[VEC], di[VEC];
 };
 
-template <typename T, int VEC, int G>
+template <typename V, typename T, int VEC, int G>
 __device__ __forceinline__ void step_loads(StepLoads<T, VEC, G>& pre,
-                                           const T* __restrict__ vals,
+                                           const V* __restrict__ vals,
                                            const T* __restrict__ bd,
                                            const T* __restrict__ invd, int c,
                                            int n_off, int Lq, int t0) {
@@ -151,7 +161,7 @@ __device__ __forceinline__ void step_loads(StepLoads<T, VEC, G>& pre,
   if (t < (Lq / VEC) * G) {
     const int i = (t / G) * VEC;
     const int g = t % G;
-    pat::chunk_values<T, VEC, G>(pre.vv, vals + c * n_off * Lq, Lq, n_off, i, g);
+    pat::chunk_values<V, T, VEC, G>(pre.vv, vals + c * n_off * Lq, Lq, n_off, i, g);
     if (g == 0) {
       pat::load_ro(bd + c * Lq + i, pre.b);
       pat::load_ro(invd + c * Lq + i, pre.di);
@@ -165,19 +175,19 @@ __device__ __forceinline__ void step_loads(StepLoads<T, VEC, G>& pre,
 // pairs t = group * G + lane; t_first is warp-aligned so that every lane
 // of a warp runs the same iterations (the lanes' shuffles need the whole
 // warp).  `pre` holds step_loads(t_first) on entry.
-template <typename T, int VEC, int G>
+template <typename V, typename T, int VEC, int G>
 __device__ __forceinline__ void color_step(
-    const T* __restrict__ vals, const T* __restrict__ bd,
+    const V* __restrict__ vals, const T* __restrict__ bd,
     const T* __restrict__ invd, const T* xr, T* xw, const int* taps, int c,
     int n_off, int Lq, int core, int t_first, int t_stride,
     StepLoads<T, VEC, G>& pre) {
-  const T* vc = vals + c * n_off * Lq;
+  const V* vc = vals + c * n_off * Lq;
   const int* tc = taps + c * n_off;
   const int row = c * Lq;
   const int t_end = (Lq / VEC) * G;
   const int lane = threadIdx.x & 31;
   for (int t0 = t_first; t0 < t_end; t0 += t_stride) {
-    if (t0 != t_first) step_loads<T, VEC, G>(pre, vals, bd, invd, c, n_off, Lq, t0);
+    if (t0 != t_first) step_loads<V, T, VEC, G>(pre, vals, bd, invd, c, n_off, Lq, t0);
     const int t = t0 + lane;
     const bool on = t < t_end;
     const int i = (t / G) * VEC;
@@ -186,7 +196,7 @@ __device__ __forceinline__ void color_step(
     T xo[VEC], acc[VEC];
     if (writer) pat::load_rw(xr + row + i, xo);
     if (on) {
-      pat::rows_partial_from<T, VEC, G>(acc, pre.vv, vc, Lq, xr, core, tc, n_off, i, g);
+      pat::rows_partial_from<V, T, VEC, G>(acc, pre.vv, vc, Lq, xr, core, tc, n_off, i, g);
     } else {
 #pragma unroll
       for (int v = 0; v < VEC; ++v) acc[v] = T(0);
@@ -201,9 +211,9 @@ __device__ __forceinline__ void color_step(
 }
 
 // K3: a persistent cooperative launch, grid (CTAs per part, P)
-template <typename T, int VEC, int G>
+template <typename V, typename T, int VEC, int G>
 __global__ void __launch_bounds__(kThreads)
-    gs_seq_grid_kernel(const T* __restrict__ vals, const T* __restrict__ bd,
+    gs_seq_grid_kernel(const V* __restrict__ vals, const T* __restrict__ bd,
                        const T* __restrict__ invd, const T* __restrict__ x_in,
                        T* x, const int* __restrict__ tap,
                        const int* __restrict__ steps, int n_steps,
@@ -251,9 +261,9 @@ __global__ void __launch_bounds__(kThreads)
         pat::store(x + c0 * Lq + q * VEC, b);
       }
     } else {
-      step_loads<T, VEC, G>(pre, vals, bd, invd, c0, n_off, Lq, t_first);
-      color_step<T, VEC, G>(vals, bd, invd, x_in, x, s_tap, c0, n_off, Lq, core,
-                            t_first, t_stride, pre);
+      step_loads<V, T, VEC, G>(pre, vals, bd, invd, c0, n_off, Lq, t_first);
+      color_step<V, T, VEC, G>(vals, bd, invd, x_in, x, s_tap, c0, n_off, Lq, core,
+                               t_first, t_stride, pre);
     }
   }
   // each barrier: arrive, load what does not depend on x (the next step's
@@ -262,10 +272,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int s = 1; s < n_steps; ++s) {
     const int c = __ldg(steps + s);
     cg::grid_group::arrival_token token = grid.barrier_arrive();
-    step_loads<T, VEC, G>(pre, vals, bd, invd, c, n_off, Lq, t_first);
+    step_loads<V, T, VEC, G>(pre, vals, bd, invd, c, n_off, Lq, t_first);
     grid.barrier_wait(static_cast<cg::grid_group::arrival_token&&>(token));
-    color_step<T, VEC, G>(vals, bd, invd, x, x, s_tap, c, n_off, Lq, core, t_first,
-                          t_stride, pre);
+    color_step<V, T, VEC, G>(vals, bd, invd, x, x, s_tap, c, n_off, Lq, core, t_first,
+                             t_stride, pre);
   }
 }
 
@@ -305,13 +315,14 @@ cudaError_t per_sm_of(K kernel, size_t smem, Occupancy* occ, int* per_sm) {
 }
 
 // `width` CTAs per part wanted, capped at the co-resident count
-template <typename T, int VEC, int G>
-int launch_seq(const T* vals, const T* bd, const T* invd, const T* x_in, T* x,
+template <typename V, typename T, int G>
+int launch_seq(const V* vals, const T* bd, const T* invd, const T* x_in, T* x,
                const int* tap, const int* steps, int n_steps, int zero_guess,
                int width, int P, int m, int n_off, int Lq, cudaStream_t stream) {
+  constexpr int VEC = pat::vec_of<T>();
   const size_t tap_bytes = (size_t)m * n_off * sizeof(int);
   if (tap_bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = gs_seq_grid_kernel<T, VEC, G>;
+  auto kernel = gs_seq_grid_kernel<V, T, VEC, G>;
   static Occupancy occ;
   int per_sm = 0;
   const cudaError_t e = per_sm_of(kernel, tap_bytes, &occ, &per_sm);
@@ -332,12 +343,12 @@ int launch_seq(const T* vals, const T* bd, const T* invd, const T* x_in, T* x,
                                  n_steps, zero_guess, m, n_off, Lq);
 }
 
-template <typename T>
-int launch_gs(const T* vals, const T* bd, const T* invd, const T* x_in, T* x,
+template <typename V, typename T>
+int launch_gs(const V* vals, const T* bd, const T* invd, const T* x_in, T* x,
               const int* tap, const int* steps, int n_steps, int zero_guess,
               int lanes, int width, int P, int m, int n_off, int Lq,
               cudaStream_t stream) {
-  constexpr int VEC = pat::kVecBytes / sizeof(T);
+  constexpr int VEC = pat::vec_of<T>();
   if (P < 1 || m < 1 || n_off < 0 || Lq < VEC || Lq % VEC != 0 || n_steps < 0 ||
       (long long)m * n_off * Lq > INT_MAX || (long long)m * Lq > INT_MAX ||
       (long long)Lq * lanes > INT_MAX ||
@@ -345,9 +356,8 @@ int launch_gs(const T* vals, const T* bd, const T* invd, const T* x_in, T* x,
     return (int)cudaErrorInvalidValue;
 #define PAT_GS_LANES(G)                                                        \
   case G:                                                                      \
-    code = launch_seq<T, VEC, G>(vals, bd, invd, x_in, x, tap, steps, n_steps, \
-                                 zero_guess, width, P, m, n_off, Lq,          \
-                                 stream);                                      \
+    code = launch_seq<V, T, G>(vals, bd, invd, x_in, x, tap, steps, n_steps,   \
+                               zero_guess, width, P, m, n_off, Lq, stream);   \
     break;
   int code = (int)cudaErrorInvalidValue;
   switch (lanes) {
@@ -364,12 +374,12 @@ int launch_gs(const T* vals, const T* bd, const T* invd, const T* x_in, T* x,
 #undef PAT_GS_LANES
 }
 
-template <typename T>
-int launch_ax(const T* vals, const T* x, T* out, const int* tap, int P, int m,
+template <typename V, typename T>
+int launch_ax(const V* vals, const T* x, T* out, const int* tap, int P, int m,
               int n_off, long long Lq, cudaStream_t stream) {
   const long long work = (long long)P * m * Lq;
   if (work > 0) {
-    ax_core_kernel<T><<<blocks_for(work), kThreads, 0, stream>>>(
+    ax_core_kernel<V, T><<<blocks_for(work), kThreads, 0, stream>>>(
         vals, x, out, tap, P, m, n_off, Lq);
   }
   return (int)cudaGetLastError();
@@ -377,46 +387,34 @@ int launch_ax(const T* vals, const T* x, T* out, const int* tap, int P, int m,
 
 }  // namespace
 
+// The C entries, one per (values, vectors) pair: the suffix names the
+// vector type alone where the values have it too (f32, f64), else the
+// values' type and then the vectors' (bf16_f32, bf16_f64, f32_f64).
+#define PAT_GS_ENTRIES(SUFFIX, V, T)                                          \
+  int pat_ax_core_##SUFFIX(const void* vals, const void* x, void* out,        \
+                           const void* tap, int P, int m, int n_off,          \
+                           long long Lq, void* stream) {                      \
+    return launch_ax<V, T>((const V*)vals, (const T*)x, (T*)out,              \
+                           (const int*)tap, P, m, n_off, Lq,                  \
+                           (cudaStream_t)stream);                             \
+  }                                                                           \
+  int pat_gs_sweeps_##SUFFIX(const void* vals, const void* bd,                \
+                             const void* invd, const void* x_in, void* x,     \
+                             const void* tap, const void* steps, int n_steps, \
+                             int zero_guess, int lanes, int width, int P,     \
+                             int m, int n_off, int Lq, void* stream) {        \
+    return launch_gs<V, T>((const V*)vals, (const T*)bd, (const T*)invd,      \
+                           (const T*)x_in, (T*)x, (const int*)tap,            \
+                           (const int*)steps, n_steps, zero_guess, lanes,     \
+                           width, P, m, n_off, Lq, (cudaStream_t)stream);     \
+  }
+
 extern "C" {
 
-int pat_ax_core_f32(const void* vals, const void* x, void* out,
-                    const void* tap, int P, int m, int n_off, long long Lq,
-                    void* stream) {
-  return launch_ax<float>((const float*)vals, (const float*)x, (float*)out,
-                          (const int*)tap, P, m, n_off, Lq,
-                          (cudaStream_t)stream);
-}
-
-int pat_ax_core_f64(const void* vals, const void* x, void* out,
-                    const void* tap, int P, int m, int n_off, long long Lq,
-                    void* stream) {
-  return launch_ax<double>((const double*)vals, (const double*)x,
-                           (double*)out, (const int*)tap, P, m, n_off, Lq,
-                           (cudaStream_t)stream);
-}
-
-int pat_gs_sweeps_f32(const void* vals, const void* bd, const void* invd,
-                      const void* x_in, void* x, const void* tap,
-                      const void* steps, int n_steps, int zero_guess,
-                      int lanes, int width, int P, int m, int n_off, int Lq,
-                      void* stream) {
-  return launch_gs<float>((const float*)vals, (const float*)bd,
-                          (const float*)invd, (const float*)x_in, (float*)x,
-                          (const int*)tap, (const int*)steps, n_steps,
-                          zero_guess, lanes, width, P, m, n_off, Lq,
-                          (cudaStream_t)stream);
-}
-
-int pat_gs_sweeps_f64(const void* vals, const void* bd, const void* invd,
-                      const void* x_in, void* x, const void* tap,
-                      const void* steps, int n_steps, int zero_guess,
-                      int lanes, int width, int P, int m, int n_off, int Lq,
-                      void* stream) {
-  return launch_gs<double>((const double*)vals, (const double*)bd,
-                           (const double*)invd, (const double*)x_in,
-                           (double*)x, (const int*)tap, (const int*)steps,
-                           n_steps, zero_guess, lanes, width, P, m,
-                           n_off, Lq, (cudaStream_t)stream);
-}
+PAT_GS_ENTRIES(f32, float, float)
+PAT_GS_ENTRIES(f64, double, double)
+PAT_GS_ENTRIES(bf16_f32, __nv_bfloat16, float)
+PAT_GS_ENTRIES(bf16_f64, __nv_bfloat16, double)
+PAT_GS_ENTRIES(f32_f64, float, double)
 
 }  // extern "C"

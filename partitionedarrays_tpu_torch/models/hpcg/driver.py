@@ -18,6 +18,8 @@ Each set runs the CG that the reference's dispatch picks (``driver.py:
 part), the ghosted flat CG with them, the generic standard-order CG for a
 one-level ghosted preconditioner, and with ``precision="df64"`` the
 official-precision df64 CG (``driver.py:60-136``) with a float32 MG.
+``precond_dtype`` stores the MG smoothers' values narrower on every route
+(the df64 route's float32 MG takes bfloat16, as the reference's does).
 """
 from __future__ import annotations
 
@@ -121,15 +123,12 @@ def hpcg_benchmark(
     ``precision="df64"``: the official-precision configuration; the fine
     operator, the CG vectors, updates and dots run in df64 (~49 bits), the
     MG preconditioner in float32, and ``dtype`` is ignored.  The fine
-    problem lives on the device of ``mg``.  ``precond_dtype`` is not
-    ported yet."""
+    problem lives on the device of ``mg``.  ``precond_dtype``: the storage
+    of the MG smoothers' values (``HPCGMGPreconditioner``: bfloat16, or
+    float32 under float64 vectors); a passed ``mg`` keeps its own, which
+    the report gives."""
     if precision not in (None, "df64"):
         raise ValueError(f"unknown precision {precision!r}")
-    if precond_dtype is not None:
-        raise NotImplementedError(
-            "reduced-precision preconditioner values: ROADMAP Queue 1, what is left of "
-            "slice A, item 3"
-        )
     df64_mode = precision == "df64"
     if df64_mode:
         dtype = np.float32  # the preconditioner's dtype
@@ -144,7 +143,7 @@ def hpcg_benchmark(
     if mg is None:
         mg = HPCGMGPreconditioner(
             local_shape, parts_per_dir, backend, n_levels=n_levels,
-            dtype=dtype, device=device,
+            dtype=dtype, precond_dtype=precond_dtype, device=device,
         )
     A, b = mg.A, mg.b
     dev = b.own.device
@@ -228,6 +227,11 @@ def hpcg_benchmark(
             "validation_tolerance": float(tolerance),
             "validation_achieved": float(opt_rel[-1]),
             "phase3_window": window,
-            "precond_values_dtype": None,
+            # as the reference: None unless the values are stored apart
+            # from the vectors' dtype or a dtype was asked for
+            "precond_values_dtype": (
+                str(mg.values_dtype).replace("torch.", "")
+                if precond_dtype is not None or mg.values_dtype != mg.A.dtype else None
+            ),
         },
     )

@@ -13,6 +13,15 @@ of each smoother application is folded into the core rhs
 (``_cycle_flat_g``).  Restriction is a stride-2 slice of the C-ordered box and
 prolongation writes the coarse values at the even points of a zero box:
 the reference's selection matmul and dilated pad were TPU layout devices.
+``restrict_operator`` (reference ``mg.py:31-43``) is copied for callers
+that want the injection as an index table.
+
+``precond_dtype`` (reference ``mg.py:57-92``) stores every level's
+smoother values narrower than the vectors (bfloat16; float32 under
+float64 vectors): the sweeps and level residuals read them and accumulate
+in ``dtype``.  The reference also freezes narrow standard-order operators
+(``devs_pc``) for its generic V-cycle branch, which no HPCG level takes
+(every level here runs the flat cycle), so the port keeps none.
 """
 from __future__ import annotations
 
@@ -21,15 +30,31 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...config import values_dtype
 from ...psparse import PSparseMatrix
 from ...pvector import PVector
 from ...solvers.smoothers import GaussSeidel
 from .problem import build_hpcg_problem
 
 
+def restrict_operator(nx: int, ny: int, nz: int) -> np.ndarray:
+    """Coarse own-local index -> fine own-local index of C-ordered boxes:
+    the even-coordinate fine points (int32), as the reference's."""
+    if nx % 2 or ny % 2 or nz % 2:
+        raise ValueError(f"restrict_operator: box {(nx, ny, nz)} is not even")
+    ix, iy, iz = np.meshgrid(
+        np.arange(nx // 2), np.arange(ny // 2), np.arange(nz // 2), indexing="ij"
+    )
+    fine = ((2 * ix) * ny + (2 * iy)) * nz + (2 * iz)
+    return fine.reshape(-1).astype(np.int32)
+
+
 class HPCGMGPreconditioner:
     """V-cycle geometric MG over ``n_levels`` 27-point operators; list index
-    0 is the coarsest level."""
+    0 is the coarsest level.  ``precond_dtype``: None, bfloat16 or float32
+    (a torch or numpy dtype, or its name), the storage of the smoothers'
+    values; a pair without a kernel (float32 values under float32 vectors
+    are the plain case) raises TypeError."""
 
     def __init__(
         self,
@@ -42,21 +67,18 @@ class HPCGMGPreconditioner:
         precond_dtype=None,
         device="cuda",
     ):
-        if precond_dtype is not None:
-            raise NotImplementedError(
-                "reduced-precision preconditioner values: ROADMAP Queue 1, what is left of "
-                "slice A, item 3"
-            )
         nx, ny, nz = (int(v) for v in local_shape)
         if min(nx, ny, nz) % (2 ** (n_levels - 1)) != 0:
             raise ValueError("local shape must be divisible by 2^(levels-1)")
         shapes = [(nx >> l, ny >> l, nz >> l) for l in range(n_levels)][::-1]
+        precond_dtype = values_dtype(precond_dtype)
         As, bs, gss = [], [], []
         for shape in shapes:
             A, b = build_hpcg_problem(shape, parts_per_dir, backend, dtype=dtype, device=device)
             As.append(A)
             bs.append(b)
-            gss.append(GaussSeidel(A, iterations=smoother_iters, sweep="symmetric"))
+            gss.append(GaussSeidel(A, iterations=smoother_iters, sweep="symmetric",
+                                   values_dtype=precond_dtype))
         self._set_levels(As, bs, gss, shapes, backend)
 
     @classmethod
@@ -85,6 +107,12 @@ class HPCGMGPreconditioner:
     @property
     def A(self) -> PSparseMatrix:
         return self.As[-1]
+
+    @property
+    def values_dtype(self) -> torch.dtype:
+        """The storage dtype of the smoothers' values (``precond_dtype``,
+        else the vectors' dtype)."""
+        return self.gss[-1].colored.vals_d.dtype
 
     @property
     def b(self) -> PVector:

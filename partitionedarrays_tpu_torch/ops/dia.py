@@ -68,18 +68,20 @@ def dia_spmv_plain(
     offsets: Tuple[int, ...], vals: torch.Tensor, x: torch.Tensor
 ) -> torch.Tensor:
     """y[p, i] = sum_d vals[p, d, i] * x[p, i + offsets[d]], x zero outside
-    ``[0, n_cols)``.  vals: [P, n_off, R]; x: [P, n_cols]; returns [P, R].
-    Each term is a shifted slice of a zero-padded copy of x, summed in
-    the order of the offsets (as the reference's ``dia_spmv``)."""
+    ``[0, n_cols)``.  vals: [P, n_off, R]; x: [P, n_cols]; returns [P, R]
+    in x's dtype.  Each term is a shifted slice of a zero-padded copy of x,
+    summed in the order of the offsets (as the reference's ``dia_spmv``);
+    values narrower than x are widened to its dtype first (the reference
+    promotes them)."""
     P, _, R = vals.shape
     n_cols = x.shape[-1]
     if not offsets:
-        return vals.new_zeros((P, R))
+        return x.new_zeros((P, R))
     lo = min(min(offsets), 0)
     hi = max(max(offsets) + R, n_cols)
     xpad = x.new_zeros((P, hi - lo))
     xpad[:, -lo : -lo + n_cols] = x
-    y = vals.new_zeros((P, R))
+    y = x.new_zeros((P, R))
     for d, off in enumerate(offsets):
-        y = y + vals[:, d] * xpad[:, off - lo : off - lo + R]
+        y = y + vals[:, d].to(x.dtype) * xpad[:, off - lo : off - lo + R]
     return y

@@ -1,13 +1,16 @@
 """Host-side planning for the DIA row engine (``csrc/dia_rows.cuh``) that
 K2 ``dia_spmv_strided`` and K3 ``gs_sweeps`` share.
 
-A thread of the engine takes ``vec`` consecutive rows (16 bytes of values
-per tap) and ``lanes`` threads of one warp may share those rows, each
+A thread of the engine takes ``vec`` consecutive rows (16 bytes of the
+vectors) and ``lanes`` threads of one warp may share those rows, each
 summing every ``lanes``-th tap.  ``row_lanes`` picks ``lanes``: the
 smallest power of two (up to 16, and at most the taps) that gives a call
 ``TARGET_THREADS`` threads.  Many rows and few taps (the HPCG fine level)
 get one lane; few rows and many taps (the 40^3 elasticity level, the
-coarse HPCG levels) get up to 16.
+coarse HPCG levels) get up to 16.  The plans take the vectors' item size
+alone: narrow values (bfloat16 values under float32 vectors read in 8-byte
+loads) keep the rows per thread of their vectors and get the full-value
+plan, so the sums run in the same order.
 
 K3 runs a whole color sequence in one persistent cooperative launch over
 (CTAs per part, parts), with ``grid.sync()`` between color steps.
@@ -18,7 +21,7 @@ timed on the card and lost to this form on every level where it fits; see
 ``csrc/gs_dia.cu``.)
 
 The engine has one form: ``check_rows`` refuses an operand that its
-16-byte loads cannot read (both wrappers call it; no scalar form).
+whole-row-group loads cannot read (both wrappers call it; no scalar form).
 
 Nothing here touches a device: the CPU tests check the plans.
 """
@@ -45,22 +48,25 @@ class SweepPlan(NamedTuple):
 
 
 def vec_of(itemsize: int) -> int:
-    """Rows per thread: 16 bytes of one tap's values."""
+    """Rows per thread: 16 bytes of the vectors."""
     return VEC_BYTES // itemsize
 
 
-def check_rows(name: str, rows: int, tensors) -> None:
-    """Raise ValueError unless the engine's 16-byte loads can read
-    ``tensors`` (values, bd, invd, a guess): ``rows`` per row, every start
-    and every part stride (dim 0) in whole 16-byte steps."""
-    vec = vec_of(tensors[0].element_size())
+def check_rows(name: str, rows: int, tensors, vec: int) -> None:
+    """Raise ValueError unless the engine's loads of ``vec`` rows (16 bytes
+    of the vectors, ``vec_of``) can read ``tensors`` (values, bd, invd, a
+    guess): ``rows`` per row and every part stride (dim 0) in whole ``vec``
+    elements, every start a whole load (``vec`` elements of the tensor's
+    dtype: 16 bytes, or 8 or 4 for narrow values)."""
     bad = rows % vec != 0 or any(
-        t.data_ptr() % VEC_BYTES or (t.shape[0] > 1 and t.stride(0) % vec) for t in tensors
+        t.data_ptr() % (vec * t.element_size()) or (t.shape[0] > 1 and t.stride(0) % vec)
+        for t in tensors
     )
     if bad:
         raise ValueError(
-            f"{name}: rows of {rows} and every operand's start and part stride must be "
-            f"whole {VEC_BYTES}-byte steps (the row engine has no scalar form)"
+            f"{name}: rows of {rows} and every operand's part stride must be whole "
+            f"{vec} elements and every start a whole load of {vec} elements (the row "
+            f"engine has no scalar form)"
         )
 
 
@@ -76,7 +82,8 @@ def row_lanes(groups: int, n_off: int, target: int) -> int:
 
 @lru_cache(maxsize=None)
 def sweep_plan(P: int, m: int, n_off: int, Lq: int, itemsize: int) -> SweepPlan:
-    """The plan of one K3 launch over vals ``[P, m, n_off, Lq]``:
+    """The plan of one K3 launch over vals ``[P, m, n_off, Lq]`` with
+    vectors of ``itemsize`` bytes (the values' may be narrower):
     ``row_lanes`` lanes and CTAs enough for one pass over a step."""
     groups = Lq // vec_of(itemsize)
     lanes = row_lanes(P * groups, n_off, TARGET_THREADS)

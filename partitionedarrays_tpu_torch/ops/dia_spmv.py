@@ -14,9 +14,12 @@ the rows, a chunk of taps in flight per thread, a grid of (row tiles,
 parts), and ``lanes`` threads per row group where rows are few
 (``ops/dia_rows.py::row_lanes``).  A CUDA view that the engine's 16-byte
 loads cannot read raises (``ops/dia_rows.py::check_rows``).
-``dia_spmv_plain`` (``ops/dia.py``) is the
-plain PyTorch version of both: the wrappers run it for CPU tensors, and
-the tests and ``chip_smoke.py`` hold the kernels against it.
+K2 also reads values narrower than x (``_build.NARROW_PAIRS``, the
+reduced-precision values of ``ColoredDIAGS``), widened exactly to x's
+dtype; K1 takes one dtype (``csrc/dia_spmv.cu`` says why no path needs
+more).  ``dia_spmv_plain`` (``ops/dia.py``) is the plain PyTorch version
+of both: the wrappers run it for CPU tensors, and the tests and
+``chip_smoke.py`` hold the kernels against it.
 
 K7 ``dia_spmv_df`` replaces ``partitionedarrays_tpu/ops/spmv_pallas.py::
 dia_spmv_pallas_flat_df``: the same product in df64 (two-float) arithmetic
@@ -47,13 +50,17 @@ __all__ = ["dia_spmv", "dia_spmv_df", "dia_spmv_plain", "dia_spmv_strided"]
 _DTYPES = (torch.float32, torch.float64)
 
 
-def _check(name, offsets, vals, x) -> bool:
-    """Validate the operands; True when they go to the kernel."""
+def _check(name, offsets, vals, x, narrow: bool = False) -> bool:
+    """Validate the operands; True when they go to the kernel.  With
+    ``narrow`` the values may also be one of ``_build.NARROW_PAIRS`` with
+    x."""
     if vals.dim() != 3 or x.dim() != 2 or vals.shape[0] != x.shape[0]:
         raise ValueError(f"{name}: vals {tuple(vals.shape)} and x {tuple(x.shape)}")
     if vals.shape[1] != len(offsets) and len(offsets) > 0:
         raise ValueError(f"{name}: {len(offsets)} offsets for {vals.shape[1]} diagonals")
-    if vals.dtype != x.dtype:
+    if narrow:
+        _build.check_pair(name, vals.dtype, x.dtype)
+    elif vals.dtype != x.dtype:
         raise TypeError(f"{name}: values {vals.dtype} and x {x.dtype} differ")
     if vals.device != x.device:
         raise ValueError(f"{name}: values on {vals.device}, x on {x.device}")
@@ -61,8 +68,8 @@ def _check(name, offsets, vals, x) -> bool:
         return False
     if vals.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {vals.device}")
-    if vals.dtype not in _DTYPES:
-        raise TypeError(f"{name}: no kernel for {vals.dtype}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: no kernel for {x.dtype}")
     if len(offsets) > MAX_DIAGS:
         raise ValueError(f"{name}: {len(offsets)} diagonals > {MAX_DIAGS}")
     return True
@@ -109,13 +116,14 @@ def dia_spmv_strided(
     """K2.  The product of ``dia_spmv`` on views: vals [P, n_off, R] and
     x [P, n_cols] may have any part stride (dim 0), while each part's
     values are ``[n_off, R]`` contiguous and each part's x is contiguous
-    (e.g. one color ``vals_d[:, c]`` of the de-interleaved values).
-    Returns a contiguous [P, R].
+    (e.g. one color ``vals_d[:, c]`` of the de-interleaved values), in x's
+    dtype or, narrower, one of ``_build.NARROW_PAIRS``.  Returns a
+    contiguous [P, R] in x's dtype.
 
     A CPU tensor goes to ``dia_spmv_plain``; a CUDA tensor goes to the
-    kernel (R, the values' start and part stride in whole 16-byte steps),
-    or the call raises."""
-    if not _check("dia_spmv_strided", offsets, vals, x):
+    kernel (R and the values' part stride in whole row groups, their start
+    a whole load: ``dia_rows.check_rows``), or the call raises."""
+    if not _check("dia_spmv_strided", offsets, vals, x, narrow=True):
         return dia_spmv_plain(offsets, vals, x)
     P, n_off, R = vals.shape
     if (n_off > 1 and vals.stride(1) != R) or (R > 1 and vals.stride(2) != 1) or (
@@ -125,10 +133,11 @@ def dia_spmv_strided(
             "dia_spmv_strided: each part's values and x must be contiguous, got "
             f"strides {vals.stride()} and {x.stride()}"
         )
-    check_rows("dia_spmv_strided", R, (vals,))
-    y = torch.empty((P, R), dtype=vals.dtype, device=vals.device)
-    lanes = row_lanes(P * (R // vec_of(vals.element_size())), n_off, TARGET_THREADS)
-    code = _build.entry("pat_dia_spmv_strided", vals.dtype)(
+    vec = vec_of(x.element_size())
+    check_rows("dia_spmv_strided", R, (vals,), vec)
+    y = torch.empty((P, R), dtype=x.dtype, device=vals.device)
+    lanes = row_lanes(P * (R // vec), n_off, TARGET_THREADS)
+    code = _build.entry("pat_dia_spmv_strided", x.dtype, vals.dtype)(
         vals.data_ptr(), x.data_ptr(), y.data_ptr(), _offsets_arg(offsets), len(offsets),
         R, x.shape[1], P, vals.stride(0), x.stride(0), lanes, _build.stream_of(vals),
     )

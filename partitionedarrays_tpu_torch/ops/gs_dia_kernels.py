@@ -14,6 +14,12 @@ unknowns of color ``c`` (rows ``m*i + c``) form row ``c`` of a
   it.  Its output is a new core; from a zero guess (``xcore=None``) the
   launch itself writes the zeros.
 
+Both also read values narrower than the vectors (``_build.NARROW_PAIRS``:
+bfloat16 values with float32 or float64 vectors, float32 values with
+float64 vectors), the reference's reduced-precision preconditioner values:
+each value is widened exactly to the vector dtype and the sums run in it,
+in the kernels as in the plain versions here.
+
 The CUDA kernels are ``csrc/gs_dia.cu``; its source note says why the
 sequence is race-free with a barrier between color steps, what bounds K3
 (device-memory bandwidth: each color's values once per step, plus x) and
@@ -32,7 +38,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from .. import _build
-from .dia_rows import SweepPlan, check_rows, sweep_plan
+from .dia_rows import SweepPlan, check_rows, sweep_plan, vec_of
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -86,16 +92,17 @@ def _check(name, vals, cores, tap: TapTable):
     for t in cores:
         if tuple(t.shape) != (P, m, Lq):
             raise ValueError(f"{name}: core {tuple(t.shape)} for vals {tuple(vals.shape)}")
-        if t.dtype != vals.dtype:
-            raise TypeError(f"{name}: values {vals.dtype} and vectors {t.dtype} differ")
+        if t.dtype != cores[0].dtype:
+            raise TypeError(f"{name}: vectors {cores[0].dtype} and {t.dtype} differ")
         if t.device != vals.device:
             raise ValueError(f"{name}: values on {vals.device}, a vector on {t.device}")
+    _build.check_pair(name, vals.dtype, cores[0].dtype)
     if vals.device.type == "cpu":
         return False
     if vals.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {vals.device}")
-    if vals.dtype not in _DTYPES:
-        raise TypeError(f"{name}: no kernel for {vals.dtype}")
+    if cores[0].dtype not in _DTYPES:
+        raise TypeError(f"{name}: no kernel for {cores[0].dtype}")
     if not all(t.is_contiguous() for t in (vals, *cores)):
         raise ValueError(f"{name}: tensors must be contiguous")
     return True
@@ -111,9 +118,10 @@ def _padded(xcore: torch.Tensor, tap: TapTable):
 
 
 def _color_ax(vals, xflat, left, tap: TapTable, c: int, Lq: int):
-    acc = torch.zeros_like(vals[:, c, 0])
+    """Color c's rows of A x; the values widened to x's dtype."""
+    acc = xflat.new_zeros((xflat.shape[0], Lq))
     for d, t in enumerate(tap.host[c]):
-        acc = acc + vals[:, c, d] * xflat[:, left + t : left + t + Lq]
+        acc = acc + vals[:, c, d].to(xflat.dtype) * xflat[:, left + t : left + t + Lq]
     return acc
 
 
@@ -146,14 +154,15 @@ def gs_sweeps_plain(
 
 
 def ax_core(vals: torch.Tensor, xcore: torch.Tensor, tap: TapTable) -> torch.Tensor:
-    """K4.  vals [P, m, n_off, Lq], xcore [P, m, Lq] -> [P, m, Lq].  A CPU
-    tensor goes to ``ax_core_plain``; a CUDA tensor goes to the kernel, or
-    the call raises."""
+    """K4.  vals [P, m, n_off, Lq] (the vectors' dtype or a narrow pair),
+    xcore [P, m, Lq] -> [P, m, Lq].  A CPU tensor goes to
+    ``ax_core_plain``; a CUDA tensor goes to the kernel, or the call
+    raises."""
     if not _check("ax_core", vals, (xcore,), tap):
         return ax_core_plain(vals, xcore, tap)
     P, m, n_off, Lq = vals.shape
     out = torch.empty_like(xcore)
-    code = _build.entry("pat_ax_core", vals.dtype)(
+    code = _build.entry("pat_ax_core", xcore.dtype, vals.dtype)(
         vals.data_ptr(), xcore.data_ptr(), out.data_ptr(),
         tap.on(vals.device).data_ptr(), P, m, n_off, Lq, _build.stream_of(vals),
     )
@@ -176,7 +185,8 @@ def gs_sweeps(
 ) -> torch.Tensor:
     """K3.  Runs the color steps of ``order`` on a copy of ``xcore``
     [P, m, Lq] (``None``: a zero guess) and returns it; vals
-    [P, m, n_off, Lq], bd and invd [P, m, Lq].  A CPU tensor goes to
+    [P, m, n_off, Lq] (the vectors' dtype or a narrow pair), bd and invd
+    [P, m, Lq].  A CPU tensor goes to
     ``gs_sweeps_plain``; a CUDA tensor goes to the kernel, one launch for
     the whole sequence (Lq and every start in whole 16-byte steps), or the
     call raises.  The launch's lanes and CTAs are
@@ -187,12 +197,12 @@ def gs_sweeps(
         start = torch.zeros_like(bd) if xcore is None else xcore
         return gs_sweeps_plain(vals, bd, invd, start, tap, order)
     P, m, n_off, Lq = vals.shape
-    check_rows("gs_sweeps", Lq, (vals, *cores))
+    check_rows("gs_sweeps", Lq, (vals, *cores), vec_of(bd.element_size()))
     if m * n_off * Lq >= 2**31:
         raise ValueError(f"gs_sweeps: a part's {m * n_off * Lq} values exceed int32 offsets")
-    plan = _plan or sweep_plan(P, m, n_off, Lq, vals.element_size())
+    plan = _plan or sweep_plan(P, m, n_off, Lq, bd.element_size())
     x = torch.empty_like(bd)
-    code = _build.entry("pat_gs_sweeps", vals.dtype)(
+    code = _build.entry("pat_gs_sweeps", bd.dtype, vals.dtype)(
         vals.data_ptr(), bd.data_ptr(), invd.data_ptr(),
         None if xcore is None else xcore.data_ptr(), x.data_ptr(),
         tap.on(vals.device).data_ptr(), tap.steps_on(order, vals.device).data_ptr(),

@@ -21,6 +21,15 @@ runs each color as the reference's ``sweep_flat`` does: a DIA SpMV of the
 color's values over the core (kernel K2, ``ops/dia_spmv.py``) and an
 update of the color's row.  The reference's de-interleave by 0/1 matmul is
 a TPU layout trick; here it is a reshape and a transpose.
+
+``values_dtype`` stores ``vals_d`` narrower than the vectors, the
+reference's reduced-precision preconditioner values (``gs_dia.py:111-199``):
+bfloat16 with float32 or float64 vectors, or float32 with float64 vectors
+(``_build.NARROW_PAIRS``).  The values are rounded to nearest even, as
+``astype`` rounds them there (float64 to bfloat16 through float32, in
+torch and JAX alike); ``invd_d`` stays in the vectors' dtype,
+computed from the unrounded diagonal; K2, K3 and K4 widen each value to
+the vectors' dtype before they multiply.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .. import _build
 from ..ops.dia_spmv import dia_spmv_strided
 from ..ops.gs_dia_kernels import TapTable, ax_core, gs_sweeps
 
@@ -49,7 +59,8 @@ def find_mod_coloring(offsets, max_m: int = 512) -> Optional[int]:
 
 class ColoredDIAGS:
     """Sweep state of one DIA block: the geometry from ``_plan`` and the
-    de-interleaved values ``vals_d`` and inverse diagonal ``invd_d``."""
+    de-interleaved values ``vals_d`` (in their storage dtype) and inverse
+    diagonal ``invd_d`` (in the vectors' dtype)."""
 
     def _plan(self, offsets: Tuple[int, ...], R: int):
         """Static geometry, identical to the reference's ``_plan`` so that
@@ -85,27 +96,39 @@ class ColoredDIAGS:
         self.taps = TapTable([[t - self.Kp for t in row] for row in self.schedule])
 
     @classmethod
-    def from_device(cls, offsets, vals: torch.Tensor, diag: torch.Tensor) -> "ColoredDIAGS":
+    def from_device(
+        cls, offsets, vals: torch.Tensor, diag: torch.Tensor,
+        values_dtype: Optional[torch.dtype] = None,
+    ) -> "ColoredDIAGS":
         """Build from the block's values ``vals[P, n_off, R]`` and diagonal
-        ``diag[P, R]``, on their device."""
+        ``diag[P, R]``, on their device; ``vals_d`` in ``values_dtype``
+        (default: the values' dtype)."""
         self = cls.__new__(cls)
         self._plan(offsets, vals.shape[2])
-        self.set_values(vals, diag)
+        self.set_values(vals, diag, values_dtype or vals.dtype)
         return self
 
-    def set_values(self, vals: torch.Tensor, diag: torch.Tensor) -> None:
+    def set_values(
+        self, vals: torch.Tensor, diag: torch.Tensor,
+        values_dtype: Optional[torch.dtype] = None,
+    ) -> None:
         """De-interleave new values of the same block (``vals[P, n_off,
         R]``, ``diag[P, R]``) into ``vals_d`` and ``invd_d``, keeping the
-        coloring and the tap table."""
+        coloring and the tap table, and ``vals_d``'s storage dtype unless
+        ``values_dtype`` names another (so a refresh of a narrow smoother
+        stays narrow)."""
         P, n_off, R = vals.shape
         if (n_off, R) != (len(self.offsets), self.R):
             raise ValueError(f"set_values: values {tuple(vals.shape)} for n_off, R = "
                              f"{(len(self.offsets), self.R)}")
+        values_dtype = values_dtype or self.vals_d.dtype
+        _build.check_pair("ColoredDIAGS", values_dtype, diag.dtype)
         m, Lq = self.m, self.Lq
         Rq = m * Lq
         vp = vals.new_zeros((P, n_off, Rq))
         vp[:, :, :R] = vals
-        self.vals_d = vp.view(P, n_off, Lq, m).permute(0, 3, 1, 2).contiguous()
+        # rounded to nearest even after the de-interleave
+        self.vals_d = vp.view(P, n_off, Lq, m).permute(0, 3, 1, 2).contiguous().to(values_dtype)
         dp = diag.new_zeros((P, Rq))
         dp[:, :R] = diag
         dd = dp.view(P, Lq, m).transpose(1, 2)
@@ -116,10 +139,12 @@ class ColoredDIAGS:
 
     @classmethod
     def from_arrays(
-        cls, offsets, R: int, vals_d: torch.Tensor, invd_d: torch.Tensor
+        cls, offsets, R: int, vals_d: torch.Tensor, invd_d: torch.Tensor,
+        values_dtype: Optional[torch.dtype] = None,
     ) -> "ColoredDIAGS":
         """Adopt de-interleaved state built elsewhere: vals_d
-        ``[P, m, n_off, Lq]`` and invd_d ``[P, m, Lq]``."""
+        ``[P, m, n_off, Lq]``, stored in ``values_dtype`` (default: its
+        own dtype; another is rounded to), and invd_d ``[P, m, Lq]``."""
         self = cls.__new__(cls)
         self._plan(offsets, R)
         expect = (self.m, len(self.offsets), self.Lq)
@@ -128,7 +153,9 @@ class ColoredDIAGS:
                 f"vals_d {tuple(vals_d.shape)} / invd_d {tuple(invd_d.shape)} "
                 f"do not match m, n_off, Lq = {expect}"
             )
-        self.vals_d = vals_d.contiguous()
+        values_dtype = values_dtype or vals_d.dtype
+        _build.check_pair("ColoredDIAGS", values_dtype, invd_d.dtype)
+        self.vals_d = vals_d.contiguous().to(values_dtype)
         self.invd_d = invd_d.contiguous()
         return self
 

@@ -34,6 +34,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..config import values_dtype as _values_dtype
 from ..ops.native import ilu0
 from ..psparse import PSparseMatrix, dense_diag, host_blocks, spmv
 from ..pvector import PVector, _own_mask
@@ -87,10 +88,14 @@ class GaussSeidel:
         iterations: int = 1,
         sweep: str = "symmetric",
         colored: ColoredDIAGS = None,
+        values_dtype=None,
     ):
         """``colored``: sweep state built elsewhere (``convert.py``);
-        by default it is built from A's DIA values.  The reference's
-        reduced-precision ``values_dtype`` is not ported yet (ROADMAP)."""
+        by default it is built from A's DIA values.  ``values_dtype``:
+        storage of the colored tier's streamed values narrower than A's
+        (``torch.bfloat16``; ``torch.float32`` for a float64 A); the sweeps
+        accumulate in A's dtype and only the smoother changes, not A.  The
+        tile tier ignores it, as the reference's does."""
         if sweep not in ("forward", "backward", "symmetric"):
             raise ValueError(sweep)
         self.A = A
@@ -100,7 +105,9 @@ class GaussSeidel:
         oo = A.device().oo
         if oo.kind == "dia" and find_mod_coloring(oo.offsets) is not None:
             if colored is None:
-                colored = ColoredDIAGS.from_device(oo.offsets, oo.vals, _own_diagonal(A))
+                colored = ColoredDIAGS.from_device(
+                    oo.offsets, oo.vals, _own_diagonal(A), _values_dtype(values_dtype)
+                )
             self.colored = colored
             self.n_colors = colored.m
         elif colored is not None:
@@ -113,7 +120,8 @@ class GaussSeidel:
         """The smoother for new values of a matrix of the same sparsity
         (the smoother leg of the AMG ``update``): the colored tier
         de-interleaves A's new DIA values and inverse diagonal (the
-        coloring and K3's tap table kept), the tile tier recomputes its
+        coloring, K3's tap table and the values' storage dtype kept), the
+        tile tier recomputes its
         packed inverse planes and off-tile values (``NaturalTileGS.refresh``:
         the schedule and K6's tables kept).  A matrix that would select the
         other tier, or another band, raises."""
@@ -205,7 +213,13 @@ class GaussSeidel:
         return bd - self.colored.ax_core(xflat, self.colored.vals_d)
 
     def flat_ax(self, xflat: torch.Tensor) -> torch.Tensor:
-        """A_own_own @ x in the core layout: the A-apply of the flat CG."""
+        """A_own_own @ x in the core layout: the A-apply of the flat CG.
+        It reads the stored values, narrow ones too, as the reference's
+        ``flat_ax`` does (``smoothers.py:403-416``), although the
+        reference's MG docstring says the outer operator stays in the
+        vectors' dtype: for HPCG's operator, the only one the MG builds,
+        the two agree bit for bit, since 26 and -1 are exact in
+        bfloat16."""
         return self.colored.ax_core(xflat, self.colored.vals_d)
 
     def flat_interleave(self, xflat: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,7 @@ import torch
 
 from partitionedarrays_tpu_torch import convert, pvector
 from partitionedarrays_tpu_torch.backends import SerialBackend
+from partitionedarrays_tpu_torch.models import hpcg
 from partitionedarrays_tpu_torch.models.hpcg.driver import hpcg_benchmark
 from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
 from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
@@ -28,7 +29,7 @@ ENTRY_POINTS = [
     freeze_block, pvector.pfill, pvector.pzeros, pvector.pones, pvector.pvector_from_own,
     pvector.pvector_df64, pvector.pvector, convert.from_jax_arrays,
     convert.psparse_from_host_blocks, psparse, psparse_from_global, PSparseMatrix.__init__,
-    psystem,
+    psystem, hpcg.build_p_matrix, hpcg.pc_setup,
 ]
 
 

@@ -220,11 +220,34 @@ def test_row_engine_refuses_what_its_16_byte_loads_cannot_read(dtype):
 
     vec = vec_of(torch.empty((), dtype=dtype).element_size())
     vals = torch.zeros(2, 3, 5, 8 * vec, dtype=dtype)
-    check_rows("k", 8 * vec, (vals, vals[:, 1]))  # a color view: part stride 15 rows
+    check_rows("k", 8 * vec, (vals, vals[:, 1]), vec)  # a color view: part stride 15 rows
     buf = torch.zeros(vals.numel() + 1, dtype=dtype)
     with pytest.raises(ValueError):
-        check_rows("k", 8 * vec, (buf[1:].view(vals.shape),))  # start off by 1 element
+        check_rows("k", 8 * vec, (buf[1:].view(vals.shape),), vec)  # start off by 1 element
     with pytest.raises(ValueError):
-        check_rows("k", 8 * vec + 1, (vals,))  # rows not whole 16-byte steps
+        check_rows("k", 8 * vec + 1, (vals,), vec)  # rows not whole 16-byte steps
     with pytest.raises(ValueError):
-        check_rows("k", 8 * vec, (buf[: 2 * (8 * vec + 1)].view(2, 8 * vec + 1)[:, 1:],))
+        check_rows("k", 8 * vec, (buf[: 2 * (8 * vec + 1)].view(2, 8 * vec + 1)[:, 1:],), vec)
+
+
+@pytest.mark.parametrize("values, dtype", [(torch.bfloat16, torch.float32),
+                                           (torch.bfloat16, torch.float64),
+                                           (torch.float32, torch.float64)])
+def test_row_engine_refuses_narrow_values_its_loads_cannot_read(values, dtype):
+    """Narrow values keep the rows per thread of their vectors (``vec``):
+    a value load is ``vec`` narrow elements (8 or 4 bytes), so a view of
+    the values passes where its start is a whole load and its rows and
+    part stride whole ``vec``; one element off, it raises."""
+    from partitionedarrays_tpu_torch.ops.dia_rows import check_rows, vec_of
+
+    vec = vec_of(torch.empty((), dtype=dtype).element_size())
+    vals = torch.zeros(2, 3, 5, 8 * vec, dtype=values)
+    bd = torch.zeros(2, 3, 8 * vec, dtype=dtype)
+    check_rows("k", 8 * vec, (vals, vals[:, 1], bd), vec)
+    buf = torch.zeros(vals.numel() + 1, dtype=values)
+    with pytest.raises(ValueError):
+        check_rows("k", 8 * vec, (buf[1:].view(vals.shape), bd), vec)  # start off by 1
+    with pytest.raises(ValueError):
+        check_rows("k", 8 * vec + 1, (vals,), vec)  # rows not whole row groups
+    with pytest.raises(ValueError):
+        check_rows("k", 8 * vec, (buf[: 2 * (8 * vec + 1)].view(2, 8 * vec + 1)[:, 1:],), vec)

@@ -30,7 +30,13 @@ and K5 on the own-ghost blocks and their transposes (``spmtv``) of that
 hierarchy and of a matrix with a part that has no ghost columns.  K6 in
 one-direction mode: the triangular solves of the ILU(0) Schwarz tier on
 four parts and on the 16^3 HPCG operator, against the plain version and,
-in float64, against scipy's ``spsolve_triangular``.
+in float64, against scipy's ``spsolve_triangular``.  Narrow values
+(bfloat16 values with float32 or float64 vectors, float32 values with
+float64 vectors): K2, K3 and K4 on random values of the HPCG stencil's
+pattern, against their plain versions at the vector dtype's tolerance,
+K3 under every lane count; on HPCG's own values, exact in bfloat16, equal
+to the full-value kernels bit for bit (the same plan, the same order of
+the sums).
 
 Every test is marked ``gpu`` and skips without a CUDA card.  This module
 imports torch and the port only (no JAX), so that it also runs on a
@@ -55,6 +61,7 @@ from partitionedarrays_tpu_torch.ops.gs_dia_kernels import (
     gs_sweeps,
     gs_sweeps_plain,
 )
+from partitionedarrays_tpu_torch.solvers.gs_dia import ColoredDIAGS
 from partitionedarrays_tpu_torch.solvers.smoothers import GaussSeidel
 
 torch.set_num_threads(1)
@@ -815,3 +822,107 @@ def test_device_refill_on_the_card(cuda, case):
     psparse_refill(A, V2, cache)
     for name in ("oo", "oh"):
         assert torch.equal(getattr(dev, name).vals, getattr(A.device(), name).vals)
+
+
+# -- narrow values: (values dtype, vector dtype) -----------------------------
+
+NARROW = [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.float64),
+          (torch.float32, torch.float64)]
+NARROW_IDS = ["bf16-f32", "bf16-f64", "f32-f64"]
+
+
+def _random_colored(device, pair, shape, parts, seed):
+    """The HPCG stencil's pattern with random values (off-diagonals in
+    [-1, -0.5], the diagonal in [26, 39]), stored narrow."""
+    values, dtype = pair
+    P = parts[0] * parts[1] * parts[2]
+    A, _ = build_hpcg_problem(shape, parts, SerialBackend(P), dtype=dtype, device=device)
+    oo = A.device().oo
+    g = torch.Generator().manual_seed(seed)
+    scale = (0.5 + 0.5 * torch.rand(oo.vals.shape, generator=g, dtype=dtype)).to(device)
+    k0 = oo.offsets.index(0)
+    scale[:, k0] += 0.5
+    vals = oo.vals * scale
+    return ColoredDIAGS.from_device(oo.offsets, vals, vals[:, k0].contiguous(), values)
+
+
+@pytest.mark.parametrize("pair", NARROW, ids=NARROW_IDS)
+def test_narrow_values_kernels_match_plain(cuda, pair):
+    """K4 and K3 (every order, from a guess and a zero guess) on the 32^3
+    pattern; K2 on every color and K3 under every lane count, with one CTA
+    per part and with many, on (2,2,2) parts of 16^3."""
+    values, dtype = pair
+    col = _random_colored(cuda, pair, (32, 32, 32), (1, 1, 1), 31)
+    assert col.vals_d.dtype == values and col.invd_d.dtype == dtype
+    g = torch.Generator().manual_seed(32)
+    x = torch.randn(1, col.m, col.Lq, generator=g, dtype=dtype).to(cuda)
+    before = ax_core.launches
+    got = ax_core(col.vals_d, x, col.taps)
+    assert ax_core.launches == before + 1 and got.dtype == dtype
+    _assert_close(got, ax_core_plain(col.vals_d, x, col.taps), dtype)
+    _hold_sweeps(col, dtype, cuda, 33)
+    col = _random_colored(cuda, pair, (16, 16, 16), (2, 2, 2), 34)
+    core = torch.randn(8, col.m * col.Lq, generator=g, dtype=dtype).to(cuda)
+    for c in range(col.m):
+        before = dia_spmv_strided.launches
+        got = dia_spmv_strided(col.taps.host[c], col.vals_d[:, c], core)
+        assert dia_spmv_strided.launches == before + 1 and got.dtype == dtype
+        _assert_close(got, dia_spmv_plain(col.taps.host[c], col.vals_d[:, c], core), dtype)
+    plans = [SweepPlan(lanes, width) for lanes in (1, 2, 4, 8, 16) for width in (1, 64)]
+    _hold_sweeps(col, dtype, cuda, 35, plans)
+
+
+@pytest.mark.parametrize("pair", NARROW, ids=NARROW_IDS)
+def test_narrow_values_refuse_what_the_engine_cannot_read(cuda, pair):
+    """Values that start one element into their storage are not a whole
+    load: K2 and K3 raise before any launch."""
+    values, dtype = pair
+    col = _random_colored(cuda, pair, (16, 16, 16), (2, 2, 2), 36)
+    bd = torch.zeros(8, col.m, col.Lq, dtype=dtype, device=cuda)
+    launches = dia_spmv_strided.launches, gs_sweeps.launches
+    core = torch.zeros(8, col.m * col.Lq, dtype=dtype, device=cuda)
+    with pytest.raises(ValueError):
+        dia_spmv_strided(col.taps.host[1], _misaligned(col.vals_d[:, 1]), core)
+    with pytest.raises(ValueError):
+        gs_sweeps(_misaligned(col.vals_d), bd, col.invd_d, None, col.taps, (0,))
+    assert (dia_spmv_strided.launches, gs_sweeps.launches) == launches
+
+
+@pytest.mark.parametrize("pair", NARROW, ids=NARROW_IDS)
+def test_narrow_values_on_hpcg_equal_full_values(cuda, pair):
+    """HPCG's 26 and -1 are exact in bfloat16: under the same plan the
+    narrow-value kernels give the full-value kernels' results bit for bit
+    (one level of 32^3 and one of (2,2,2) x 16^3)."""
+    values, dtype = pair
+    for shape, parts in (((32, 32, 32), (1, 1, 1)), ((16, 16, 16), (2, 2, 2))):
+        P = parts[0] * parts[1] * parts[2]
+        A, b = build_hpcg_problem(shape, parts, SerialBackend(P), dtype=dtype, device=cuda)
+        full, narrow = GaussSeidel(A), GaussSeidel(A, values_dtype=values)
+        assert narrow.colored.vals_d.dtype == values
+        assert torch.equal(narrow.colored.vals_d.to(dtype), full.colored.vals_d)
+        bd = full.make_bd(b)
+        order = full._order_seq()
+        g = torch.Generator().manual_seed(37)
+        x = torch.randn(P, full.colored.m, full.colored.Lq, generator=g, dtype=dtype).to(cuda)
+
+        def outputs(gs):  # K4, K3 from a zero guess and from x, K2 per color
+            col = gs.colored
+            return (gs.flat_ax(x), gs.smooth_bd(None, bd), gs.smooth_bd(x, bd),
+                    col.sweep_flat(x.clone(), bd, col.vals_d, col.invd_d, order))
+
+        for got, want in zip(outputs(narrow), outputs(full)):
+            assert torch.equal(got, want)
+
+
+def test_unsupported_value_pairs_raise(cuda):
+    """float16 values, or float64 values under float32 vectors, have no
+    kernel: TypeError, naming the pairs there are."""
+    col = _random_colored(cuda, (torch.float32, torch.float32), (16, 16, 16), (1, 1, 1), 38)
+    x = torch.zeros(1, col.m, col.Lq, device=cuda)
+    for values in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="bf16 values with f32 vectors"):
+            ax_core(col.vals_d.to(values), x, col.taps)
+        with pytest.raises(TypeError, match="supported pairs"):
+            gs_sweeps(col.vals_d.to(values), x, col.invd_d, None, col.taps, (0,))
+        with pytest.raises(TypeError, match="supported pairs"):
+            dia_spmv_strided(col.taps.host[0], col.vals_d[:, 0].to(values), x.view(1, -1))

@@ -19,7 +19,11 @@ flat cycle on (2,2,2) parts), and the reuse tier (``psparse(reuse=True)``,
 ``newton_raphson``), and the Schwarz tier (the native setup library,
 ``AdditiveSchwarz`` in its ilu0 and dense tiers under ``cg``,
 ``additive_schwarz_solver``, AMG with Schwarz level smoothers and its
-``update``); afterwards ``jax`` must not be among the loaded modules.
+``update``), and the reduced-precision preconditioner values
+(``hpcg_benchmark(precond_dtype=...)`` on the flat and df64 routes, the
+HPCG aliases); afterwards neither ``jax`` nor ``ml_dtypes`` (the reference's
+bfloat16 numpy dtype, read by ``convert.py`` without it) may be among the
+loaded modules.
 """
 import os
 import subprocess
@@ -175,7 +179,19 @@ b = spmv(A, pones(A.col_prange, A.backend, dtype=A.dtype, device="cpu"))
 _, info = cg(A, b, M=M, rtol=1e-8)
 assert info.iterations < 30, info
 M.update(A)
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+from partitionedarrays_tpu_torch.models.hpcg import (
+    build_matrix, hpcg_benchmark_debug, pc_setup, pc_solve, restrict_operator,
+)
+for precision in (None, "df64"):
+    r = hpcg_benchmark_debug(local_shape=(8, 8, 8), parts_per_dir=(1, 1, 1), n_levels=2,
+                             iterations=5, ref_sets=1, timed_sets=1, precision=precision,
+                             precond_dtype="bfloat16", device="cpu").summary()
+    assert r["precond_values_dtype"] == "bfloat16" and r["validation_passed"], r
+mg = pc_setup((4, 4, 4), (1, 1, 1), SerialBackend(1), n_levels=2, device="cpu")
+assert pc_solve(mg, mg.b).own.shape == mg.b.own.shape
+assert build_matrix((4, 4, 4))[0].nnz > 0 and restrict_operator(4, 4, 4).size == 8
+loaded = sorted(m for m in sys.modules
+                if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "ml_dtypes.")))
 print("JAX_MODULES", loaded)
 sys.exit(1 if loaded else 0)
 """
