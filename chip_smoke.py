@@ -27,7 +27,14 @@ Phases, one output line each:
    bound (each input read once), the streaming floor (each color's values
    read once per step), the plain version's time, the device time of a
    launch of no step and of one step, and the time under every other
-   lane count;
+   lane count; then K4 (one launch over every color and part) on every
+   level of the one-part 128^3 hierarchy, in float32, float64 and each
+   narrow pair, on random values of the level's pattern: against its plain
+   version under its plan (``ops/dia_rows.py::ax_plan``) and under every
+   other lane count, its time, device time, bound and plain time, the
+   ``torch.sparse`` CSR call at the fine level, the device time under
+   every other lane count, and on HPCG's own values (exact in bfloat16)
+   each narrow pair against the full-value kernel, bit for bit;
 4. fifteen paths through the port, each with its kernels' launch counts set
    to 0 just before it and read just after (a-c: the HPCG benchmark, 4 MG
    levels, 50 CG iterations; d-f: the AMG paths, counted over their
@@ -659,20 +666,23 @@ def _hold_k1(results, where, oo, x, library=None, rtol=KERNEL_RTOL):
     results[-1].update(where=where, n_diags=len(oo.offsets), rows=P * R)
 
 
-def _hold_k4(results, where, col, x, library=None, rtol=KERNEL_RTOL):
+def _hold_k4(results, where, col, x, library=None, rtol=KERNEL_RTOL, vals=None):
     """K4 against its plain version on a colored smoother's core ``col``
-    and the core x (``_hold``); bound: the values once, x read and y
-    written once."""
+    (or other values ``vals`` of its shape, e.g. narrower ones) and the
+    core x (``_hold``); bound: the values once in their own dtype, x read
+    and out written once."""
     from partitionedarrays_tpu_torch.ops.gs_dia_kernels import ax_core, ax_core_plain
 
+    vals = col.vals_d if vals is None else vals
     dtype_name = str(x.dtype).replace("torch.", "")
     _hold(results, "ax_core", dtype_name,
-          lambda: ax_core(col.vals_d, x, col.taps),
-          lambda: ax_core_plain(col.vals_d, x, col.taps),
+          lambda: ax_core(vals, x, col.taps),
+          lambda: ax_core_plain(vals, x, col.taps),
           library=library, rtol=rtol,
-          work=(x.element_size() * (col.vals_d.numel() + 2 * x.numel()), 2 * col.vals_d.numel(),
-                _flops(dtype_name)))
-    results[-1].update(where=where, m=col.m, n_off=len(col.offsets), Lq=col.Lq)
+          work=(vals.element_size() * vals.numel() + x.element_size() * 2 * x.numel(),
+                2 * vals.numel(), _flops(dtype_name)))
+    results[-1].update(where=where, values=str(vals.dtype).replace("torch.", ""), m=col.m,
+                       n_off=len(col.offsets), Lq=col.Lq)
 
 
 def _hold_k7(results, where, oo, g, device):
@@ -759,11 +769,12 @@ def phase_kernels(device):
         # the sweep sequence reads each input once at the least: values,
         # rhs, inverse diagonal, x in and x out
         sweeps = len(order) / m
+        isz = x_core.element_size()
         _hold(results, "gs_sweeps", name,
               lambda: gs_sweeps(col.vals_d, bd, col.invd_d, x_core, col.taps, order),
               lambda: gs_sweeps_plain(col.vals_d, bd, col.invd_d, x_core, col.taps, order),
-              work=(4 * (col.vals_d.numel() + bd.numel() + col.invd_d.numel() + 2 * x_core.numel()),
-                    sweeps * (2 * col.vals_d.numel() + 3 * x_core.numel())) if f32 else None)
+              work=(isz * (col.vals_d.numel() + bd.numel() + col.invd_d.numel() + 2 * x_core.numel()),
+                    sweeps * (2 * col.vals_d.numel() + 3 * x_core.numel()), _flops(name)))
         del A, b, gs, col, oo, x_std, x_core, bd, lib
         torch.cuda.empty_cache()
 
@@ -791,6 +802,7 @@ def phase_kernels(device):
                 _csr(*_dia_triplets(taps, vals_c, mLq, Lq), (P * Lq, P * mLq)), core
             )
         n_live = int((oh.rows >= 0).sum())
+        isz = core.element_size()
         # K5 accumulates into y: compared on copies of y0, timed in place
         y_t = y0.clone()
         _hold(results, "ghost_spmv", name,
@@ -799,9 +811,11 @@ def phase_kernels(device):
               timed=(lambda: ghost_spmv(oh.rows, oh.cols, oh.vals, g_vals, y_t, oh.plan),
                      lambda: ghost_spmv_plain(oh.rows, oh.cols, oh.vals, g_vals, y_t)),
               library=lib.get("ghost_spmv"),
-              # rows, lanes, ghost values once; each live row of y read and written
-              work=(4 * (oh.rows.numel() + 2 * oh.cols.numel() + g_vals.numel() + 2 * n_live),
-                    2 * int((oh.cols >= 0).sum())) if f32 else None,
+              # rows and columns (int32), values and ghost values once; each
+              # live row of y read and written
+              work=(4 * (oh.rows.numel() + oh.cols.numel())
+                    + isz * (oh.cols.numel() + g_vals.numel() + 2 * n_live),
+                    2 * int((oh.cols >= 0).sum()), _flops(name)),
               # on the path it runs between other kernels: its operands arrive cold
               flushed=True)
         results[-1].update(where="own-ghost block, (2,2,2)x64^3", lanes=oh.plan.lanes,
@@ -810,7 +824,7 @@ def phase_kernels(device):
               lambda: dia_spmv_strided(taps, vals_c, core),
               lambda: dia_spmv_plain(taps, vals_c, core),
               library=lib.get("dia_spmv_strided"),
-              work=(4 * (vals_c.numel() + core.numel() + P * Lq), 2 * vals_c.numel()) if f32 else None,
+              work=(isz * (vals_c.numel() + core.numel() + P * Lq), 2 * vals_c.numel(), _flops(name)),
               # the sweep runs one color between other kernels, so its
               # 31 MB arrive cold; back to back they stay in the 50 MB L2
               flushed=True)
@@ -936,18 +950,85 @@ def _hold_k3(results, where, gs, dtype_name, g, device, rtol=KERNEL_RTOL):
         results.append(row)
 
 
+def _hold_k4_level(results, where, col, vectors, g, device, fine):
+    """K4 on one level's smoother ``col`` in the vectors' dtype and under
+    it in each narrow pair (``NARROW_PAIRS``): random values of the
+    level's pattern (its operator scaled by [0.5, 1) per entry) stored in
+    each values dtype, against the plain version under the plan
+    (``dia_rows.ax_plan``, timed: ``_hold_k4``, with the ``torch.sparse``
+    CSR call at the ``fine`` level) and under every other lane count
+    (held, and its device time); then on the level's own values, exact in
+    bfloat16, each narrow pair against the full-value kernel under every
+    lane count, which must agree bit for bit (the same plan, the same
+    order of the sums)."""
+    import torch
+
+    from partitionedarrays_tpu_torch.ops.dia_rows import AxPlan, ax_plan
+    from partitionedarrays_tpu_torch.ops.gs_dia_kernels import ax_core, ax_core_plain
+
+    dtype = getattr(torch, vectors)
+    P, m, n_off, Lq = col.vals_d.shape
+    x = torch.randn(P, m, Lq, generator=g, dtype=dtype).to(device)
+    scale = 0.5 + 0.5 * torch.rand(col.vals_d.shape, generator=g, dtype=dtype)
+    base = col.vals_d * scale.to(device)
+    del scale
+    plan = ax_plan(P, m, n_off, Lq, x.element_size())
+    pairs = [vectors] + [v for v, t in NARROW_PAIRS if t == vectors]
+    for values in pairs:
+        vals = base.to(getattr(torch, values))
+        library = None
+        if fine and values == vectors:
+            library = _library(_csr(*(torch.cat(t) for t in zip(*(
+                _dia_triplets(col.taps.host[c], vals[:, c], m * Lq, m * Lq, c * Lq)
+                for c in range(m)))), (P * m * Lq, P * m * Lq)), x)
+        _hold_k4(results, where, col, x, library=library, vals=vals)
+        row = results[-1]
+        want = ax_core_plain(vals, x, col.taps)
+        scale_max = want.abs().max().item()
+        other = {}
+        for lanes in (1, 2, 4, 8, 16):
+            p = AxPlan(lanes)
+            err = (ax_core(vals, x, col.taps, _plan=p) - want).abs().max().item()
+            if not err <= KERNEL_RTOL[vectors] * scale_max:
+                raise AssertionError(f"ax_core {where} {values}/{vectors} lanes {lanes}: "
+                                     f"max |kernel - plain| {err}, {err / scale_max} of the largest")
+            if p != plan:
+                other[lanes] = [err / scale_max, device_ms(
+                    lambda p=p: ax_core(vals, x, col.taps, _plan=p), 20)]
+        row.update(plan=list(plan), other_lanes_rel_err_device_ms=other)
+        del vals, library, want
+    exact = {}
+    for values in pairs[1:]:
+        narrow = col.vals_d.to(getattr(torch, values))
+        if not torch.equal(narrow.to(dtype), col.vals_d):
+            raise AssertionError(f"{where}: HPCG's values are not exact in {values}")
+        diff = max((ax_core(narrow, x, col.taps, _plan=AxPlan(G))
+                    - ax_core(col.vals_d, x, col.taps, _plan=AxPlan(G))).abs().max().item()
+                   for G in (1, 2, 4, 8, 16))
+        if diff != 0.0:
+            raise AssertionError(f"ax_core {where}: {values} values differ from full values by "
+                                 f"{diff} on HPCG's operator")
+        exact[values] = diff
+    for row in results[-len(pairs):]:
+        row["hpcg_values_narrow_vs_full_max_abs"] = exact
+    del base, x
+    torch.cuda.empty_cache()
+
+
 def phase_k3_levels(device):
     """K3 on every level of the one-part 128^3 hierarchy and of the
     (2,2,2) x 64^3 one (``_hold_k3``), float32 and float64: the plan
     depends on the part count, so each path's levels are held under its
-    own."""
+    own; and K4 on every level of the one-part hierarchy in every (values,
+    vectors) pair under every lane count (``_hold_k4_level``).  Returns
+    the K3 rows and the K4 rows."""
     import numpy as np
     import torch
 
     from partitionedarrays_tpu_torch.backends import SerialBackend
     from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
 
-    results = []
+    results, k4_results = [], []
     g = torch.Generator().manual_seed(777)
     for dtype in ("float32", "float64"):
         for local, parts in ((LOCAL, (1, 1, 1)), (GHOST_LOCAL, GHOST_PARTS)):
@@ -957,11 +1038,15 @@ def phase_k3_levels(device):
                 device=device,
             )
             for l, gs in enumerate(reversed(mg.gss)):
-                _hold_k3(results, f"level {l} of {parts}x{local[0]}^3", gs, dtype, g, device)
+                where = f"level {l} of {parts}x{local[0]}^3"
+                _hold_k3(results, where, gs, dtype, g, device)
+                if P == 1:
+                    _hold_k4_level(k4_results, where, gs.colored, dtype, g, device, l == 0)
             del mg
             torch.cuda.empty_cache()
     emit("3c kernel K3 levels", results)
-    return results
+    emit("3d kernel K4 levels", k4_results)
+    return results, k4_results
 
 
 def phase_hpcg(device):
@@ -2527,16 +2612,14 @@ def _random_colored(A, values_dtype, g):
             ColoredDIAGS.from_device(oo.offsets, vals, diag))
 
 
-def _hold_narrow(results, where, col, full, g, device, timed):
+def _hold_narrow(results, where, col, full, g, device):
     """K4 and K3 (symmetric, from a random guess) on the narrow values of
     ``col`` against their plain versions, beside the full-value kernels on
-    the same operator ``full``; with ``timed`` each row also gets its time,
-    device time, plain time and bound (values read in their own dtype)."""
+    the same operator ``full``, each with its time, device time, plain time
+    and bound (values read in their own dtype)."""
     import torch
 
-    from partitionedarrays_tpu_torch.ops.gs_dia_kernels import (
-        ax_core, ax_core_plain, gs_sweeps, gs_sweeps_plain,
-    )
+    from partitionedarrays_tpu_torch.ops.gs_dia_kernels import gs_sweeps, gs_sweeps_plain
 
     P, m, n_off, Lq = col.vals_d.shape
     dtype = col.invd_d.dtype
@@ -2547,40 +2630,14 @@ def _hold_narrow(results, where, col, full, g, device, timed):
     order = fwd + fwd[::-1]
     itemsize = x.element_size()
     for c in (full, col):
-        vsize = c.vals_d.element_size()
-        k4 = (itemsize * 2 * x.numel() + vsize * c.vals_d.numel(), 2 * c.vals_d.numel(),
-              _flops(name))
-        nbytes, ops, _ = _k3_work(c, order, itemsize, False, vsize)
-        for kname, kernel, plain, work in (
-            ("ax_core", lambda c=c: ax_core(c.vals_d, x, c.taps),
-             lambda c=c: ax_core_plain(c.vals_d, x, c.taps), k4),
-            ("gs_sweeps", lambda c=c: gs_sweeps(c.vals_d, bd, c.invd_d, x, c.taps, order),
-             lambda c=c: gs_sweeps_plain(c.vals_d, bd, c.invd_d, x, c.taps, order),
-             (nbytes, ops, _flops(name))),
-        ):
-            if timed:
-                _hold(results, kname, name, kernel, plain, work=work)
-            else:
-                _hold_check(results, kname, name, kernel, plain)
-            results[-1].update(where=where, values=str(c.vals_d.dtype).replace("torch.", ""),
-                               m=m, n_off=n_off, Lq=Lq)
-
-
-def _hold_check(results, kname, dtype_name, kernel, plain, rtol=KERNEL_RTOL):
-    """``kernel`` against ``plain`` on the same inputs (no timing), held to
-    ``rtol`` of the largest plain entry."""
-    import torch
-
-    got = kernel()
-    torch.cuda.synchronize()
-    want = plain()
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    if not err <= rtol[dtype_name] * scale:
-        raise AssertionError(f"{kname} {dtype_name}: max |kernel - plain| {err} > "
-                             f"{rtol[dtype_name]} of {scale}")
-    results.append({"kernel": kname, "dtype": dtype_name, "max_abs_err": err,
-                    "max_rel_err": err / scale, "tol_rel": rtol[dtype_name]})
+        _hold_k4(results, where, c, x)
+        nbytes, ops, _ = _k3_work(c, order, itemsize, False, c.vals_d.element_size())
+        _hold(results, "gs_sweeps", name,
+              lambda c=c: gs_sweeps(c.vals_d, bd, c.invd_d, x, c.taps, order),
+              lambda c=c: gs_sweeps_plain(c.vals_d, bd, c.invd_d, x, c.taps, order),
+              work=(nbytes, ops, _flops(name)))
+        results[-1].update(where=where, values=str(c.vals_d.dtype).replace("torch.", ""),
+                           m=m, n_off=n_off, Lq=Lq)
 
 
 def _narrow_on_hpcg(A, b, values, g, device) -> dict:
@@ -2721,11 +2778,9 @@ def phase_precond_values(device, counters):
     hpcg_errs = {}
     for values, vectors in NARROW_PAIRS:
         dtype = getattr(torch, vectors)
-        timed = (values, vectors) == ("bfloat16", "float32")
         A, b = build_hpcg_problem(LOCAL, (1, 1, 1), SerialBackend(1), dtype=dtype, device=device)
         col, full = _random_colored(A, getattr(torch, values), g)
-        _hold_narrow(results, f"random values, one part of {LOCAL[0]}^3", col, full, g, device,
-                     timed)
+        _hold_narrow(results, f"random values, one part of {LOCAL[0]}^3", col, full, g, device)
         hpcg_errs[f"{values}/{vectors} one part"] = _narrow_on_hpcg(A, b, values, g, device)
         del A, b, col, full
         torch.cuda.empty_cache()
@@ -2736,15 +2791,12 @@ def phase_precond_values(device, counters):
         c = col.m // 2
         for cc in (full, col):
             taps, vals_c = cc.taps.host[c], cc.vals_d[:, c]
-            kernel = partial(dia_spmv_strided, taps, vals_c, core)
-            plain = partial(dia_spmv_plain, taps, vals_c, core)
-            if timed:
-                _hold(results, "dia_spmv_strided", vectors, kernel, plain, flushed=True,
-                      work=(vals_c.element_size() * vals_c.numel()
-                            + core.element_size() * (core.numel() + 8 * col.Lq),
-                            2 * vals_c.numel(), _flops(vectors)))
-            else:
-                _hold_check(results, "dia_spmv_strided", vectors, kernel, plain)
+            _hold(results, "dia_spmv_strided", vectors,
+                  partial(dia_spmv_strided, taps, vals_c, core),
+                  partial(dia_spmv_plain, taps, vals_c, core), flushed=True,
+                  work=(vals_c.element_size() * vals_c.numel()
+                        + core.element_size() * (core.numel() + 8 * col.Lq),
+                        2 * vals_c.numel(), _flops(vectors)))
             results[-1].update(where=f"random values, one color of {GHOST_PARTS}x{GHOST_LOCAL[0]}^3",
                                values=str(cc.vals_d.dtype).replace("torch.", ""),
                                shape=list(vals_c.shape), m=col.m, color=c)
@@ -2921,7 +2973,8 @@ def main() -> int:
     phase_build()
     kernel_results = phase_kernels(device)
     kernel_results += phase_kernel_df(device)
-    kernel_results += phase_k3_levels(device)
+    k3_results, k4_results = phase_k3_levels(device)
+    kernel_results += k3_results + k4_results
 
     counters = {
         "dia_spmv": dia_spmv, "ax_core": ax_core, "gs_sweeps": gs_sweeps,

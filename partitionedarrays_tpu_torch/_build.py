@@ -53,8 +53,9 @@ _SIGNATURES = {
     "pat_ghost_spmv": [
         _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _I64, _I64, _INT, _INT, _VP,
     ],
-    # vals, x, out, tap (device int [m, n_off]), P, m, n_off, Lq, stream
-    "pat_ax_core": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _I64, _VP],
+    # vals, x, out, tap (device int [m, n_off]), P, m, n_off, Lq, lanes per
+    # row group, stream
+    "pat_ax_core": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _I64, _INT, _VP],
     # vals, bd, invd, x_in (NULL from a zero guess), x, tap (device int
     # [m, n_off]), steps (device int [n_steps]), n_steps, zero_guess,
     # lanes, width (CTAs per part), P, m, n_off, Lq, stream

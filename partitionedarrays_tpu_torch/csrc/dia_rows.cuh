@@ -1,11 +1,12 @@
-// The DIA row engine shared by K2 (dia_spmv.cu) and K3 (gs_dia.cu).
+// The DIA row engine shared by K2 (dia_spmv.cu), K3 and K4 (gs_dia.cu).
 //
-// Both kernels compute, for rows i of one [n_off, ld] block of values,
+// The kernels compute, for rows i of one [n_off, ld] block of values,
 //
 //     acc[i] = sum_d vals[d * ld + i] * x[taps[d] + i]
 //
-// with x read as zero outside [0, n).  K2 is that sum for one color; K3
-// runs it once per color step and updates the color's row of x with it.
+// with x read as zero outside [0, n).  K2 is that sum for one color; K4
+// runs it for every color of the core in one launch; K3 runs it once per
+// color step and updates the color's row of x with it.
 // The engine is written for the two regimes the paths run:
 //
 //   (a) many rows, few taps (the HPCG fine level: 245,760 rows per color,
@@ -36,7 +37,7 @@
 // Operands: the engine has one form, whole-load reads along the rows.
 // The row length (ld) and every part stride of the values, bd, invd and
 // x_in must be whole multiples of VEC, and every operand's start a whole
-// load (VEC elements of its type); x itself is read by element.  The two
+// load (VEC elements of its type); x itself is read by element.  The three
 // wrappers (ops/dia_rows.py::check_rows) raise ValueError on anything
 // else and the launchers return cudaErrorInvalidValue: there is no scalar
 // form.  Every operand the paths give qualifies (Lq is a multiple of
@@ -116,7 +117,8 @@ __device__ __forceinline__ void store(double* p, const double (&v)[2]) {
   *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
 }
 
-// taps per lane whose loads are all issued before their FMAs
+// taps per lane whose loads are all issued before their FMAs: K2's and
+// K3's (K4 passes its own CH to the functions below)
 template <int G>
 struct Chunk {
   static constexpr int value = G == 1 ? 8 : 4;
@@ -129,12 +131,12 @@ struct Chunk {
 // or shared memory; taps: n_off tap offsets in shared memory) and adds the
 // products to acc in increasing d.  The two are apart so that a caller can load a
 // chunk's values before x is ready.
-template <typename V, typename T, int VEC, int G>
-__device__ __forceinline__ void chunk_values(T (&vv)[Chunk<G>::value][VEC],
+template <typename V, typename T, int VEC, int G, int CH = Chunk<G>::value>
+__device__ __forceinline__ void chunk_values(T (&vv)[CH][VEC],
                                              const V* __restrict__ vals,
                                              int ld, int n_off, int i, int d0) {
 #pragma unroll
-  for (int k = 0; k < Chunk<G>::value; ++k) {
+  for (int k = 0; k < CH; ++k) {
     const int d = d0 + k * G;
     if (d < n_off) {
       load_ro(vals + d * ld + i, vv[k]);
@@ -145,12 +147,10 @@ __device__ __forceinline__ void chunk_values(T (&vv)[Chunk<G>::value][VEC],
   }
 }
 
-template <typename T, int VEC, int G>
-__device__ __forceinline__ void chunk_fma(T (&acc)[VEC],
-                                          const T (&vv)[Chunk<G>::value][VEC],
+template <typename T, int VEC, int G, int CH = Chunk<G>::value>
+__device__ __forceinline__ void chunk_fma(T (&acc)[VEC], const T (&vv)[CH][VEC],
                                           const T* x, int n, const int* taps,
                                           int n_off, int i, int d0) {
-  constexpr int CH = Chunk<G>::value;
   T xv[CH][VEC];
 #pragma unroll
   for (int k = 0; k < CH; ++k) {
@@ -168,32 +168,30 @@ __device__ __forceinline__ void chunk_fma(T (&acc)[VEC],
 
 // Lane g's partial sums of rows i .. i+VEC-1 over the taps d = g, g+G, ...
 // in increasing d, given the values of its first chunk (d0 = g) in vv0.
-template <typename V, typename T, int VEC, int G>
+template <typename V, typename T, int VEC, int G, int CH = Chunk<G>::value>
 __device__ __forceinline__ void rows_partial_from(
-    T (&acc)[VEC], const T (&vv0)[Chunk<G>::value][VEC],
-    const V* __restrict__ vals, int ld, const T* x, int n, const int* taps,
-    int n_off, int i, int g) {
-  constexpr int CH = Chunk<G>::value;
+    T (&acc)[VEC], const T (&vv0)[CH][VEC], const V* __restrict__ vals, int ld,
+    const T* x, int n, const int* taps, int n_off, int i, int g) {
 #pragma unroll
   for (int v = 0; v < VEC; ++v) acc[v] = T(0);
-  chunk_fma<T, VEC, G>(acc, vv0, x, n, taps, n_off, i, g);
+  chunk_fma<T, VEC, G, CH>(acc, vv0, x, n, taps, n_off, i, g);
   for (int d0 = g + G * CH; d0 < n_off; d0 += G * CH) {
     T vv[CH][VEC];
-    chunk_values<V, T, VEC, G>(vv, vals, ld, n_off, i, d0);
-    chunk_fma<T, VEC, G>(acc, vv, x, n, taps, n_off, i, d0);
+    chunk_values<V, T, VEC, G, CH>(vv, vals, ld, n_off, i, d0);
+    chunk_fma<T, VEC, G, CH>(acc, vv, x, n, taps, n_off, i, d0);
   }
 }
 
 // The same, loading every chunk itself.
-template <typename V, typename T, int VEC, int G>
+template <typename V, typename T, int VEC, int G, int CH = Chunk<G>::value>
 __device__ __forceinline__ void rows_partial(T (&acc)[VEC],
                                              const V* __restrict__ vals,
                                              int ld, const T* x, int n,
                                              const int* taps, int n_off,
                                              int i, int g) {
-  T vv0[Chunk<G>::value][VEC];
-  chunk_values<V, T, VEC, G>(vv0, vals, ld, n_off, i, g);
-  rows_partial_from<V, T, VEC, G>(acc, vv0, vals, ld, x, n, taps, n_off, i, g);
+  T vv0[CH][VEC];
+  chunk_values<V, T, VEC, G, CH>(vv0, vals, ld, n_off, i, g);
+  rows_partial_from<V, T, VEC, G, CH>(acc, vv0, vals, ld, x, n, taps, n_off, i, g);
 }
 
 // Sum the partials of the G lanes that share a row group (a butterfly:

@@ -23,11 +23,52 @@
 // K3's and K4's at the 27-point stencil.  bd, invd and x stay in T.
 //
 // K4 ax_core replaces partitionedarrays_tpu/ops/gs_pallas.py::
-// ax_core_pallas (body _ax_kernel):
+// ax_core_pallas (body _ax_kernel, pallas_call :205):
 //     out[p, c, i] = sum_d vals[p, c, d, i] * core[p, tap[c][d] + i]
 // i.e. A_own_own @ x in the de-interleaved layout.  Plain version:
-// ops/gs_dia_kernels.py::ax_core_plain.  One thread per output,
-// grid-stride loop.
+// ops/gs_dia_kernels.py::ax_core_plain; wrapper and launch plan:
+// ops/gs_dia_kernels.py::ax_core, ops/dia_rows.py::ax_plan.
+//
+// K4's bound: device-memory bandwidth.  It does 2 flops a value and must
+// read every value once, x once and write out once: at the 128^3 level
+// ([1, 9, 27, 245,760]) 239 MB of float32 values and 17.7 MB of x and
+// out, 0.0766 ms at 3.35 TB/s; with bfloat16 values 137 MB, 0.0409 ms.
+// The values are 93% of the bytes (87% in bfloat16), so the design streams
+// them at the engine's full load width and keeps everything else off the
+// critical path.  K4 is K2 run over every color at once: color c's rows
+// are the DIA product of vals[p, c] (taps tap[c]) over the whole core.  So
+// it runs the row engine of dia_rows.cuh in ONE launch, grid (row tiles,
+// m, P):
+//   - each CTA takes one tile of rows of one color of one part; the
+//     part's and the color's bases are added once, every offset inside a
+//     part is 32-bit, and there is no division and no grid-stride loop;
+//   - the engine's loads: VEC rows a thread (16 bytes of the vectors), each
+//     tap's values one load (16 bytes, or 8 and 4 for narrow values), a
+//     chunk of 4 taps in flight before its FMAs (kAxChunk: 8, as K2's and
+//     K3's single lanes hold, takes 80-102 registers and was up to 1.36x
+//     slower with narrow values);
+//   - the color's row of the tap table in shared memory, loaded once per
+//     CTA (lanes of a warp read different taps);
+//   - G lanes per row group where rows are few (the coarse HPCG and box
+//     AMG levels), their partial sums added by a butterfly; G comes from
+//     ops/dia_rows.py::ax_plan, from the vectors' item size alone, so
+//     narrow values sum in the full-value order;
+//   - x is read by element through L1 (a tap's shift is rarely a whole
+//     load), each read masked to [0, m*Lq); two aligned vector loads and a
+//     shift per tap were slower at every level.
+// Where it stands (NVIDIA H100 80GB HBM3, 700 W; device time,
+// scripts/k4_ab.py and chip_smoke.py phase 3d): at the 128^3 level 0.095
+// ms in float32 (80% of the bound), 0.053 ms with bfloat16 values (78%),
+// 0.212 ms in float64 (72%).  What holds float64
+// and the narrow values under float64 back is x: each x element is read
+// 27 times, once per tap of a color, through L1 and L2, and the windows
+// of one CTA's 27 taps rarely overlap, so L1 keeps little of it.  Timed
+// alone (scripts/k4_ab.py --variants, which drop one or the other), the
+// gather takes 0.061 ms in float64 and the value stream 0.167 ms (92% of
+// the bound), and the two overlap only in part; with bfloat16 values the
+// gather alone is as long as the whole kernel.  Holding x windows in
+// shared memory across the colors of a row tile is the next design
+// (ROADMAP Queue 2).
 //
 // K3 gs_seq replaces partitionedarrays_tpu/ops/gs_pallas.py::
 // gs_sweep_pallas (body _kernel, pallas_call :286): a whole color sequence
@@ -101,45 +142,47 @@
 
 namespace cg = cooperative_groups;
 
-// K3's dynamic shared memory: the tap table
+// K3's and K4's dynamic shared memory: the tap table (K4: one color's row)
 extern __shared__ __align__(16) unsigned char gs_smem[];
 
 namespace {
 
 constexpr int kThreads = 256;  // K3 and K4; ops/dia_rows.py::THREADS
+// K4's taps per lane in flight (ops/dia_rows.py::AX_CHUNK): with 4, not the
+// 8 of K2's and K3's single lanes, a thread holds 47 to 63 registers, so more
+// warps per SM keep loads in flight
+constexpr int kAxChunk = 4;
 
-int blocks_for(long long work) {
-  long long b = (work + kThreads - 1) / kThreads;
-  const long long cap = 132LL * 16;  // enough resident blocks for 132 SMs
-  if (b > cap) b = cap;
-  return b < 1 ? 1 : (int)b;
-}
-
-template <typename V, typename T>
-__global__ void ax_core_kernel(const V* __restrict__ vals,
-                               const T* __restrict__ x, T* __restrict__ out,
-                               const int* __restrict__ tap, int P, int m,
-                               int n_off, long long Lq) {
-  const long long core = (long long)m * Lq;
-  const long long total = (long long)P * core;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const long long p = t / core;
-    const long long r = t - p * core;
-    const int c = (int)(r / Lq);
-    const long long i = r - (long long)c * Lq;
-    const V* vp = vals + ((p * m + c) * n_off) * Lq + i;
-    const T* xp = x + p * core;
-    const int* tc = tap + c * n_off;
-    T acc = T(0);
-    for (int d = 0; d < n_off; ++d) {
-      const long long j = (long long)__ldg(tc + d) + i;
-      const T xv = (j >= 0 && j < core) ? __ldg(xp + j) : T(0);
-      acc += pat::widen<T>(vp[d * Lq]) * xv;
-    }
-    out[t] = acc;
+// K4: one tile of rows of color c = blockIdx.y of part p = blockIdx.z,
+// out[p, c, i] = sum_d vals[p, c, d, i] * x[p, tap[c][d] + i]; the threads
+// take the (row group, lane) pairs t = group * G + lane
+template <typename V, typename T, int VEC, int G>
+__global__ void __launch_bounds__(kThreads)
+    ax_core_rows_kernel(const V* __restrict__ vals, const T* __restrict__ x,
+                        T* __restrict__ out, const int* __restrict__ tap,
+                        int m, int n_off, int Lq) {
+  int* s_tap = reinterpret_cast<int*>(gs_smem);
+  const int c = blockIdx.y;
+  for (int k = threadIdx.x; k < n_off; k += blockDim.x) s_tap[k] = __ldg(tap + c * n_off + k);
+  __syncthreads();
+  const long long p = blockIdx.z;
+  const int core = m * Lq;
+  vals += (p * m + c) * n_off * (long long)Lq;
+  x += p * core;
+  out += p * core + c * Lq;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool on = t < (Lq / VEC) * G;
+  const int i = (t / G) * VEC;
+  const int g = t % G;
+  T acc[VEC];
+  if (on) {
+    pat::rows_partial<V, T, VEC, G, kAxChunk>(acc, vals, Lq, x, core, s_tap, n_off, i, g);
+  } else {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = T(0);
   }
+  pat::reduce_lanes<T, VEC, G>(acc);  // every lane of the warp takes part
+  if (on && g == 0) pat::store(out + i, acc);
 }
 
 // What a thread of a color step can load before x is ready, for the row
@@ -374,15 +417,40 @@ int launch_gs(const V* vals, const T* bd, const T* invd, const T* x_in, T* x,
 #undef PAT_GS_LANES
 }
 
+template <typename V, typename T, int G>
+int launch_ax_rows(const V* vals, const T* x, T* out, const int* tap, int P,
+                   int m, int n_off, int Lq, cudaStream_t stream) {
+  constexpr int VEC = pat::vec_of<T>();
+  const int tiles = ((Lq / VEC) * G + kThreads - 1) / kThreads;
+  ax_core_rows_kernel<V, T, VEC, G>
+      <<<dim3(tiles, m, P), kThreads, n_off * sizeof(int), stream>>>(vals, x, out, tap, m,
+                                                                    n_off, Lq);
+  return (int)cudaGetLastError();
+}
+
 template <typename V, typename T>
 int launch_ax(const V* vals, const T* x, T* out, const int* tap, int P, int m,
-              int n_off, long long Lq, cudaStream_t stream) {
-  const long long work = (long long)P * m * Lq;
-  if (work > 0) {
-    ax_core_kernel<V, T><<<blocks_for(work), kThreads, 0, stream>>>(
-        vals, x, out, tap, P, m, n_off, Lq);
+              int n_off, long long Lq, int lanes, cudaStream_t stream) {
+  constexpr int VEC = pat::vec_of<T>();
+  if (P < 0 || m < 0 || n_off < 0 || Lq < 0 || Lq % VEC != 0 || P > 65535 || m > 65535 ||
+      (long long)n_off * Lq > INT_MAX || (long long)m * Lq > INT_MAX ||
+      Lq * lanes > INT_MAX || (size_t)n_off * sizeof(int) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)P * m * Lq == 0) return (int)cudaSuccess;
+#define PAT_AX_LANES(G)                                                      \
+  case G:                                                                    \
+    return launch_ax_rows<V, T, G>(vals, x, out, tap, P, m, n_off, (int)Lq,  \
+                                   stream);
+  switch (lanes) {
+    PAT_AX_LANES(1)
+    PAT_AX_LANES(2)
+    PAT_AX_LANES(4)
+    PAT_AX_LANES(8)
+    PAT_AX_LANES(16)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef PAT_AX_LANES
 }
 
 }  // namespace
@@ -393,9 +461,9 @@ int launch_ax(const V* vals, const T* x, T* out, const int* tap, int P, int m,
 #define PAT_GS_ENTRIES(SUFFIX, V, T)                                          \
   int pat_ax_core_##SUFFIX(const void* vals, const void* x, void* out,        \
                            const void* tap, int P, int m, int n_off,          \
-                           long long Lq, void* stream) {                      \
+                           long long Lq, int lanes, void* stream) {           \
     return launch_ax<V, T>((const V*)vals, (const T*)x, (T*)out,              \
-                           (const int*)tap, P, m, n_off, Lq,                  \
+                           (const int*)tap, P, m, n_off, Lq, lanes,           \
                            (cudaStream_t)stream);                             \
   }                                                                           \
   int pat_gs_sweeps_##SUFFIX(const void* vals, const void* bd,                \

@@ -1,5 +1,5 @@
 """Host-side planning for the DIA row engine (``csrc/dia_rows.cuh``) that
-K2 ``dia_spmv_strided`` and K3 ``gs_sweeps`` share.
+K2 ``dia_spmv_strided``, K3 ``gs_sweeps`` and K4 ``ax_core`` share.
 
 A thread of the engine takes ``vec`` consecutive rows (16 bytes of the
 vectors) and ``lanes`` threads of one warp may share those rows, each
@@ -20,8 +20,15 @@ small grid.  (A cluster form that kept x in every CTA's shared memory was
 timed on the card and lost to this form on every level where it fits; see
 ``csrc/gs_dia.cu``.)
 
+K4 runs every color of the core in one ordinary launch over (row tiles,
+colors, parts), each lane keeping ``AX_CHUNK`` taps in flight; ``ax_plan``
+gives it ``row_lanes`` over the row groups of all colors and parts at once
+(``AX_TARGET_THREADS``), halved while a lane would hold less than one full
+chunk of taps (27 taps: at most 8 lanes).
+
 The engine has one form: ``check_rows`` refuses an operand that its
-whole-row-group loads cannot read (both wrappers call it; no scalar form).
+whole-row-group loads cannot read (the three wrappers call it; no scalar
+form).
 
 Nothing here touches a device: the CPU tests check the plans.
 """
@@ -37,6 +44,19 @@ THREADS = 256  # per CTA: csrc/gs_dia.cu and csrc/dia_spmv.cu kThreads
 # (chip_smoke.py phase 3c) the fastest lane count gives a step about this
 # many
 TARGET_THREADS = 24 * 1024
+AX_CHUNK = 4  # K4's taps per lane in flight: csrc/gs_dia.cu kAxChunk
+# K4's threads worth aiming for: at the coarse levels of the 128^3 HPCG
+# hierarchy (values hot in L2, as after the smoother on the path), the
+# fastest lane count gives about this many in float32 (chip_smoke.py
+# phase 3d)
+AX_TARGET_THREADS = 18 * 1024
+
+
+class AxPlan(NamedTuple):
+    """How K4 runs: ``lanes`` threads per row group (the launch's grid
+    follows from it: row tiles of ``THREADS`` threads, colors, parts)."""
+
+    lanes: int
 
 
 class SweepPlan(NamedTuple):
@@ -88,3 +108,17 @@ def sweep_plan(P: int, m: int, n_off: int, Lq: int, itemsize: int) -> SweepPlan:
     groups = Lq // vec_of(itemsize)
     lanes = row_lanes(P * groups, n_off, TARGET_THREADS)
     return SweepPlan(lanes, -(-groups * lanes // THREADS))
+
+
+@lru_cache(maxsize=None)
+def ax_plan(P: int, m: int, n_off: int, Lq: int, itemsize: int) -> AxPlan:
+    """The plan of one K4 launch over vals ``[P, m, n_off, Lq]`` with
+    vectors of ``itemsize`` bytes (the values' may be narrower, and get the
+    same plan): ``row_lanes`` over the row groups of every color and part,
+    which the one launch runs at once, and no more lanes than leave each
+    lane ``AX_CHUNK`` taps."""
+    groups = Lq // vec_of(itemsize)
+    lanes = row_lanes(P * m * groups, n_off, AX_TARGET_THREADS)
+    while lanes > 1 and -(-n_off // lanes) < AX_CHUNK:  # a lane keeps a full chunk
+        lanes //= 2
+    return AxPlan(lanes)

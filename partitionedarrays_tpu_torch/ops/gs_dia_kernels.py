@@ -22,11 +22,13 @@ in the kernels as in the plain versions here.
 
 The CUDA kernels are ``csrc/gs_dia.cu``; its source note says why the
 sequence is race-free with a barrier between color steps, what bounds K3
-(device-memory bandwidth: each color's values once per step, plus x) and
-how its design meets that: a persistent cooperative launch with
-``grid.sync()`` between steps, over the row engine it shares with K2
-(``csrc/dia_rows.cuh``).  ``ops/dia_rows.py::sweep_plan`` picks the lanes
-per row group and the CTAs for each level.  The TPU's padded flat buffer,
+and K4 (device-memory bandwidth: the values, plus x; K3 reads each color's
+values once per step) and how their designs meet that: both run the row
+engine they share with K2 (``csrc/dia_rows.cuh``), K4 as one launch over
+(row tiles, colors, parts), K3 as a persistent cooperative launch with
+``grid.sync()`` between steps.  ``ops/dia_rows.py::ax_plan`` and
+``sweep_plan`` pick the lanes per row group (and K3's CTAs) for each
+level.  The TPU's padded flat buffer,
 aligned windows and scalar-prefetched color schedule do not carry over:
 the kernels read the core with masked loads, and the color sequence travels
 as a device int array (``TapTable.steps_on``).
@@ -38,7 +40,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from .. import _build
-from .dia_rows import SweepPlan, check_rows, sweep_plan, vec_of
+from .dia_rows import AxPlan, SweepPlan, ax_plan, check_rows, sweep_plan, vec_of
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -153,18 +155,27 @@ def gs_sweeps_plain(
     return xflat[:, left : left + m * Lq].reshape(P, m, Lq).clone()
 
 
-def ax_core(vals: torch.Tensor, xcore: torch.Tensor, tap: TapTable) -> torch.Tensor:
+def ax_core(
+    vals: torch.Tensor, xcore: torch.Tensor, tap: TapTable, _plan: Optional[AxPlan] = None
+) -> torch.Tensor:
     """K4.  vals [P, m, n_off, Lq] (the vectors' dtype or a narrow pair),
     xcore [P, m, Lq] -> [P, m, Lq].  A CPU tensor goes to
-    ``ax_core_plain``; a CUDA tensor goes to the kernel, or the call
-    raises."""
+    ``ax_core_plain``; a CUDA tensor goes to the kernel, one launch over
+    every color and part (Lq and every start in whole loads:
+    ``dia_rows.check_rows``), or the call raises.  The lanes per row group
+    are ``dia_rows.ax_plan`` of the shape; ``_plan`` overrides them for
+    the GPU tests and ``chip_smoke.py``, which time and check every plan."""
     if not _check("ax_core", vals, (xcore,), tap):
         return ax_core_plain(vals, xcore, tap)
     P, m, n_off, Lq = vals.shape
+    check_rows("ax_core", Lq, (vals, xcore), vec_of(xcore.element_size()))
+    if max(n_off, m) * Lq >= 2**31:
+        raise ValueError(f"ax_core: {max(n_off, m) * Lq} rows of a part exceed int32 offsets")
+    plan = _plan or ax_plan(P, m, n_off, Lq, xcore.element_size())
     out = torch.empty_like(xcore)
     code = _build.entry("pat_ax_core", xcore.dtype, vals.dtype)(
         vals.data_ptr(), xcore.data_ptr(), out.data_ptr(),
-        tap.on(vals.device).data_ptr(), P, m, n_off, Lq, _build.stream_of(vals),
+        tap.on(vals.device).data_ptr(), P, m, n_off, Lq, plan.lanes, _build.stream_of(vals),
     )
     ax_core.launches += 1
     _build.check(code, "ax_core")

@@ -1,14 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 ``dia_spmv``, K4 ``ax_core`` and K3 ``gs_sweeps`` run on CUDA tensors of
-the 32^3 HPCG operator, K5 ``ghost_spmv`` and K2 ``dia_spmv_strided`` (every
+the 32^3 HPCG operator (K4 also on every level of its 4-level hierarchy
+under every lane count), K5 ``ghost_spmv`` and K2 ``dia_spmv_strided`` (every
 color; a view that is not 16-byte aligned raises) on those of the (2,2,2) x
 16^3 one, and are compared with their plain versions on the same tensors.
 K3 runs each whole color sequence in one launch; it is also held at 27
 colors and 99 diagonals (7^3-node elasticity), on a small coarse level
 (8^3), on the levels of the 64^3 and 48^3 Laplacians' box-AMG
-hierarchies (with K4, and K1 on their fine operators),
-and at every lane count: forward, backward, symmetric and twice
+hierarchies (with K4 under every lane count, and K1 on their fine
+operators), and at every lane count: forward, backward, symmetric and twice
 symmetric, from a guess and from a zero guess.  Tolerance: rtol 1e-5 in
 float32 and 1e-12 in float64, relative to the largest plain entry, since
 only FMA contraction and the order of the sums differ.  K7 ``dia_spmv_df``
@@ -34,9 +35,11 @@ in float64, against scipy's ``spsolve_triangular``.  Narrow values
 (bfloat16 values with float32 or float64 vectors, float32 values with
 float64 vectors): K2, K3 and K4 on random values of the HPCG stencil's
 pattern, against their plain versions at the vector dtype's tolerance,
-K3 under every lane count; on HPCG's own values, exact in bfloat16, equal
-to the full-value kernels bit for bit (the same plan, the same order of
-the sums).
+K3 and K4 under every lane count; on HPCG's own values, exact in
+bfloat16, equal to the full-value kernels bit for bit (the same plan, the
+same order of the sums; K4 under every lane count).  K2, K3 and K4 refuse
+operands that start one element into their storage (ValueError, no
+launch).
 
 Every test is marked ``gpu`` and skips without a CUDA card.  This module
 imports torch and the port only (no JAX), so that it also runs on a
@@ -51,7 +54,7 @@ from partitionedarrays_tpu_torch.backends import SerialBackend
 from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
 from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
 from partitionedarrays_tpu_torch.ops import df64 as df
-from partitionedarrays_tpu_torch.ops.dia_rows import SweepPlan, sweep_plan
+from partitionedarrays_tpu_torch.ops.dia_rows import AxPlan, SweepPlan, sweep_plan
 from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_df, dia_spmv_strided
 from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv, ghost_spmv_plain
 from partitionedarrays_tpu_torch.ops.gs_dia_kernels import (
@@ -70,6 +73,7 @@ pytestmark = pytest.mark.gpu
 
 DTYPES = [torch.float32, torch.float64]
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+AX_PLANS = [AxPlan(lanes) for lanes in (1, 2, 4, 8, 16)]
 
 
 @pytest.fixture
@@ -102,16 +106,31 @@ def test_dia_spmv_kernel_matches_plain(cuda, dtype):
     _assert_close(got, dia_spmv_plain(oo.offsets, oo.vals, x), dtype)
 
 
+def _hold_ax(col, dtype, device, seed, plans=(None,)):
+    """K4 against its plain version on a random x, one launch per call,
+    under each plan (``None``: ``ax_plan`` of the shape)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(col.vals_d.shape[0], col.m, col.Lq, generator=g, dtype=dtype).to(device)
+    want = ax_core_plain(col.vals_d, x, col.taps)
+    for plan in plans:
+        before = ax_core.launches
+        got = ax_core(col.vals_d, x, col.taps, _plan=plan)
+        assert ax_core.launches == before + 1 and got.dtype == dtype
+        _assert_close(got, want, dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ax_core_kernel_matches_plain(cuda, dtype):
-    _, _, gs = _operator(cuda, dtype)
-    col = gs.colored
-    g = torch.Generator().manual_seed(14)
-    x = torch.randn(1, col.m, col.Lq, generator=g, dtype=dtype).to(cuda)
-    before = ax_core.launches
-    got = ax_core(col.vals_d, x, col.taps)
-    assert ax_core.launches == before + 1
-    _assert_close(got, ax_core_plain(col.vals_d, x, col.taps), dtype)
+    """K4 on every level of the 4-level 32^3 HPCG hierarchy (32^3 .. 4^3,
+    9 to 10 colors, 1,024 to 4,096 rows per color) under its plan and
+    every other lane count."""
+    from partitionedarrays_tpu_torch.config import numpy_dtype
+    from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
+
+    mg = HPCGMGPreconditioner((32, 32, 32), (1, 1, 1), SerialBackend(1), n_levels=4,
+                              dtype=numpy_dtype(dtype).type, device=cuda)
+    for l, gs in enumerate(reversed(mg.gss)):
+        _hold_ax(gs.colored, dtype, cuda, 60 + l, [None] + AX_PLANS)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -212,11 +231,7 @@ def test_gs_sweeps_and_ax_core_on_the_box_amg_levels(cuda, dtype, n, boxes):
     for i, lev in enumerate(levels):
         col = lev.smoother.colored
         _hold_sweeps(col, dtype, cuda, 41 + i)
-        x = torch.randn(1, col.m, col.Lq, generator=g, dtype=dtype).to(cuda)
-        before = ax_core.launches
-        got = ax_core(col.vals_d, x, col.taps)
-        assert ax_core.launches == before + 1
-        _assert_close(got, ax_core_plain(col.vals_d, x, col.taps), dtype)
+        _hold_ax(col, dtype, cuda, 44 + i, [None] + AX_PLANS)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -281,13 +296,17 @@ def test_dia_spmv_strided_kernel_matches_plain(cuda, dtype):
         assert dia_spmv_strided.launches == before + 1
         _assert_close(got, dia_spmv_plain(col.taps.host[c], col.vals_d[:, c], core), dtype)
     # copies that start 1 element into their storage are not 16-byte
-    # aligned: the row engine refuses them in K2 and in K3 (no scalar form)
-    launches = dia_spmv_strided.launches, gs_sweeps.launches
+    # aligned: the row engine refuses them in K2, K3 and K4 (no scalar form)
+    launches = dia_spmv_strided.launches, gs_sweeps.launches, ax_core.launches
     with pytest.raises(ValueError):
         dia_spmv_strided(col.taps.host[1], _misaligned(col.vals_d[:, 1]), core)
     with pytest.raises(ValueError):
         gs_sweeps(col.vals_d, _misaligned(col.invd_d), col.invd_d, None, col.taps, (0,))
-    assert (dia_spmv_strided.launches, gs_sweeps.launches) == launches
+    with pytest.raises(ValueError):
+        ax_core(_misaligned(col.vals_d), core.view(8, col.m, col.Lq), col.taps)
+    with pytest.raises(ValueError):
+        ax_core(col.vals_d, _misaligned(core.view(8, col.m, col.Lq)), col.taps)
+    assert (dia_spmv_strided.launches, gs_sweeps.launches, ax_core.launches) == launches
 
 
 def _misaligned(t):
@@ -848,20 +867,18 @@ def _random_colored(device, pair, shape, parts, seed):
 
 @pytest.mark.parametrize("pair", NARROW, ids=NARROW_IDS)
 def test_narrow_values_kernels_match_plain(cuda, pair):
-    """K4 and K3 (every order, from a guess and a zero guess) on the 32^3
-    pattern; K2 on every color and K3 under every lane count, with one CTA
-    per part and with many, on (2,2,2) parts of 16^3."""
+    """K4 (under every lane count) and K3 (every order, from a guess and a
+    zero guess) on the 32^3 pattern; K2 on every color, K3 under every
+    lane count, with one CTA per part and with many, and K4 under every
+    lane count on (2,2,2) parts of 16^3."""
     values, dtype = pair
     col = _random_colored(cuda, pair, (32, 32, 32), (1, 1, 1), 31)
     assert col.vals_d.dtype == values and col.invd_d.dtype == dtype
     g = torch.Generator().manual_seed(32)
-    x = torch.randn(1, col.m, col.Lq, generator=g, dtype=dtype).to(cuda)
-    before = ax_core.launches
-    got = ax_core(col.vals_d, x, col.taps)
-    assert ax_core.launches == before + 1 and got.dtype == dtype
-    _assert_close(got, ax_core_plain(col.vals_d, x, col.taps), dtype)
+    _hold_ax(col, dtype, cuda, 32, [None] + AX_PLANS)
     _hold_sweeps(col, dtype, cuda, 33)
     col = _random_colored(cuda, pair, (16, 16, 16), (2, 2, 2), 34)
+    _hold_ax(col, dtype, cuda, 39, [None] + AX_PLANS)
     core = torch.randn(8, col.m * col.Lq, generator=g, dtype=dtype).to(cuda)
     for c in range(col.m):
         before = dia_spmv_strided.launches
@@ -874,18 +891,22 @@ def test_narrow_values_kernels_match_plain(cuda, pair):
 
 @pytest.mark.parametrize("pair", NARROW, ids=NARROW_IDS)
 def test_narrow_values_refuse_what_the_engine_cannot_read(cuda, pair):
-    """Values that start one element into their storage are not a whole
-    load: K2 and K3 raise before any launch."""
+    """Values (or K4's x) that start one element into their storage are
+    not a whole load: K2, K3 and K4 raise before any launch."""
     values, dtype = pair
     col = _random_colored(cuda, pair, (16, 16, 16), (2, 2, 2), 36)
     bd = torch.zeros(8, col.m, col.Lq, dtype=dtype, device=cuda)
-    launches = dia_spmv_strided.launches, gs_sweeps.launches
+    launches = dia_spmv_strided.launches, gs_sweeps.launches, ax_core.launches
     core = torch.zeros(8, col.m * col.Lq, dtype=dtype, device=cuda)
     with pytest.raises(ValueError):
         dia_spmv_strided(col.taps.host[1], _misaligned(col.vals_d[:, 1]), core)
     with pytest.raises(ValueError):
         gs_sweeps(_misaligned(col.vals_d), bd, col.invd_d, None, col.taps, (0,))
-    assert (dia_spmv_strided.launches, gs_sweeps.launches) == launches
+    with pytest.raises(ValueError):
+        ax_core(_misaligned(col.vals_d), bd, col.taps)
+    with pytest.raises(ValueError):
+        ax_core(col.vals_d, _misaligned(bd), col.taps)
+    assert (dia_spmv_strided.launches, gs_sweeps.launches, ax_core.launches) == launches
 
 
 @pytest.mark.parametrize("pair", NARROW, ids=NARROW_IDS)
@@ -912,6 +933,9 @@ def test_narrow_values_on_hpcg_equal_full_values(cuda, pair):
 
         for got, want in zip(outputs(narrow), outputs(full)):
             assert torch.equal(got, want)
+        for plan in AX_PLANS:  # K4 under every lane count
+            assert torch.equal(ax_core(narrow.colored.vals_d, x, full.colored.taps, _plan=plan),
+                               ax_core(full.colored.vals_d, x, full.colored.taps, _plan=plan))
 
 
 def test_unsupported_value_pairs_raise(cuda):
