@@ -35,10 +35,10 @@ Phases, one output line each:
    ``torch.sparse`` CSR call at the fine level, the device time under
    every other lane count, and on HPCG's own values (exact in bfloat16)
    each narrow pair against the full-value kernel, bit for bit;
-4. fifteen paths through the port, each with its kernels' launch counts set
-   to 0 just before it and read just after (a-c: the HPCG benchmark, 4 MG
-   levels, 50 CG iterations; d-f: the AMG paths, counted over their
-   solves):
+4. seventeen paths through the port, each with its kernels' launch counts
+   set to 0 just before it and read just after (a-c: the HPCG benchmark, 4
+   MG levels, 50 CG iterations; d-f and j: the AMG paths, counted over
+   their solves):
    a. one part: 128^3 in float32 and float64, 64^3 in float64; each also
       checks the standard-order operator (K1) against the de-interleaved
       one (K4) and runs the generic CG, which applies A through K1; one
@@ -149,6 +149,19 @@ Phases, one output line each:
       (K2) beside the full-value kernels on the same operators, and on
       HPCG's own values (exact in bfloat16) against the full-value kernels
       (``NARROW_HPCG_RTOL``);
+   j. the partition, vector and matrix utilities (``UNEQUAL_RUNS``):
+      ``amg_unequal_parts`` (``plaplacian_fdm`` at 65^3 on (2,2,2) parts of
+      unequal box shape, 274,625 rows, the own-own block DIA on the union
+      of the parts' 13 offsets; phase 4f's box AMG-CG, where the box
+      aggregation declines, so the generic aggregation) and
+      ``repartitioned`` (``repartition_system`` onto eight contiguous
+      blocks of ids, held equal to the original; the AMG-CG again; the
+      solution moved back by ``repartition`` and held to the first
+      path's), float32 and float64, iterations held to the JAX package's
+      own on the CPU, with phase 4f's record for each; then K1 on both
+      fine own-own blocks, K3 on every colored level, K5 on every
+      compressed-row block and K6 with P = 8 on every tile level, each
+      against its plain version;
 5. the launch counts of each path, each kernel of a path required > 0;
 6. the whole port on the card against the whole port on the CPU (plain
    versions), float64, residual histories to rtol 1e-10: 32^3 on one part
@@ -283,6 +296,8 @@ PATH_KERNELS = {
     "schwarz_ilu0_parts": ("dia_spmv", "ghost_spmv", "tile_gs_sweeps"),
     "amg_schwarz_elasticity": ("dia_spmv", "ghost_spmv", "tile_gs_sweeps"),
     "precond_values": ("ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv", "dia_spmv_df"),
+    "amg_unequal_parts": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
+    "repartitioned": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
 }
 # the elasticity SA-AMG path: the reference's own workload (bench.py:371-430,
 # AMGParams(coarse_size=400, block_size=3, max_levels=4), CG to rtol 1e-8),
@@ -343,6 +358,26 @@ AMG_PARTS_NODES = (40, 40, 40)
 AMG_PARTS_RUNS = (("float32", (12, 14), 1e-5), ("float64", (13, 13), 2e-8))
 BOX_PARTS_NODES = (64, 64, 64)
 BOX_PARTS_RUNS = (("float32", (9, 11), 1e-6), ("float64", (10, 10), 1e-7))
+# phase 4j, the partition, vector and matrix utilities, at full size:
+# - amg_unequal_parts: plaplacian_fdm((65,)*3, (2,2,2)) (274,625 rows; part
+#   boxes of 32 or 33 nodes per axis, eight shapes: the own-own block is DIA
+#   on the union of the parts' 13 offsets, a part's missing offsets and its
+#   padding rows zero) under phase 4f's box AMG-CG (BOX_PARAMS, ones in the
+#   first 10 own entries of part 0, rtol 1e-8): the box aggregation declines
+#   on unequal boxes, as the JAX package's does, so the generic aggregation;
+# - repartitioned: repartition_system onto eight contiguous blocks of the
+#   274,625 ids (x-slabs that do not align with the grid's planes), the AMG
+#   set up again, CG; the solution moved back by repartition and held to the
+#   first path's: the residual of their difference within the sum of their
+#   limits.
+# (dtype, CG iterations of amg_unequal_parts and of repartitioned, limit on
+# the true float64 residual: phase 4f's box bounds).  The iterations are the
+# JAX package's own on the CPU at this size, held exactly:
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/unequal_parts_jax_counts.py 65
+# printed 7 and 8 in float64 and in float32 (levels 274,625 / 34,075 / 921 /
+# 28 and 274,625 / 34,618 / 1,083 / 38).
+UNEQUAL_NODES = (65, 65, 65)
+UNEQUAL_RUNS = (("float32", 7, 8, 1e-6), ("float64", 7, 8, 1e-7))
 # phase 4g, the reuse tier, through the user code of examples/implicit_reuse.py
 # (the same code runs the JAX package):
 # - reaction_diffusion_parts: backward Euler over Newton over refill and
@@ -1877,12 +1912,39 @@ def _parts_blocks(M):
     return [(n, b) for n, b in out if b is not None and b.kind == "ell"]
 
 
-def _amg_parts_run(device, counters, key, make, check):
+def _hold_parts_levels(results, where, M, dtype, g, device):
+    """K3 on every colored level, K6 with P = 8 on every tile level, K5 on
+    every compressed-row block of the V-cycle (``_parts_blocks``) and K1 on
+    the fine own-own block where it is DIA, each against its plain
+    version."""
+    import torch
+
+    for l, lev in enumerate(M.levels):
+        gs = lev.smoother
+        if gs is None:
+            continue
+        at = f"level {l} of {where} ({lev.A.shape[0]} rows)"
+        if gs.tile_gs is not None:
+            _hold_tile(results, at, gs.tile_gs, dtype, g, device)
+        else:
+            _hold_k3(results, at, gs, dtype, g, device)
+    _hold_k5_blocks(results, where, _parts_blocks(M), dtype, g, device)
+    oo = M.levels[0].A.device().oo
+    if oo.kind != "dia":
+        return
+    P = oo.vals.shape[0]
+    xs = torch.randn(P, oo.n_cols_pad, generator=g, dtype=oo.vals.dtype).to(device)
+    _hold_k1(results, f"{len(oo.offsets)} diagonals, fine level of {where}", oo, xs,
+             library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad, oo.n_rows),
+                                   (P * oo.n_rows, P * oo.n_cols_pad)), xs))
+
+
+def _amg_parts_run(device, counters, key, make, check, phase="4f"):
     """One AMG path across parts: assembly (``make``: the matrix, the
     preconditioner builder and the rhs), setup, a cold and a warm solve,
     a V-cycle's launches and exchanges, a profiled warm solve and the true
-    float64 residual; returns (the run's record, its solves' launches, A,
-    M, b, x)."""
+    float64 residual, emitted under ``phase``; returns (the run's record,
+    its solves' launches, A, M, b, x)."""
     import numpy as np
     import torch
 
@@ -1928,7 +1990,7 @@ def _amg_parts_run(device, counters, key, make, check):
         "launches_per_vcycle": vcycle_launches, "exchanges_per_vcycle": exchanges,
         "profiled_solve": prof,
     }
-    emit(f"4f {key}", rec)
+    emit(f"{phase} {key}", rec)
     check(rec)
     return rec, launches, A, M, b, x
 
@@ -1991,25 +2053,11 @@ def phase_amg_parts(device, counters):
             path_launches["amg_elasticity_parts"][k] += v
         if rec["launches_per_solve"]["tile_gs_sweeps"] <= 0:
             failures.append(f"{key}: K6 did not launch in the solve")
-        where = f"{AMG_PARTS_NODES[0]}^3 elasticity on {AMG_PARTS}"
-        for l, lev in enumerate(M.levels):
-            gs = lev.smoother
-            if gs is None:
-                continue
-            if gs.tile_gs is not None:
-                _hold_tile(results, f"level {l} of {where}", gs.tile_gs, dtype, g, device)
-            else:
-                _hold_k3(results, f"level {l} of {where}", gs, dtype, g, device)
-        _hold_k5_blocks(results, where, _parts_blocks(M), dtype, g, device)
-        oo = A.device().oo
-        if oo.kind == "dia":
-            xs = torch.randn(P, oo.n_cols_pad, generator=g, dtype=A.dtype).to(device)
-            _hold_k1(results, f"{len(oo.offsets)} diagonals, fine level of {where}", oo, xs,
-                     library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad,
-                                                          oo.n_rows),
-                                           (P * oo.n_rows, P * oo.n_cols_pad)), xs))
+        _hold_parts_levels(results, f"{AMG_PARTS_NODES[0]}^3 elasticity on {AMG_PARTS}", M,
+                           dtype, g, device)
+        if results[-1]["kernel"] == "dia_spmv":
             results[-1]["launches_per_solve"] = rec["launches_per_solve"]["dia_spmv"]
-        del A, M, b, x, oo
+        del A, M, b, x
         torch.cuda.empty_cache()
 
     for dtype, iters_range, limit in BOX_PARTS_RUNS:
@@ -2047,6 +2095,114 @@ def phase_amg_parts(device, counters):
     if failures:
         raise AssertionError("; ".join(failures))
     return path_launches["amg_elasticity_parts"], path_launches["amg_box_parts"], results
+
+
+# -- phase 4j: the partition, vector and matrix utilities ------------------------
+
+def phase_partition_utilities(device, counters):
+    """The two paths of ``UNEQUAL_RUNS`` through the port's entry points:
+    ``amg_unequal_parts`` (``plaplacian_fdm`` on part boxes of unequal
+    shape, the AMG-CG) and ``repartitioned`` (``repartition_system`` onto
+    contiguous blocks of ids, the AMG-CG again, ``repartition`` of the
+    solution back), in float32 and float64, with ``_amg_parts_run``'s
+    record (host seconds of assembly, here of the repartition, and setup,
+    the hierarchy, iterations against the JAX package's, the true float64
+    residual, cold and warm solve seconds, the launches of a solve and of a
+    V-cycle).  The repartitioned matrix and rhs are held equal to the
+    originals; the kernel checks that follow are not counted: K1 on both
+    fine own-own blocks (the 13-offset union, the slab DIA), K3 on every
+    colored level, K5 on every compressed-row block, K6 with P = 8 on
+    every tile level.  Returns (launches of amg_unequal_parts, of
+    repartitioned, kernel rows)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch import (
+        PRange, SerialBackend, local_range, plaplacian_fdm, repartition, repartition_system,
+        to_global_scipy, variable_partition,
+    )
+    from partitionedarrays_tpu_torch.pvector import collect, pvector_from_own
+    from partitionedarrays_tpu_torch.solvers.amg import (
+        AMGParams, AMGPreconditioner, box_aggregate_psparse,
+    )
+
+    P = int(np.prod(AMG_PARTS))
+    failures, results = [], []
+    path_launches = {"amg_unequal_parts": {k: 0 for k in counters},
+                     "repartitioned": {k: 0 for k in counters}}
+    g = torch.Generator().manual_seed(4747)
+
+    def within(key, iterations, limit):
+        def check(rec):
+            if rec["iterations"] != iterations:
+                failures.append(f"{key}: {rec['iterations']} CG iterations, not {iterations}")
+            if not rec["true_relres"] <= limit:
+                failures.append(f"{key}: true relres {rec['true_relres']} > {limit}")
+        return check
+
+    def amg(A):
+        return AMGPreconditioner(A, AMGParams(**BOX_PARAMS))
+
+    for dtype, iters, iters_rep, limit in UNEQUAL_RUNS:
+        key = f"amg_unequal_parts {dtype}@{UNEQUAL_NODES[0]}^3 on {AMG_PARTS}"
+
+        def make(dtype=dtype):
+            A = plaplacian_fdm(UNEQUAL_NODES, AMG_PARTS, SerialBackend(P),
+                               dtype=getattr(np, dtype), device=device)
+            own = [np.zeros(li.n_own, dtype=getattr(np, dtype)) for li in A.row_prange.parts]
+            own[0][:10] = 1.0
+            return A, amg, pvector_from_own(own, A.row_prange, A.backend, device=device)
+
+        rec, launches, A, M, b, x = _amg_parts_run(device, counters, key, make,
+                                                   within(key, iters, limit), phase="4j")
+        for k, v in launches.items():
+            path_launches["amg_unequal_parts"][k] += v
+        oo = A.device().oo
+        shapes = {tuple(li.shape) for li in A.row_prange.parts}
+        if len(shapes) != 8 or len(oo.offsets) != 13 or box_aggregate_psparse(A) is not None:
+            failures.append(f"{key}: {len(shapes)} box shapes, {len(oo.offsets)} offsets, "
+                            "or the box aggregation did not decline")
+        where = f"{UNEQUAL_NODES[0]}^3 on unequal boxes {AMG_PARTS}"
+        _hold_parts_levels(results, where, M, dtype, g, device)
+        results[-1]["launches_per_solve"] = rec["launches_per_solve"]["dia_spmv"]
+
+        key = f"repartitioned {dtype}@{UNEQUAL_NODES[0]}^3 onto {P} blocks"
+        N = A.shape[0]
+        new_rows = PRange(variable_partition([len(local_range(p, P, N)) for p in range(P)]))
+
+        def make_rep(A=A, b=b, new_rows=new_rows, key=key):
+            A2, b2 = repartition_system(A, b, new_rows)
+            if (to_global_scipy(A2) != to_global_scipy(A)).nnz or not np.array_equal(
+                    collect(b2), collect(b)):
+                failures.append(f"{key}: the repartitioned system differs from the original")
+            return A2, amg, b2
+
+        rec2, launches, A2, M2, b2, x2 = _amg_parts_run(device, counters, key, make_rep,
+                                                        within(key, iters_rep, limit), phase="4j")
+        for k, v in launches.items():
+            path_launches["repartitioned"][k] += v
+        back = repartition(x2, A.row_prange)
+        G = to_global_scipy(A).astype(np.float64)
+        bg = collect(b).astype(np.float64)
+        diff = collect(back).astype(np.float64) - collect(x).astype(np.float64)
+        agree = float(np.linalg.norm(G @ diff) / np.linalg.norm(bg))
+        xmax = float(np.abs(collect(x)).max())
+        emit(f"4j {key} against amg_unequal_parts", {
+            "residual_of_difference": agree, "limit": 2 * limit,
+            "max_abs_difference": float(np.abs(diff).max()), "max_abs_x": xmax,
+            "repartition_back_s": _timed(counters, lambda: repartition(x2, A.row_prange))[1],
+        })
+        if not agree <= 2 * limit:
+            failures.append(f"{key}: solution moved back differs by {agree} > {2 * limit}")
+        where = f"{UNEQUAL_NODES[0]}^3 repartitioned onto {P} blocks"
+        _hold_parts_levels(results, where, M2, dtype, g, device)
+        results[-1]["launches_per_solve"] = rec2["launches_per_solve"]["dia_spmv"]
+        del A, M, b, x, A2, M2, b2, x2, oo, back
+        torch.cuda.empty_cache()
+    emit("4j kernels K1, K3, K5, K6 on the unequal boxes and the repartition", results)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return path_launches["amg_unequal_parts"], path_launches["repartitioned"], results
 
 
 # -- phase 4g: the reuse tier ------------------------------------------------------
@@ -3003,6 +3159,9 @@ def main() -> int:
     launches.update(schwarz_launches)
     kernel_results += schwarz_results
     launches["precond_values"], narrow_results = phase_precond_values(device, counters)
+    (launches["amg_unequal_parts"], launches["repartitioned"],
+     unequal_results) = phase_partition_utilities(device, counters)
+    kernel_results += unequal_results
     emit("5 launches", launches)
     missing = [
         f"{path}:{k}" for path, names in PATH_KERNELS.items() for k in names
@@ -3016,7 +3175,7 @@ def main() -> int:
     # one row per kernel: its float32 measurement (K7: df64 at the 128^3
     # one-part shape; K6: a symmetric sweep of level 1 of the 40^3
     # elasticity hierarchy; K2, K5 and their library calls with the L2
-    # flushed before each call), its launches over the fifteen paths' runs
+    # flushed before each call), its launches over the seventeen paths' runs
     # (calls of the kernel's C entry: K3 and K6 one per sweep sequence);
     # K2, K3 and K4 also with bfloat16 values under float32 vectors (phase
     # 4i, at the same shapes), launches on the precond_values path

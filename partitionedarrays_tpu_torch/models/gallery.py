@@ -1,13 +1,15 @@
 """Built-in test problems as per-part COO triplets (host numpy, setup-time).
 
 Copied from ``partitionedarrays_tpu/models/gallery.py``: ``laplacian_fdm``
-(:25-64), ``_q1_reference_stiffness`` and ``laplacian_fem`` (:93-197),
-``node_coordinates_unit_cube`` (:200-215), ``node_to_dof_partition``
-(:218-252), ``linear_elasticity_fem`` (:255-342) and
-``nullspace_linear_elasticity`` (:345-371).  The same numpy operations in
-the same order, so the triplets equal the reference's bit for bit.  Each
-generator returns ``(I, J, V, row_partition, col_partition)`` ready for
-``psparse``; all indices are 0-based and nodes linearized in C order.
+(:25-64), ``plaplacian_fdm`` (:67-90), ``_q1_reference_stiffness`` and
+``laplacian_fem`` (:93-197), ``node_coordinates_unit_cube`` (:200-215),
+``node_to_dof_partition`` (:218-252), ``linear_elasticity_fem``
+(:255-342) and ``nullspace_linear_elasticity`` (:345-371).  The same numpy
+operations in the same order, so the triplets equal the reference's bit
+for bit.  Each generator returns ``(I, J, V, row_partition,
+col_partition)`` ready for ``psparse`` (``plaplacian_fdm`` returns the
+assembled matrix itself); all indices are 0-based and nodes linearized in
+C order.
 """
 from __future__ import annotations
 
@@ -55,6 +57,24 @@ def laplacian_fdm(nodes_per_dir: Sequence[int], parts_per_dir: Sequence[int], dt
         Js.append(np.concatenate(J))
         Vs.append(np.concatenate(V))
     return Is, Js, Vs, node_partition, node_partition
+
+
+def plaplacian_fdm(nodes_per_dir: Sequence[int], parts_per_dir: Sequence[int], backend,
+                   dtype=np.float64, device="cuda"):
+    """The operator of ``laplacian_fdm`` as an assembled PSparseMatrix on
+    ``device``, built in closed form by ``ops/stencil.py::stencil_psparse``
+    (no triplets; the own-own block is DIA, on any part grid)."""
+    from ..ops.stencil import stencil_psparse
+
+    nodes = tuple(int(n) for n in nodes_per_dir)
+    D = len(nodes)
+    alpha = float(np.prod([n + 1 for n in nodes]))
+    stencil = [((0,) * D, alpha * 2 * D)]
+    for d in range(D):
+        for step in (-1, 1):
+            stencil.append((tuple(step if k == d else 0 for k in range(D)), -alpha))
+    return stencil_psparse(tuple(int(p) for p in parts_per_dir), nodes, stencil, backend,
+                           dtype=dtype, device=device)
 
 
 def _q1_reference_stiffness(h_per_dir, dtype=np.float64) -> np.ndarray:

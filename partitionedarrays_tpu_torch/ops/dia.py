@@ -64,6 +64,26 @@ def stack_dia(
     return out
 
 
+def host_dia(offsets, row_vals: np.ndarray, n_rows: int, n_cols: int) -> sp.dia_matrix:
+    """The scipy DIA matrix of row-indexed diagonals ``row_vals[n_off, >=
+    n_rows]`` (``row_vals[d, i] = A[i, i + offsets[d]]``).  scipy indexes a
+    diagonal by column (``data[d, j] = A[j - offsets[d], j]``), so each is
+    shifted by its offset; entries outside the matrix are dropped.  (The
+    reference's stencil mirror, ``ops/stencil.py:60-82`` and ``:395-408``.)"""
+    data = np.zeros((max(len(offsets), 1), n_cols), dtype=row_vals.dtype)
+    for k, o in enumerate(offsets):
+        diag = row_vals[k, :n_rows]
+        if o >= 0:
+            w = min(n_rows, n_cols - o)
+            if w > 0:
+                data[k, o : o + w] = diag[:w]
+        else:
+            w = min(n_rows + o, n_cols)
+            if w > 0:
+                data[k, :w] = diag[-o : -o + w]
+    return sp.dia_matrix((data, np.array(offsets)), shape=(n_rows, n_cols))
+
+
 def dia_spmv_plain(
     offsets: Tuple[int, ...], vals: torch.Tensor, x: torch.Tensor
 ) -> torch.Tensor:

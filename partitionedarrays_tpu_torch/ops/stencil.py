@@ -1,24 +1,27 @@
 """Direct construction of constant-coefficient stencil operators.
 
-Counterpart of ``partitionedarrays_tpu/ops/stencil.py`` (the equal-box
-branch of ``stencil_psparse`` :109-357 with the freeze at :416-423, and
-``stencil_rhs_counts`` :426-447).  On a C-ordered box the own-own block of a
-constant stencil is exactly DIA, one diagonal per distinct local offset, and
-each diagonal's values are a product of 1-D boundary masks; every part's
+Counterpart of ``partitionedarrays_tpu/ops/stencil.py`` (``stencil_psparse``
+:109-423 and ``stencil_rhs_counts`` :426-447).  On a C-ordered box the
+own-own block of a constant stencil is exactly DIA, one diagonal per
+distinct local offset, and each diagonal's values are a product of 1-D
+boundary masks.  When every part's box has the same shape, every part's
 own-own block is the same, so the diagonals are built once on the device
-from per-axis masks and broadcast over the parts, with no triplets, no sort
-and no host copy of the values.  Legs that leave the global domain are
-dropped (zero-Dirichlet truncation).
+from per-axis masks and broadcast over the parts, with no triplets, no
+sort and no host copy of the values.  On boxes of unequal shape (a grid
+that the parts do not divide: :358-415) each part's diagonals are built on
+the host at its own box's offsets and stacked on the union of the parts'
+offsets, a part's missing offsets and its padding rows zero.  Legs that
+leave the global domain are dropped (zero-Dirichlet truncation).
 
 Legs that leave the part's box but stay in the domain reach a neighbour's
 own ids: they make the ghost columns and the own-ghost block ``oh``, built
 on the host in O(surface) (:175-231) and frozen as a compressed-row ELL
-(kernel K5).  Boxes of unequal shape (a grid that the parts do not divide)
-are not supported yet (the reference's general branch :358-415).
+(kernel K5).
 
 The host mirrors of the blocks (:321-337) are the own-ghost CSR and a
-scipy DIA own-own block made from the closed form on first access, for
-host consumers (``to_global_scipy``, ``dense_diag``, the AMG setup).
+scipy DIA own-own block: on equal boxes made from the closed form on
+first access, for host consumers (``to_global_scipy``, ``dense_diag``, the
+AMG setup); on unequal boxes made with the values.
 ``_host_dia_mirror`` and ``_LazyStencilBlocks`` are copied from
 ``partitionedarrays_tpu/ops/stencil.py`` (:60-106).
 """
@@ -36,6 +39,7 @@ from ..parallel.exchange_plan import layout_of
 from ..parallel.partition import INT, PRange, uniform_partition
 from ..psparse import DeviceSpMat, PSparseMatrix, _sorted_ghosts
 from .blocks import freeze_block, make_dia_block
+from .dia import host_dia
 from .sparse_host import compresscoo
 
 
@@ -61,29 +65,14 @@ def _outer_and(masks: Sequence[np.ndarray]) -> np.ndarray:
 
 
 def _host_dia_mirror(loc, n_own_c, all_offs, terms, dtype) -> sp.dia_matrix:
-    """scipy dia mirror of the own_own block, built from the closed form.
-    scipy's dia format indexes data by COLUMN (data[k, j] = A[j - off, j])
-    while our diagonals are row-indexed — shift accordingly."""
+    """scipy DIA mirror of the own-own block, built from the closed form."""
     R = int(np.prod(loc))
-    n_off = len(all_offs)
-    data = np.zeros((max(n_off, 1), n_own_c), dtype=dtype)
+    rows = np.zeros((max(len(all_offs), 1), R), dtype=dtype)
     for k, o in enumerate(all_offs):
-        diag = None
         for delta, value in terms[o]:
             in_loc, _ = _axis_masks(loc, (0,) * len(loc), loc, delta)
-            m = _outer_and(in_loc) * np.asarray(value, dtype=dtype)
-            diag = m if diag is None else diag + m
-        if diag is None:
-            continue
-        if o >= 0:
-            w = min(R, n_own_c - o)
-            if w > 0:
-                data[k, o : o + w] = diag[:w]
-        else:
-            w = min(R + o, n_own_c)
-            if w > 0:
-                data[k, :w] = diag[-o : -o + w]
-    return sp.dia_matrix((data, np.array(all_offs)), shape=(R, n_own_c))
+            rows[k] += _outer_and(in_loc) * np.asarray(value, dtype=dtype)
+    return host_dia(all_offs, rows, R, n_own_c)
 
 
 class _LazyStencilBlocks(dict):
@@ -200,22 +189,18 @@ def stencil_psparse(
     P = len(row_parts)
     if backend.n_parts != P:
         raise ValueError(f"{P} parts on a backend of {backend.n_parts}")
-    if len({p.shape for p in row_parts}) != 1:
-        raise NotImplementedError(
-            "stencil_psparse: parts of unequal box shapes (grid "
-            f"{gshape} on {parts_per_dir} parts) are not ported yet"
-        )
-    loc = row_parts[0].shape
-    nd = len(loc)
-    R = int(np.prod(loc))
     np_dtype = numpy_dtype(dtype)
-
     surfaces = [_ghost_surface(p, gshape, stencil, np_dtype) for p in row_parts]
     row_pr = PRange(row_parts)
     col_pr = PRange([s[0] for s in surfaces])
     oh_csrs = [s[1] for s in surfaces]
     rlay = layout_of(row_pr)
     clay = layout_of(col_pr)
+    if len({p.shape for p in row_parts}) != 1:
+        return _unequal_boxes(row_pr, col_pr, oh_csrs, stencil, backend, np_dtype, device)
+    loc = row_parts[0].shape
+    nd = len(loc)
+    R = int(np.prod(loc))
 
     # every part's own-own block is the same (legs that stay inside the box
     # never see the global boundary): build one part, broadcast over parts
@@ -242,6 +227,45 @@ def stencil_psparse(
         for oh_csr, cp in zip(oh_csrs, col_pr.parts)
     ]
     return PSparseMatrix(DeviceSpMat(oo, oh), row_pr, col_pr, backend, nnz, blocks=blocks)
+
+
+def _unequal_boxes(row_pr, col_pr, oh_csrs, stencil, backend, np_dtype, device):
+    """The own-own block on part boxes of unequal shape (a grid that the
+    parts do not divide): each part's dense row-indexed diagonals on the
+    host, at its own box's local offsets, stacked on the sorted union of
+    the parts' offsets with zero diagonals (an offset a part lacks) and
+    zero padding rows; kept on the host as ``A._oo_dia_host`` = (offsets,
+    values ``[P, n_off, n_own_pad]``) and frozen as one DIA block."""
+    rlay, clay = layout_of(row_pr), layout_of(col_pr)
+    part_dia: List[Dict[int, np.ndarray]] = []
+    for part in row_pr.parts:
+        loc = part.shape
+        R = part.n_own
+        strides = [int(np.prod(loc[d + 1 :], dtype=np.int64)) for d in range(len(loc))]
+        diags: Dict[int, np.ndarray] = {}
+        for delta, value in stencil:
+            off = int(sum(dd * s for dd, s in zip(delta, strides)))
+            in_loc, _ = _axis_masks(loc, part.origin, part.global_shape, delta)
+            own_mask = _outer_and(in_loc)
+            if own_mask.any():
+                diag = diags.setdefault(off, np.zeros(R, dtype=np_dtype))
+                diag += own_mask * np.asarray(value, dtype=np_dtype)
+        part_dia.append(diags)
+    all_offs = sorted({o for d in part_dia for o in d})
+    vals = np.zeros((row_pr.n_parts, max(len(all_offs), 1), rlay.n_own_pad), dtype=np_dtype)
+    for p, diags in enumerate(part_dia):
+        for k, o in enumerate(all_offs):
+            if o in diags:
+                vals[p, k, : diags[o].size] = diags[o]
+    blocks = [{"oo": host_dia(all_offs, vals[p], rp.n_own, cp.n_own), "oh": oh}
+              for p, (rp, cp, oh) in enumerate(zip(row_pr.parts, col_pr.parts, oh_csrs))]
+    nnz = sum(int(np.count_nonzero(d)) for diags in part_dia for d in diags.values()) + sum(
+        m.nnz for m in oh_csrs)
+    oo = make_dia_block(tuple(all_offs), clay.n_own_pad, torch.from_numpy(vals).to(device))
+    oh = freeze_block(oh_csrs, rlay.n_own_pad, max(clay.n_ghost_pad, 1), device=device)
+    A = PSparseMatrix(DeviceSpMat(oo, oh), row_pr, col_pr, backend, nnz, blocks=blocks)
+    A._oo_dia_host = (tuple(all_offs), vals)
+    return A
 
 
 def stencil_rhs_counts(

@@ -1,9 +1,10 @@
 """Padded vector layouts and halo-exchange plans.
 
 Counterpart of ``partitionedarrays_tpu/parallel/exchange_plan.py``:
-``color_edges``, ``_build_plan`` and ``vector_exchange_plans`` (:50-208) are
-copied, so that a plan's rounds (``perms``) and padded index tables
-(``snd_idx``, ``rcv_idx``) equal the reference's table for table.  A vector
+``color_edges``, ``_build_plan``, ``vector_exchange_plans`` and
+``repartition_plan`` (:50-237) are copied, so that a plan's rounds
+(``perms``) and padded index tables (``snd_idx``, ``rcv_idx``) equal the
+reference's table for table.  A vector
 on ``P`` parts is stored as ``own[P, n_own_pad]`` and ``ghost[P,
 n_ghost_pad]`` with sizes padded to a multiple of 8 and the padding kept at
 zero (``VectorLayout`` :243-293).
@@ -25,7 +26,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .partition import PRange
+from .partition import PRange, find_owner
 
 # the reference's padding index: any index >= 2**31 - 2**8
 OOB = np.int32(np.iinfo(np.int32).max - 255)
@@ -190,6 +191,35 @@ def vector_exchange_plans(pr: PRange) -> Tuple[ExchangePlan, ExchangePlan]:
     redges = [(d, s) for s, d in edges]
     consistent_plan = _build_plan(P, redges, dst_lists, src_lists)
     return assemble_plan, consistent_plan
+
+
+def repartition_plan(pr_from: PRange, pr_to: PRange) -> ExchangePlan:
+    """The plan that moves own values from one partition of a global range
+    to another (``pvector.repartition``, combine "set"): for each target
+    part, its own ids grouped by their owner on ``pr_from`` (a stable sort,
+    so each group keeps the target's own order)."""
+    if (pr_from.n_global, pr_from.n_parts) != (pr_to.n_global, pr_to.n_parts):
+        raise ValueError(f"repartition: {pr_from} to {pr_to} (the same ids on as many parts)")
+    edges: List[Tuple[int, int]] = []
+    src_lists: List[np.ndarray] = []
+    dst_lists: List[np.ndarray] = []
+    for li_to in pr_to.parts:
+        gids = li_to.own_to_global
+        owners = find_owner(pr_from.parts, [gids])[0]
+        order = np.argsort(owners, kind="stable")
+        owners_s = owners[order]
+        cuts = np.flatnonzero(np.diff(owners_s)) + 1
+        for grp in np.split(np.arange(owners_s.size), cuts):
+            if grp.size == 0:
+                continue
+            src = int(owners_s[grp[0]])
+            src_pos = pr_from.parts[src].global_to_own(gids[order[grp]])
+            if not (src_pos >= 0).all():
+                raise ValueError("repartition: an id is not owned by its owner")
+            edges.append((src, li_to.part))
+            src_lists.append(src_pos)
+            dst_lists.append(order[grp].astype(np.int64))
+    return _build_plan(pr_from.n_parts, edges, src_lists, dst_lists)
 
 
 class VectorLayout:

@@ -1,17 +1,20 @@
 """PSparseMatrix: a row-partitioned sparse matrix, its COO constructor,
 its state changes, its SpMVs and the distributed sparse products.
 
-Counterpart of ``partitionedarrays_tpu/psparse.py``: ``_sorted_ghosts``
-:54, ``DeviceSpMat`` and ``PSparseMatrix`` :63-360 with
+Counterpart of ``partitionedarrays_tpu/psparse.py``: ``as_prange`` :50,
+``_sorted_ghosts`` :54, ``DeviceSpMat`` and ``PSparseMatrix`` :63-360 with
 ``device_transpose``, its blockwise ``copy``, ``astype`` and arithmetic,
-``_build_part_blocks`` and ``psparse`` :366-577, ``psparse_from_global``,
-``centralize``, ``to_global_scipy`` and ``gather_global_scipy`` :885-977,
+``_build_part_blocks`` and ``psparse`` :366-577, ``psparse_from_blocks`` :782,
+``psparse_from_global``, ``centralize``, ``to_global_scipy`` and
+``gather_global_scipy`` :885-977, ``replicate_psparse`` :980,
 ``_part_triplets`` :992, ``_hstack_local`` :1020, ``assemble_matrix``
 :1349-1431 and ``consistent_matrix`` :1445-1552, ``spmv`` and ``spmtv``
 :1568-1750, ``dense_diag`` :1757, ``sparse_diag_matrix`` :1779, ``spmm``
 :1827, ``spmtm`` :1994, ``rap`` :2080, ``transpose_psparse`` :2102,
-``identity_minus`` :2119, and the df64 SpMV ``device_df64``/``spmv_df64``
-:2711-2783.
+``identity_minus`` :2119, ``repartition_matrix`` :2146,
+``repartition_system`` :2616, ``split_format``, ``split_matrix``,
+``split_matrix_blocks`` and ``renumber_matrix`` :2638-2671, and the df64
+SpMV ``device_df64``/``spmv_df64`` :2711-2783.
 
 A matrix has frozen device blocks, the own-own block ``oo`` and the
 own-ghost block ``oh`` (``ops/blocks.py``: DIA on kernel K1 or compressed
@@ -20,11 +23,12 @@ subassembled matrix (``assembled=False``), and host mirrors
 ``blocks[p]["oo"|"oh"|"ho"|"hh"]``: scipy CSR when it was assembled from
 triplets (frozen on first use), a lazy scipy DIA ``oo`` for the
 closed-form stencil matrices (``ops/stencil.py``), whose device blocks are
-built directly.  The device blocks may hold another dtype than the host
-mirrors (``device_dtype``): a float32 AMG hierarchy keeps the reference's
-host products, whose prolongators are float64 (the nullspace is), and runs
-its cycle in float32 as the reference does on its TPU, which has no
-float64.
+built directly; a matrix adopted from device arrays (``convert.py``) gets
+its host blocks from its frozen blocks on first use (``host_blocks``).
+The device blocks may hold another dtype than the host mirrors
+(``device_dtype``): a float32 AMG hierarchy keeps the reference's host
+products, whose prolongators are float64 (the nullspace is), and runs its
+cycle in float32 as the reference does on its TPU, which has no float64.
 
 COO assembly runs on any number of parts of the serial backend, in the
 three input states (disassembled, assembled, subassembled) and with local
@@ -43,10 +47,9 @@ refills the same triplets' new values (``psparse_refill`` on the host,
 sparsity, through frozen value routes (``_MatRoutes``) and fill positions,
 never re-running ghost discovery or classification.  A refilled matrix
 drops its frozen blocks (``invalidate_device``) and restacks the new
-values into their structure on next use.  Left to ROADMAP Queue 1:
-``replicate_psparse``, ``split_format``, ``renumber_matrix`` and
-``repartition_*`` (item 10), and the per-process matrices of the
-multi-process backend with their cross-process refill (item 15).
+values into their structure on next use.  Left to ROADMAP Queue 1: the
+per-process matrices of the multi-process backend with their
+cross-process refill (item 15).
 """
 from __future__ import annotations
 
@@ -66,10 +69,12 @@ from .ops.blocks import (
     freeze_block_pair,
     refreeze_block,
 )
+from .ops.dia import host_dia
 from .ops.sparse_host import compresscoo, precompute_nzindex
 from .parallel.exchange_plan import VectorLayout, layout_of
-from .parallel.partition import INT, PRange, find_owner, map_local_to_global, matching_own_indices
-from .pvector import PVector, Task, pvector_from_own
+from .parallel.partition import (INT, PRange, find_owner, map_local_to_global,
+                                 matching_own_indices, renumber_partition)
+from .pvector import PVector, Task, pvector_from_own, repartition
 
 _BLOCK_NAMES = ("oo", "oh", "ho", "hh")
 
@@ -129,6 +134,9 @@ class PSparseMatrix:
         self._nnz = int(nnz)
         self._device_T = None  # the frozen transposes of oo and oh, built once
         self._device_df = None  # the (hi, lo) pair of device_df64, built once
+        # a stencil matrix's own-own DIA values on the host, (offsets,
+        # [P, n_off, n_own_pad]), where ops/stencil.py built them there
+        self._oo_dia_host = None
         # the dropped frozen blocks and transposes of invalidate_device: the
         # structure the next freeze restacks the new values into
         self._frozen_structure = (None, None)
@@ -223,7 +231,7 @@ class PSparseMatrix:
         dev, devT = self._frozen_structure
         self._frozen_structure = (self._device if self._device is not None else dev,
                                   self._device_T if self._device_T is not None else devT)
-        self._device = self._device_T = self._device_df = None
+        self._device = self._device_T = self._device_df = self._oo_dia_host = None
         self.values_version += 1
 
     def __repr__(self):
@@ -292,18 +300,48 @@ class PSparseMatrix:
 
 def host_blocks(A: PSparseMatrix) -> List[dict]:
     """A's host blocks (a stencil matrix's ``oo`` mirror is made on first
-    access); a matrix adopted from device arrays (``convert.py``) has
-    none."""
+    access; a matrix adopted from device arrays gets them from its frozen
+    blocks on first access, ``_blocks_from_device``)."""
     if A.blocks is None:
-        raise NotImplementedError(
-            "host blocks of a matrix adopted from device arrays: ROADMAP Queue 1 item 10"
-        )
+        A.blocks = _blocks_from_device(A)
     return A.blocks
+
+
+def _host_block(db: DeviceBlock, p: int, n_rows: int, n_cols: int):
+    """Part p of a frozen block as a scipy matrix of ``n_rows`` x
+    ``n_cols``: a DIA block as scipy DIA, a compressed-row block as CSR."""
+    if db.kind == "dia":
+        return host_dia(db.offsets, db.vals[p].cpu().numpy(), n_rows, n_cols)
+    rows, cols = db.rows[p].cpu().numpy(), db.cols[p].cpu().numpy()
+    vals = db.vals[p].cpu().numpy()
+    live = (cols >= 0) & (rows >= 0)[None, :]
+    r = np.broadcast_to(rows[None, :], cols.shape)[live]
+    return sp.csr_matrix((vals[live], (r, cols[live])), shape=(n_rows, n_cols))
+
+
+def _blocks_from_device(A: PSparseMatrix) -> List[dict]:
+    """Host blocks of a matrix that has only frozen blocks, each part's
+    own and ghost rows and columns."""
+    dev = A.device()
+    out = []
+    for p, (li_r, li_c) in enumerate(zip(A.row_prange.parts, A.col_prange.parts)):
+        dims = {"oo": (li_r.n_own, li_c.n_own), "oh": (li_r.n_own, li_c.n_ghost),
+                "ho": (li_r.n_ghost, li_c.n_own), "hh": (li_r.n_ghost, li_c.n_ghost)}
+        b = {}
+        for name in _BLOCK_NAMES:
+            db = getattr(dev, name)
+            if db is not None:
+                b[name] = _host_block(db, p, *dims[name])
+            elif name == "oh":
+                b[name] = sp.csr_matrix(dims[name], dtype=numpy_dtype(A.dtype))
+        out.append(b)
+    return out
 
 
 # -- construction ------------------------------------------------------------
 
-def _as_prange(x) -> PRange:
+def as_prange(x) -> PRange:
+    """``x`` as a PRange (a list of parts is wrapped)."""
     return x if isinstance(x, PRange) else PRange(list(x))
 
 
@@ -429,8 +467,8 @@ def psparse(
     ``device_refill_plan``)."""
     if indices not in ("global", "local"):
         raise ValueError(f"indices must be 'global' or 'local', got {indices!r}")
-    rows_pr = _as_prange(rows)
-    cols_pr = _as_prange(cols)
+    rows_pr = as_prange(rows)
+    cols_pr = as_prange(cols)
     P = rows_pr.n_parts
     dtype = numpy_dtype(np.asarray(V_parts[0]).dtype if dtype is None else dtype)
     if indices == "local":
@@ -609,7 +647,7 @@ def psparse_from_global(G: sp.spmatrix, rows, cols, backend: SerialBackend,
                         device="cuda") -> PSparseMatrix:
     """A global host matrix split into an assembled matrix on ``rows`` and
     ``cols``."""
-    rows_pr = _as_prange(rows)
+    rows_pr = as_prange(rows)
     G = G.tocsr()
     I_parts, J_parts, V_parts = [], [], []
     for li in rows_pr.parts:
@@ -619,6 +657,25 @@ def psparse_from_global(G: sp.spmatrix, rows, cols, backend: SerialBackend,
         V_parts.append(coo.data)
     return psparse(I_parts, J_parts, V_parts, rows_pr, cols, backend, assembled=True,
                    device=device)
+
+
+def psparse_from_blocks(blocks: List[dict], rows, cols, backend: SerialBackend,
+                        assembled: bool = True, device="cuda",
+                        device_dtype=None) -> PSparseMatrix:
+    """A matrix from per-part host blocks (``"oo"``, ``"oh"`` and, when not
+    ``assembled``, ``"ho"``, ``"hh"``) in the local numbering of ``rows``
+    and ``cols``, frozen on ``device`` at first use."""
+    return PSparseMatrix(None, as_prange(rows), as_prange(cols), backend, blocks=list(blocks),
+                         device=device,
+                         device_dtype=None if device_dtype is None else torch_dtype(device_dtype),
+                         assembled=assembled)
+
+
+def replicate_psparse(A: PSparseMatrix, max_rows: Optional[int] = 1_000_000) -> PSparseMatrix:
+    """The matrix with every part's blocks on this process: on the serial
+    backend every matrix already is, so ``A`` itself (``max_rows``, the
+    reference's cap on a per-process gather, has nothing to cap)."""
+    return A
 
 
 def _part_triplets(b: dict, li_r, li_c, names=("oo", "oh")):
@@ -956,7 +1013,7 @@ def consistent_matrix(A: PSparseMatrix, rows_co, reuse: bool = False) -> Task:
     ``(out, cache)`` for ``consistent_matrix_into``."""
     if not A.assembled:
         raise ValueError("consistent_matrix needs an assembled matrix")
-    rows_co = _as_prange(rows_co)
+    rows_co = as_prange(rows_co)
     P = rows_co.n_parts
     dtype = _host_dtype(A)
     if reuse:
@@ -1325,6 +1382,59 @@ def identity_minus(A: PSparseMatrix) -> PSparseMatrix:
         blocks.append({"oo": (D - b["oo"]).tocsr(), "oh": (-b["oh"]).tocsr()})
     return PSparseMatrix(None, A.row_prange, A.col_prange, A.backend, blocks=blocks,
                          device=A.torch_device, device_dtype=A.dtype)
+
+
+def repartition_matrix(A: PSparseMatrix, new_rows, new_cols,
+                       backend: Optional[SerialBackend] = None) -> PSparseMatrix:
+    """A on the partitions ``new_rows`` and ``new_cols`` of the same ids:
+    each part's triplets (in global ids) moved to their new row owners by
+    the disassembled COO constructor, which sums them there in part order
+    and finds the new ghost columns."""
+    names = ("oo", "oh") if A.assembled else _BLOCK_NAMES
+    tri = [_part_triplets(b, li_r, li_c, names)
+           for b, li_r, li_c in zip(host_blocks(A), A.row_prange.parts, A.col_prange.parts)]
+    return psparse([t[0] for t in tri], [t[1] for t in tri], [t[2] for t in tri],
+                   as_prange(new_rows), as_prange(new_cols), backend or A.backend,
+                   dtype=_host_dtype(A), device=A.torch_device, device_dtype=A.dtype)
+
+
+def repartition_system(A: PSparseMatrix, b: Optional[PVector] = None, new_rows=None,
+                       new_cols=None, backend: Optional[SerialBackend] = None):
+    """A (and the right-hand side ``b``, on the same new row partition)
+    repartitioned: ``A2`` or ``(A2, b2)``.  The columns follow the rows
+    unless ``new_cols`` says otherwise."""
+    new_rows = as_prange(new_rows if new_rows is not None else A.row_prange)
+    new_cols = as_prange(new_cols if new_cols is not None else new_rows)
+    A2 = repartition_matrix(A, new_rows, new_cols, backend)
+    if b is None:
+        return A2
+    return A2, repartition(b, A2.row_prange, backend or A.backend)
+
+
+def split_format(A: PSparseMatrix) -> PSparseMatrix:
+    """The split form of A: its storage always is."""
+    return A
+
+
+split_matrix = split_format
+
+
+def split_matrix_blocks(A: PSparseMatrix):
+    """Per-part host blocks (own-own, own-ghost, ghost-own, ghost-ghost);
+    the last two are None for an assembled matrix."""
+    blocks = host_blocks(A)
+    return tuple([b.get(k) for b in blocks] for k in _BLOCK_NAMES)
+
+
+def renumber_matrix(A: PSparseMatrix) -> PSparseMatrix:
+    """A on the renumbered partitions (``renumber_partition``: each part's
+    own ids consecutive).  Every part keeps its own and ghost order, so
+    the host and frozen blocks are A's own: no data moves."""
+    return PSparseMatrix(
+        A.device(), PRange(renumber_partition(A.row_prange.parts)),
+        PRange(renumber_partition(A.col_prange.parts)), A.backend, nnz=A.nnz(),
+        blocks=A.blocks, device=A.torch_device, device_dtype=A.dtype, assembled=A.assembled,
+    )
 
 
 def psystem(I_parts, J_parts, V_parts, Ib_parts, Vb_parts, rows, cols, backend: SerialBackend,

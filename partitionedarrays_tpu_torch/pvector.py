@@ -7,19 +7,23 @@ reductions (:545-598), ``collect`` (:607), the distances (:634-712), the
 df64 pairs (:715-790), and the reuse form of the COO constructor
 (``PVectorAssemblyCache``, ``pvector(reuse=True)``, ``pvector_refill``,
 :396-484), which does not copy the reference's silent downcast of wider
-values.  The parts are stacked along dim 0:
+values; and the vector utilities: ``pvector_layout`` (:239),
+``prand``/``prandn`` (:262-286; from a ``torch.Generator``, so their values
+are not the reference's, only their law and layout), ``pvector_local``
+(:302, on the serial backend), ``pvector_from_local`` (:377), the
+split-block helpers (:616-632), ``find_local_indices`` (:798),
+``renumber_pvector`` (:836) and ``repartition`` (:845), whose plan
+(``exchange_plan.repartition_plan``) is built once per pair of partitions.
+The parts are stacked along dim 0:
 ``own[P, n_own_pad]`` and ``ghost[P, n_ghost_pad]``, with padding lanes
-kept at zero so that dots and norms need no mask.  Left to ROADMAP Queue 1:
-``prand``/``prandn``,
-``pvector_local``/``_from_local``, the split-block helpers,
-``find_local_indices``, ``renumber_pvector`` and ``repartition`` (item 10).
+kept at zero so that dots and norms need no mask.
 
 A df64 vector is a (hi, lo) pair of float32 PVectors on one layout; its
 dots and norms run compensated (``ops/df64.py``).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,8 +31,8 @@ import torch
 from .backends import SerialBackend
 from .config import numpy_dtype, torch_dtype
 from .ops import df64 as df
-from .parallel.exchange_plan import VectorLayout, layout_of
-from .parallel.partition import PRange, find_owner
+from .parallel.exchange_plan import VectorLayout, layout_of, repartition_plan
+from .parallel.partition import INT, LocalIndices, PRange, find_owner, renumber_partition
 
 
 class Task:
@@ -70,6 +74,21 @@ class PVector:
     def copy(self) -> "PVector":
         return PVector(self.own, self.ghost, self.layout, self.backend)
 
+    def own_values(self) -> List[np.ndarray]:
+        """Each part's own values, on the host."""
+        own = self.own.cpu().numpy()
+        return [own[p, :n] for p, n in enumerate(self.layout.n_own)]
+
+    def ghost_values(self) -> List[np.ndarray]:
+        """Each part's ghost values, on the host."""
+        ghost = self.ghost.cpu().numpy()
+        return [ghost[p, :n] for p, n in enumerate(self.layout.n_ghost)]
+
+    def local_values(self) -> List[np.ndarray]:
+        """Each part's own and ghost values in its local order, on the host."""
+        return [li._permuted(np.concatenate([o, g]))
+                for li, o, g in zip(self.layout.pr.parts, self.own_values(), self.ghost_values())]
+
     def __repr__(self):
         return (
             f"PVector(n_global={self.n_global}, P={self.layout.n_parts}, "
@@ -110,6 +129,150 @@ def pvector_from_own(
     dt = torch_dtype(np_dtype)
     ghost = torch.zeros((lay.n_parts, lay.n_ghost_pad), dtype=dt, device=device)
     return PVector(torch.from_numpy(own).to(device), ghost, lay, backend)
+
+
+def pvector_layout(pr: PRange) -> VectorLayout:
+    return layout_of(pr)
+
+
+def _random(draw, generator: torch.Generator, pr: PRange, backend, dtype, device) -> PVector:
+    """Own values drawn by ``draw`` on the generator's device, padding
+    zeroed, then made consistent (the ghosts take their owners' values)."""
+    lay = layout_of(pr)
+    dt = torch_dtype(dtype)
+    own = draw((lay.n_parts, lay.n_own_pad), generator=generator, dtype=dt,
+               device=generator.device).to(device)
+    own = torch.where(_own_mask(lay, own.device), own, torch.zeros_like(own))
+    ghost = torch.zeros((lay.n_parts, lay.n_ghost_pad), dtype=dt, device=device)
+    return consistent(PVector(own, ghost, lay, backend)).wait()
+
+
+def prand(generator: torch.Generator, pr: PRange, backend, dtype=torch.float32,
+          device="cuda") -> PVector:
+    """Own values uniform on [0, 1) from ``generator`` (drawn on its device,
+    then moved to ``device``), ghosts consistent."""
+    return _random(torch.rand, generator, pr, backend, dtype, device)
+
+
+def prandn(generator: torch.Generator, pr: PRange, backend, dtype=torch.float32,
+           device="cuda") -> PVector:
+    """Own values standard normal from ``generator``, ghosts consistent."""
+    return _random(torch.randn, generator, pr, backend, dtype, device)
+
+
+def pvector_local(I_parts, V_parts, rows, backend, dtype=None, device="cuda") -> PVector:
+    """The disassembled COO vector assembled on the row partition (no new
+    ghosts): every part's (global id, value) contributions summed on their
+    owners, each owner adding the parts' contributions in part order.
+    Every part's contributions must be given: on the serial backend all
+    parts are this process's (a ``None`` part is the per-process form)."""
+    pr = rows if isinstance(rows, PRange) else PRange(list(rows))
+    if any(I is None for I in I_parts) or any(V is None for V in V_parts):
+        raise NotImplementedError(
+            "pvector_local with parts of other processes: ROADMAP Queue 1 item 15")
+    np_dtype = numpy_dtype(np.asarray(V_parts[0]).dtype if dtype is None else dtype)
+    lay = layout_of(pr)
+    I_parts = [np.asarray(I, dtype=INT) for I in I_parts]
+    owners = find_owner(pr.parts, I_parts)
+    own = np.zeros((lay.n_parts, lay.n_own_pad), dtype=np_dtype)
+    for I, V, o in zip(I_parts, V_parts, owners):
+        V = np.asarray(V, dtype=np_dtype)
+        order = np.argsort(o, kind="stable")
+        bounds = np.searchsorted(o[order], np.arange(lay.n_parts + 1))
+        for d in range(lay.n_parts):
+            seg = order[bounds[d]:bounds[d + 1]]
+            if seg.size:
+                np.add.at(own[d], pr.parts[d].global_to_own(I[seg]), V[seg])
+    ghost = torch.zeros((lay.n_parts, lay.n_ghost_pad), dtype=torch_dtype(np_dtype),
+                        device=device)
+    return PVector(torch.from_numpy(own).to(device), ghost, lay, backend)
+
+
+def pvector_from_local(local_parts: Sequence[np.ndarray], pr: PRange, backend,
+                       device="cuda") -> PVector:
+    """Build from per-part local values (own and ghost, in local order)."""
+    lay = layout_of(pr)
+    parts = [np.asarray(lv) for lv in local_parts]
+    dt = np.result_type(*[lv.dtype for lv in parts])
+    own = np.zeros((lay.n_parts, lay.n_own_pad), dtype=dt)
+    ghost = np.zeros((lay.n_parts, lay.n_ghost_pad), dtype=dt)
+    for p, (li, lv) in enumerate(zip(pr.parts, parts)):
+        own[p, : li.n_own] = lv[li.own_to_local()]
+        ghost[p, : li.n_ghost] = lv[li.ghost_to_local()]
+    return PVector(torch.from_numpy(own).to(device), torch.from_numpy(ghost).to(device), lay,
+                   backend)
+
+
+def split_vector_blocks(x: PVector):
+    """The stacked (own, ghost) blocks."""
+    return x.own, x.ghost
+
+
+def split_vector(x: PVector) -> PVector:
+    """The split form of ``x``: its storage always is."""
+    return x
+
+
+def pvector_from_split_blocks(own: torch.Tensor, ghost: torch.Tensor, pr: PRange,
+                              backend) -> PVector:
+    """Adopt stacked ``own[P, n_own_pad]`` and ``ghost[P, n_ghost_pad]``
+    tensors as a vector on ``pr``."""
+    lay = layout_of(pr)
+    if tuple(own.shape) != (lay.n_parts, lay.n_own_pad) or tuple(ghost.shape) != (
+            lay.n_parts, lay.n_ghost_pad):
+        raise ValueError(f"blocks {tuple(own.shape)}, {tuple(ghost.shape)} for {lay}")
+    return PVector(own, ghost, lay, backend)
+
+
+def find_local_indices(mask: PVector):
+    """The sub-partition of the ids whose own value in ``mask`` is nonzero,
+    renumbered part by part in own order, and the map from old global id
+    to new (-1 where not selected): (PRange, new_of_old)."""
+    pr = mask.layout.pr
+    sel = [np.asarray(v) != 0 for v in mask.own_values()]
+    counts = [int(s.sum()) for s in sel]
+    starts = np.zeros(len(counts) + 1, dtype=INT)
+    np.cumsum(counts, out=starts[1:])
+    new_of_old = np.full(pr.n_global, -1, dtype=INT)
+    for li, s, start in zip(pr.parts, sel, starts[:-1]):
+        new_of_old[li.own_to_global[s]] = np.arange(start, start + int(s.sum()), dtype=INT)
+
+    def g2owner(q):
+        q = np.asarray(q, dtype=INT)
+        own = np.clip(np.searchsorted(starts, np.clip(q, 0, None), side="right") - 1,
+                      0, len(counts) - 1)
+        return np.where(q >= 0, own, -1)
+
+    parts = []
+    for li, s in zip(pr.parts, sel):
+        kept = new_of_old[li.ghost_to_global] >= 0
+        parts.append(LocalIndices(
+            int(starts[-1]), li.part, li.n_parts, new_of_old[li.own_to_global[s]],
+            new_of_old[li.ghost_to_global[kept]], li.ghost_to_owner[kept],
+            global_to_owner=g2owner))
+    return PRange(parts), new_of_old
+
+
+def renumber_pvector(x: PVector, backend=None) -> PVector:
+    """The same own values on the renumbered partition
+    (``renumber_partition``: each part's own ids consecutive)."""
+    new_pr = PRange(renumber_partition(x.layout.pr.parts))
+    return pvector_from_own(x.own_values(), new_pr, backend or x.backend, device=x.own.device)
+
+
+def repartition(x: PVector, new_rows: PRange, backend=None) -> PVector:
+    """``x``'s own values moved onto the partition ``new_rows`` of the same
+    ids (ghosts zero), by one exchange; the plan is built once per pair of
+    partitions and kept on the source partition."""
+    pr_from = x.layout.pr
+    plan = pr_from._repartition_plans.get(new_rows)
+    if plan is None:
+        plan = pr_from._repartition_plans[new_rows] = repartition_plan(pr_from, new_rows)
+    lay = layout_of(new_rows)
+    own = x.own.new_zeros((lay.n_parts, lay.n_own_pad))
+    own = plan.apply(x.own, own, "set")
+    ghost = x.own.new_zeros((lay.n_parts, lay.n_ghost_pad))
+    return PVector(own, ghost, lay, backend or x.backend)
 
 
 class PVectorAssemblyCache:

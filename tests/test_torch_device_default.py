@@ -11,6 +11,7 @@ import torch
 from partitionedarrays_tpu_torch import convert, pvector
 from partitionedarrays_tpu_torch.backends import SerialBackend
 from partitionedarrays_tpu_torch.models import hpcg
+from partitionedarrays_tpu_torch.models.gallery import laplacian_fdm, plaplacian_fdm
 from partitionedarrays_tpu_torch.models.hpcg.driver import hpcg_benchmark
 from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
 from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
@@ -21,7 +22,9 @@ from partitionedarrays_tpu_torch.psparse import (
     device_refill_plan,
     psparse,
     psparse_from_global,
+    psparse_from_blocks,
     psystem,
+    repartition_matrix,
 )
 
 ENTRY_POINTS = [
@@ -29,7 +32,8 @@ ENTRY_POINTS = [
     freeze_block, pvector.pfill, pvector.pzeros, pvector.pones, pvector.pvector_from_own,
     pvector.pvector_df64, pvector.pvector, convert.from_jax_arrays,
     convert.psparse_from_host_blocks, psparse, psparse_from_global, PSparseMatrix.__init__,
-    psystem, hpcg.build_p_matrix, hpcg.pc_setup,
+    psystem, hpcg.build_p_matrix, hpcg.pc_setup, plaplacian_fdm, pvector.prand, pvector.prandn,
+    pvector.pvector_from_local, pvector.pvector_local, psparse_from_blocks,
 ]
 
 
@@ -99,3 +103,32 @@ def test_reuse_tier_without_device_does_not_run_on_the_cpu():
     assert inspect.signature(implicit_reuse.port).parameters["device"].default == "cuda"
     with pytest.raises(AssertionError, match="CUDA"):
         implicit_reuse.reaction_diffusion(implicit_reuse.port(), nodes=(4, 4, 4), steps=1)
+
+
+def test_partition_utilities_without_device_do_not_run_on_the_cpu():
+    """``plaplacian_fdm``, ``prand``/``prandn``, ``pvector_local`` and
+    ``pvector_from_local`` put their tensors on the card: without one, each
+    raises.  ``repartition`` and ``repartition_matrix`` keep their input's
+    device (a vector on the "meta" device stays there; a matrix built for
+    the card is rebuilt for it), never falling back to the CPU."""
+    from partitionedarrays_tpu_torch.parallel.partition import PRange, variable_partition
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises(AssertionError, match="CUDA"):
+        plaplacian_fdm((5, 6, 7), (2, 2, 2), SerialBackend(8))
+    I, J, V, rows, cols = laplacian_fdm((4, 4), (2, 1))
+    pr = PRange(rows)
+    for draw in (pvector.prand, pvector.prandn):
+        with pytest.raises(AssertionError, match="CUDA"):
+            draw(torch.Generator(), pr, SerialBackend(2))
+    with pytest.raises(AssertionError, match="CUDA"):
+        pvector.pvector_local(I, [np.ones(i.size) for i in I], pr, SerialBackend(2))
+    with pytest.raises(AssertionError, match="CUDA"):
+        pvector.pvector_from_local([np.ones(li.n_local) for li in rows], pr, SerialBackend(2))
+    new = PRange(variable_partition([5, 11]))
+    x = pvector.pvector_from_own([np.ones(li.n_own) for li in rows], pr, SerialBackend(2),
+                                 device="meta")
+    assert pvector.repartition(x, new).own.device.type == "meta"
+    A = psparse(I, J, V, rows, cols, SerialBackend(2), assembled=True)
+    assert repartition_matrix(A, new, new).torch_device.type == "cuda"

@@ -39,7 +39,9 @@ K3 and K4 under every lane count; on HPCG's own values, exact in
 bfloat16, equal to the full-value kernels bit for bit (the same plan, the
 same order of the sums; K4 under every lane count).  K2, K3 and K4 refuse
 operands that start one element into their storage (ValueError, no
-launch).
+launch).  K1 and K3 also run on the own-own block of a Laplacian on part
+boxes of unequal shape (13 offsets, the union of the parts', with zero
+diagonals and zero padding rows).
 
 Every test is marked ``gpu`` and skips without a CUDA card.  This module
 imports torch and the port only (no JAX), so that it also runs on a
@@ -950,3 +952,28 @@ def test_unsupported_value_pairs_raise(cuda):
             gs_sweeps(col.vals_d.to(values), x, col.invd_d, None, col.taps, (0,))
         with pytest.raises(TypeError, match="supported pairs"):
             dia_spmv_strided(col.taps.host[0], col.vals_d[:, 0].to(values), x.view(1, -1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_on_unequal_part_boxes(cuda, dtype):
+    """K1 and K3 (every order and lane count) on the own-own block of the
+    17^3 Laplacian on (2,2,2) parts of 8 or 9 nodes per axis: the union of
+    the parts' offsets (13), each part's zero diagonals, padding rows of
+    the smaller parts (zero values, zero inverse diagonal); x and the
+    swept core keep zero padding."""
+    from partitionedarrays_tpu_torch.models.gallery import plaplacian_fdm
+
+    A = plaplacian_fdm((17, 17, 17), (2, 2, 2), SerialBackend(8),
+                       dtype={torch.float32: "float32", torch.float64: "float64"}[dtype],
+                       device=cuda)
+    oo = A.device().oo
+    assert len(oo.offsets) == 13 and len({li.n_own for li in A.row_prange.parts}) == 4
+    g = torch.Generator().manual_seed(41)
+    x = torch.randn(8, oo.n_cols_pad, generator=g, dtype=dtype).to(cuda)
+    before = dia_spmv.launches
+    got = dia_spmv(oo.offsets, oo.vals, x)
+    assert dia_spmv.launches == before + 1
+    _assert_close(got, dia_spmv_plain(oo.offsets, oo.vals, x), dtype)
+    col = GaussSeidel(A).colored
+    assert col.m == 5 and not col.interleave_core(col.invd_d)[0, 512:].any()
+    _hold_sweeps(col, dtype, cuda, 42, [None] + [SweepPlan(lanes, 1) for lanes in (1, 2, 4, 8, 16)])

@@ -21,7 +21,10 @@ flat cycle on (2,2,2) parts), and the reuse tier (``psparse(reuse=True)``,
 ``additive_schwarz_solver``, AMG with Schwarz level smoothers and its
 ``update``), and the reduced-precision preconditioner values
 (``hpcg_benchmark(precond_dtype=...)`` on the flat and df64 routes, the
-HPCG aliases); afterwards neither ``jax`` nor ``ml_dtypes`` (the reference's
+HPCG aliases), and the partition, vector and matrix utilities
+(``plaplacian_fdm`` on part boxes of unequal shape, ``repartition_system``
+onto contiguous blocks, the AMG-CG on the repartitioned system and
+``repartition`` of its solution back); afterwards neither ``jax`` nor ``ml_dtypes`` (the reference's
 bfloat16 numpy dtype, read by ``convert.py`` without it) may be among the
 loaded modules.
 """
@@ -190,6 +193,22 @@ for precision in (None, "df64"):
 mg = pc_setup((4, 4, 4), (1, 1, 1), SerialBackend(1), n_levels=2, device="cpu")
 assert pc_solve(mg, mg.b).own.shape == mg.b.own.shape
 assert build_matrix((4, 4, 4))[0].nnz > 0 and restrict_operator(4, 4, 4).size == 8
+from partitionedarrays_tpu_torch import (
+    PRange, local_range, plaplacian_fdm, repartition, repartition_system, variable_partition,
+)
+from partitionedarrays_tpu_torch.pvector import pvector_from_own
+A = plaplacian_fdm((9, 10, 11), (2, 2, 2), SerialBackend(8), device="cpu")
+assert len(A.device().oo.offsets) == 11 and A._oo_dia_host is not None
+own = [np.zeros(li.n_own) for li in A.row_prange.parts]
+own[0][:10] = 1.0
+b = pvector_from_own(own, A.row_prange, A.backend, device="cpu")
+new_rows = PRange(variable_partition([len(local_range(p, 8, 990)) for p in range(8)]))
+A2, b2 = repartition_system(A, b, new_rows)
+assert abs(centralize(A2) - centralize(A)).max() == 0
+x2, info = cg(A2, b2, M=AMGPreconditioner(A2, AMGParams(coarse_size=50)), rtol=1e-8)
+assert info.iterations < 20, info
+x, _ = cg(A, b, M=AMGPreconditioner(A, AMGParams(coarse_size=50)), rtol=1e-8)
+assert np.abs(collect(repartition(x2, A.row_prange)) - collect(x)).max() < 1e-6 * np.abs(collect(x)).max()
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "ml_dtypes.")))
 print("JAX_MODULES", loaded)
