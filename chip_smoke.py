@@ -35,7 +35,7 @@ Phases, one output line each:
    ``torch.sparse`` CSR call at the fine level, the device time under
    every other lane count, and on HPCG's own values (exact in bfloat16)
    each narrow pair against the full-value kernel, bit for bit;
-4. seventeen paths through the port, each with its kernels' launch counts
+4. nineteen paths through the port, each with its kernels' launch counts
    set to 0 just before it and read just after (a-c: the HPCG benchmark, 4
    MG levels, 50 CG iterations; d-f and j: the AMG paths, counted over
    their solves):
@@ -52,9 +52,9 @@ Phases, one output line each:
       sequence (K3) with a real ghost contribution;
    c. ``precision="df64"`` (the df64 CG through K7, the float32 MG through
       K3, K4 and K5): 64^3 and 128^3 on one part and (2,2,2) parts of 64^3;
-      each also runs ``cg_df64`` with no preconditioner and with the float32
-      GaussSeidel on the same operator to rtol 1e-10, and profiles one set
-      (kernel launches and device time);
+      each profiles one set (kernel launches and device time), and the 64^3
+      one also runs ``cg_df64`` with no preconditioner and with the float32
+      GaussSeidel on the same operator to rtol 1e-10;
    the relative residuals are held to the limits of ``HPCG_RUNS``,
    ``GHOSTED_RUNS`` and ``DF64_RUNS``;
    d. ``amg_elasticity``: 3-D Q1 linear elasticity through the port's
@@ -162,7 +162,27 @@ Phases, one output line each:
       fine own-own blocks, K3 on every colored level, K5 on every
       compressed-row block and K6 with P = 8 on every tile level, each
       against its plain version;
-5. the launch counts of each path, each kernel of a path required > 0;
+   k. float16 preconditioner values and the remaining layers:
+      ``hpcg_float16`` (``F16_RUNS``: ``hpcg_benchmark(precond_dtype=
+      "float16")`` at 128^3 float32 and 64^3 float64 on one part, the
+      standalone sweep (K2 per color) against K3 on the fine level's
+      float16 values in the same window; profiled sets of the float16-,
+      bfloat16- and full-valued MGs, whose histories must be equal, HPCG's
+      values being exact in both), then K2, K3 and K4 with random float16
+      values (``F16_PAIRS``) against their plain versions beside the
+      bfloat16 instance on the same operator, and on HPCG's values against
+      the full-value kernels; ``block_cg`` (``BLOCK_RUNS``: ``b_cg`` to
+      rtol 1e-8 on the coupled two-field system [[A, C], [C, S]], A =
+      ``plaplacian_fdm((64,)*3, (2,2,2))``, S = A + 0.5 I, C = 0.1 I, in
+      float32 and float64: iterations held to the JAX package's on the
+      CPU, the true relres of a float64 product, cold and warm seconds by
+      the port's ``PTimer`` and by CUDA events, a profiled warm solve),
+      then K1 on the three DIA blocks and K5 on the ghost blocks; and the
+      utilities on the card, one line each (``PTimer`` fencing a region the
+      card runs after the host queued it, a checkpoint round trip,
+      ``gather``/``scatter``/``multicast`` of CUDA tensors);
+5. the launch counts of each path, each kernel of a path required > 0, and
+   the wall seconds of each phase;
 6. the whole port on the card against the whole port on the CPU (plain
    versions), float64, residual histories to rtol 1e-10: 32^3 on one part
    and (2,2,2) parts of 8^3, 3 levels, flat and generic CG; the df64
@@ -184,6 +204,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 LOCAL = (128, 128, 128)
 LEVELS = 4
@@ -220,8 +241,12 @@ DF64_RUNS = (
     (LOCAL, (1, 1, 1), 2e-6),
     (GHOST_LOCAL, GHOST_PARTS, 1e-5),
 )
-# cg_df64 beside each df64 run: its stopping rtol, and the limit on the true
-# float64 residual |b - A x| / |b| of its solution
+# cg_df64 beside the df64 run at the reference's official-precision
+# configuration (64^3 on one part; at 128^3 and on (2,2,2) parts too it
+# took 16 s more of the script's time limit and added no check): its
+# stopping rtol, and the limit on the true float64 residual |b - A x| / |b|
+# of its solution
+DF64_CG_SHAPE = ((64, 64, 64), (1, 1, 1))
 DF64_CG_RTOL = 1e-10
 DF64_CG_TRUE_RELRES = 1e-9
 DF64_CG_MAXITER = 3000
@@ -298,6 +323,8 @@ PATH_KERNELS = {
     "precond_values": ("ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv", "dia_spmv_df"),
     "amg_unequal_parts": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
     "repartitioned": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
+    "hpcg_float16": ("ax_core", "gs_sweeps", "dia_spmv_strided"),
+    "block_cg": ("dia_spmv", "ghost_spmv"),
 }
 # the elasticity SA-AMG path: the reference's own workload (bench.py:371-430,
 # AMGParams(coarse_size=400, block_size=3, max_levels=4), CG to rtol 1e-8),
@@ -460,6 +487,29 @@ NARROW_PAIRS = (("bfloat16", "float32"), ("bfloat16", "float64"), ("float32", "f
 # the same plan and the same order of the sums, so they are expected to
 # agree exactly; the bound leaves room for FMA contraction alone
 NARROW_HPCG_RTOL = {"float32": 1e-6, "float64": 1e-12}
+# phase 4k, float16 preconditioner values and the remaining layers:
+# - hpcg_float16: hpcg_benchmark(precond_dtype="float16") at (local shape,
+#   vector dtype, limit on the final relative residual): 128^3 float32 (phase
+#   4a's limit) and 64^3 float64 (1e-8) on one part; HPCG's 26 and -1 are
+#   exact in float16, so each history must equal the full-valued and the
+#   bfloat16-valued runs' exactly;
+F16_RUNS = ((LOCAL, "float32", 2e-6), ((64, 64, 64), "float64", 1e-8))
+F16_PAIRS = (("float16", "float32"), ("float16", "float64"))
+# - block_cg: b_cg (rtol 1e-8) on the coupled two-field system [[A, C], [C, S]]
+#   with A = plaplacian_fdm((64,)*3, (2,2,2)) (262,144 rows), S = A + 0.5 I,
+#   C = 0.1 I on A's rows; b = G x* in float64 on the host, x* from
+#   default_rng(14).  (dtype, the JAX package's iterations on the CPU at this
+#   size, limit on the true relres of a float64 product):
+#     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/block_cg_jax_counts.py 64
+#   printed 188 in float64 and in float32 (true relres 9.88e-9 and 3.58e-7)
+BLOCK_NODES = (64, 64, 64)
+BLOCK_PARTS = (2, 2, 2)
+BLOCK_SHIFT = 0.5
+BLOCK_COUPLING = 0.1
+BLOCK_SEED = 14
+BLOCK_RTOL = 1e-8
+BLOCK_MAXITER = 3000
+BLOCK_RUNS = (("float32", 188, 1e-6), ("float64", 188, 1e-8))
 
 
 def emit(phase: str, payload) -> None:
@@ -754,6 +804,7 @@ def _hold_k7(results, where, oo, g, device):
         "rows": P * R, "max_abs_err": (got - want).abs().max().item(),
         "tol_rel_sum_abs": DF64_KERNEL_TOL, **errs,
         "ms": time_ms(lambda: dia_spmv_df(oo.offsets, vh, vl, x), 20),
+        "device_ms": device_ms(lambda: dia_spmv_df(oo.offsets, vh, vl, x), 20),
         "plain_ms": time_ms(lambda: df.dia_spmv_df_plain(oo.offsets, vh, vl, x), 3),
         "k1_float64_ms": time_ms(lambda: dia_spmv(oo.offsets, oo.vals, x64), 20),
         "bytes": work[0], "ops": work[1], "bound_ms": b_ms, "bound_by": b_by,
@@ -1295,9 +1346,9 @@ def _profile_set(run_set, top: int = 0, kernels=("gs_seq",)) -> dict:
 def phase_hpcg_df64(device):
     """The benchmark with ``precision="df64"``: the df64 CG (K7 through
     ``spmv_df64``) with the float32 MG (K3, K4, and K5 with ghosts).  Each
-    configuration also runs ``cg_df64`` on the same float64 operator with
-    no preconditioner and with the MG's float32 fine-level GaussSeidel,
-    and profiles one set."""
+    configuration profiles one set; the one of ``DF64_CG_SHAPE`` also runs
+    ``cg_df64`` on the same float64 operator with no preconditioner and
+    with the MG's float32 fine-level GaussSeidel."""
     import numpy as np
     import torch
 
@@ -1330,10 +1381,12 @@ def phase_hpcg_df64(device):
             mg=mg, setup_time=sum(setup), device=device,
         )
         s = report.summary()
-        prof = _profile_set(lambda: hpcg_cg_df64(A, b, M=mg, iterations=ITERATIONS))
+        prof = _profile_set(lambda: hpcg_cg_df64(A, b, M=mg, iterations=ITERATIONS),
+                            kernels=("gs_seq", "dia_spmv_df"))
         b64 = df.to_f64(b[0].own, b[1].own)
         solves = {}
-        for name, M in (("none", None), ("gauss_seidel", mg.gss[-1])):
+        side = (shape, parts) == DF64_CG_SHAPE
+        for name, M in (("none", None), ("gauss_seidel", mg.gss[-1])) if side else ():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             x, info = cg_df64(A, b, M=M, rtol=DF64_CG_RTOL, maxiter=DF64_CG_MAXITER)
@@ -1373,7 +1426,7 @@ def phase_hpcg_df64(device):
             failures.append(f"{key}: relres {s['final_relres']} > {limit}")
         if not (s["validation_passed"] and s["chain_consistent"]):
             failures.append(f"{key}: HPCG validation or chain consistency failed")
-        del mg, A, b, report, b64, x, x64, xv
+        del mg, A, b, report, b64
         torch.cuda.empty_cache()
     emit("4c hpcg df64", out)
     if failures:
@@ -2205,6 +2258,336 @@ def phase_partition_utilities(device, counters):
     return path_launches["amg_unequal_parts"], path_launches["repartitioned"], results
 
 
+# -- phase 4k: float16 preconditioner values and the remaining layers ---------------
+
+
+def _hpcg_sets(mg):
+    """The float32 set's profile of ``mg`` (``_profile_set``) and its
+    history (``hpcg_cg_flat``, ITERATIONS)."""
+    from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg_flat
+
+    def one_set():
+        return hpcg_cg_flat(mg, mg.b, iterations=ITERATIONS)
+
+    profile = _profile_set(one_set, top=8, kernels=("gs_seq", "ax_core"))
+    return profile, one_set()[1]
+
+
+def phase_hpcg_float16(device, counters):
+    """``hpcg_float16``: the benchmark with ``precond_dtype="float16"``
+    through ``hpcg_benchmark`` (``F16_RUNS``: 128^3 float32 and 64^3
+    float64 on one part), the launch counts set to 0 just before each
+    benchmark and read just after; in that window also the standalone
+    sweep (K2 per color) against K3 on the float16 values of the fine
+    level.  Beside each: profiled sets of the float16-, bfloat16- and
+    full-valued MGs (not counted), whose histories must equal each other
+    (HPCG's 26 and -1 are exact in both narrow types).  Then K2, K3 and K4
+    with random float16 values against their plain versions, beside the
+    bfloat16 instance on the same operator, and on HPCG's own values
+    against the full-value kernels (``_narrow_on_hpcg``).  Returns (the
+    path's launches, kernel rows)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+    from partitionedarrays_tpu_torch.models.hpcg.driver import cg_route, hpcg_benchmark
+    from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
+    from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
+
+    launches = {k: 0 for k in counters}
+    failures, results = [], []
+    g = torch.Generator().manual_seed(1616)
+    for shape, vectors, limit in F16_RUNS:
+        key = f"{vectors}@{shape[0]}^3 float16 values"
+        dtype = getattr(np, vectors)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mg = HPCGMGPreconditioner(shape, (1, 1, 1), SerialBackend(1), n_levels=LEVELS,
+                                  dtype=dtype, precond_dtype="float16", device=device)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+
+        def run(mg=mg, setup=setup, shape=shape):
+            report = hpcg_benchmark(
+                None, local_shape=shape, parts_per_dir=(1, 1, 1), n_levels=LEVELS,
+                iterations=ITERATIONS, ref_sets=1, timed_sets=3, mg=mg, setup_time=setup,
+                device=device,
+            )
+            gs, col = mg.gss[-1], mg.gss[-1].colored  # the fine level
+            x = torch.randn(1, col.m, col.Lq, generator=g, dtype=mg.A.dtype).to(device)
+            bd = gs.make_bd(mg.b)
+            order = gs._order_seq()
+            via_k2 = col.sweep_flat(x.clone(), bd, col.vals_d, col.invd_d, order)
+            via_k3 = col.sweeps_core(x, bd, col.vals_d, col.invd_d, order)
+            return report, ((via_k2 - via_k3).abs().max() / via_k3.abs().max()).item()
+
+        (report, sweep_err), _, counts = _timed(counters, run)
+        for k, v in counts.items():
+            launches[k] += v
+        s = report.summary()
+        gf = report.gflops()
+        rec = {
+            "cg_route": cg_route(mg, None), "precond_values_dtype": s["precond_values_dtype"],
+            "raw_gflops": gf["raw"], "rated_gflops": gf["rated"],
+            "final_relres": s["final_relres"], "relres_limit": limit,
+            "validation_passed": s["validation_passed"],
+            "chain_consistent": s["chain_consistent"],
+            "seconds_per_set": report.time_solve / report.n_sets, "setup_s": setup,
+            "launches": counts, "sweep_k2_vs_k3_rel_err": sweep_err,
+        }
+        histories = {}
+        rec["profiled_set"], histories["float16"] = _hpcg_sets(mg)
+        del mg, report
+        torch.cuda.empty_cache()
+        for values in ("bfloat16", None):
+            other = HPCGMGPreconditioner(shape, (1, 1, 1), SerialBackend(1), n_levels=LEVELS,
+                                         dtype=dtype, precond_dtype=values, device=device)
+            name = values or vectors
+            rec[f"profiled_set_{name}_values"], histories[name] = _hpcg_sets(other)
+            del other
+            torch.cuda.empty_cache()
+        rec["history_equal"] = {k: bool(torch.equal(histories["float16"], h))
+                                for k, h in histories.items() if k != "float16"}
+        emit(f"4k hpcg_float16 {key}", rec)
+        if rec["cg_route"] != "flat" or s["precond_values_dtype"] != "float16":
+            failures.append(f"{key}: the {rec['cg_route']} CG, values {s['precond_values_dtype']}")
+        if not s["final_relres"] <= limit:
+            failures.append(f"{key}: relres {s['final_relres']} > {limit}")
+        if not (s["validation_passed"] and s["chain_consistent"]):
+            failures.append(f"{key}: HPCG validation or chain consistency failed")
+        if not sweep_err <= KERNEL_RTOL[vectors]:
+            failures.append(f"{key}: sweep (K2) vs sweeps_core (K3) differ by {sweep_err}")
+        if not all(rec["history_equal"].values()):
+            failures.append(f"{key}: history differs: {rec['history_equal']}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    # the kernels: K4 and K3 at the 128^3 level, K2 at one color of the
+    # (2,2,2) x 64^3 level, random values of the 27-point pattern, float16
+    # beside bfloat16 values on the same operator and inputs
+    hpcg_errs = {}
+    for values, vectors in F16_PAIRS:
+        dtype = getattr(torch, vectors)
+        A, b = build_hpcg_problem(LOCAL, (1, 1, 1), SerialBackend(1), dtype=dtype, device=device)
+        col16, _ = _random_colored(A, torch.float16, g)
+        colbf, _ = _random_colored(A, torch.bfloat16, g)
+        _hold_narrow(results, f"random values, one part of {LOCAL[0]}^3", col16, colbf, g,
+                     device)
+        hpcg_errs[f"{values}/{vectors} one part"] = _narrow_on_hpcg(A, b, values, g, device)
+        del A, b, col16, colbf
+        torch.cuda.empty_cache()
+        A, b = build_hpcg_problem(GHOST_LOCAL, GHOST_PARTS, SerialBackend(8), dtype=dtype,
+                                  device=device)
+        col16, _ = _random_colored(A, torch.float16, g)
+        colbf, _ = _random_colored(A, torch.bfloat16, g)
+        _hold_k2_narrow(results, (col16, colbf), g, device)
+        hpcg_errs[f"{values}/{vectors} (2,2,2)"] = _narrow_on_hpcg(A, b, values, g, device)
+        del A, b, col16, colbf
+        torch.cuda.empty_cache()
+    rows = [{k: r.get(k) for k in ("kernel", "dtype", "values", "max_abs_err", "max_rel_err",
+                                   "ms", "ms_flushed", "device_ms", "bound_ms", "plain_ms")}
+            for r in results]
+    emit("4k kernels float16 values", {"rows": rows, "hpcg_values_vs_full": hpcg_errs,
+                                       "hpcg_rtol": NARROW_HPCG_RTOL})
+    return launches, results
+
+
+def _stencil(n: int, shift: float):
+    """``plaplacian_fdm``'s 7-point stencil at n^3 (scaled by (n+1)^3), its
+    centre shifted by ``shift``."""
+    alpha = float((n + 1) ** 3)
+    out = [((0, 0, 0), 6 * alpha + shift)]
+    for d in range(3):
+        for step in (-1, 1):
+            out.append((tuple(step if k == d else 0 for k in range(3)), -alpha))
+    return out
+
+
+def _block_system(dtype_name, device):
+    """The coupled two-field system of ``block_cg``: the BMatrix [[A, C],
+    [C, S]] (A = ``plaplacian_fdm``, S = A + 0.5 I, C = 0.1 I on A's rows),
+    the global float64 block matrix G on the host, and b = G x* rounded to
+    the dtype (x* from ``default_rng(BLOCK_SEED)``)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from partitionedarrays_tpu_torch import (
+        BMatrix, BVector, SerialBackend, pfill, pvector_from_own, sparse_diag_matrix,
+        to_global_scipy,
+    )
+    from partitionedarrays_tpu_torch.ops.stencil import stencil_psparse
+
+    dtype = getattr(np, dtype_name)
+    n = BLOCK_NODES[0]
+    backend = SerialBackend(int(np.prod(BLOCK_PARTS)))
+    A = stencil_psparse(BLOCK_PARTS, BLOCK_NODES, _stencil(n, 0.0), backend, dtype=dtype,
+                        device=device)
+    S = stencil_psparse(BLOCK_PARTS, BLOCK_NODES, _stencil(n, BLOCK_SHIFT), backend,
+                        dtype=dtype, device=device)
+    C = sparse_diag_matrix(pfill(BLOCK_COUPLING, A.row_prange, backend, dtype, device=device))
+    M = BMatrix([[A, C], [C, S]])
+    G = sp.bmat([[to_global_scipy(B).astype(np.float64) for B in row]
+                 for row in M.blocks]).tocsr()
+    N = A.shape[0]
+    bg = G @ np.random.default_rng(BLOCK_SEED).standard_normal(2 * N)
+    b = BVector([pvector_from_own([bg[k * N + li.own_to_global].astype(dtype)
+                                   for li in A.row_prange.parts], A.row_prange, backend,
+                                  device=device)
+                 for k in range(2)])
+    return M, G, b
+
+
+def phase_block_cg(device, counters):
+    """``block_cg`` (``BLOCK_RUNS``): ``b_cg`` on the coupled system
+    through the port's entry points, float32 and float64, the launch counts
+    set to 0 just before each solve and read just after: assembly seconds,
+    iterations against the JAX package's on the CPU, the true relres of a
+    float64 product of the blocks, cold and warm seconds (the warm solve
+    by the port's ``PTimer`` and by CUDA events), a profiled warm solve
+    (device time and its kernels' shares); then K1 on the three DIA
+    blocks and K5 on the ghost block, each against its plain version (not
+    counted).  Returns (the path's launches, kernel rows)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch import PTimer, b_cg, b_collect
+
+    launches = {k: 0 for k in counters}
+    failures, results = [], []
+    g = torch.Generator().manual_seed(1414)
+    for dtype_name, iters, limit in BLOCK_RUNS:
+        key = f"{dtype_name}@2x{BLOCK_NODES[0]}^3 on {BLOCK_PARTS}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M, G, b = _block_system(dtype_name, device)
+        torch.cuda.synchronize()
+        assembly = time.perf_counter() - t0
+
+        def solve(M=M, b=b):
+            return b_cg(M, b, rtol=BLOCK_RTOL, maxiter=BLOCK_MAXITER)
+
+        (x, it, relres), cold, counts = _timed(counters, solve)
+        timer = PTimer(device=device)
+        timer.tic("b_cg")
+        (x, it_warm, _), warm, counts_warm = _timed(counters, solve)
+        ptimer_s = timer.toc("b_cg")
+        for c in (counts, counts_warm):
+            for k, v in c.items():
+                launches[k] += v
+        profile = _profile_set(solve, top=6, kernels=("dia_spmv_kernel", "ghost_spmv_kernel"))
+        bh = b_collect(b).astype(np.float64)
+        true = float(np.linalg.norm(bh - G @ b_collect(x).astype(np.float64))
+                     / np.linalg.norm(bh))
+        rec = {
+            "rows": G.shape[0], "nnz": M.nnz(), "assembly_s": assembly,
+            "iterations": it, "jax_cpu_iterations": iters, "relres": relres,
+            "true_relres": true, "true_relres_limit": limit, "cold_s": cold,
+            "warm_s_cuda_events": warm, "warm_s_ptimer": ptimer_s,
+            "launches_per_solve": counts, "launches_per_iteration": {
+                k: v / max(it, 1) for k, v in counts.items()},
+            "profiled_solve": profile,
+            "idle_share": 1.0 - profile["device_ms"] / profile["profiled_wall_ms"],
+        }
+        emit(f"4k block_cg {key}", rec)
+        if it != iters or it_warm != iters:
+            failures.append(f"{key}: {it} / {it_warm} iterations, not the JAX package's {iters}")
+        if not true <= limit:
+            failures.append(f"{key}: true relres {true} > {limit}")
+        if not ptimer_s >= warm:
+            failures.append(f"{key}: PTimer {ptimer_s} s < CUDA events {warm} s: no fence")
+        where = f"block_cg {key}"
+        A, C, S = M.blocks[0][0], M.blocks[0][1], M.blocks[1][1]
+        for name, blk in (("A", A), ("S = A + 0.5 I", S), ("C = 0.1 I", C)):
+            oo = blk.device().oo
+            P = oo.vals.shape[0]
+            xs = torch.randn(P, oo.n_cols_pad, generator=g, dtype=oo.vals.dtype).to(device)
+            _hold_k1(results, f"{name} of {where}", oo, xs,
+                     library=_library(_csr(*_dia_triplets(oo.offsets, oo.vals, oo.n_cols_pad,
+                                                          oo.n_rows),
+                                           (P * oo.n_rows, P * oo.n_cols_pad)), xs))
+        _hold_k5_blocks(results, where, [("A own-ghost", A.device().oh),
+                                         ("S own-ghost", S.device().oh)], dtype_name, g, device)
+        del M, G, b, x, A, C, S
+        torch.cuda.empty_cache()
+    rows = [{k: r.get(k) for k in ("kernel", "dtype", "where", "max_abs_err", "max_rel_err",
+                                   "ms", "ms_flushed", "device_ms", "bound_ms", "plain_ms",
+                                   "library_ms", "library_ms_flushed")}
+            for r in results]
+    emit("4k kernels K1, K5 on the block system", rows)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, results
+
+
+def phase_utilities(device):
+    """The remaining layers' checks on the card (not counted), one line
+    each: ``PTimer`` across a region the card runs after the host has
+    queued it (``torch.cuda._sleep``), fenced by ``toc``; a checkpoint round
+    trip of a vector and a matrix onto the card (under the git-ignored
+    ``build/``); ``primitives.gather``/``scatter``/``multicast`` of CUDA
+    tensors."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch import (
+        PTimer, SerialBackend, collect, gather, map_parts, multicast, plaplacian_fdm, prandn,
+        scatter, spmv, to_global_scipy,
+    )
+    from partitionedarrays_tpu_torch.ops.jagged import JaggedArray
+    from partitionedarrays_tpu_torch.utils import checkpoint
+
+    timer = PTimer(barrier_at_tic=True, device=device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    timer.tic("sleep")
+    start.record()
+    torch.cuda._sleep(50_000_000)
+    end.record()
+    seconds = timer.toc("sleep")
+    events = start.elapsed_time(end) / 1e3
+    rec = {"ptimer_s": seconds, "cuda_events_s": events, "statistics": timer.statistics()}
+    emit("4k utils ptimer", rec)
+    if not seconds >= events:
+        raise AssertionError(f"PTimer {seconds} s < the region's {events} s: toc did not fence")
+
+    out = Path(os.path.dirname(os.path.abspath(__file__))) / "build" / "chip_smoke_checkpoint"
+    out.mkdir(parents=True, exist_ok=True)
+    A = plaplacian_fdm((32, 32, 32), (2, 2, 2), SerialBackend(8), dtype=np.float32, device=device)
+    x = prandn(torch.Generator(device=device).manual_seed(7), A.col_prange, A.backend,
+               device=device)
+    checkpoint.save_pvector(out / "x.pt", x)
+    checkpoint.save_psparse(out / "A.pt", A)
+    x2 = checkpoint.load_pvector(out / "x.pt", A.backend, device=device)
+    A2 = checkpoint.load_psparse(out / "A.pt", A.backend, device=device)
+    y, y2 = spmv(A, x), spmv(A2, x2)
+    rec = {"vector_equal": bool(np.array_equal(collect(x2), collect(x))),
+           "matrix_equal": (to_global_scipy(A2) != to_global_scipy(A)).nnz == 0,
+           "device": str(x2.own.device),
+           "spmv_max_rel_diff": ((y2.own - y.own).abs().max() / y.own.abs().max()).item(),
+           "bytes": sum(f.stat().st_size for f in out.glob("*.pt"))}
+    shutil.rmtree(out)
+    emit("4k utils checkpoint", rec)
+    if not (rec["vector_equal"] and rec["matrix_equal"] and x2.own.is_cuda
+            and rec["spmv_max_rel_diff"] <= KERNEL_RTOL["float32"]):
+        raise AssertionError(f"checkpoint round trip on the card: {rec}")
+
+    parts = x.own
+    g = gather(parts, destination=0)
+    back = scatter(g, source=0)
+    jag = gather([parts[p, : n] for p, n in enumerate(x.layout.n_own)], destination="all")
+    rec = {"gather_device": str(g[0].device), "gather_shapes": [list(t.shape) for t in g[:2]],
+           "scatter_equal": bool(torch.equal(back, parts)),
+           "multicast_equal": bool(torch.equal(multicast(parts, source=3)[5], parts[3])),
+           "map_parts_equal": bool(torch.equal(map_parts(lambda a: 2 * a, parts), 2 * parts)),
+           "jagged_device": str(jag[7].data.device),
+           "jagged_equal": all(torch.equal(jag[7][p], parts[p, : n])
+                               for p, n in enumerate(x.layout.n_own))}
+    emit("4k utils primitives", rec)
+    if not (g[0].is_cuda and isinstance(jag[7], JaggedArray) and jag[7].data.is_cuda
+            and rec["scatter_equal"] and rec["multicast_equal"] and rec["map_parts_equal"]
+            and rec["jagged_equal"]):
+        raise AssertionError(f"primitives on CUDA tensors: {rec}")
+
+
 # -- phase 4g: the reuse tier ------------------------------------------------------
 
 class _StepTimes:
@@ -2796,6 +3179,37 @@ def _hold_narrow(results, where, col, full, g, device):
                            m=m, n_off=n_off, Lq=Lq)
 
 
+def _hold_k2_narrow(results, cols, g, device):
+    """K2 on the middle color of each colored state of ``cols`` (one
+    operator of the (2,2,2) x 64^3 level, values of several dtypes) against
+    its plain version, timed with the L2 flushed; bound: the color's values
+    in their own dtype, the core and the color's rows, once."""
+    from functools import partial
+
+    import torch
+
+    from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
+    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv_strided
+
+    first = cols[0]
+    dtype = first.invd_d.dtype
+    vectors = str(dtype).replace("torch.", "")
+    P = first.vals_d.shape[0]
+    core = torch.randn(P, first.m * first.Lq, generator=g, dtype=dtype).to(device)
+    c = first.m // 2
+    for cc in cols:
+        taps, vals_c = cc.taps.host[c], cc.vals_d[:, c]
+        _hold(results, "dia_spmv_strided", vectors,
+              partial(dia_spmv_strided, taps, vals_c, core),
+              partial(dia_spmv_plain, taps, vals_c, core), flushed=True,
+              work=(vals_c.element_size() * vals_c.numel()
+                    + core.element_size() * (core.numel() + P * cc.Lq),
+                    2 * vals_c.numel(), _flops(vectors)))
+        results[-1].update(where=f"random values, one color of {GHOST_PARTS}x{GHOST_LOCAL[0]}^3",
+                           values=str(cc.vals_d.dtype).replace("torch.", ""),
+                           shape=list(vals_c.shape), m=cc.m, color=c)
+
+
 def _narrow_on_hpcg(A, b, values, g, device) -> dict:
     """HPCG's own values (exact in bfloat16): the narrow-value K4, K3 and
     the standalone sweep (K2 per color) against the full-value kernels,
@@ -2832,8 +3246,6 @@ def phase_precond_values(device, counters):
     128^3 runs outside that window); then the narrow-value K2, K3 and K4
     against their plain versions and the full-value kernels (not
     counted).  Returns (the path's launches, kernel rows)."""
-    from functools import partial
-
     import numpy as np
     import torch
 
@@ -2842,8 +3254,6 @@ def phase_precond_values(device, counters):
     from partitionedarrays_tpu_torch.models.hpcg.driver import cg_route, hpcg_benchmark
     from partitionedarrays_tpu_torch.models.hpcg.mg import HPCGMGPreconditioner
     from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
-    from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
-    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv_strided
 
     launches = {k: 0 for k in counters}
     failures, results = [], []
@@ -2943,21 +3353,9 @@ def phase_precond_values(device, counters):
         A, b = build_hpcg_problem(GHOST_LOCAL, GHOST_PARTS, SerialBackend(8), dtype=dtype,
                                   device=device)
         col, full = _random_colored(A, getattr(torch, values), g)
-        core = torch.randn(8, col.m * col.Lq, generator=g, dtype=dtype).to(device)
-        c = col.m // 2
-        for cc in (full, col):
-            taps, vals_c = cc.taps.host[c], cc.vals_d[:, c]
-            _hold(results, "dia_spmv_strided", vectors,
-                  partial(dia_spmv_strided, taps, vals_c, core),
-                  partial(dia_spmv_plain, taps, vals_c, core), flushed=True,
-                  work=(vals_c.element_size() * vals_c.numel()
-                        + core.element_size() * (core.numel() + 8 * col.Lq),
-                        2 * vals_c.numel(), _flops(vectors)))
-            results[-1].update(where=f"random values, one color of {GHOST_PARTS}x{GHOST_LOCAL[0]}^3",
-                               values=str(cc.vals_d.dtype).replace("torch.", ""),
-                               shape=list(vals_c.shape), m=col.m, color=c)
+        _hold_k2_narrow(results, (full, col), g, device)
         hpcg_errs[f"{values}/{vectors} (2,2,2)"] = _narrow_on_hpcg(A, b, values, g, device)
-        del A, b, col, full, core
+        del A, b, col, full
         torch.cuda.empty_cache()
     emit("4i kernels narrow values", {"rows": results, "hpcg_values_vs_full": hpcg_errs,
                                       "hpcg_rtol": NARROW_HPCG_RTOL})
@@ -3125,12 +3523,23 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
-    phase_toolchain()
-    phase_build()
-    kernel_results = phase_kernels(device)
-    kernel_results += phase_kernel_df(device)
-    k3_results, k4_results = phase_k3_levels(device)
-    kernel_results += k3_results + k4_results
+    seconds = {}  # the wall seconds of each phase, printed in phase 5
+
+    @contextlib.contextmanager
+    def timed(name):
+        t0 = time.perf_counter()
+        yield
+        seconds[name] = round(time.perf_counter() - t0, 1)
+
+    with timed("1-2 toolchain, build"):
+        phase_toolchain()
+        phase_build()
+    with timed("3 kernels"):
+        kernel_results = phase_kernels(device)
+        kernel_results += phase_kernel_df(device)
+    with timed("3c-3d K3, K4 levels"):
+        k3_results, k4_results = phase_k3_levels(device)
+        kernel_results += k3_results + k4_results
 
     counters = {
         "dia_spmv": dia_spmv, "ax_core": ax_core, "gs_sweeps": gs_sweeps,
@@ -3143,25 +3552,41 @@ def main() -> int:
     ):
         for fn in counters.values():
             fn.launches = 0
-        run_path(device)
+        with timed(f"4a-c {path}"):
+            run_path(device)
         launches[path] = {k: fn.launches for k, fn in counters.items()}
-    launches["amg_elasticity"], k6_results = phase_amg_elasticity(device, counters)
+    with timed("4d amg_elasticity"):
+        launches["amg_elasticity"], k6_results = phase_amg_elasticity(device, counters)
     kernel_results += k6_results
-    launches["amg_box"], launches["amg_box_df64"], box_results = phase_amg_box(device, counters)
+    with timed("4e amg_box"):
+        launches["amg_box"], launches["amg_box_df64"], box_results = phase_amg_box(
+            device, counters)
     kernel_results += box_results
-    (launches["amg_elasticity_parts"], launches["amg_box_parts"],
-     parts_results) = phase_amg_parts(device, counters)
+    with timed("4f parts"):
+        (launches["amg_elasticity_parts"], launches["amg_box_parts"],
+         parts_results) = phase_amg_parts(device, counters)
     kernel_results += parts_results
-    reuse_launches, reuse_results = phase_reuse(device, counters)
+    with timed("4g reuse"):
+        reuse_launches, reuse_results = phase_reuse(device, counters)
     launches.update(reuse_launches)
     kernel_results += reuse_results
-    schwarz_launches, schwarz_results = phase_schwarz(device, counters)
+    with timed("4h schwarz"):
+        schwarz_launches, schwarz_results = phase_schwarz(device, counters)
     launches.update(schwarz_launches)
     kernel_results += schwarz_results
-    launches["precond_values"], narrow_results = phase_precond_values(device, counters)
-    (launches["amg_unequal_parts"], launches["repartitioned"],
-     unequal_results) = phase_partition_utilities(device, counters)
+    with timed("4i precond_values"):
+        launches["precond_values"], narrow_results = phase_precond_values(device, counters)
+    with timed("4j partition utilities"):
+        (launches["amg_unequal_parts"], launches["repartitioned"],
+         unequal_results) = phase_partition_utilities(device, counters)
     kernel_results += unequal_results
+    with timed("4k hpcg_float16"):
+        launches["hpcg_float16"], f16_results = phase_hpcg_float16(device, counters)
+    with timed("4k block_cg"):
+        launches["block_cg"], block_results = phase_block_cg(device, counters)
+    kernel_results += block_results
+    with timed("4k utilities"):
+        phase_utilities(device)
     emit("5 launches", launches)
     missing = [
         f"{path}:{k}" for path, names in PATH_KERNELS.items() for k in names
@@ -3170,15 +3595,18 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on their path: {missing}")
 
-    phase_cross(device)
+    with timed("6 cuda-vs-cpu"):
+        phase_cross(device)
+    emit("5 phase seconds", seconds)
 
     # one row per kernel: its float32 measurement (K7: df64 at the 128^3
     # one-part shape; K6: a symmetric sweep of level 1 of the 40^3
     # elasticity hierarchy; K2, K5 and their library calls with the L2
-    # flushed before each call), its launches over the seventeen paths' runs
+    # flushed before each call), its launches over the nineteen paths' runs
     # (calls of the kernel's C entry: K3 and K6 one per sweep sequence);
-    # K2, K3 and K4 also with bfloat16 values under float32 vectors (phase
-    # 4i, at the same shapes), launches on the precond_values path
+    # K2, K3 and K4 also with bfloat16 values (phase 4i) and with float16
+    # values (phase 4k) under float32 vectors, at the same shapes, with
+    # their launches on the precond_values and hpcg_float16 paths
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         r = next(r for r in kernel_results
@@ -3190,15 +3618,18 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms_flushed", r.get("library_ms")),
         })
-        narrow = [r for r in narrow_results if r["kernel"] == kname
-                  and r["values"] == "bfloat16" and r["dtype"] == "float32" and "ms" in r]
-        if narrow:
-            n = narrow[0]
-            rows[-1]["values_bf16"] = {
-                "ms": n.get("ms_flushed", n["ms"]), "plain_ms": n["plain_ms"],
-                "bound_ms": n["bound_ms"], "max_abs_err": n["max_abs_err"],
-                "launches": launches["precond_values"][kname],
-            }
+        for tag, values, found, path in (("values_bf16", "bfloat16", narrow_results,
+                                          "precond_values"),
+                                         ("values_f16", "float16", f16_results, "hpcg_float16")):
+            narrow = [r for r in found if r["kernel"] == kname
+                      and r["values"] == values and r["dtype"] == "float32" and "ms" in r]
+            if narrow:
+                n = narrow[0]
+                rows[-1][tag] = {
+                    "ms": n.get("ms_flushed", n["ms"]), "plain_ms": n["plain_ms"],
+                    "bound_ms": n["bound_ms"], "max_abs_err": n["max_abs_err"],
+                    "launches": launches[path][kname],
+                }
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

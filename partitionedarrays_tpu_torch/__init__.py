@@ -22,20 +22,85 @@ latter as exact triangular solves on the tile kernel; also as AMG level
 smoothers) with the native host setup library (``ops/native.py``), and the
 partition, vector and matrix utilities (the partition constructors and
 index maps, ``repartition``, ``repartition_system``, the closed-form
-``plaplacian_fdm`` on any part grid); see ROADMAP.md.
+``plaplacian_fdm`` on any part grid), float16 preconditioner values, and
+the remaining layers: block arrays with ``b_cg`` (``block_arrays.py``),
+the timer, profiling and checkpoint utilities (``utils/``), the host
+primitives and jagged arrays, and the reference's names (``compat.py``);
+see ROADMAP.md.
 """
 from . import config
 from .backends import SerialBackend
+from .block_arrays import (
+    BMatrix,
+    BRange,
+    BVector,
+    b_all,
+    b_any,
+    b_assemble,
+    b_axpy,
+    b_cg,
+    b_collect,
+    b_consistent,
+    b_dot,
+    b_euclidean,
+    b_maximum,
+    b_minimum,
+    b_mul,
+    b_norm,
+    b_sum,
+)
+from .compat import (
+    AbstractLocalIndices,
+    BArray,
+    DebugArray,
+    GhostIndices,
+    MPIArray,
+    OwnAndGhostIndices,
+    OwnAndGhostVectors,
+    OwnIndices,
+    PermutedLocalIndices,
+    SplitMatrix,
+    SplitVector,
+    assembly_graph,
+    distribute_with_mpi,
+    ghost_ghost_values,
+    ghost_own_values,
+    ghost_values,
+    global_to_owner,
+    laplace_matrix,
+    local_values,
+    old_psparse,
+    old_pvector,
+    own_ghost_values,
+    own_own_values,
+    own_values,
+    psparse_from_split_blocks,
+    renumber,
+    statistics,
+    tic,
+    toc,
+    with_debug,
+    with_mpi,
+)
 from .models.gallery import (
     laplacian_fdm,
     laplacian_fem,
     linear_elasticity_fem,
+    near_nullspace_linear_elasticity,
     node_coordinates_unit_cube,
     node_to_dof_partition,
     nullspace_linear_elasticity,
     plaplacian_fdm,
 )
 from .models.hpcg import HPCGMGPreconditioner, build_hpcg_problem, hpcg_benchmark
+from .ops.jagged import (
+    GenericJaggedArray,
+    JaggedArray,
+    jagged_array,
+    length_to_ptrs,
+    ptrs_to_lengths,
+    rewind_ptrs,
+)
 from .parallel.exchange_plan import ExchangePlan, VectorLayout
 from .parallel.partition import (
     AssemblyGraph,
@@ -87,6 +152,36 @@ from .parallel.partition import (
     uniform_partition,
     union_ghost,
     variable_partition,
+)
+from .parallel.primitives import (
+    MAIN,
+    ExchangeGraph,
+    FakeTask,
+    allocate_emit,
+    allocate_exchange,
+    allocate_gather,
+    allocate_multicast,
+    allocate_scatter,
+    array_of_tuples,
+    cartesian_indices,
+    emit,
+    exchange,
+    fake_async,
+    find_rcv_ids,
+    find_rcv_ids_gather_scatter,
+    find_rcv_ids_ibarrier,
+    gather,
+    getany,
+    i_am_main,
+    is_consistent,
+    linear_indices,
+    map_main,
+    map_parts,
+    multicast,
+    reduction,
+    scan,
+    scatter,
+    tuple_of_arrays,
 )
 from .psparse import (
     DeviceSpMat,
@@ -169,7 +264,15 @@ from .solvers.amg import AMGParams, AMGPreconditioner
 from .solvers.interfaces import additive_schwarz_solver
 from .solvers.nonlinear import newton_raphson
 from .solvers.ode import backward_euler
-from .solvers.smoothers import AdditiveSchwarz, additive_schwarz
+from .solvers.smoothers import (
+    AdditiveSchwarz,
+    GaussSeidel,
+    additive_schwarz,
+    gauss_seidel,
+    greedy_coloring,
+    identity_solver,
+)
+from .utils.ptimer import PTimer, barrier, current_time
 
 # the COO constructors ``psparse.psparse`` and ``pvector.pvector`` are not
 # exported here: their names are those of their modules

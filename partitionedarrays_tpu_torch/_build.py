@@ -76,7 +76,8 @@ _SIGNATURES = {
         _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP,
     ],
 }
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 # (values dtype, vector dtype) pairs whose values are narrower than the
 # vectors: the reduced-precision preconditioner values, which K2, K3 and K4
 # read and widen exactly to the vector dtype
@@ -84,6 +85,8 @@ NARROW_PAIRS = (
     (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.float64),
     (torch.float32, torch.float64),
+    (torch.float16, torch.float32),
+    (torch.float16, torch.float64),
 )
 _PAIRS = ((torch.float32, torch.float32), (torch.float64, torch.float64)) + NARROW_PAIRS
 

@@ -39,13 +39,14 @@ def torch_dtype(dtype) -> torch.dtype:
     return _FLOAT_DTYPES[numpy_dtype(dtype)]
 
 
-_VALUE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
+_VALUE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32,
+                 "float64": torch.float64}
 
 
 def values_dtype(dtype) -> Optional[torch.dtype]:
     """The storage dtype of a smoother's values, as a torch dtype: None, a
     torch dtype, a numpy dtype or scalar type, or a name ("bfloat16",
-    "float32", "float64").  A bfloat16 of another package (JAX's, numpy's
+    "float16", "float32", "float64").  A bfloat16 of another package (JAX's, numpy's
     through ``ml_dtypes``) is read by its name, so ``ml_dtypes`` is never
     imported."""
     if dtype is None:
@@ -59,5 +60,6 @@ def values_dtype(dtype) -> Optional[torch.dtype]:
     else:  # a scalar type: np.float32, jnp.bfloat16
         name = getattr(dtype, "__name__", None)
     if name not in _VALUE_DTYPES:
-        raise TypeError(f"unsupported values dtype {dtype!r}: bfloat16, float32 or float64")
+        raise TypeError(
+            f"unsupported values dtype {dtype!r}: bfloat16, float16, float32 or float64")
     return _VALUE_DTYPES[name]

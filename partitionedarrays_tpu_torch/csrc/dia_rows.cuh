@@ -25,14 +25,15 @@
 // G = 1 is regime (a).  The host (ops/dia_rows.py::row_lanes) picks G.
 //
 // Types: the values are V, x and the sums T.  VEC comes from T, so a
-// value load is VEC * sizeof(V) bytes: 16 where V is T, 8 for bfloat16
-// values with float vectors or float values with double vectors, 4 for
-// bfloat16 values with double vectors.  Each value is widened to T
-// exactly (a bfloat16 is the upper half of a float; a float is a double
-// exactly) before its FMA, and the sums run in T in the same tap order,
-// under the same plan (ops/dia_rows.py plans from T alone), as with values
-// of type T: narrow values change only the bytes read, and values exact
-// in V give the full-value results bit for bit.  No tensor cores.
+// value load is VEC * sizeof(V) bytes: 16 where V is T, 8 for bfloat16 or
+// float16 values with float vectors or float values with double vectors,
+// 4 for bfloat16 or float16 values with double vectors.  Each value is
+// widened to T exactly (a bfloat16 is the upper half of a float; a
+// float16 is a float exactly, and a float a double) before its FMA, and
+// the sums run in T in the same tap order, under the same plan
+// (ops/dia_rows.py plans from T alone), as with values of type T: narrow
+// values change only the bytes read, and values exact in V give the
+// full-value results bit for bit.  No tensor cores.
 //
 // Operands: the engine has one form, whole-load reads along the rows.
 // The row length (ld) and every part stride of the values, bd, invd and
@@ -52,6 +53,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace pat {
@@ -71,10 +73,19 @@ template <typename T>
 __device__ __forceinline__ T widen(double v) { return T(v); }
 template <typename T>
 __device__ __forceinline__ T widen(__nv_bfloat16 v) { return T(__bfloat162float(v)); }
+template <typename T>
+__device__ __forceinline__ T widen(__half v) { return T(__half2float(v)); }
 
 // a bfloat16 is the upper half of a float: the two of a 32-bit word
 __device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+// the two float16 of a 32-bit word (the first in the low half), as floats
+__device__ __forceinline__ float f16_lo(unsigned w) {
+  return __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
+}
+__device__ __forceinline__ float f16_hi(unsigned w) {
+  return __half2float(__ushort_as_half((unsigned short)(w >> 16)));
+}
 
 // Loads of VEC rows of one operand (16 bytes of T: 4 floats or 2
 // doubles), and of one tap's VEC values of type V widened to T (16, 8 or 4
@@ -94,6 +105,14 @@ __device__ __forceinline__ void load_ro(const __nv_bfloat16* p, float (&v)[4]) {
 __device__ __forceinline__ void load_ro(const __nv_bfloat16* p, double (&v)[2]) {
   const unsigned q = __ldg(reinterpret_cast<const unsigned*>(p));
   v[0] = bf16_lo(q); v[1] = bf16_hi(q);
+}
+__device__ __forceinline__ void load_ro(const __half* p, float (&v)[4]) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = f16_lo(q.x); v[1] = f16_hi(q.x); v[2] = f16_lo(q.y); v[3] = f16_hi(q.y);
+}
+__device__ __forceinline__ void load_ro(const __half* p, double (&v)[2]) {
+  const unsigned q = __ldg(reinterpret_cast<const unsigned*>(p));
+  v[0] = f16_lo(q); v[1] = f16_hi(q);
 }
 __device__ __forceinline__ void load_ro(const float* p, double (&v)[2]) {
   const float2 q = __ldg(reinterpret_cast<const float2*>(p));

@@ -51,9 +51,9 @@
 // Narrow values.  K2 also reads values narrower than x and y, the
 // reference's reduced-precision preconditioner values (ColoredDIAGS with
 // values_dtype; its kernel promotes the output type,
-// ops/spmv_pallas.py:74): bfloat16 values with float or double vectors,
-// float values with double vectors, each value widened to the vector type
-// exactly and summed in it (dia_rows.cuh).  K1 keeps one type: no path
+// ops/spmv_pallas.py:74): bfloat16 or float16 values with float or double
+// vectors, float values with double vectors, each value widened to the
+// vector type exactly and summed in it (dia_rows.cuh).  K1 keeps one type: no path
 // applies A through K1 with a smoother's stored values.  The port's
 // V-cycle is flat on every level, so each level applies A_oo through K4
 // on the core; the ghost contribution of a smoother (K5) reads A's full
@@ -244,5 +244,7 @@ PAT_K2_ENTRY(f64, double, double)
 PAT_K2_ENTRY(bf16_f32, __nv_bfloat16, float)
 PAT_K2_ENTRY(bf16_f64, __nv_bfloat16, double)
 PAT_K2_ENTRY(f32_f64, float, double)
+PAT_K2_ENTRY(f16_f32, __half, float)
+PAT_K2_ENTRY(f16_f64, __half, double)
 
 }  // extern "C"

@@ -13,11 +13,14 @@
 // [P, m, Lq]; tap int32 [m, n_off] in device memory.
 //
 // Types: the values are V, everything else T.  Besides V = T (float,
-// double) there are three narrow-value pairs, the reference's
+// double) there are five narrow-value pairs, the reference's
 // reduced-precision preconditioner values (partitionedarrays_tpu/solvers/
 // gs_dia.py:111-199, widened at ops/gs_pallas.py:101-110 and :171-180):
-// bfloat16 values with float or double vectors, float values with double
-// vectors.  Each value is widened to T exactly before its FMA and the sums
+// bfloat16 or float16 values with float or double vectors, float values
+// with double vectors.  The float16 pairs' entries are compiled apart, in
+// gs_dia_f16.cu, which includes this file without its entries, so that
+// nvcc builds the two files at once (the build grew by ~1 s, PERF.md).
+// Each value is widened to T exactly before its FMA and the sums
 // run in T (dia_rows.cuh), so narrow values change only the bytes read:
 // bfloat16 values halve the bytes of the values, which are nine tenths of
 // K3's and K4's at the 27-point stencil.  bd, invd and x stay in T.
@@ -457,7 +460,8 @@ int launch_ax(const V* vals, const T* x, T* out, const int* tap, int P, int m,
 
 // The C entries, one per (values, vectors) pair: the suffix names the
 // vector type alone where the values have it too (f32, f64), else the
-// values' type and then the vectors' (bf16_f32, bf16_f64, f32_f64).
+// values' type and then the vectors' (bf16_f32, bf16_f64, f32_f64; the
+// float16 pairs f16_f32 and f16_f64 in gs_dia_f16.cu).
 #define PAT_GS_ENTRIES(SUFFIX, V, T)                                          \
   int pat_ax_core_##SUFFIX(const void* vals, const void* x, void* out,        \
                            const void* tap, int P, int m, int n_off,          \
@@ -477,6 +481,7 @@ int launch_ax(const V* vals, const T* x, T* out, const int* tap, int P, int m,
                            width, P, m, n_off, Lq, (cudaStream_t)stream);     \
   }
 
+#ifndef PAT_GS_DIA_NO_ENTRIES
 extern "C" {
 
 PAT_GS_ENTRIES(f32, float, float)
@@ -486,3 +491,4 @@ PAT_GS_ENTRIES(bf16_f64, __nv_bfloat16, double)
 PAT_GS_ENTRIES(f32_f64, float, double)
 
 }  // extern "C"
+#endif

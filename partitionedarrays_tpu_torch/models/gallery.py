@@ -4,7 +4,8 @@ Copied from ``partitionedarrays_tpu/models/gallery.py``: ``laplacian_fdm``
 (:25-64), ``plaplacian_fdm`` (:67-90), ``_q1_reference_stiffness`` and
 ``laplacian_fem`` (:93-197), ``node_coordinates_unit_cube`` (:200-215),
 ``node_to_dof_partition`` (:218-252), ``linear_elasticity_fem``
-(:255-342) and ``nullspace_linear_elasticity`` (:345-371).  The same numpy
+(:255-342) and ``nullspace_linear_elasticity`` (:345-371) with its alias
+``near_nullspace_linear_elasticity`` (:375).  The same numpy
 operations in the same order, so the triplets equal the reference's bit
 for bit.  Each generator returns ``(I, J, V, row_partition,
 col_partition)`` ready for ``psparse`` (``plaplacian_fdm`` returns the
@@ -295,3 +296,7 @@ def nullspace_linear_elasticity(coords_parts: List[np.ndarray], dof_partition=No
             B[5, :, 2] = xs[:, 0]
         modes_parts.append([B[m].ravel() for m in range(n_modes)])
     return modes_parts
+
+
+# the reference's alias (gallery.py:375, src/gallery.jl)
+near_nullspace_linear_elasticity = nullspace_linear_elasticity

@@ -19,7 +19,8 @@ part), the ghosted flat CG with them, the generic standard-order CG for a
 one-level ghosted preconditioner, and with ``precision="df64"`` the
 official-precision df64 CG (``driver.py:60-136``) with a float32 MG.
 ``precond_dtype`` stores the MG smoothers' values narrower on every route
-(the df64 route's float32 MG takes bfloat16, as the reference's does).
+(the df64 route's float32 MG takes bfloat16 or float16, as the
+reference's does).
 """
 from __future__ import annotations
 
@@ -124,8 +125,8 @@ def hpcg_benchmark(
     operator, the CG vectors, updates and dots run in df64 (~49 bits), the
     MG preconditioner in float32, and ``dtype`` is ignored.  The fine
     problem lives on the device of ``mg``.  ``precond_dtype``: the storage
-    of the MG smoothers' values (``HPCGMGPreconditioner``: bfloat16, or
-    float32 under float64 vectors); a passed ``mg`` keeps its own, which
+    of the MG smoothers' values (``HPCGMGPreconditioner``: bfloat16 or
+    float16, or float32 under float64 vectors); a passed ``mg`` keeps its own, which
     the report gives."""
     if precision not in (None, "df64"):
         raise ValueError(f"unknown precision {precision!r}")

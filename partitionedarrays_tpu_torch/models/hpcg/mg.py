@@ -17,8 +17,8 @@ the reference's selection matmul and dilated pad were TPU layout devices.
 that want the injection as an index table.
 
 ``precond_dtype`` (reference ``mg.py:57-92``) stores every level's
-smoother values narrower than the vectors (bfloat16; float32 under
-float64 vectors): the sweeps and level residuals read them and accumulate
+smoother values narrower than the vectors (bfloat16 or float16; float32
+under float64 vectors): the sweeps and level residuals read them and accumulate
 in ``dtype``.  The reference also freezes narrow standard-order operators
 (``devs_pc``) for its generic V-cycle branch, which no HPCG level takes
 (every level here runs the flat cycle), so the port keeps none.
@@ -51,9 +51,9 @@ def restrict_operator(nx: int, ny: int, nz: int) -> np.ndarray:
 
 class HPCGMGPreconditioner:
     """V-cycle geometric MG over ``n_levels`` 27-point operators; list index
-    0 is the coarsest level.  ``precond_dtype``: None, bfloat16 or float32
-    (a torch or numpy dtype, or its name), the storage of the smoothers'
-    values; a pair without a kernel (float32 values under float32 vectors
+    0 is the coarsest level.  ``precond_dtype``: None, bfloat16, float16 or
+    float32 (a torch or numpy dtype, or its name), the storage of the
+    smoothers' values; a pair without a kernel (float32 values under float32 vectors
     are the plain case) raises TypeError."""
 
     def __init__(

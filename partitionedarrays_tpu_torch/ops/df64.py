@@ -12,7 +12,9 @@ and reassociation.  Eager PyTorch rounds every operation on its own, so no
 pin is needed; the rule that replaces it is that no line here may fuse or
 contract: no ``addcmul``, ``lerp``, ``torch.compile`` or other fused
 operator.  The CUDA kernel K7 (``csrc/dia_spmv_df.cu``) keeps the same rule
-with ``__fadd_rn``/``__fmul_rn`` and an exact ``fmaf`` two-product.
+with ``__fadd_rn``/``__fmul_rn`` and an exact ``fmaf`` two-product.  So the
+reference's unpinned ``*_raw`` forms are the same functions here, and its
+``dot_spmd`` is ``dot_parts`` over the stacked part axis.
 
 On the H100 df64 exists for parity only: the card has native float64.
 """
@@ -56,6 +58,13 @@ def two_prod(a, b):
     bl = b - bh
     e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
     return p, e
+
+
+# the reference's unpinned forms for its kernels (df64.py:68-94); nothing is
+# pinned here (torch fuses no op of this module), so they are the same
+two_sum_raw = two_sum
+quick_two_sum_raw = quick_two_sum
+two_prod_raw = two_prod
 
 
 # -- pair arithmetic ----------------------------------------------------------
@@ -147,6 +156,13 @@ def dot_parts(a: Pair, b: Pair) -> Pair:
     per_part = tree_sum(mul((a[0].reshape(P, -1), a[1].reshape(P, -1)),
                             (b[0].reshape(P, -1), b[1].reshape(P, -1))))
     return tree_sum(per_part)
+
+
+def dot_spmd(a: Pair, b: Pair, axis_name=None) -> Pair:
+    """The reference's ``dot_spmd`` (:213): its per-part dots and fold over
+    the SPMD axis ``axis_name`` are ``dot_parts`` over dim 0 here, which
+    needs no axis name."""
+    return dot_parts(a, b)
 
 
 # -- conversions --------------------------------------------------------------

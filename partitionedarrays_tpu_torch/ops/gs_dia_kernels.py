@@ -15,8 +15,8 @@ unknowns of color ``c`` (rows ``m*i + c``) form row ``c`` of a
   launch itself writes the zeros.
 
 Both also read values narrower than the vectors (``_build.NARROW_PAIRS``:
-bfloat16 values with float32 or float64 vectors, float32 values with
-float64 vectors), the reference's reduced-precision preconditioner values:
+bfloat16 or float16 values with float32 or float64 vectors, float32
+values with float64 vectors), the reference's reduced-precision preconditioner values:
 each value is widened exactly to the vector dtype and the sums run in it,
 in the kernels as in the plain versions here.
 

@@ -3,7 +3,8 @@ its state changes, its SpMVs and the distributed sparse products.
 
 Counterpart of ``partitionedarrays_tpu/psparse.py``: ``as_prange`` :50,
 ``_sorted_ghosts`` :54, ``DeviceSpMat`` and ``PSparseMatrix`` :63-360 with
-``device_transpose``, its blockwise ``copy``, ``astype`` and arithmetic,
+``device_transpose``, its blockwise ``copy``, ``astype`` and arithmetic and
+its block accessors (``own_own_values`` ...),
 ``_build_part_blocks`` and ``psparse`` :366-577, ``psparse_from_blocks`` :782,
 ``psparse_from_global``, ``centralize``, ``to_global_scipy`` and
 ``gather_global_scipy`` :885-977, ``replicate_psparse`` :980,
@@ -266,6 +267,20 @@ class PSparseMatrix:
 
     def copy(self) -> "PSparseMatrix":
         return self._map_blocks(lambda m: m.copy())
+
+    # the reference's accessors (psparse.py:197-208): each part's host
+    # block, None for a ghost row block of an assembled matrix
+    def own_own_values(self) -> List[sp.spmatrix]:
+        return [b["oo"] for b in host_blocks(self)]
+
+    def own_ghost_values(self) -> List[sp.spmatrix]:
+        return [b["oh"] for b in host_blocks(self)]
+
+    def ghost_own_values(self) -> List[Optional[sp.spmatrix]]:
+        return [b.get("ho") for b in host_blocks(self)]
+
+    def ghost_ghost_values(self) -> List[Optional[sp.spmatrix]]:
+        return [b.get("hh") for b in host_blocks(self)]
 
     def astype(self, dtype) -> "PSparseMatrix":
         """Blockwise host dtype conversion, frozen in ``dtype`` (e.g. the

@@ -74,6 +74,46 @@ class PVector:
     def copy(self) -> "PVector":
         return PVector(self.own, self.ghost, self.layout, self.backend)
 
+    # -- arithmetic on own and ghost values (the reference's operators,
+    # pvector.py:118-160); padding lanes stay zero
+    def _binary(self, other, f, keeps_zero: bool = False) -> "PVector":
+        if isinstance(other, PVector):
+            return PVector(f(self.own, other.own), f(self.ghost, other.ghost), self.layout,
+                           self.backend)
+        own, ghost = f(self.own, other), f(self.ghost, other)
+        if not keeps_zero:  # a scalar reaches the padding: mask it again
+            own = torch.where(_own_mask(self.layout, own.device), own, 0)
+            ghost = torch.where(_ghost_mask(self.layout, ghost.device), ghost, 0)
+        return PVector(own, ghost, self.layout, self.backend)
+
+    def __add__(self, o) -> "PVector":
+        return self._binary(o, torch.add)
+
+    __radd__ = __add__
+
+    def __sub__(self, o) -> "PVector":
+        return self._binary(o, torch.sub)
+
+    def __rsub__(self, o) -> "PVector":
+        return self._binary(o, lambda a, b: b - a)
+
+    def __mul__(self, o) -> "PVector":
+        return self._binary(o, torch.mul, keeps_zero=True)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o) -> "PVector":
+        if isinstance(o, PVector):  # padding lanes: 0 / 1, not 0 / 0
+            lay = self.layout
+            mo, mg = _own_mask(lay, self.own.device), _ghost_mask(lay, self.own.device)
+            return PVector(torch.where(mo, self.own / torch.where(mo, o.own, 1), 0),
+                           torch.where(mg, self.ghost / torch.where(mg, o.ghost, 1), 0),
+                           lay, self.backend)
+        return self._binary(o, torch.div, keeps_zero=True)
+
+    def __neg__(self) -> "PVector":
+        return PVector(-self.own, -self.ghost, self.layout, self.backend)
+
     def own_values(self) -> List[np.ndarray]:
         """Each part's own values, on the host."""
         own = self.own.cpu().numpy()
@@ -383,6 +423,12 @@ def _own_mask(layout: VectorLayout, device) -> torch.Tensor:
     """[P, n_own_pad] True on the own lanes, False on the padding."""
     n = torch.as_tensor(layout.n_own, device=device)
     return torch.arange(layout.n_own_pad, device=device)[None, :] < n[:, None]
+
+
+def _ghost_mask(layout: VectorLayout, device) -> torch.Tensor:
+    """[P, n_ghost_pad] True on the ghost lanes, False on the padding."""
+    n = torch.as_tensor(layout.n_ghost, device=device)
+    return torch.arange(layout.n_ghost_pad, device=device)[None, :] < n[:, None]
 
 
 def pdot(x: PVector, y: PVector) -> torch.Tensor:

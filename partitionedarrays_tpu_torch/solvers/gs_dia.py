@@ -24,10 +24,11 @@ a TPU layout trick; here it is a reshape and a transpose.
 
 ``values_dtype`` stores ``vals_d`` narrower than the vectors, the
 reference's reduced-precision preconditioner values (``gs_dia.py:111-199``):
-bfloat16 with float32 or float64 vectors, or float32 with float64 vectors
-(``_build.NARROW_PAIRS``).  The values are rounded to nearest even, as
-``astype`` rounds them there (float64 to bfloat16 through float32, in
-torch and JAX alike); ``invd_d`` stays in the vectors' dtype,
+bfloat16 or float16 with float32 or float64 vectors, or float32 with
+float64 vectors (``_build.NARROW_PAIRS``).  The values are rounded to
+nearest even, as ``astype`` rounds them there (``round_values``: float64
+to bfloat16 through float32, in torch and JAX alike; float64 to float16
+once, as JAX does); ``invd_d`` stays in the vectors' dtype,
 computed from the unrounded diagonal; K2, K3 and K4 widen each value to
 the vectors' dtype before they multiply.
 """
@@ -44,6 +45,24 @@ from ..ops.gs_dia_kernels import TapTable, ax_core, gs_sweeps
 
 def _round_up(x: int, mlt: int) -> int:
     return ((x + mlt - 1) // mlt) * mlt
+
+
+def round_values(vals: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``vals`` rounded to ``dtype`` as the reference's ``astype`` rounds
+    them, to nearest even.  torch rounds float64 to float16 through
+    float32, twice, where XLA and numpy round once; so float64 goes to
+    float32 rounded to odd (truncated, its last bit set where it was
+    inexact: 24 bits hold the 11 of float16 and two more), whose rounding
+    to nearest float16 is the once-rounded one.  bfloat16 keeps torch's
+    rounding through float32, which is also XLA's."""
+    if not (vals.dtype == torch.float64 and dtype == torch.float16):
+        return vals.to(dtype)
+    f = vals.to(torch.float32)
+    back = f.to(torch.float64)
+    bits = f.view(torch.int32)
+    bits = bits - (back.abs() > vals.abs()).to(torch.int32)  # truncated
+    bits = bits | (back != vals).to(torch.int32)  # odd where inexact
+    return bits.view(torch.float32).to(torch.float16)
 
 
 def find_mod_coloring(offsets, max_m: int = 512) -> Optional[int]:
@@ -128,7 +147,8 @@ class ColoredDIAGS:
         vp = vals.new_zeros((P, n_off, Rq))
         vp[:, :, :R] = vals
         # rounded to nearest even after the de-interleave
-        self.vals_d = vp.view(P, n_off, Lq, m).permute(0, 3, 1, 2).contiguous().to(values_dtype)
+        self.vals_d = round_values(vp.view(P, n_off, Lq, m).permute(0, 3, 1, 2).contiguous(),
+                                   values_dtype)
         dp = diag.new_zeros((P, Rq))
         dp[:, :R] = diag
         dd = dp.view(P, Lq, m).transpose(1, 2)
@@ -155,7 +175,7 @@ class ColoredDIAGS:
             )
         values_dtype = values_dtype or vals_d.dtype
         _build.check_pair("ColoredDIAGS", values_dtype, invd_d.dtype)
-        self.vals_d = vals_d.contiguous().to(values_dtype)
+        self.vals_d = round_values(vals_d.contiguous(), values_dtype)
         self.invd_d = invd_d.contiguous()
         return self
 

@@ -1,11 +1,13 @@
 """Gauss-Seidel and additive Schwarz smoothing on partitioned matrices.
 
 Counterpart of ``partitionedarrays_tpu/solvers/smoothers.py``:
-``JacobiCorrection`` and ``jacobi`` (:83-115), ``GaussSeidel`` with its
+``greedy_coloring`` and ``identity_solver`` (:33-58), ``JacobiCorrection``
+and ``jacobi`` (:83-115), ``GaussSeidel`` with its
 colored DIA tier (:123-204) and its tier 1, the wave-scheduled tile sweep
 (:205-218, :537-571), ``refresh_values`` (:267-291), ``_order_seq``,
 ``ghost_contrib``, the flat-space methods (:313-461), ``apply``
-(:463-535) and ``__call__`` (:600-604), and ``AdditiveSchwarz`` with
+(:463-535), ``__call__`` (:600-604) and ``gauss_seidel`` (:618), and
+``AdditiveSchwarz`` with
 ``additive_schwarz`` (:622-811).  The
 flat-space methods let the MG V-cycle keep x in the de-interleaved core
 layout of ``solvers/gs_dia.py`` between smoothing steps; the names keep the
@@ -35,11 +37,23 @@ import scipy.sparse as sp
 import torch
 
 from ..config import values_dtype as _values_dtype
-from ..ops.native import ilu0
+from ..ops.native import greedy_coloring_native, ilu0
 from ..psparse import PSparseMatrix, dense_diag, host_blocks, spmv
 from ..pvector import PVector, _own_mask
 from .gs_dia import ColoredDIAGS, find_mod_coloring
 from .gs_slot import NaturalTileGS
+
+
+def greedy_coloring(A: sp.spmatrix) -> np.ndarray:
+    """Greedy coloring of the symmetrized adjacency of a local sparse
+    matrix: a color per row (the native library; its plain version is
+    ``ops/native.py::_greedy_coloring_python``)."""
+    return greedy_coloring_native(A)
+
+
+def identity_solver() -> Callable[[PVector], PVector]:
+    """The reference's ``identity_solver`` (smoothers.jl:2-15): r itself."""
+    return lambda r: r
 
 
 def _own_diagonal(A: PSparseMatrix) -> torch.Tensor:
@@ -93,7 +107,8 @@ class GaussSeidel:
         """``colored``: sweep state built elsewhere (``convert.py``);
         by default it is built from A's DIA values.  ``values_dtype``:
         storage of the colored tier's streamed values narrower than A's
-        (``torch.bfloat16``; ``torch.float32`` for a float64 A); the sweeps
+        (``torch.bfloat16`` or ``torch.float16``; ``torch.float32`` for a
+        float64 A); the sweeps
         accumulate in A's dtype and only the smoother changes, not A.  The
         tile tier ignores it, as the reference's does."""
         if sweep not in ("forward", "backward", "symmetric"):
@@ -219,7 +234,7 @@ class GaussSeidel:
         reference's MG docstring says the outer operator stays in the
         vectors' dtype: for HPCG's operator, the only one the MG builds,
         the two agree bit for bit, since 26 and -1 are exact in
-        bfloat16."""
+        bfloat16 and float16."""
         return self.colored.ax_core(xflat, self.colored.vals_d)
 
     def flat_interleave(self, xflat: torch.Tensor) -> torch.Tensor:
@@ -235,6 +250,11 @@ class GaussSeidel:
     def flat_add_std(self, xflat: torch.Tensor, corr_own: torch.Tensor) -> torch.Tensor:
         """xflat + a standard-order correction, in the core layout."""
         return xflat + self.colored.deinterleave(corr_own)
+
+
+def gauss_seidel(A: PSparseMatrix, iterations: int = 1, sweep: str = "symmetric") -> GaussSeidel:
+    """The reference's constructor name (smoothers.py:618)."""
+    return GaussSeidel(A, iterations, sweep)
 
 
 class AdditiveSchwarz:

@@ -2,13 +2,16 @@
 CPU: each defaults to ``device="cuda"``, with no fallback.  Without a CUDA
 build of torch a call with no device raises torch's no-CUDA error instead
 of running on the CPU."""
+import importlib
 import inspect
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from partitionedarrays_tpu_torch import convert, pvector
+from partitionedarrays_tpu_torch import compat, convert, pvector
 from partitionedarrays_tpu_torch.backends import SerialBackend
 from partitionedarrays_tpu_torch.models import hpcg
 from partitionedarrays_tpu_torch.models.gallery import laplacian_fdm, plaplacian_fdm
@@ -26,6 +29,12 @@ from partitionedarrays_tpu_torch.psparse import (
     psystem,
     repartition_matrix,
 )
+from partitionedarrays_tpu_torch.utils import checkpoint, profiling, ptimer
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "examples"))
+EXAMPLES = [importlib.import_module(f"torch_{name}") for name in (
+    "amg_example", "fdm_example", "fem_example", "jacobi_tutorial", "reuse_example")]
 
 ENTRY_POINTS = [
     hpcg_benchmark, HPCGMGPreconditioner.__init__, build_hpcg_problem, stencil_psparse,
@@ -34,7 +43,9 @@ ENTRY_POINTS = [
     convert.psparse_from_host_blocks, psparse, psparse_from_global, PSparseMatrix.__init__,
     psystem, hpcg.build_p_matrix, hpcg.pc_setup, plaplacian_fdm, pvector.prand, pvector.prandn,
     pvector.pvector_from_local, pvector.pvector_local, psparse_from_blocks,
-]
+    ptimer.PTimer.__init__, ptimer.barrier, checkpoint.load_pvector, checkpoint.load_psparse,
+    profiling.trace, profiling.device_memory_stats, compat.laplace_matrix,
+] + [example.main for example in EXAMPLES]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
@@ -132,3 +143,30 @@ def test_partition_utilities_without_device_do_not_run_on_the_cpu():
     assert pvector.repartition(x, new).own.device.type == "meta"
     A = psparse(I, J, V, rows, cols, SerialBackend(2), assembled=True)
     assert repartition_matrix(A, new, new).torch_device.type == "cuda"
+
+
+def test_block_cg_timer_and_examples_without_device_do_not_run_on_the_cpu():
+    """``b_cg`` has no device of its own: it runs where its blocks live,
+    and blocks built with no device live on the card (without one their
+    constructors raise); the timer fences the card; each example's
+    ``main`` asks for the card."""
+    from partitionedarrays_tpu_torch.block_arrays import BMatrix, BVector, b_cg
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises(AssertionError, match="CUDA"):
+        plaplacian_fdm((4, 4, 4), (2, 1, 1), SerialBackend(2))
+    with pytest.raises(AssertionError, match="CUDA"):
+        pvector.pones(compat.laplace_matrix((4, 4), (2, 1), SerialBackend(2), device="cpu")
+                      .row_prange, SerialBackend(2))
+    A = plaplacian_fdm((4, 4, 4), (2, 1, 1), SerialBackend(2), device="cpu")
+    b = pvector.pones(A.row_prange, A.backend, dtype=np.float64, device="cpu")
+    x, _, _ = b_cg(BMatrix([[A]]), BVector([b]))
+    assert x.blocks[0].own.device.type == "cpu"
+    t = ptimer.PTimer()
+    t.tic("a")
+    with pytest.raises(AssertionError, match="CUDA"):
+        t.toc("a")
+    for example in EXAMPLES:
+        with pytest.raises(AssertionError, match="CUDA"):
+            example.main()

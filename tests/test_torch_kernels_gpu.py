@@ -32,16 +32,18 @@ hierarchy and of a matrix with a part that has no ghost columns.  K6 in
 one-direction mode: the triangular solves of the ILU(0) Schwarz tier on
 four parts and on the 16^3 HPCG operator, against the plain version and,
 in float64, against scipy's ``spsolve_triangular``.  Narrow values
-(bfloat16 values with float32 or float64 vectors, float32 values with
-float64 vectors): K2, K3 and K4 on random values of the HPCG stencil's
-pattern, against their plain versions at the vector dtype's tolerance,
-K3 and K4 under every lane count; on HPCG's own values, exact in
-bfloat16, equal to the full-value kernels bit for bit (the same plan, the
+(bfloat16 or float16 values with float32 or float64 vectors, float32
+values with float64 vectors): K2, K3 and K4 on random values of the HPCG
+stencil's pattern, against their plain versions at the vector dtype's
+tolerance, K3 and K4 under every lane count; on HPCG's own values, exact
+in bfloat16 and float16, equal to the full-value kernels bit for bit (the same plan, the
 same order of the sums; K4 under every lane count).  K2, K3 and K4 refuse
 operands that start one element into their storage (ValueError, no
 launch).  K1 and K3 also run on the own-own block of a Laplacian on part
 boxes of unequal shape (13 offsets, the union of the parts', with zero
-diagonals and zero padding rows).
+diagonals and zero padding rows).  ``b_cg`` on a coupled two-field block
+system (8^3 on (2,2,2) parts) runs four K1 and two K5 launches an
+iteration on the card and takes the CPU's iterations to its solution.
 
 Every test is marked ``gpu`` and skips without a CUDA card.  This module
 imports torch and the port only (no JAX), so that it also runs on a
@@ -848,8 +850,9 @@ def test_device_refill_on_the_card(cuda, case):
 # -- narrow values: (values dtype, vector dtype) -----------------------------
 
 NARROW = [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.float64),
-          (torch.float32, torch.float64)]
-NARROW_IDS = ["bf16-f32", "bf16-f64", "f32-f64"]
+          (torch.float32, torch.float64), (torch.float16, torch.float32),
+          (torch.float16, torch.float64)]
+NARROW_IDS = ["bf16-f32", "bf16-f64", "f32-f64", "f16-f32", "f16-f64"]
 
 
 def _random_colored(device, pair, shape, parts, seed):
@@ -913,7 +916,7 @@ def test_narrow_values_refuse_what_the_engine_cannot_read(cuda, pair):
 
 @pytest.mark.parametrize("pair", NARROW, ids=NARROW_IDS)
 def test_narrow_values_on_hpcg_equal_full_values(cuda, pair):
-    """HPCG's 26 and -1 are exact in bfloat16: under the same plan the
+    """HPCG's 26 and -1 are exact in bfloat16 and float16: under the same plan the
     narrow-value kernels give the full-value kernels' results bit for bit
     (one level of 32^3 and one of (2,2,2) x 16^3)."""
     values, dtype = pair
@@ -941,17 +944,17 @@ def test_narrow_values_on_hpcg_equal_full_values(cuda, pair):
 
 
 def test_unsupported_value_pairs_raise(cuda):
-    """float16 values, or float64 values under float32 vectors, have no
-    kernel: TypeError, naming the pairs there are."""
+    """float64 values under float32 vectors have no kernel: TypeError,
+    naming the pairs there are."""
     col = _random_colored(cuda, (torch.float32, torch.float32), (16, 16, 16), (1, 1, 1), 38)
     x = torch.zeros(1, col.m, col.Lq, device=cuda)
-    for values in (torch.float16, torch.float64):
-        with pytest.raises(TypeError, match="bf16 values with f32 vectors"):
-            ax_core(col.vals_d.to(values), x, col.taps)
-        with pytest.raises(TypeError, match="supported pairs"):
-            gs_sweeps(col.vals_d.to(values), x, col.invd_d, None, col.taps, (0,))
-        with pytest.raises(TypeError, match="supported pairs"):
-            dia_spmv_strided(col.taps.host[0], col.vals_d[:, 0].to(values), x.view(1, -1))
+    vals = col.vals_d.double()
+    with pytest.raises(TypeError, match="bf16 values with f32 vectors"):
+        ax_core(vals, x, col.taps)
+    with pytest.raises(TypeError, match="supported pairs"):
+        gs_sweeps(vals, x, col.invd_d, None, col.taps, (0,))
+    with pytest.raises(TypeError, match="supported pairs"):
+        dia_spmv_strided(col.taps.host[0], vals[:, 0], x.view(1, -1))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -977,3 +980,43 @@ def test_kernels_on_unequal_part_boxes(cuda, dtype):
     col = GaussSeidel(A).colored
     assert col.m == 5 and not col.interleave_core(col.invd_d)[0, 512:].any()
     _hold_sweeps(col, dtype, cuda, 42, [None] + [SweepPlan(lanes, 1) for lanes in (1, 2, 4, 8, 16)])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_block_cg_on_the_card_runs_k1_and_k5(cuda, dtype):
+    """``b_cg`` on the coupled two-field system [[A, C], [C, S]] at 8^3 on
+    (2,2,2) parts (A the 7-point Laplacian, S = A + 0.5 I, C = 0.1 I):
+    each block product is the block's own ``spmv``, K1 on the DIA blocks
+    and K5 on the ghost blocks, and the card takes the CPU's iterations to
+    the CPU's solution (rtol 1e-5 in float32, 1e-12 in float64)."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.block_arrays import BMatrix, BVector, b_cg, b_collect
+    from partitionedarrays_tpu_torch.models.gallery import plaplacian_fdm
+    from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv
+    from partitionedarrays_tpu_torch.ops.stencil import stencil_psparse
+    from partitionedarrays_tpu_torch.psparse import sparse_diag_matrix
+    from partitionedarrays_tpu_torch.pvector import pfill, pvector_from_own
+
+    npdtype = np.float32 if dtype == torch.float32 else np.float64
+    out = {}
+    for device in ("cpu", cuda):
+        A = plaplacian_fdm((8, 8, 8), (2, 2, 2), SerialBackend(8), dtype=npdtype, device=device)
+        stencil = [((0, 0, 0), 6 * 729.0 + 0.5)] + [
+            (tuple(s if k == d else 0 for k in range(3)), -729.0) for d in range(3)
+            for s in (-1, 1)]
+        S = stencil_psparse((2, 2, 2), (8, 8, 8), stencil, A.backend, dtype=npdtype,
+                            device=device)
+        C = sparse_diag_matrix(pfill(0.1, A.row_prange, A.backend, npdtype, device=device))
+        rng = np.random.default_rng(8)
+        own = [[rng.standard_normal(li.n_own).astype(npdtype) for li in A.row_prange.parts]
+               for _ in range(2)]
+        b = BVector([pvector_from_own(o, A.row_prange, A.backend, device=device) for o in own])
+        before = dia_spmv.launches, ghost_spmv.launches
+        x, iters, relres = b_cg(BMatrix([[A, C], [C, S]]), b, rtol=1e-8)
+        launched = dia_spmv.launches - before[0], ghost_spmv.launches - before[1]
+        out[str(device)] = (b_collect(x), iters, launched)
+    (x_cpu, it_cpu, _), (x_gpu, it_gpu, (k1, k5)) = out["cpu"], out[str(cuda)]
+    assert it_gpu == it_cpu > 10 and (k1, k5) == (4 * it_gpu, 2 * it_gpu)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert np.abs(x_gpu - x_cpu).max() <= tol * np.abs(x_cpu).max()

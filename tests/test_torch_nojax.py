@@ -24,9 +24,14 @@ flat cycle on (2,2,2) parts), and the reuse tier (``psparse(reuse=True)``,
 HPCG aliases), and the partition, vector and matrix utilities
 (``plaplacian_fdm`` on part boxes of unequal shape, ``repartition_system``
 onto contiguous blocks, the AMG-CG on the repartitioned system and
-``repartition`` of its solution back); afterwards neither ``jax`` nor ``ml_dtypes`` (the reference's
-bfloat16 numpy dtype, read by ``convert.py`` without it) may be among the
-loaded modules.
+``repartition`` of its solution back), and the remaining layers (float16
+preconditioner values, ``b_cg`` on a block system, ``PTimer``, a checkpoint
+round trip, the primitives and jagged arrays, the ``compat`` names and the
+port's examples); afterwards neither ``jax`` nor ``ml_dtypes`` (the
+reference's bfloat16 numpy dtype, read by ``convert.py`` without it) may be
+among the loaded modules.  A second interpreter blocks ``jax`` outright
+(an import raises) and imports every module of the port and every example
+of its own.
 """
 import os
 import subprocess
@@ -209,11 +214,82 @@ x2, info = cg(A2, b2, M=AMGPreconditioner(A2, AMGParams(coarse_size=50)), rtol=1
 assert info.iterations < 20, info
 x, _ = cg(A, b, M=AMGPreconditioner(A, AMGParams(coarse_size=50)), rtol=1e-8)
 assert np.abs(collect(repartition(x2, A.row_prange)) - collect(x)).max() < 1e-6 * np.abs(collect(x)).max()
+r = hpcg_benchmark_debug(local_shape=(8, 8, 8), parts_per_dir=(1, 1, 1), n_levels=2,
+                         iterations=5, ref_sets=1, timed_sets=1, precond_dtype="float16",
+                         device="cpu").summary()
+assert r["precond_values_dtype"] == "float16" and r["validation_passed"], r
+import tempfile
+from partitionedarrays_tpu_torch import BMatrix, BVector, PTimer, b_cg, compat, gather, scatter
+from partitionedarrays_tpu_torch.ops.jagged import JaggedArray
+from partitionedarrays_tpu_torch.psparse import sparse_diag_matrix
+from partitionedarrays_tpu_torch.pvector import pfill
+from partitionedarrays_tpu_torch.utils import checkpoint, profiling
+A = plaplacian_fdm((6, 6, 6), (2, 2, 2), SerialBackend(8), device="cpu")
+C = sparse_diag_matrix(pfill(0.1, A.row_prange, A.backend, np.float64, device="cpu"))
+rhs = pfill(1.0, A.row_prange, A.backend, np.float64, device="cpu")
+timer = PTimer(device="cpu")
+timer.tic("b_cg")
+xb, its, rel = b_cg(BMatrix([[A, C], [C, A]]), BVector([rhs, rhs]), rtol=1e-8)
+assert timer.toc("b_cg") > 0 and rel < 1e-8 and its > 0
+d = tempfile.mkdtemp()
+checkpoint.save_psparse(d + "/A.pt", A)
+assert (centralize(checkpoint.load_psparse(d + "/A.pt", A.backend, device="cpu")) != centralize(A)).nnz == 0
+g = gather(torch.arange(6.0).reshape(3, 2), destination=0)
+assert torch.equal(scatter(g), torch.arange(6.0).reshape(3, 2))
+assert isinstance(gather([np.arange(2), np.arange(3)])[0], JaggedArray)
+assert compat.laplace_matrix((3, 3)).nnz == 33
+with profiling.trace(d, device="cpu"):
+    with profiling.annotate("region"):
+        spmv(A, rhs)
+import torch_jacobi_tutorial
+assert torch_jacobi_tutorial.main(n=12, niters=20, n_parts=3, device="cpu")["error"] < 1e-10
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "ml_dtypes.")))
 print("JAX_MODULES", loaded)
 sys.exit(1 if loaded else 0)
 """
+
+
+BLOCKED = """
+import importlib
+import pkgutil
+import sys
+
+
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "partitionedarrays_tpu"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, NoJax())
+import partitionedarrays_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+sys.path.insert(0, "examples")
+examples = sorted(p.stem for p in __import__("pathlib").Path("examples").glob("torch_*.py"))
+for name in examples:
+    assert importlib.import_module(name).main.__defaults__[-1] == "cuda", name
+print("IMPORTED", len(names), "MODULES", len(examples), "EXAMPLES")
+"""
+
+
+def test_every_module_imports_with_jax_blocked():
+    """Every module of the port (the new layers among them: block_arrays,
+    compat, utils, ops.jagged, parallel.primitives) and every example of its
+    own import with ``jax``, ``ml_dtypes`` and the JAX package blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OPENBLAS_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for name in ("block_arrays", "compat", "utils.ptimer", "utils.profiling", "utils.checkpoint",
+                 "ops.jagged", "parallel.primitives"):
+        assert (REPO / "partitionedarrays_tpu_torch" / (name.replace(".", "/") + ".py")).exists()
+    assert "MODULES 5 EXAMPLES" in proc.stdout, proc.stdout
 
 
 def test_port_does_not_load_jax():

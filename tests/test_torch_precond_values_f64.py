@@ -90,11 +90,13 @@ def test_flat_g_with_float32_values_equals_float64_values():
     np.testing.assert_array_equal(hist[1], hist[0])
 
 
-@pytest.mark.parametrize("dtype, precond", [(np.float32, "float64"), (DTYPE, "float16"),
-                                            (np.float32, torch.float16)])
+@pytest.mark.parametrize("dtype, precond", [(np.float32, "float64"), (np.float32, np.float64),
+                                            (np.float32, torch.float64)])
 def test_pairs_without_a_kernel_raise(dtype, precond):
-    """float64 values under float32 vectors, and float16 values, have no
-    kernel: TypeError before any work."""
+    """float64 values under float32 vectors, named as a string, a numpy and
+    a torch dtype, have no kernel: TypeError before any work (float16
+    values have one under either vector dtype:
+    ``test_torch_precond_values_f16.py``)."""
     with pytest.raises(TypeError):
         HPCGMGPreconditioner((8, 8, 8), (1, 1, 1), SerialBackend(1), n_levels=2, dtype=dtype,
                              precond_dtype=precond, device="cpu")
