@@ -35,7 +35,7 @@ Phases, one output line each:
    ``torch.sparse`` CSR call at the fine level, the device time under
    every other lane count, and on HPCG's own values (exact in bfloat16)
    each narrow pair against the full-value kernel, bit for bit;
-4. nineteen paths through the port, each with its kernels' launch counts
+4. twenty-six paths through the port, each with its kernels' launch counts
    set to 0 just before it and read just after (a-c: the HPCG benchmark, 4
    MG levels, 50 CG iterations; d-f and j: the AMG paths, counted over
    their solves):
@@ -126,7 +126,7 @@ Phases, one output line each:
       parts, K6 with P = 8; the JAX package's count) and
       ``amg_schwarz_elasticity`` (phase 4d's elasticity with Schwarz level
       smoothers: 16^3 float32 held to the JAX package's count, 40^3 float32
-      and float64 to phase 4d's residual limits, both Schwarz tiers): the
+      and 24^3 float64 to phase 4d's residual limits, both Schwarz tiers): the
       factors' W and B, setup seconds, iterations, true residual, solve
       seconds, an apply's time and launches; then K6's triangular solves
       against their plain version (``TRI_RTOL``) and, in float64, against
@@ -181,6 +181,22 @@ Phases, one output line each:
       utilities on the card, one line each (``PTimer`` fencing a region the
       card runs after the host queued it, a checkpoint round trip,
       ``gather``/``scatter``/``multicast`` of CUDA tensors);
+   l. ``newton_krylov`` (``NK_RUNS``): the reference's matrix-free Newton
+      test problem on ``plaplacian_fdm((64,)*3, (2,2,2))`` in float64, the
+      exact (forward AD through K1 and K5) and the finite-difference
+      products, without and with a symmetric Gauss-Seidel preconditioner:
+      outer iterations and |F| against the JAX package's on the CPU, max |x
+      - x*|, seconds, a profiled run; then the tangent products of K1 and
+      K5 against the plain products of the tangent;
+   m. the multi-process tier (``MP_RUNS``): groups of ranks, each a process
+      of ``tests/torch_multiprocess_driver.py`` on the card, over gloo on
+      localhost (host-staged messages; the ranks share the card, so these
+      are not multi-GPU figures): the reference driver's main mode at
+      (2,2,2) x 64^3 in float64 on 2 and on 4 ranks, ``hpcg_benchmark_mpi``,
+      the per-process FEM construction, the per-process AMG setup with
+      AMG-CG and ``update``, and the agreed-dims wave GS; every rank held to
+      the single-process run on the card, each mode's launches summed over
+      the ranks;
 5. the launch counts of each path, each kernel of a path required > 0, and
    the wall seconds of each phase;
 6. the whole port on the card against the whole port on the CPU (plain
@@ -325,6 +341,13 @@ PATH_KERNELS = {
     "repartitioned": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
     "hpcg_float16": ("ax_core", "gs_sweeps", "dia_spmv_strided"),
     "block_cg": ("dia_spmv", "ghost_spmv"),
+    "newton_krylov": ("dia_spmv", "ghost_spmv", "gs_sweeps"),
+    "mp_cg_2": ("dia_spmv", "ghost_spmv", "gs_sweeps"),
+    "mp_cg_4": ("dia_spmv", "ghost_spmv", "gs_sweeps"),
+    "mp_fem_2": ("dia_spmv", "ghost_spmv"),
+    "mp_gsslot_2": ("tile_gs_sweeps",),
+    "mp_amg_2": ("dia_spmv", "gs_sweeps", "ghost_spmv"),
+    "mp_hpcg_2": ("ax_core", "gs_sweeps", "ghost_spmv"),
 }
 # the elasticity SA-AMG path: the reference's own workload (bench.py:371-430,
 # AMGParams(coarse_size=400, block_size=3, max_levels=4), CG to rtol 1e-8),
@@ -439,8 +462,9 @@ ELASTICITY_UPDATE_NODES = (40, 40, 40)
 #   (203 s), held exactly in float64 and within one in float32;
 # - amg_schwarz_elasticity: phase 4d's elasticity with AMGParams(smoother=
 #   "schwarz"), CG to 1e-8: 16^3 float32 (the JAX package on the CPU: 6
-#   iterations, held within one), 40^3 float32 and float64 with phase 4d's
-#   residual limits; the ilu0 tier on levels 0 and 1, dense on level 2.
+#   iterations, held within one), 40^3 float32 and 24^3 float64 with phase
+#   4d's residual limits; at 40^3 the ilu0 tier on levels 0 and 1, dense on
+#   level 2.
 # (dtype, allowed CG iterations)
 SCHWARZ_LOCAL = (32, 32, 32)
 SCHWARZ_PARTS = (2, 2, 2)
@@ -448,10 +472,13 @@ SCHWARZ_RTOL = 1e-6
 SCHWARZ_MAXITER = 200
 SCHWARZ_RUNS = (("float32", (19, 21)), ("float64", (20, 20)))
 SCHWARZ_PARTS_RUNS = (("float32", (46, 48)), ("float64", (47, 47)))
+# (the float64 run is at 24^3 nodes since PR 15, to hold the whole script
+# under 800 s with phases 4l and 4m: at 40^3 it took ~45 s of assembly and
+# setup; the 40^3 float32 run keeps the kernel holds of both tiers)
 AMG_SCHWARZ_RUNS = (
     ((16, 16, 16), "float32", (5, 7), 1e-5),
     ((40, 40, 40), "float32", None, 1e-5),
-    ((40, 40, 40), "float64", None, 2e-8),
+    ((24, 24, 24), "float64", None, 2e-8),
 )
 # K6's triangular solves against their plain version, relative to the
 # largest plain entry: float32 as every kernel; float64 1e-15 (4.5 ulps):
@@ -510,6 +537,48 @@ BLOCK_SEED = 14
 BLOCK_RTOL = 1e-8
 BLOCK_MAXITER = 3000
 BLOCK_RUNS = (("float32", 188, 1e-6), ("float64", 188, 1e-8))
+# phase 4l: ``newton_krylov`` on the reference's test problem
+# (tests/test_interfaces.py:409-455) at full width: F(x) = A x + x^3 - b, A =
+# plaplacian_fdm((64,)*3, (2, 2, 2)) in float64 (262,144 rows), x* = 0.3
+# N(0, 1) drawn part by part from default_rng(0), b = A x* + x*^3, x0 = 0,
+# 30 outer and 300 inner steps at most.  (jvp, preconditioner, rtol, inner
+# rtol, the JAX package's outer iterations and |F(x)| on the CPU, the limit
+# on max |x - x*|):
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/newton_krylov_jax_counts.py 64
+# printed 2 outer iterations for all four, |F| 2.6513794768306986e-04,
+# 2.602633947820334e-04, 2.5839840632188893, 2.3926179020084524
+NK_NODES = (64, 64, 64)
+NK_PARTS = (2, 2, 2)
+NK_SEED = 0
+NK_RUNS = (
+    ("auto", None, 1e-10, 1e-6, 2, 2.6513794768306986e-04, 1e-6),
+    ("auto", "gs", 1e-10, 1e-6, 2, 2.602633947820334e-04, 1e-6),
+    ("fd", None, 1e-6, 1e-4, 2, 2.5839840632188893, 1e-3),
+    ("fd", "gs", 1e-6, 1e-4, 2, 2.3926179020084524, 1e-3),
+)
+NK_RN_RTOL = 0.1  # |F(x)| at the end against the JAX package's, relative
+# phase 4m: the multi-process tier, ranks as processes on the one card
+# over gloo (host-staged messages; not multi-GPU figures).  The driver is
+# tests/torch_multiprocess_driver.py; each rank holds its shards against
+# the single-process run of the same problem on the card (the same
+# iterations, x within 1e-9 relative in float64).  (ranks, modes, driver
+# arguments): the reference driver's main mode (tests/multihost_driver.py:
+# 60-122) at full width, build_hpcg_problem((64,)*3, (2, 2, 2)) in float64
+# with GS-preconditioned CG to 1e-8, on 2 ranks (4 parts each) and on 4 (2
+# each); hpcg_benchmark_mpi at (2, 2, 2) x 64^3 on 2 ranks; the
+# per-process FEM construction at the reference's 129^2 nodes (:126-230);
+# the per-process AMG setup, AMG-CG and one update on the 3-D laplacian_fem
+# at 64^3 nodes over (2, 2, 2) (box aggregation); the agreed-dims wave GS
+# (:231-331)
+MP_DRIVER = Path(__file__).resolve().parent / "tests" / "torch_multiprocess_driver.py"
+MP_RUNS = (
+    (2, "cg,fem,gsslot,amg,hpcg", dict(
+        P=8, n=64, parts="2,2,2", fem_nodes="129,129", fem_grid="8,1", wire_limit=0.1,
+        amg_nodes="64,64,64", amg_grid="2,2,2", epsilon=0, coarse=200, amg_levels=6,
+        hpcg_n=64, hpcg_parts="2,2,2", hpcg_levels=4, hpcg_iterations=50)),
+    (4, "cg", dict(P=8, n=64, parts="2,2,2")),
+)
+MP_LIMIT = 420  # seconds a group may take
 
 
 def emit(phase: str, payload) -> None:
@@ -3503,6 +3572,188 @@ def phase_cross(device):
     })
 
 
+def _nk_problem(device):
+    """``NK_NODES`` on ``NK_PARTS``: A, the residual closure and x0, x*."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch import SerialBackend, plaplacian_fdm, pvector_from_own, spmv
+    from partitionedarrays_tpu_torch.pvector import PVector
+
+    A = plaplacian_fdm(NK_NODES, NK_PARTS, SerialBackend(int(np.prod(NK_PARTS))),
+                       dtype=np.float64, device=device)
+    pr = A.row_prange
+    rng = np.random.default_rng(NK_SEED)
+    x_star = pvector_from_own([0.3 * rng.standard_normal(li.n_own) for li in pr.parts], pr,
+                              A.backend, device=device)
+    b = spmv(A, x_star).own + x_star.own ** 3
+
+    def residual(x):
+        ax = spmv(A, x)
+        return PVector(ax.own + x.own ** 3 - b, torch.zeros_like(ax.ghost), ax.layout,
+                       ax.backend)
+
+    x0 = pvector_from_own([np.zeros(li.n_own) for li in pr.parts], pr, A.backend,
+                          device=device)
+    return A, residual, x0, x_star
+
+
+def _hold_tangent(results, where, kname, block, g, device):
+    """The forward derivative of ``block.spmv`` (K1 or K5, ``ops/blocks.py``'s
+    autograd Function: the kernel on the primal, then on the tangent) held
+    against the plain product of the tangent, and timed (both launches)."""
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
+    from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv_plain
+
+    P = block.vals.shape[0]
+    x = torch.randn(P, block.n_cols_pad, generator=g, dtype=block.vals.dtype).to(device)
+    v = torch.randn(P, block.n_cols_pad, generator=g, dtype=block.vals.dtype).to(device)
+
+    def tangent():
+        with fwAD.dual_level():
+            return fwAD.unpack_dual(block.spmv(fwAD.make_dual(x, v))).tangent
+
+    if block.kind == "dia":
+        plain = lambda: dia_spmv_plain(block.offsets, block.vals, v)  # noqa: E731
+        nnz = block.vals.numel()
+    else:
+        plain = lambda: ghost_spmv_plain(  # noqa: E731
+            block.rows, block.cols, block.vals, v, v.new_zeros((P, block.n_rows)))
+        nnz = int((block.cols >= 0).sum())
+    itemsize = x.element_size()
+    # two products: the values read twice, x and v once each, y and y' written
+    work = (itemsize * (2 * nnz + 2 * x.numel() + 2 * P * block.n_rows), 4 * nnz,
+            F64_FLOPS_PER_S)
+    _hold(results, kname, "float64", tangent, plain, work=work)
+    results[-1].update(where=where, tangent=True)
+
+
+def phase_newton_krylov(device, counters):
+    """``newton_krylov`` (``NK_RUNS``) through the port's entry points on
+    the card, each run's launch counts set to 0 just before it and read
+    just after: outer iterations and |F| against the JAX package's on the
+    CPU, max |x - x*|, seconds by CUDA events, a profiled run (device time,
+    idle share, K1's and K5's launches); then the forward derivatives of
+    K1 (the own-own block) and K5 (the own-ghost block) against the plain
+    products of the tangent (not counted).  Returns (the path's launches,
+    kernel rows)."""
+    import numpy as np
+    import torch
+
+    from partitionedarrays_tpu_torch import GaussSeidel, collect, newton_krylov
+
+    A, residual, x0, x_star = _nk_problem(device)
+    xs = collect(x_star)
+    launches = {k: 0 for k in counters}
+    failures, results = [], []
+    for jvp, m_name, rtol, inner_rtol, jax_iters, jax_rn, x_limit in NK_RUNS:
+        M = GaussSeidel(A, 1, "symmetric") if m_name == "gs" else None
+
+        def run(M=M, jvp=jvp, rtol=rtol, inner_rtol=inner_rtol):
+            return newton_krylov(residual, x0, M=M, rtol=rtol, maxiters=30,
+                                 inner_rtol=inner_rtol, inner_maxiter=300, jvp=jvp)
+
+        (x, iters, rn), secs, counts = _timed(counters, run)
+        for k, v in counts.items():
+            launches[k] += v
+        profile = _profile_set(run, top=4, kernels=("dia_spmv_kernel", "ghost_spmv_kernel",
+                                                    "gs_seq"))
+        err = float(np.abs(collect(x) - xs).max())
+        key = f"jvp={jvp} M={m_name or 'none'}"
+        emit(f"4l newton_krylov {key}", {
+            "rows": A.shape[0], "outer_iterations": int(iters), "jax_cpu_iterations": jax_iters,
+            "rn": float(rn), "jax_cpu_rn": jax_rn, "max_abs_x_err": err, "limit": x_limit,
+            "seconds": secs, "launches": counts, "profiled_run": profile,
+            "idle_share": 1.0 - profile["device_ms"] / profile["profiled_wall_ms"],
+        })
+        if int(iters) != jax_iters:
+            failures.append(f"{key}: {int(iters)} outer iterations, the JAX package's {jax_iters}")
+        if not abs(float(rn) - jax_rn) <= NK_RN_RTOL * jax_rn:
+            failures.append(f"{key}: |F| {float(rn)} against the JAX package's {jax_rn}")
+        if not err <= x_limit:
+            failures.append(f"{key}: max |x - x*| {err} > {x_limit}")
+    g = torch.Generator().manual_seed(1515)
+    dev = A.device()
+    where = f"tangent of newton_krylov's residual, {NK_NODES[0]}^3 on {NK_PARTS}"
+    _hold_tangent(results, f"own-own block, {where}", "dia_spmv", dev.oo, g, device)
+    _hold_tangent(results, f"own-ghost block, {where}", "ghost_spmv", dev.oh, g, device)
+    emit("4l kernels K1, K5 tangents", [
+        {k: r.get(k) for k in ("kernel", "dtype", "where", "max_abs_err", "max_rel_err", "ms",
+                               "device_ms", "bound_ms", "plain_ms")} for r in results])
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, results
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_multiprocess():
+    """The multi-process tier (``MP_RUNS``): each group of ranks started as
+    processes of ``tests/torch_multiprocess_driver.py`` on the card over a
+    gloo group on localhost (host-staged messages: the ranks share one
+    card, so these are not multi-GPU figures), every rank's exit code and
+    checks, the modes' seconds, iterations and errors, and each mode's
+    launches summed over the ranks (set to 0 just before the mode's
+    multi-process path and read just after, in each rank).  Returns the
+    launches by path (``mp_<mode>_<ranks>``)."""
+    env = dict(os.environ)
+    env.update(PYTHONPATH=str(MP_DRIVER.parent.parent) + os.pathsep + env.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    launches, failures = {}, []
+    for nproc, modes, kw in MP_RUNS:
+        args = [f"{k}={v}" for k, v in dict(kw, device="cuda", timeout=MP_LIMIT).items()]
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(MP_DRIVER), str(r), str(nproc),
+                                   str(port), modes, *args], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(nproc)]
+        outs, codes = [], []
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=max(MP_LIMIT - (time.perf_counter() - t0), 1))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+                out += "\n<TIMEOUT>"
+            outs.append(out)
+            codes.append(p.returncode)
+        wall = time.perf_counter() - t0
+        results = []
+        for r, (code, out) in enumerate(zip(codes, outs)):
+            lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            if code != 0 or not lines:
+                failures.append(f"{nproc} ranks, rank {r}: exit {code}: {out[-1500:]}")
+                continue
+            results.append(json.loads(lines[-1][len("RESULT "):]))
+        if len(results) != nproc:
+            continue
+        for mode in modes.split(","):
+            per_rank = [{k: v for k, v in res[mode].items() if k != "launches"}
+                        for res in results]
+            counts = {}
+            for res in results:
+                for k, v in res[mode]["launches"].items():
+                    counts[k] = counts.get(k, 0) + v
+            launches[f"mp_{mode}_{nproc}"] = counts
+            emit(f"4m multiprocess {mode} on {nproc} ranks (one card, gloo; not multi-GPU "
+                 f"figures)", {"ranks": per_rank, "launches": counts})
+        emit(f"4m multiprocess group of {nproc} ranks", {"wall_s": wall, "modes": modes})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3587,6 +3838,10 @@ def main() -> int:
     kernel_results += block_results
     with timed("4k utilities"):
         phase_utilities(device)
+    with timed("4l newton_krylov"):
+        launches["newton_krylov"], nk_results = phase_newton_krylov(device, counters)
+    with timed("4m multiprocess"):
+        launches.update(phase_multiprocess())
     emit("5 launches", launches)
     missing = [
         f"{path}:{k}" for path, names in PATH_KERNELS.items() for k in names
@@ -3602,11 +3857,15 @@ def main() -> int:
     # one row per kernel: its float32 measurement (K7: df64 at the 128^3
     # one-part shape; K6: a symmetric sweep of level 1 of the 40^3
     # elasticity hierarchy; K2, K5 and their library calls with the L2
-    # flushed before each call), its launches over the nineteen paths' runs
-    # (calls of the kernel's C entry: K3 and K6 one per sweep sequence);
+    # flushed before each call), its launches over the twenty-six paths'
+    # runs (calls of the kernel's C entry: K3 and K6 one per sweep sequence;
+    # phase 4m's summed over the ranks);
     # K2, K3 and K4 also with bfloat16 values (phase 4i) and with float16
     # values (phase 4k) under float32 vectors, at the same shapes, with
-    # their launches on the precond_values and hpcg_float16 paths
+    # their launches on the precond_values and hpcg_float16 paths; K1 and K5
+    # also as tangent products (phase 4l, float64, with their launches on
+    # the newton_krylov path); every kernel that phase 4m's ranks launched,
+    # with those launches (``per_rank_launches``)
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         r = next(r for r in kernel_results
@@ -3618,6 +3877,17 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms_flushed", r.get("library_ms")),
         })
+        tangent = [r for r in nk_results if r["kernel"] == kname]
+        if tangent:
+            t = tangent[0]
+            rows[-1]["tangent"] = {
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "max_abs_err": t["max_abs_err"],
+                "launches": launches["newton_krylov"][kname],
+            }
+        per_rank = sum(n.get(kname, 0) for path, n in launches.items() if path.startswith("mp_"))
+        if per_rank:
+            rows[-1]["per_rank_launches"] = per_rank
         for tag, values, found, path in (("values_bf16", "bfloat16", narrow_results,
                                           "precond_values"),
                                          ("values_f16", "float16", f16_results, "hpcg_float16")):

@@ -25,11 +25,26 @@ index maps, ``repartition``, ``repartition_system``, the closed-form
 ``plaplacian_fdm`` on any part grid), float16 preconditioner values, and
 the remaining layers: block arrays with ``b_cg`` (``block_arrays.py``),
 the timer, profiling and checkpoint utilities (``utils/``), the host
-primitives and jagged arrays, and the reference's names (``compat.py``);
-see ROADMAP.md.
+primitives and jagged arrays, and the reference's names (``compat.py``),
+the matrix-free Newton (``newton_krylov``, forward derivatives of K1 and
+K5), and the multi-process tier: ``MeshBackend`` over ``torch.distributed``
+(``with_multihost``), each process holding its own parts, with per-process
+construction (``psparse_local``, ``pvector_local``), AMG setup and
+``hpcg_benchmark_mpi``; see ROADMAP.md.
 """
 from . import config
-from .backends import SerialBackend
+from .backends import (
+    AXIS,
+    Backend,
+    MeshBackend,
+    SerialBackend,
+    mesh_backend,
+    serial_backend,
+    stack_parts,
+    with_mesh,
+    with_multihost,
+    with_serial,
+)
 from .block_arrays import (
     BMatrix,
     BRange,
@@ -92,7 +107,13 @@ from .models.gallery import (
     nullspace_linear_elasticity,
     plaplacian_fdm,
 )
-from .models.hpcg import HPCGMGPreconditioner, build_hpcg_problem, hpcg_benchmark
+from .models.hpcg import (
+    HPCGMGPreconditioner,
+    build_hpcg_problem,
+    hpcg_benchmark,
+    hpcg_benchmark_mesh,
+    hpcg_benchmark_mpi,
+)
 from .ops.jagged import (
     GenericJaggedArray,
     JaggedArray,
@@ -196,6 +217,7 @@ from .psparse import (
     identity_minus,
     psparse_from_blocks,
     psparse_from_global,
+    psparse_local,
     psparse_refill,
     psystem,
     psystem_refill,
@@ -260,9 +282,17 @@ from .pvector import (
     split_vector,
     split_vector_blocks,
 )
+from .ops.sparse_host import (
+    indextype,
+    nziterator,
+    split_locally,
+    sub_sparse_matrix,
+)
+from .ops.sparse_host import spmtv as spmtv_local
+from .ops.sparse_host import spmv as spmv_local
 from .solvers.amg import AMGParams, AMGPreconditioner
 from .solvers.interfaces import additive_schwarz_solver
-from .solvers.nonlinear import newton_raphson
+from .solvers.nonlinear import newton_krylov, newton_raphson
 from .solvers.ode import backward_euler
 from .solvers.smoothers import (
     AdditiveSchwarz,

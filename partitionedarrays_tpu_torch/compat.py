@@ -5,9 +5,8 @@ Counterpart of ``partitionedarrays_tpu/compat.py`` (:35-259), so that users
 coming from PartitionedArrays.jl find the names they know:
 
 - the backend names: ``DebugArray`` and ``with_debug`` are the serial
-  backend, as in the reference.  ``MPIArray``, ``with_mpi`` and
-  ``distribute_with_mpi`` name the multi-process backend, which the port
-  does not have yet: they raise, naming ROADMAP item 15;
+  backend, ``MPIArray``, ``with_mpi`` and ``distribute_with_mpi`` the mesh
+  backend over the ``torch.distributed`` group, as in the reference;
 - the index types (``OwnIndices``, ``GhostIndices``,
   ``OwnAndGhostIndices``, ``PermutedLocalIndices``): one ``LocalIndices``
   with an optional permutation and owner map;
@@ -23,7 +22,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from .backends import SerialBackend
+from .backends import MeshBackend, SerialBackend, with_mesh
 from .block_arrays import BMatrix, BVector
 from .parallel.partition import LocalIndices, PRange, renumber_partition
 from .psparse import (
@@ -47,29 +46,15 @@ def with_serial(f: Callable, n_parts: int):
 with_debug = with_serial
 
 
-def _multi_process(name: str):
-    raise NotImplementedError(
-        f"{name}: the multi-process backend is ROADMAP item 15; the port runs every part "
-        "in one process (SerialBackend, DebugArray)")
+MPIArray = MeshBackend
+with_mpi = with_mesh
 
 
-class MPIArray:
-    """The reference's MPI backend name: the port has no multi-process
-    backend yet (ROADMAP item 15)."""
-
-    def __init__(self, *args, **kwargs):
-        _multi_process("MPIArray")
-
-
-def with_mpi(f: Callable, *args, **kwargs):
-    """Reference ``with_mpi``: raises, naming ROADMAP item 15."""
-    _multi_process("with_mpi")
-
-
-def distribute_with_mpi(n_parts_or_devices=None):
-    """Reference entry point (src/mpi_array.jl:42-53): raises, naming
-    ROADMAP item 15."""
-    _multi_process("distribute_with_mpi")
+def distribute_with_mpi(n_parts=None) -> MeshBackend:
+    """Reference entry point (src/mpi_array.jl:42-53): the multi-process
+    backend over the current ``torch.distributed`` group (``n_parts``
+    parts, default one per process; see ``backends.with_multihost``)."""
+    return MeshBackend(n_parts)
 
 
 # -- index types (src/p_range.jl:877-946, 1231-1469) ----------------------------

@@ -15,7 +15,7 @@ C order.
 from __future__ import annotations
 
 from itertools import product as iproduct
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -104,10 +104,13 @@ def _q1_reference_stiffness(h_per_dir, dtype=np.float64) -> np.ndarray:
     return K.astype(dtype)
 
 
-def laplacian_fem(nodes_per_dir: Sequence[int], parts_per_dir: Sequence[int], dtype=np.float64):
+def laplacian_fem(nodes_per_dir: Sequence[int], parts_per_dir: Sequence[int], dtype=np.float64,
+                  parts: Optional[Sequence[int]] = None):
     """Q1 FEM Laplacian on the unit cube with ``nodes_per_dir`` free
     (interior) nodes.  Assembly loops over owned cells, so parts contribute
-    to rows they do not own (the disassembled input state)."""
+    to rows they do not own (the disassembled input state).  ``parts``:
+    the part ids whose triplets to make (the per-process construction of
+    ``psparse_local``); the others are None."""
     nodes = tuple(int(n) for n in nodes_per_dir)
     parts_pd = tuple(int(p) for p in parts_per_dir)
     D = len(nodes)
@@ -117,9 +120,11 @@ def laplacian_fem(nodes_per_dir: Sequence[int], parts_per_dir: Sequence[int], dt
     node_partition = uniform_partition(parts_pd, nodes)
     cell_partition = uniform_partition(parts_pd, cells)
     local_nodes = list(iproduct(*[range(2)] * D))  # offsets of the 2^D corners
+    wanted = set(range(len(cell_partition)) if parts is None else (int(p) for p in parts))
     Is, Js, Vs = [], [], []
-    for li in cell_partition:
-        I, J, V = _fem_part_triplets(li, cells, nodes, local_nodes, Aref, dtype, D)
+    for p, li in enumerate(cell_partition):
+        I, J, V = (_fem_part_triplets(li, cells, nodes, local_nodes, Aref, dtype, D)
+                   if p in wanted else (None, None, None))
         Is.append(I)
         Js.append(J)
         Vs.append(V)

@@ -7,12 +7,13 @@ __init__.py:15-84`` map the Julia driver's names onto this package:
 (the geometric MG), ``ref_cg``/``opt_cg`` (the preconditioned CG) and
 ``build_matrix``/``build_p_matrix`` (the 27-point problem).  Each builds
 its tensors on ``device``, the card unless the caller asks for the CPU.
-The mesh and multi-process drivers (``hpcg_benchmark_mesh``,
-``hpcg_benchmark_mpi``) need a backend the port does not have yet.
+``hpcg_benchmark_mesh`` and its alias ``hpcg_benchmark_mpi`` run the
+benchmark on a ``MeshBackend``: each process of the ``torch.distributed``
+group (``backends.with_multihost``) holds its block of parts, on its card.
 """
 import numpy as np
 
-from ...backends import SerialBackend
+from ...backends import MeshBackend, SerialBackend
 from ...ops.sparse_host import compresscoo
 from .cg import hpcg_cg, hpcg_cg_flat
 from .driver import hpcg_benchmark
@@ -27,6 +28,17 @@ def hpcg_benchmark_debug(n_parts: int = 1, **kw) -> HPCGReport:
     ``hpcg_benchmark_debug``); ``kw`` go to ``hpcg_benchmark``, ``device``
     among them."""
     return hpcg_benchmark(SerialBackend(n_parts), **kw)
+
+
+def hpcg_benchmark_mesh(n_parts=None, **kw) -> HPCGReport:
+    """The benchmark on a mesh backend of ``n_parts`` parts (default: one
+    per process) over the current process group (reference
+    ``hpcg_benchmark_mesh``, the Julia ``hpcg_benchmark_mpi``); every
+    process of the group calls it.  ``kw`` go to ``hpcg_benchmark``."""
+    return hpcg_benchmark(MeshBackend(n_parts), **kw)
+
+
+hpcg_benchmark_mpi = hpcg_benchmark_mesh
 
 
 def build_p_matrix(parts_per_dir, local_shape, backend, dtype=None, device="cuda"):

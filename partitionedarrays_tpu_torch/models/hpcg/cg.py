@@ -51,7 +51,7 @@ def hpcg_cg(
     return x, norms
 
 
-def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _core_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Dot product of two cores over all parts, as a 0-d device tensor."""
     return torch.vdot(u.reshape(-1), v.reshape(-1))
 
@@ -65,6 +65,9 @@ def hpcg_cg_flat_g(mg, b: PVector, iterations: int = 50):
     the exchange and the level transfers."""
     gs = mg.gss[-1]
     lay = b.layout
+
+    def _dot(u, v):  # over every process's parts
+        return b.backend.allreduce(_core_dot(u, v))
 
     def a_apply(p):
         gc = gs.ghost_contrib(gs.flat_interleave(p))
@@ -113,21 +116,21 @@ def hpcg_cg_flat(mg, b: PVector, iterations: int = 50):
     x = torch.zeros_like(bf)
     r = bf
     norms = bf.new_zeros(iterations + 1)
-    norms[0] = torch.sqrt(_dot(r, r))
+    norms[0] = torch.sqrt(_core_dot(r, r))
     z = mg.apply_flat(r)
     p = z
-    rz = _dot(r, z)
+    rz = _core_dot(r, z)
     for k in range(iterations):
         Ap = gs.flat_ax(p)
-        alpha = rz / _dot(p, Ap)
+        alpha = rz / _core_dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = mg.apply_flat(r)
-        rz_new = _dot(r, z)
+        rz_new = _core_dot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
-        norms[k + 1] = torch.sqrt(_dot(r, r))
+        norms[k + 1] = torch.sqrt(_core_dot(r, r))
     x_own = gs.flat_interleave(x)
     xv = PVector(x_own, x_own.new_zeros((x_own.shape[0], lay.n_ghost_pad)), lay, b.backend)
     return xv, norms

@@ -60,19 +60,69 @@ class DeviceBlock:
         self.plan = plan
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        """Per-part SpMV: x [P, n_cols_pad] -> [P, n_rows] (K1 or K5)."""
+        """Per-part SpMV: x [P, n_cols_pad] -> [P, n_rows] (K1 or K5).
+        Forward-mode AD sees a linear map: the tangent of the product is
+        the same kernel launched on x's tangent (``_BlockSpmv``)."""
+        return _BlockSpmv.apply(self, x)
+
+    def spmv_add(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``y + block @ x``.  An "ell" block accumulates into y in place
+        (K5): each row gets one sum added, so the rounding is that of adding
+        the two products.  Its tangent is ``y' + block @ x'``
+        (``_BlockSpmvAdd``)."""
+        return _BlockSpmvAdd.apply(self, x, y)
+
+    def _spmv(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "dia":
             return dia_spmv(self.offsets, self.vals, x.contiguous())
         y = x.new_zeros((x.shape[0], self.n_rows))
         return ghost_spmv(self.rows, self.cols, self.vals, x.contiguous(), y, self.plan)
 
-    def spmv_add(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """``y + block @ x``.  An "ell" block accumulates into y in place
-        (K5): each row gets one sum added, so the rounding is that of adding
-        the two products."""
+    def _spmv_add(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         if self.kind == "dia":
-            return y + self.spmv(x)
+            return y + self._spmv(x)
         return ghost_spmv(self.rows, self.cols, self.vals, x.contiguous(), y, self.plan)
+
+
+class _BlockSpmv(torch.autograd.Function):
+    """K1 or K5 as a function of x alone (the values are constants of a
+    residual that closes over the matrix): the product is linear in x, so
+    its forward derivative is the same kernel on the tangent."""
+
+    @staticmethod
+    def forward(block: DeviceBlock, x: torch.Tensor) -> torch.Tensor:
+        return block._spmv(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.block = inputs[0]
+
+    @staticmethod
+    def jvp(ctx, _block_t, x_t):
+        return ctx.block._spmv(x_t)
+
+
+class _BlockSpmvAdd(torch.autograd.Function):
+    """``y + block @ x``, with y updated in place for a compressed-row
+    block (marked dirty, and its tangent updated in place likewise)."""
+
+    @staticmethod
+    def forward(block: DeviceBlock, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return block._spmv_add(x, y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.block = inputs[0]
+        if output is inputs[2]:
+            ctx.mark_dirty(inputs[2])
+
+    @staticmethod
+    def jvp(ctx, _block_t, x_t, y_t):
+        if x_t is None:
+            return y_t
+        if y_t is None:
+            return ctx.block._spmv(x_t)
+        return ctx.block._spmv_add(x_t, y_t)
 
 
 def make_dia_block(offsets, n_cols_pad: int, vals: torch.Tensor) -> DeviceBlock:
@@ -129,6 +179,7 @@ def freeze_block(
     device="cuda",
     prefer_dia: bool = True,
     dtype=None,
+    agree=None,
 ) -> DeviceBlock:
     """Per-part host blocks -> one DeviceBlock on ``device``: DIA when
     every part block is banded with a small common diagonal set and the
@@ -136,14 +187,18 @@ def freeze_block(
     reference's rule), else the compressed-row ELL.  The common diagonal
     set is capped at ``MAX_DIAGS`` (128, the reference's cap and the most
     K1 takes).  ``dtype``: the values' torch dtype on the device (default:
-    the host blocks' own)."""
+    the host blocks' own).  ``agree``: on several processes, maps this
+    process's (offsets or None, widest row) to the ones all processes
+    use (``psparse._agreed_dia_offsets``)."""
     csrs = [b.tocsr() for b in blocks]
     for b in csrs:
         b.sort_indices()
     if prefer_dia:
         offsets = dia_viable(csrs, max_diags=MAX_DIAGS)
+        kmax = max((int(np.diff(b.indptr).max()) if b.nnz else 0 for b in csrs), default=0)
+        if agree is not None:
+            offsets, kmax = agree(offsets, kmax)
         if offsets is not None and offsets.size:
-            kmax = max((int(np.diff(b.indptr).max()) if b.nnz else 0) for b in csrs)
             # DIA stores n_off*R values; ELL stores K*R values + K*R int32
             if offsets.size <= max(2 * kmax, 4):
                 vals = stack_dia(csrs, n_rows_pad, offsets)

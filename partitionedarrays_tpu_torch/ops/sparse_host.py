@@ -1,13 +1,18 @@
 """Host-side (setup-time) sparse helpers over scipy CSR matrices.
 
 Copied from ``partitionedarrays_tpu/ops/sparse_host.py``: ``compresscoo``
-:26, ``precompute_nzindex`` :73-110, ``sparse_matrix`` :113-123 and
-``sparse_matrix_refill`` :125-134.  Unlike the reference,
+:26, ``nziterator`` and ``indextype`` :48-60, ``precompute_nzindex``
+:73-110, ``sparse_matrix`` :113-123, ``sparse_matrix_refill`` :125-134, the
+host products ``spmv``/``spmtv`` :137-144 (exported as ``spmv_local`` and
+``spmtv_local``), ``sub_sparse_matrix`` :147-154 and ``split_locally``
+:157-178.  Unlike the reference,
 ``precompute_nzindex`` does not sort its argument in place: it takes a CSR
 with sorted indices and raises otherwise, so positions it returns always
 address the caller's own data order.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -72,3 +77,45 @@ def sparse_matrix_refill(A: sp.csr_matrix, V, K, reset: bool = True) -> None:
         A.data[:] = 0
     valid = K >= 0
     np.add.at(A.data, K[valid], np.asarray(V)[valid])
+
+
+def nziterator(A: sp.spmatrix):
+    """(i, j, v) over the stored entries, in COO order (reference
+    ``nziterator``, src/sparse_utils.jl:24-125)."""
+    coo = A.tocoo()
+    for i, j, v in zip(coo.row, coo.col, coo.data):
+        yield int(i), int(j), v
+
+
+def indextype(A: sp.spmatrix):
+    """The dtype of A's column indices as CSR (reference ``indextype``)."""
+    return A.tocsr().indices.dtype
+
+
+def spmv(A: sp.spmatrix, x: np.ndarray) -> np.ndarray:
+    """y = A x on the host (reference ``spmv!``, src/sparse_utils.jl:609)."""
+    return A @ x
+
+
+def spmtv(A: sp.spmatrix, x: np.ndarray) -> np.ndarray:
+    """y = A^T x on the host (reference ``spmtv!``, src/sparse_utils.jl:633-647)."""
+    return A.T @ x
+
+
+def sub_sparse_matrix(A: sp.csr_matrix, rows: np.ndarray, cols: np.ndarray) -> sp.csr_matrix:
+    """The block A[rows, cols] as CSR (the reference's lazy
+    ``SubSparseMatrix``, src/sparse_utils.jl:127-211, materialized: it
+    serves setup only)."""
+    return A[np.asarray(rows)][:, np.asarray(cols)].tocsr()
+
+
+def split_locally(A: sp.spmatrix, own_rows: np.ndarray, ghost_rows: np.ndarray,
+                  own_cols: np.ndarray, ghost_cols: np.ndarray
+                  ) -> Tuple[sp.csr_matrix, sp.csr_matrix, sp.csr_matrix, sp.csr_matrix]:
+    """A local matrix split into its own-own, own-ghost, ghost-own and
+    ghost-ghost blocks, numbered in the own and ghost orders (reference
+    ``split_format_locally``, src/p_sparse_matrix.jl:823-935)."""
+    A = A.tocsr()
+    return (sub_sparse_matrix(A, own_rows, own_cols), sub_sparse_matrix(A, own_rows, ghost_cols),
+            sub_sparse_matrix(A, ghost_rows, own_cols),
+            sub_sparse_matrix(A, ghost_rows, ghost_cols))

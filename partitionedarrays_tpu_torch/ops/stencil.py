@@ -180,7 +180,9 @@ def stencil_psparse(
     The own-own DIA values ``[P, n_off, n_own_pad]`` are built on ``device``,
     the own-ghost block on the host and then frozen onto ``device``; the
     host mirror of the own-own block is made when a host consumer first
-    asks for it.
+    asks for it.  On a multi-process backend the device blocks hold the
+    process's own parts; the host metadata (every part's ghosts) is built
+    in full on every process.
     """
     gshape = tuple(int(v) for v in gshape)
     parts_per_dir = tuple(int(v) for v in parts_per_dir)
@@ -217,10 +219,12 @@ def stencil_psparse(
             for d in range(1, nd):
                 v = v.reshape(v.shape + (1,)) * fs[d]
             one[k, :R] += v.reshape(-1)
-    vals = one.unsqueeze(0).expand(P, -1, -1).contiguous()
+    local = backend.local_parts()
+    vals = one.unsqueeze(0).expand(len(local), -1, -1).contiguous()
     nnz = P * int(torch.count_nonzero(one)) + sum(m.nnz for m in oh_csrs)
     oo = make_dia_block(tuple(all_offs), clay.n_own_pad, vals)
-    oh = freeze_block(oh_csrs, rlay.n_own_pad, max(clay.n_ghost_pad, 1), device=device)
+    oh = freeze_block([oh_csrs[p] for p in local], rlay.n_own_pad, max(clay.n_ghost_pad, 1),
+                      device=device)
     blocks = [
         _LazyStencilBlocks(oh_csr, lambda ncc=cp.n_own: _host_dia_mirror(
             loc, ncc, all_offs, terms, np_dtype))
@@ -261,8 +265,11 @@ def _unequal_boxes(row_pr, col_pr, oh_csrs, stencil, backend, np_dtype, device):
               for p, (rp, cp, oh) in enumerate(zip(row_pr.parts, col_pr.parts, oh_csrs))]
     nnz = sum(int(np.count_nonzero(d)) for diags in part_dia for d in diags.values()) + sum(
         m.nnz for m in oh_csrs)
+    local = backend.local_parts()
+    vals = vals[backend.part_slice]
     oo = make_dia_block(tuple(all_offs), clay.n_own_pad, torch.from_numpy(vals).to(device))
-    oh = freeze_block(oh_csrs, rlay.n_own_pad, max(clay.n_ghost_pad, 1), device=device)
+    oh = freeze_block([oh_csrs[p] for p in local], rlay.n_own_pad, max(clay.n_ghost_pad, 1),
+                      device=device)
     A = PSparseMatrix(DeviceSpMat(oo, oh), row_pr, col_pr, backend, nnz, blocks=blocks)
     A._oo_dia_host = (tuple(all_offs), vals)
     return A

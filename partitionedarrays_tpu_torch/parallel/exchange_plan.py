@@ -15,9 +15,10 @@ build time all rounds are folded into one pair of flat index tensors that
 hold only the valid (source slot, destination slot) pairs, and an exchange
 is one gather plus one ``index_copy_`` ("set") or ``index_add_`` ("add").
 The padded tables keep the reference's out-of-range sentinel ``OOB`` for
-their padding lanes; they stay host arrays for the tests and for a later
-multi-process backend, and no sentinel ever reaches torch indexing (on the
-GPU an out-of-range index is a device assert, not a fill).
+their padding lanes; they stay host arrays, and no sentinel ever reaches
+torch indexing (on the GPU an out-of-range index is a device assert, not a
+fill).  On a multi-process backend the pairs that cross processes ride the
+padded per-round tables as point-to-point messages (``_CrossPlan``).
 """
 from __future__ import annotations
 
@@ -110,26 +111,134 @@ class ExchangePlan:
         return got
 
     def apply(
-        self, src_vals: torch.Tensor, dst_vals: torch.Tensor, combine: str
+        self, src_vals: torch.Tensor, dst_vals: torch.Tensor, combine: str, backend=None
     ) -> torch.Tensor:
         """All rounds at once: the source slots' values of ``src_vals[P,
         n_src]`` are set into ("set", consistent) or added to ("add",
         assemble) the destination slots of a copy of ``dst_vals[P, n_dst]``,
-        which is returned."""
+        which is returned.  On a multi-process ``backend`` the tensors hold
+        the local parts only (``[P_local, ...]``); pairs inside the process
+        stay one index op, and pairs across processes travel as the padded
+        rounds' messages (``_CrossPlan``)."""
         if combine not in ("add", "set"):
             raise ValueError(combine)
         if self.n_rounds == 0:
             return dst_vals
+        if getattr(backend, "is_multiprocess", False):
+            return self._cross_plan(backend, src_vals.shape[1], dst_vals.shape[1],
+                                    src_vals.device).apply(src_vals, dst_vals, combine)
         src, dst = self._flat_indices(src_vals.shape[1], dst_vals.shape[1], src_vals.device)
         moved = src_vals.reshape(-1).index_select(0, src)
-        out = dst_vals.clone(memory_format=torch.contiguous_format)
-        flat = out.view(-1)
-        if combine == "add":
-            flat.index_add_(0, dst, moved)
-        else:
-            # one owner per ghost: the destinations of "set" are unique
-            flat.index_copy_(0, dst, moved)
-        return out
+        return _scatter(dst_vals, dst, moved, combine)
+
+    def _cross_plan(self, backend, n_src: int, n_dst: int, device) -> "_CrossPlan":
+        key = ("cross", id(backend), int(n_src), int(n_dst), torch.device(device))
+        got = self._flat.get(key)
+        if got is None:
+            got = self._flat[key] = _CrossPlan(self, backend, n_src, n_dst, device)
+        return got
+
+
+def _scatter(dst_vals: torch.Tensor, dst: torch.Tensor, moved: torch.Tensor,
+             combine: str) -> torch.Tensor:
+    """A copy of ``dst_vals`` with ``moved`` set into or added to its flat
+    positions ``dst``."""
+    out = dst_vals.clone(memory_format=torch.contiguous_format)
+    flat = out.view(-1)
+    if combine == "add":
+        flat.index_add_(0, dst, moved)
+    else:
+        # one owner per ghost: the destinations of "set" are unique
+        flat.index_copy_(0, dst, moved)
+    return out
+
+
+class _CrossPlan:
+    """An exchange plan on one process of a multi-process backend, for
+    tensors ``[P_local, n]`` of the local parts:
+
+    - the pairs whose source and destination parts are both local: flat
+      gather and scatter indices, as on the serial backend;
+    - each round's messages from a local part to a part of another process:
+      the gather index of the message's K_r lanes (its valid lanes, then
+      padding lanes that repeat the first, which the receiver ignores);
+    - each round's messages to a local part from another process: where
+      its valid lanes land.
+
+    The messages are staged through host tensors, because gloo's
+    point-to-point calls take no CUDA tensors; the tags are ``round * P +
+    destination part`` (a part receives at most one message a round)."""
+
+    def __init__(self, plan: ExchangePlan, backend, n_src: int, n_dst: int, device):
+        if plan.src_pos.size and (plan.src_pos.max() >= n_src or plan.dst_pos.max() >= n_dst):
+            raise ValueError(f"exchange plan: slots beyond the tensors ({n_src}, {n_dst})")
+        self.backend = backend
+        P = backend.n_parts
+        local = backend.local_parts()
+        lo = local[0]
+        is_local = np.zeros(P, dtype=bool)
+        is_local[local] = True
+        both = is_local[plan.src_part] & is_local[plan.dst_part]
+        src = (plan.src_part[both] - lo) * n_src + plan.src_pos[both]
+        dst_local = (plan.dst_part[both] - lo) * n_dst + plan.dst_pos[both]
+        send_idx, self.sends = [], []  # (destination rank, tag, lanes)
+        recv_valid, recv_dst, self.recvs = [], [], []  # (source rank, tag, lanes)
+        n_recv = 0
+        for r, perm in enumerate(plan.perms):
+            K = plan.snd_idx[r].shape[1]
+            for s, d in perm:
+                if is_local[s] == is_local[d]:
+                    continue
+                valid = plan.rcv_idx[r][d] != OOB
+                nv = int(valid.sum())
+                if nv == 0:
+                    continue
+                tag = r * P + d
+                if is_local[s]:
+                    lanes = plan.snd_idx[r][s][valid].astype(np.int64)
+                    lanes = np.concatenate([lanes, np.full(K - nv, lanes[0], dtype=np.int64)])
+                    send_idx.append((s - lo) * n_src + lanes)
+                    self.sends.append((backend.rank_of(d), tag, K))
+                else:
+                    recv_valid.append(n_recv + np.flatnonzero(valid))
+                    recv_dst.append((d - lo) * n_dst + plan.rcv_idx[r][d][valid].astype(np.int64))
+                    self.recvs.append((backend.rank_of(s), tag, K))
+                    n_recv += K
+        cat = lambda xs: torch.from_numpy(
+            np.concatenate(xs) if xs else np.zeros(0, dtype=np.int64)).to(device)
+        self.src_local = cat([src])
+        self.send_idx = cat(send_idx)
+        self.recv_valid = cat(recv_valid)
+        self.dst = cat([dst_local] + recv_dst)
+        self.n_recv = n_recv
+        self.wire_entries = int(sum(k for _, _, k in self.sends) + n_recv)
+
+    def apply(self, src_vals: torch.Tensor, dst_vals: torch.Tensor, combine: str) -> torch.Tensor:
+        import torch.distributed as dist
+
+        from ..backends import stage
+
+        flat_src = src_vals.reshape(-1)
+        work = []
+        if self.sends:
+            out_host = stage(flat_src.index_select(0, self.send_idx))
+            off = 0
+            for rank, tag, K in self.sends:
+                work.append(dist.isend(out_host[off: off + K], dst=rank, tag=tag))
+                off += K
+        in_host = torch.empty(self.n_recv, dtype=src_vals.dtype,
+                              pin_memory=src_vals.device.type == "cuda")
+        off = 0
+        for rank, tag, K in self.recvs:
+            work.append(dist.irecv(in_host[off: off + K], src=rank, tag=tag))
+            off += K
+        for w in work:
+            w.wait()
+        moved = flat_src.index_select(0, self.src_local)
+        if self.recvs:
+            got = in_host.to(src_vals.device, non_blocking=True)
+            moved = torch.cat([moved, got.index_select(0, self.recv_valid)])
+        return _scatter(dst_vals, self.dst, moved, combine)
 
 
 def _build_plan(

@@ -312,18 +312,27 @@ def allocate_exchange(graph: ExchangeGraph, lengths_snd: Sequence[Sequence[int]]
     return [[np.zeros(int(n)) for n in part_lens] for part_lens in lens]
 
 
-def host_consistent(pr: PRange, own_parts: Sequence[np.ndarray]) -> List[np.ndarray]:
+def host_consistent(pr: PRange, own_parts: Sequence[np.ndarray], backend=None
+                    ) -> List[np.ndarray]:
     """Per-part ghost values of ``pr`` filled from their owners' own values
     (the consistent direction of the assembly graph), on host arrays: the
-    setup tier's halo exchange (the AMG power method)."""
+    setup tier's halo exchange (the AMG power method).  On a multi-process
+    ``backend`` only the local parts' own values are read and their ghosts
+    filled (the payloads of other processes travel as host messages;
+    COLLECTIVE); the other parts' ghosts stay zero."""
+    from .host_exchange import exchange_part_messages
+
     g = pr.assembly_graph()
-    ghosts = [
-        np.zeros(li.n_ghost, dtype=np.asarray(own_parts[p]).dtype)
-        for p, li in enumerate(pr.parts)
-    ]
-    for o in range(pr.n_parts):
+    local = range(pr.n_parts) if backend is None else backend.local_parts()
+    dtype = np.asarray(own_parts[local[0]]).dtype
+    ghosts = [np.zeros(li.n_ghost, dtype=dtype) for li in pr.parts]
+    msgs = {}
+    for o in local:
         for k, dst in enumerate(g.neighbors_rcv[o]):
-            payload = np.asarray(own_parts[o])[g.rcv_own[o][k]]
-            j = g.neighbors_snd[dst].index(o)
-            ghosts[dst][g.snd_ghost[dst][j]] = payload
+            msgs[(o, dst)] = (np.asarray(own_parts[o], dtype=dtype)[g.rcv_own[o][k]],)
+    if backend is not None:
+        msgs = exchange_part_messages(backend, pr.n_parts, msgs, (dtype,))
+    for (o, dst), (payload,) in sorted(msgs.items()):
+        j = g.neighbors_snd[dst].index(o)
+        ghosts[dst][g.snd_ghost[dst][j]] = payload
     return ghosts

@@ -48,9 +48,16 @@ refills the same triplets' new values (``psparse_refill`` on the host,
 sparsity, through frozen value routes (``_MatRoutes``) and fill positions,
 never re-running ghost discovery or classification.  A refilled matrix
 drops its frozen blocks (``invalidate_device``) and restacks the new
-values into their structure on next use.  Left to ROADMAP Queue 1: the
-per-process matrices of the multi-process backend with their
-cross-process refill (item 15).
+values into their structure on next use.
+
+On a multi-process backend (``backends.MeshBackend``) a matrix's device
+blocks hold the process's own parts (``[P_local, ...]``), frozen from its
+parts' host blocks.  ``psparse_local`` builds a per-process matrix from
+each process's own triplets: the other processes' parts hold empty
+placeholder blocks (``_local_only``), and the host setup products route
+their part-to-part messages through ``parallel/host_exchange.py``
+(``_route_msgs``), their refill routes across processes included
+(``_MatRoutes.finalize_multiprocess``).
 """
 from __future__ import annotations
 
@@ -170,9 +177,21 @@ class PSparseMatrix:
     def col_layout(self) -> VectorLayout:
         return layout_of(self.col_prange)
 
-    def _freeze(self, name: str, n_rows: int, n_cols: int) -> DeviceBlock:
-        return freeze_block([b[name] for b in self.blocks], n_rows, n_cols,
-                            device=self._target, dtype=self.dtype)
+    def _local_blocks(self, name: str, transpose: bool = False) -> list:
+        """The host blocks ``name`` of the parts in this process (their
+        transposes, as CSR, with ``transpose``)."""
+        blocks = host_blocks(self)
+        out = [blocks[p][name] for p in self.backend.local_parts()]
+        return [b.T.tocsr() for b in out] if transpose else out
+
+    def _freeze(self, parts: list, n_rows: int, n_cols: int, device) -> DeviceBlock:
+        """Freeze the local parts' host blocks; on several processes the
+        DIA-or-compressed-rows choice and the DIA offsets are agreed by all
+        (``_agreed_dia_offsets``), so that every process takes the same
+        kernels and smoother tier."""
+        agree = _agreed_dia_offsets(self.backend) if self.backend.is_multiprocess else None
+        return freeze_block(parts, n_rows, n_cols, device=device, dtype=self.dtype,
+                            agree=agree)
 
     def device(self) -> DeviceSpMat:
         """The frozen blocks; a matrix built from host blocks freezes them
@@ -189,12 +208,11 @@ class PSparseMatrix:
             names = _BLOCK_NAMES if not self.assembled else ("oo", "oh")
             frozen = {}
             for name in names:
-                parts = [b[name] for b in self.blocks]
+                parts = self._local_blocks(name)
                 if old is not None:
                     frozen[name] = refreeze_block(getattr(old, name), parts)
                 else:
-                    frozen[name] = freeze_block(parts, *shapes[name], device=self._target,
-                                                dtype=self.dtype)
+                    frozen[name] = self._freeze(parts, *shapes[name], self._target)
             self._device = DeviceSpMat(**frozen)
             self._frozen_structure = (None, self._frozen_structure[1])  # free the old values
         return self._device
@@ -208,15 +226,13 @@ class PSparseMatrix:
             if not self.assembled:
                 raise ValueError("the transpose SpMV needs an assembled matrix")
             rlay, clay = self.row_layout(), self.col_layout()
-            blocks = host_blocks(self)
             old = self._frozen_structure[1]
 
             def freeze(name, n_rows, k):
-                parts = [b[name].T.tocsr() for b in blocks]
+                parts = self._local_blocks(name, transpose=True)
                 if old is not None:
                     return refreeze_block(old[k], parts)
-                return freeze_block(parts, n_rows, rlay.n_own_pad, device=self.torch_device,
-                                    dtype=self.dtype)
+                return self._freeze(parts, n_rows, rlay.n_own_pad, self.torch_device)
 
             ohT = freeze("oh", clay.n_ghost_pad, 1) if clay.n_ghost_pad else None
             self._device_T = (freeze("oo", clay.n_own_pad, 0), ohT)
@@ -338,6 +354,7 @@ def _blocks_from_device(A: PSparseMatrix) -> List[dict]:
     """Host blocks of a matrix that has only frozen blocks, each part's
     own and ghost rows and columns."""
     dev = A.device()
+    local = {p: k for k, p in enumerate(A.backend.local_parts())}
     out = []
     for p, (li_r, li_c) in enumerate(zip(A.row_prange.parts, A.col_prange.parts)):
         dims = {"oo": (li_r.n_own, li_c.n_own), "oh": (li_r.n_own, li_c.n_ghost),
@@ -345,9 +362,9 @@ def _blocks_from_device(A: PSparseMatrix) -> List[dict]:
         b = {}
         for name in _BLOCK_NAMES:
             db = getattr(dev, name)
-            if db is not None:
-                b[name] = _host_block(db, p, *dims[name])
-            elif name == "oh":
+            if db is not None and p in local:
+                b[name] = _host_block(db, local[p], *dims[name])
+            elif db is not None or name == "oh":
                 b[name] = sp.csr_matrix(dims[name], dtype=numpy_dtype(A.dtype))
         out.append(b)
     return out
@@ -482,6 +499,12 @@ def psparse(
     ``device_refill_plan``)."""
     if indices not in ("global", "local"):
         raise ValueError(f"indices must be 'global' or 'local', got {indices!r}")
+    if backend.is_multiprocess:
+        if indices != "global" or not (assembled or assemble):
+            raise ValueError("psparse on several processes: global ids into an assembled "
+                             "matrix (psparse_local)")
+        return psparse_local(I_parts, J_parts, V_parts, rows, cols, backend, dtype=dtype,
+                             reuse=reuse, device=device, device_dtype=device_dtype)
     rows_pr = as_prange(rows)
     cols_pr = as_prange(cols)
     P = rows_pr.n_parts
@@ -537,7 +560,11 @@ def psparse_refill(A: PSparseMatrix, V_parts, cache) -> None:
     """New values of the triplets of ``psparse(..., reuse=True)``, summed
     into A's host blocks in place (duplicates in the order of the build:
     source part, then triplet); A's frozen blocks are dropped and restack
-    the new values on next use (``invalidate_device``)."""
+    the new values on next use (``invalidate_device``).  A per-process
+    build's cache sends each process's new values along the build's
+    messages (COLLECTIVE)."""
+    if isinstance(cache, _LocalCooCache):
+        return cache.refill(A, V_parts)
     dest_part, dest_block, dest_pos = cache
     for b in host_blocks(A):
         for name in _BLOCK_NAMES:
@@ -686,6 +713,207 @@ def psparse_from_blocks(blocks: List[dict], rows, cols, backend: SerialBackend,
                          assembled=assembled)
 
 
+# -- per-process matrices (the multi-process backend) -----------------------
+
+def _is_local_only(A: PSparseMatrix) -> bool:
+    """True for a matrix on a multi-process backend: its host setup runs on
+    this process's parts and routes its messages across processes."""
+    return bool(getattr(A, "_local_only", False)) or A.backend.is_multiprocess
+
+
+def _require_full_blocks(A: PSparseMatrix, op: str) -> None:
+    """A per-process matrix (``psparse_local``) holds real host blocks only
+    for its process's parts, and empty placeholders elsewhere: a host setup
+    operation without a per-process form would sum the placeholders and
+    return a partial result, so it raises instead."""
+    if _is_local_only(A):
+        raise ValueError(
+            f"{op}: unsupported on a per-process (_local_only) PSparseMatrix: the other "
+            "processes' parts hold empty placeholder blocks; use replicate_psparse(A) "
+            "first if the matrix is small enough to hold on every process")
+
+
+def _data_parts(A: PSparseMatrix) -> List[int]:
+    """The parts whose host blocks are real in this process."""
+    if _is_local_only(A):
+        return list(A.backend.local_parts())
+    return list(range(A.row_prange.n_parts))
+
+
+def _route_msgs(backend, P, msgs, dtypes, local_only, stats=None):
+    """Deliver part-to-part setup messages: passed through when every part's
+    messages were made in this process, else by ``exchange_part_messages``."""
+    if not local_only:
+        if stats is not None:
+            stats.update(wire_bytes=0, wire_entries=0, n_rounds=0, cross_msgs=0)
+        return dict(msgs)
+    from .parallel.host_exchange import exchange_part_messages
+
+    return exchange_part_messages(backend, P, msgs, dtypes, stats=stats)
+
+
+def _sync_ghosted_partition(backend, P, base_parts, built: dict):
+    """The full per-part list of ghosted parts: the data parts give their
+    built ones, the others are rebuilt from all-gathered ghost ids and
+    owners on the same base part (the same on every process)."""
+    if len(built) == P:
+        return [built[p] for p in range(P)]
+    from .parallel.host_exchange import allgather_part_arrays
+
+    gids = allgather_part_arrays(backend, P, {p: li.ghost_to_global for p, li in built.items()},
+                                 INT)
+    gown = allgather_part_arrays(backend, P, {p: li.ghost_to_owner for p, li in built.items()},
+                                 INT)
+    return [built[p] if p in built else base_parts[p].replace_ghost(gids[p], gown[p])
+            for p in range(P)]
+
+
+def _placeholder_blocks(li_r, li_c, dtype, subassembled: bool = False) -> dict:
+    """Empty blocks of a part that another process holds."""
+    b = {"oo": sp.csr_matrix((li_r.n_own, li_c.n_own), dtype=dtype),
+         "oh": sp.csr_matrix((li_r.n_own, li_c.n_ghost), dtype=dtype)}
+    if subassembled:
+        b["ho"] = sp.csr_matrix((li_r.n_ghost, li_c.n_own), dtype=dtype)
+        b["hh"] = sp.csr_matrix((li_r.n_ghost, li_c.n_ghost), dtype=dtype)
+    return b
+
+
+def _agree_max_i32(backend, arr) -> np.ndarray:
+    """Elementwise max of a small int array across processes (the array
+    itself in one process)."""
+    arr = np.asarray(arr, dtype=np.int64)
+    if not backend.is_multiprocess:
+        return arr
+    return np.max(backend.allgather_object(arr), axis=0)
+
+
+def _agreed_dia_offsets(backend):
+    """The agreement of ``freeze_block`` on several processes: DIA on the
+    union of every process's offsets when every process's block is banded,
+    the union is at most ``MAX_DIAGS`` wide and within the storage rule of
+    the widest row anywhere; else compressed rows everywhere.  A process
+    whose blocks are empty agrees with any band."""
+    from .ops.dia import MAX_DIAGS
+
+    def agree(offsets, kmax):
+        mine = (None if offsets is None else [int(o) for o in offsets], int(kmax))
+        views = backend.allgather_object(mine)
+        kmax_all = max(k for _, k in views)
+        if any(o is None for o, _ in views):
+            return None, kmax_all
+        union = np.array(sorted({o for offs, _ in views for o in offs}), dtype=np.int64)
+        if union.size > MAX_DIAGS:
+            return None, kmax_all
+        return union, kmax_all
+
+    return agree
+
+
+class _LocalCooCache:
+    """The frozen plan of a per-process COO build (``psparse_local(...,
+    reuse=True)``): for each local source part and destination part, the
+    positions of the source's triplets in the message of the build; for
+    each message a local part received, the block and position of each of
+    its triplets.  A refill sends the new values along the same messages
+    and sums them in the build's order."""
+
+    def __init__(self, send_idx: dict, recv_maps: dict, dtype):
+        self.send_idx = send_idx
+        self.recv_maps = recv_maps
+        self.dtype = np.dtype(dtype)
+
+    def refill(self, A: PSparseMatrix, V_parts) -> None:
+        msgs = {k: (np.asarray(V_parts[k[0]], dtype=self.dtype)[idx],)
+                for k, idx in self.send_idx.items()}
+        got = _route_msgs(A.backend, A.row_prange.n_parts, msgs, (self.dtype,), True)
+        for p in A.backend.local_parts():
+            for name in _BLOCK_NAMES:
+                if A.blocks[p].get(name) is not None:
+                    A.blocks[p][name].data[:] = 0
+        for key in sorted(self.recv_maps, key=lambda k: (k[1], k[0])):
+            db, dx = self.recv_maps[key]
+            vals = got[key][0]
+            for bi in np.unique(db[dx >= 0]):
+                m = (db == bi) & (dx >= 0)
+                np.add.at(A.blocks[key[1]][_BLOCK_NAMES[int(bi)]].data, dx[m], vals[m])
+        A.invalidate_device()
+
+
+def psparse_local(I_parts, J_parts, V_parts, rows, cols, backend, dtype=None,
+                  reuse: bool = False, device="cuda", device_dtype=None):
+    """The per-process disassembled COO constructor: a process gives the
+    triplets of its own parts only (the others may be None).  The triplets
+    are moved to their row owners, and only those whose owner lives in
+    another process travel (``exchange_part_messages``: edge-colored
+    rounds padded per round, so the wire bytes are O(surface)); each owner
+    sums its triplets in source-part order, as ``psparse`` does.  The
+    column ghosts (O(surface)) are then all-gathered, so that every process
+    holds the same partitions and exchange plans, and the other processes'
+    parts keep empty placeholder blocks.  The result is assembled and
+    marked ``_local_only``; its blocks are frozen here, the DIA choice
+    agreed by all processes.  The shuffle's wire cost is left in
+    ``backend._last_local_build_stats``.  ``reuse=True`` returns ``(A,
+    cache)`` for ``psparse_refill``."""
+    from .parallel.host_exchange import allgather_part_arrays
+
+    rows_pr, cols_pr = as_prange(rows), as_prange(cols)
+    P = rows_pr.n_parts
+    local = backend.local_parts()
+    if any(I_parts[p] is None or J_parts[p] is None or V_parts[p] is None for p in local):
+        raise ValueError("psparse_local: a local part's triplets are missing")
+    dtype = numpy_dtype(np.asarray(V_parts[local[0]]).dtype if dtype is None else dtype)
+    msgs, send_idx = {}, {}
+    for p in local:
+        I = np.asarray(I_parts[p], dtype=INT)
+        o = find_owner(rows_pr.parts, [I])[0]
+        order = np.argsort(o, kind="stable")
+        bounds = np.searchsorted(o[order], np.arange(P + 1))
+        J = np.asarray(J_parts[p], dtype=INT)[order]
+        V = np.asarray(V_parts[p], dtype=dtype)[order]
+        I = I[order]
+        for d in range(P):
+            lo, hi = bounds[d], bounds[d + 1]
+            if hi > lo:
+                msgs[(p, d)] = (I[lo:hi], J[lo:hi], V[lo:hi])
+                send_idx[(p, d)] = order[lo:hi]
+    stats: dict = {}
+    got = _route_msgs(backend, P, msgs, (INT, INT, dtype), True, stats=stats)
+    backend._last_local_build_stats = stats
+    built, recv_maps = {}, {}
+    for d in local:
+        keys = sorted(k for k in got if k[1] == d)
+        chunks = [got[k] for k in keys]
+        tri = [np.concatenate([c[f] for c in chunks]) if chunks else
+               np.zeros(0, INT if f < 2 else dtype) for f in range(3)]
+        built[d] = _build_part_blocks(rows_pr.parts[d], cols_pr.parts[d], *tri, False, dtype)
+        if reuse:
+            db, dx = _dst_maps(built[d][0], built[d][3])
+            cuts = np.cumsum([len(c[0]) for c in chunks])[:-1]
+            for k, b_, x_ in zip(keys, np.split(db, cuts), np.split(dx, cuts)):
+                recv_maps[k] = (b_, x_)
+    gids = allgather_part_arrays(backend, P, {p: b[2].ghost_to_global for p, b in built.items()},
+                                 INT, stats=stats)
+    gown = allgather_part_arrays(backend, P, {p: b[2].ghost_to_owner for p, b in built.items()},
+                                 INT, stats=stats)
+    col_parts, blocks = [], []
+    for p in range(P):
+        if p in built:
+            col_parts.append(built[p][2])
+            blocks.append(built[p][0])
+        else:
+            li_c = cols_pr.parts[p].replace_ghost(gids[p], gown[p])
+            col_parts.append(li_c)
+            blocks.append(_placeholder_blocks(rows_pr.parts[p], li_c, dtype))
+    nnz = int(backend.allreduce(torch.tensor(sum(blocks[p][k].nnz for p in local
+                                                 for k in ("oo", "oh")))))
+    A = PSparseMatrix(None, rows_pr, PRange(col_parts), backend, nnz=nnz, blocks=blocks,
+                      device=device,
+                      device_dtype=None if device_dtype is None else torch_dtype(device_dtype))
+    A._local_only = True
+    A.device()
+    return (A, _LocalCooCache(send_idx, recv_maps, dtype)) if reuse else A
+
+
 def replicate_psparse(A: PSparseMatrix, max_rows: Optional[int] = 1_000_000) -> PSparseMatrix:
     """The matrix with every part's blocks on this process: on the serial
     backend every matrix already is, so ``A`` itself (``max_rows``, the
@@ -731,7 +959,9 @@ def _host_dtype(A: PSparseMatrix) -> np.dtype:
 
 
 def to_global_scipy(A: PSparseMatrix) -> sp.csr_matrix:
-    """All parts' blocks summed into one global CSR on the host."""
+    """All parts' blocks summed into one global CSR on the host (on several
+    processes: ``gather_global_scipy``)."""
+    _require_full_blocks(A, "to_global_scipy")
     m, n = A.shape
     Is, Js, Vs = [], [], []
     for b, li_r, li_c in zip(host_blocks(A), A.row_prange.parts, A.col_prange.parts):
@@ -753,11 +983,24 @@ def centralize(A: PSparseMatrix) -> sp.csr_matrix:
 
 
 def gather_global_scipy(A: PSparseMatrix, max_rows: Optional[int] = None) -> sp.csr_matrix:
-    """The global CSR of A on the host (``to_global_scipy``; a
-    per-process matrix and its triplet gather are not ported)."""
+    """The global CSR of A on the host of every process (``to_global_scipy``;
+    on several processes each process's parts' triplets are all-gathered,
+    COLLECTIVE)."""
     if max_rows is not None and A.shape[0] > max_rows:
         raise ValueError(f"gather_global_scipy: {A.shape[0]} rows exceeds max_rows={max_rows}")
-    return to_global_scipy(A)
+    if not _is_local_only(A):
+        return to_global_scipy(A)
+    blocks = host_blocks(A)
+    mine = [_part_triplets(blocks[p], A.row_prange.parts[p], A.col_prange.parts[p],
+                           _BLOCK_NAMES) for p in _data_parts(A)]
+    tri = [t for chunk in A.backend.allgather_object(mine) for t in chunk]
+    G = sp.coo_matrix((np.concatenate([t[2] for t in tri]),
+                       (np.concatenate([t[0] for t in tri]), np.concatenate([t[1] for t in tri]))),
+                      shape=A.shape, dtype=_host_dtype(A))
+    G.sum_duplicates()
+    G = G.tocsr()
+    G.sort_indices()
+    return G
 
 
 # -- the routing tier of the reuse forms ----------------------------------------
@@ -877,6 +1120,9 @@ class _MatRoutes:
     def __init__(self):
         self._acc: dict = {}
         self.routes: list = []
+        self.multiprocess = False
+        self.send_plan: dict = {}  # (local source, remote destination) -> (blocks, positions)
+        self.recv_scatter: dict = {}  # (remote source, local destination) -> (blocks, positions)
 
     def add(self, dst_p: int, tags, dst_block, dst_pos) -> None:
         ok = (dst_pos >= 0) & (dst_block >= 0)
@@ -902,10 +1148,35 @@ class _MatRoutes:
         self._acc = {}
         return self
 
-    def finalize_multiprocess(self, backend, P: int, dtype):
-        raise NotImplementedError(
-            "the cross-process refill exchange of per-process matrices: ROADMAP Queue 1 item 15"
-        )
+    def finalize_multiprocess(self, backend, P: int, dtype) -> "_MatRoutes":
+        """The refill across processes, set up once: the routes whose source
+        part lives in another process become a request sent there (the
+        source blocks and positions, in a fixed order) and a local scatter
+        of the values that the request will bring; the source process keeps
+        the request as its send plan.  COLLECTIVE."""
+        self.multiprocess = True
+        self.dtype = np.dtype(dtype)
+        local = set(backend.local_parts())
+        kept, remote = [], {}
+        for r in self.routes:
+            if r[2] in local:
+                kept.append(r)
+            else:
+                remote.setdefault((r[0], r[2]), []).append(r)
+        self.routes = kept
+        reqs = {}
+        for (dst_p, src_p), rs in sorted(remote.items()):
+            rs = sorted(rs, key=lambda r: (r[1], r[3]))
+            sbi = np.concatenate([np.full(r[4].size, r[3], dtype=np.int64) for r in rs])
+            spos = np.concatenate([r[4] for r in rs]).astype(np.int64)
+            dbi = np.concatenate([np.full(r[5].size, r[1], dtype=np.int64) for r in rs])
+            dpos = np.concatenate([r[5] for r in rs]).astype(np.int64)
+            reqs[(dst_p, src_p)] = (sbi, spos)
+            self.recv_scatter[(src_p, dst_p)] = (dbi, dpos)
+        got = _route_msgs(backend, P, reqs, (np.int64, np.int64), True)
+        for (dst_p, src_p), (sbi, spos) in got.items():
+            self.send_plan[(src_p, dst_p)] = (sbi, spos)
+        return self
 
     def refill(self, src: PSparseMatrix, out: PSparseMatrix, data_of=None) -> None:
         """``data_of(part, block name) -> values`` replaces the source
@@ -921,6 +1192,20 @@ class _MatRoutes:
         for dst_p, dbi, src_p, sbi, spos, dpos in self.routes:
             np.add.at(out.blocks[dst_p][_BLOCK_NAMES[dbi]].data, dpos,
                       data_of(src_p, _BLOCK_NAMES[sbi])[spos])
+        if self.multiprocess:
+            msgs = {}
+            for (src_p, dst_p), (sbi, spos) in sorted(self.send_plan.items()):
+                vals = np.empty(spos.size, dtype=self.dtype)
+                for bi in np.unique(sbi):
+                    m = sbi == bi
+                    vals[m] = data_of(src_p, _BLOCK_NAMES[int(bi)])[spos[m]]
+                msgs[(src_p, dst_p)] = (vals,)
+            got = _route_msgs(out.backend, out.row_prange.n_parts, msgs, (self.dtype,), True)
+            for key, (vals,) in sorted(got.items()):
+                dbi, dpos = self.recv_scatter[key]
+                for bi in np.unique(dbi):
+                    m = dbi == bi
+                    np.add.at(out.blocks[key[1]][_BLOCK_NAMES[int(bi)]].data, dpos[m], vals[m])
         out.invalidate_device()
 
 
@@ -974,6 +1259,7 @@ def assemble_matrix(A: PSparseMatrix, reuse: bool = False) -> Task:
     for ``assemble_matrix_into`` (the cache is None for an assembled A)."""
     if A.assembled:
         return Task((A, None)) if reuse else Task(A)
+    _require_full_blocks(A, "assemble_matrix")
     dtype = _host_dtype(A)
     if reuse:
         _canonicalize_blocks(A)
@@ -1035,6 +1321,8 @@ def consistent_matrix(A: PSparseMatrix, rows_co, reuse: bool = False) -> Task:
         _canonicalize_blocks(A)
     col_parts = A.col_prange.parts
     blocks_in = host_blocks(A)
+    local_only = _is_local_only(A)
+    data = _data_parts(A)
     wanted = {}  # owner -> [(requester, gids)]
     for p, li in enumerate(rows_co.parts):
         if li.n_ghost == 0:
@@ -1050,6 +1338,8 @@ def consistent_matrix(A: PSparseMatrix, rows_co, reuse: bool = False) -> Task:
                 wanted.setdefault(o, []).append((p, li.ghost_to_global[order[start:end]]))
     msgs = {}
     for o, reqs in wanted.items():
+        if o not in data:
+            continue
         if reuse:
             loc, loc_tags, _ = _hstack_with_tags(blocks_in[o], o)
         else:
@@ -1061,12 +1351,14 @@ def consistent_matrix(A: PSparseMatrix, rows_co, reuse: bool = False) -> Task:
             if not (pos >= 0).all():
                 raise ValueError("consistent_matrix: a wanted row is not owned by its owner")
             sub = loc[pos].tocoo()
-            msgs[(o, p)] = (gids[sub.row], col_g[sub.col], sub.data)
+            msgs[(o, p)] = (gids[sub.row], col_g[sub.col], sub.data.astype(dtype, copy=False))
             if reuse:
                 msgs[(o, p)] += (loc_tags[_csr_row_slice_positions(loc, pos)],)
+    msgs = _route_msgs(A.backend, P, msgs, (INT, INT, dtype) + ((np.int64,) if reuse else ()),
+                       local_only)
     routes = _MatRoutes() if reuse else None
-    blocks, new_cols = [], []
-    for p in range(P):
+    blocks, new_cols = {}, {}
+    for p in data:
         li_r, li_c = A.row_prange.parts[p], col_parts[p]
         own = (_part_triplets_tagged(blocks_in[p], li_r, li_c, p) if reuse
                else _part_triplets(blocks_in[p], li_r, li_c))
@@ -1075,15 +1367,23 @@ def consistent_matrix(A: PSparseMatrix, rows_co, reuse: bool = False) -> Task:
             rows_co.parts[p], li_c,
             *(np.concatenate([c[k] for c in chunks]) for k in range(3)), True, dtype,
         )
-        blocks.append(b2)
-        new_cols.append(li_c2)
+        blocks[p] = b2
+        new_cols[p] = li_c2
         if reuse:
             routes.add(p, np.concatenate([c[3] for c in chunks]), *_dst_maps(b2, info))
+    cols_all = _sync_ghosted_partition(A.backend, P, col_parts, new_cols)
     out = PSparseMatrix(
-        None, PRange(list(rows_co.parts)), PRange(new_cols), A.backend, blocks=blocks,
+        None, PRange(list(rows_co.parts)), PRange(cols_all), A.backend,
+        blocks=[blocks[p] if p in blocks else
+                _placeholder_blocks(rows_co.parts[p], cols_all[p], dtype, True) for p in range(P)],
         device=A.torch_device, device_dtype=A.dtype, assembled=False,
     )
-    return Task((out, routes.finalize())) if reuse else Task(out)
+    out._local_only = local_only
+    if reuse:
+        routes.finalize()
+        if local_only:
+            routes.finalize_multiprocess(A.backend, P, dtype)
+    return Task((out, routes)) if reuse else Task(out)
 
 
 def consistent_matrix_into(out: PSparseMatrix, A: PSparseMatrix, cache) -> None:
@@ -1215,10 +1515,10 @@ def spmm(A: PSparseMatrix, B: PSparseMatrix, reuse: bool = False):
     else:
         Bc = consistent_matrix(B, rows_co).wait()
     dtype = np.result_type(_host_dtype(A), _host_dtype(B))
-    blocks, new_cols = [], []
-    for p, (ba, bb, li_ra, li_rb, li_cb) in enumerate(zip(
-            host_blocks(A), Bc.blocks, A.row_prange.parts, Bc.row_prange.parts,
-            Bc.col_prange.parts)):
+    blocks, new_cols = {}, {}
+    for p in _data_parts(A):
+        ba, bb = host_blocks(A)[p], Bc.blocks[p]
+        li_ra, li_rb, li_cb = A.row_prange.parts[p], Bc.row_prange.parts[p], Bc.col_prange.parts[p]
         if reuse:
             A_loc, _, a_fill = _hstack_with_tags(ba, p, want_tags=False)
             B_loc, _, b_fill = _hstack_with_tags(bb, p, ("oo", "oh"), want_tags=False)
@@ -1240,8 +1540,8 @@ def spmm(A: PSparseMatrix, B: PSparseMatrix, reuse: bool = False):
             li_ra.remove_ghost(), li_cb.remove_ghost(), li_ra.own_to_global[coo.row],
             col_g[coo.col], coo.data.astype(dtype, copy=False), False, dtype,
         )
-        blocks.append(b2)
-        new_cols.append(li_c2)
+        blocks[p] = b2
+        new_cols[p] = li_c2
         if reuse:
             dst_block, dst_pos = _dst_maps(b2, info)
             dst = []
@@ -1251,10 +1551,17 @@ def spmm(A: PSparseMatrix, B: PSparseMatrix, reuse: bool = False):
                     dst.append((name, sel, dst_pos[sel]))
             cache.parts[p] = (A_loc, a_fill, B_loc, b_fill, (C.indptr.copy(), C.indices.copy()),
                               dst)
+    P = A.row_prange.n_parts
+    rows = [li.remove_ghost() for li in A.row_prange.parts]
+    cols = _sync_ghosted_partition(A.backend, P, [li.remove_ghost() for li in Bc.col_prange.parts],
+                                   new_cols)
     out = PSparseMatrix(
-        None, PRange([li.remove_ghost() for li in A.row_prange.parts]), PRange(new_cols),
-        A.backend, blocks=blocks, device=A.torch_device, device_dtype=A.dtype,
+        None, PRange(rows), PRange(cols), A.backend,
+        blocks=[blocks[p] if p in blocks else _placeholder_blocks(rows[p], cols[p], dtype)
+                for p in range(P)],
+        device=A.torch_device, device_dtype=A.dtype,
     )
+    out._local_only = _is_local_only(A)
     return (out, cache) if reuse else out
 
 
@@ -1280,14 +1587,14 @@ class _SpmtmCache:
     def refill(self, C: PSparseMatrix, A: PSparseMatrix, B: PSparseMatrix) -> None:
         _canonicalize_blocks(A)
         _canonicalize_blocks(B)
-        V_parts = []
+        V_parts = [None] * C.row_prange.n_parts
         for p, (A_loc, a_fill, AT, tpos, B_loc, b_fill, pattern) in sorted(self.parts.items()):
             for bi, idx in a_fill.items():
                 A_loc.data[idx] = A.blocks[p][_BLOCK_NAMES[bi]].data
             for bi, idx in b_fill.items():
                 B_loc.data[idx] = B.blocks[p][_BLOCK_NAMES[bi]].data
             AT.data[tpos] = A_loc.data
-            V_parts.append(_refilled_product(AT, B_loc, *pattern))
+            V_parts[p] = _refilled_product(AT, B_loc, *pattern)
         psparse_refill(C, V_parts, self.pcache)
 
 
@@ -1310,9 +1617,11 @@ def spmtm(A: PSparseMatrix, B: PSparseMatrix, reuse: bool = False):
     if reuse:
         _canonicalize_blocks(A)
         _canonicalize_blocks(B)
-    I_parts, J_parts, V_parts = [], [], []
-    for p, (ba, bb, li_ca, li_cb) in enumerate(zip(host_blocks(A), host_blocks(B),
-                                                   A.col_prange.parts, B.col_prange.parts)):
+    P = A.row_prange.n_parts
+    I_parts, J_parts, V_parts = [None] * P, [None] * P, [None] * P
+    for p in _data_parts(A):
+        ba, bb = host_blocks(A)[p], host_blocks(B)[p]
+        li_ca, li_cb = A.col_prange.parts[p], B.col_prange.parts[p]
         if reuse:
             A_loc, _, a_fill = _hstack_with_tags(ba, p, want_tags=False)
             B_loc, _, b_fill = _hstack_with_tags(bb, p, want_tags=False)
@@ -1329,9 +1638,9 @@ def spmtm(A: PSparseMatrix, B: PSparseMatrix, reuse: bool = False):
             cache.parts[p] = (A_loc, a_fill, AT, tpos, B_loc, b_fill,
                               (C.indptr.copy(), C.indices.copy()))
         C = C.tocoo()
-        I_parts.append(np.concatenate([li_ca.own_to_global, li_ca.ghost_to_global])[C.row])
-        J_parts.append(np.concatenate([li_cb.own_to_global, li_cb.ghost_to_global])[C.col])
-        V_parts.append(C.data.astype(dtype, copy=False))
+        I_parts[p] = np.concatenate([li_ca.own_to_global, li_ca.ghost_to_global])[C.row]
+        J_parts[p] = np.concatenate([li_cb.own_to_global, li_cb.ghost_to_global])[C.col]
+        V_parts[p] = C.data.astype(dtype, copy=False)
     out = psparse(
         I_parts, J_parts, V_parts, PRange([li.remove_ghost() for li in A.col_prange.parts]),
         PRange([li.remove_ghost() for li in B.col_prange.parts]), A.backend, dtype=dtype,
@@ -1491,7 +1800,7 @@ def _col_ghosts(A: PSparseMatrix, x: PVector):
     if x.layout is not clay:
         if x.own.shape[1] != clay.n_own_pad:
             raise ValueError("spmv: x's own parts do not match A's columns")
-        return clay, x.own.new_zeros((clay.n_parts, clay.n_ghost_pad))
+        return clay, x.own.new_zeros((x.own.shape[0], clay.n_ghost_pad))
     return x.layout, x.ghost
 
 
@@ -1517,20 +1826,21 @@ def spmv(
     clay, xg = _col_ghosts(A, x)
     rlay = A.row_layout()
     dev = A.device() if dev is None else dev
+    bk = A.backend
     out = dev.oo.spmv(x.own)
-    g = clay.consistent_plan.apply(x.own, xg, "set") if _has_exchange(clay) else xg
+    g = clay.consistent_plan.apply(x.own, xg, "set", bk) if _has_exchange(clay) else xg
     if _has_exchange(clay):
         out = dev.oh.spmv_add(g, out)
     if not A.assembled and rlay.n_ghost_pad:
         yg = dev.ho.spmv(x.own)
         if clay.n_ghost_pad:
             yg = dev.hh.spmv_add(g, yg)
-        out = rlay.assemble_plan.apply(yg[:, : rlay.n_ghost_pad], out, "add")
+        out = rlay.assemble_plan.apply(yg[:, : rlay.n_ghost_pad], out, "add", bk)
     if not (isinstance(alpha, (int, float)) and alpha == 1.0):
         out = alpha * out
     if y is not None:
         out = out + (1.0 if beta is None else beta) * y.own
-    ghost = out.new_zeros((rlay.n_parts, rlay.n_ghost_pad))
+    ghost = out.new_zeros((out.shape[0], rlay.n_ghost_pad))
     return PVector(out, ghost, rlay, A.backend)
 
 
@@ -1548,12 +1858,12 @@ def spmtv(
     ooT, ohT = A.device_transpose()
     out = ooT.spmv(x.own)
     if ohT is not None and clay.assemble_plan.n_rounds:
-        out = clay.assemble_plan.apply(ohT.spmv(x.own), out, "add")
+        out = clay.assemble_plan.apply(ohT.spmv(x.own), out, "add", A.backend)
     if not (isinstance(alpha, (int, float)) and alpha == 1.0):
         out = alpha * out
     if y is not None:
         out = out + (1.0 if beta is None else beta) * y.own
-    return PVector(out, out.new_zeros((clay.n_parts, clay.n_ghost_pad)), clay, A.backend)
+    return PVector(out, out.new_zeros((out.shape[0], clay.n_ghost_pad)), clay, A.backend)
 
 
 def device_df64(A: PSparseMatrix):
@@ -1590,5 +1900,5 @@ def spmv_df64(A: PSparseMatrix, x_pair) -> Tuple[PVector, PVector]:
         gh = clay.consistent_plan.apply(xh.own, xgh, "set")
         gl = clay.consistent_plan.apply(xl.own, xgl, "set")
         y = df.add(y, block_spmv_df(devh.oh, devl.oh, (gh, gl)))
-    zg = y[0].new_zeros((rlay.n_parts, rlay.n_ghost_pad))
+    zg = y[0].new_zeros((y[0].shape[0], rlay.n_ghost_pad))
     return PVector(y[0], zg, rlay, A.backend), PVector(y[1], zg, rlay, A.backend)

@@ -16,7 +16,11 @@ split-block helpers (:616-632), ``find_local_indices`` (:798),
 (``exchange_plan.repartition_plan``) is built once per pair of partitions.
 The parts are stacked along dim 0:
 ``own[P, n_own_pad]`` and ``ghost[P, n_ghost_pad]``, with padding lanes
-kept at zero so that dots and norms need no mask.
+kept at zero so that dots and norms need no mask.  On a multi-process
+backend (``backends.MeshBackend``) a process holds its own parts only,
+``[P_local, ...]``; the per-part host views (``own_values`` ...) then give
+None for the other processes' parts, ``collect`` gathers the whole vector
+on every process, and the reductions all-reduce.
 
 A df64 vector is a (hi, lo) pair of float32 PVectors on one layout; its
 dots and norms run compensated (``ops/df64.py``).
@@ -28,7 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .backends import SerialBackend
+from .backends import Backend
 from .config import numpy_dtype, torch_dtype
 from .ops import df64 as df
 from .parallel.exchange_plan import VectorLayout, layout_of, repartition_plan
@@ -56,7 +60,7 @@ class PVector:
         own: torch.Tensor,
         ghost: torch.Tensor,
         layout: VectorLayout,
-        backend: SerialBackend,
+        backend: Backend,
     ):
         self.own = own
         self.ghost = ghost
@@ -82,8 +86,8 @@ class PVector:
                            self.backend)
         own, ghost = f(self.own, other), f(self.ghost, other)
         if not keeps_zero:  # a scalar reaches the padding: mask it again
-            own = torch.where(_own_mask(self.layout, own.device), own, 0)
-            ghost = torch.where(_ghost_mask(self.layout, ghost.device), ghost, 0)
+            own = torch.where(_own_mask(self.layout, own.device, self.backend), own, 0)
+            ghost = torch.where(_ghost_mask(self.layout, ghost.device, self.backend), ghost, 0)
         return PVector(own, ghost, self.layout, self.backend)
 
     def __add__(self, o) -> "PVector":
@@ -105,7 +109,8 @@ class PVector:
     def __truediv__(self, o) -> "PVector":
         if isinstance(o, PVector):  # padding lanes: 0 / 1, not 0 / 0
             lay = self.layout
-            mo, mg = _own_mask(lay, self.own.device), _ghost_mask(lay, self.own.device)
+            mo = _own_mask(lay, self.own.device, self.backend)
+            mg = _ghost_mask(lay, self.own.device, self.backend)
             return PVector(torch.where(mo, self.own / torch.where(mo, o.own, 1), 0),
                            torch.where(mg, self.ghost / torch.where(mg, o.ghost, 1), 0),
                            lay, self.backend)
@@ -114,19 +119,20 @@ class PVector:
     def __neg__(self) -> "PVector":
         return PVector(-self.own, -self.ghost, self.layout, self.backend)
 
-    def own_values(self) -> List[np.ndarray]:
-        """Each part's own values, on the host."""
-        own = self.own.cpu().numpy()
-        return [own[p, :n] for p, n in enumerate(self.layout.n_own)]
+    def own_values(self) -> List[Optional[np.ndarray]]:
+        """Each part's own values, on the host (None for a part of another
+        process)."""
+        return _host_parts(self.own, self.layout.n_own, self.backend)
 
-    def ghost_values(self) -> List[np.ndarray]:
-        """Each part's ghost values, on the host."""
-        ghost = self.ghost.cpu().numpy()
-        return [ghost[p, :n] for p, n in enumerate(self.layout.n_ghost)]
+    def ghost_values(self) -> List[Optional[np.ndarray]]:
+        """Each part's ghost values, on the host (None for a part of
+        another process)."""
+        return _host_parts(self.ghost, self.layout.n_ghost, self.backend)
 
-    def local_values(self) -> List[np.ndarray]:
-        """Each part's own and ghost values in its local order, on the host."""
-        return [li._permuted(np.concatenate([o, g]))
+    def local_values(self) -> List[Optional[np.ndarray]]:
+        """Each part's own and ghost values in its local order, on the host
+        (None for a part of another process)."""
+        return [None if o is None else li._permuted(np.concatenate([o, g]))
                 for li, o, g in zip(self.layout.pr.parts, self.own_values(), self.ghost_values())]
 
     def __repr__(self):
@@ -136,15 +142,23 @@ class PVector:
         )
 
 
+def _host_parts(t: torch.Tensor, sizes, backend) -> List[Optional[np.ndarray]]:
+    """Per-part host views of a stacked ``[P_local, n_pad]`` tensor, the
+    first ``sizes[p]`` lanes of each local part, None for the others."""
+    h = t.cpu().numpy()
+    out: List[Optional[np.ndarray]] = [None] * len(sizes)
+    for k, p in enumerate(backend.local_parts()):
+        out[p] = h[k, : sizes[p]]
+    return out
+
+
 def pfill(value, pr: PRange, backend, dtype=torch.float32, device="cuda") -> PVector:
     lay = layout_of(pr)
     dt = torch_dtype(dtype)
-    own = torch.zeros((lay.n_parts, lay.n_own_pad), dtype=dt, device=device)
-    for p, n in enumerate(lay.n_own):
-        own[p, :n] = value
-    ghost = torch.zeros((lay.n_parts, lay.n_ghost_pad), dtype=dt, device=device)
-    for p, n in enumerate(lay.n_ghost):
-        ghost[p, :n] = value
+    own = torch.where(_own_mask(lay, device, backend),
+                      torch.tensor(value, dtype=dt, device=device), 0).to(dt)
+    ghost = torch.where(_ghost_mask(lay, device, backend),
+                        torch.tensor(value, dtype=dt, device=device), 0).to(dt)
     return PVector(own, ghost, lay, backend)
 
 
@@ -159,15 +173,18 @@ def pones(pr: PRange, backend, dtype=torch.float32, device="cuda") -> PVector:
 def pvector_from_own(
     own_parts: Sequence[np.ndarray], pr: PRange, backend, dtype=None, device="cuda"
 ) -> PVector:
-    """Build from per-part own values (host arrays); ghosts start at zero."""
+    """Build from per-part own values (host arrays); ghosts start at zero.
+    On a multi-process backend only the local parts' values are read (the
+    others may be None)."""
     lay = layout_of(pr)
-    parts = [np.asarray(o) for o in own_parts]
+    local = backend.local_parts()
+    parts = [np.asarray(own_parts[p]) for p in local]
     np_dtype = numpy_dtype(dtype if dtype is not None else parts[0].dtype)
-    own = np.zeros((lay.n_parts, lay.n_own_pad), dtype=np_dtype)
-    for p, o in enumerate(parts):
-        own[p, : o.size] = o
+    own = np.zeros((len(local), lay.n_own_pad), dtype=np_dtype)
+    for k, o in enumerate(parts):
+        own[k, : o.size] = o
     dt = torch_dtype(np_dtype)
-    ghost = torch.zeros((lay.n_parts, lay.n_ghost_pad), dtype=dt, device=device)
+    ghost = torch.zeros((len(local), lay.n_ghost_pad), dtype=dt, device=device)
     return PVector(torch.from_numpy(own).to(device), ghost, lay, backend)
 
 
@@ -180,10 +197,11 @@ def _random(draw, generator: torch.Generator, pr: PRange, backend, dtype, device
     zeroed, then made consistent (the ghosts take their owners' values)."""
     lay = layout_of(pr)
     dt = torch_dtype(dtype)
-    own = draw((lay.n_parts, lay.n_own_pad), generator=generator, dtype=dt,
+    n = len(backend.local_parts())
+    own = draw((n, lay.n_own_pad), generator=generator, dtype=dt,
                device=generator.device).to(device)
-    own = torch.where(_own_mask(lay, own.device), own, torch.zeros_like(own))
-    ghost = torch.zeros((lay.n_parts, lay.n_ghost_pad), dtype=dt, device=device)
+    own = torch.where(_own_mask(lay, own.device, backend), own, torch.zeros_like(own))
+    ghost = torch.zeros((n, lay.n_ghost_pad), dtype=dt, device=device)
     return consistent(PVector(own, ghost, lay, backend)).wait()
 
 
@@ -203,27 +221,37 @@ def prandn(generator: torch.Generator, pr: PRange, backend, dtype=torch.float32,
 def pvector_local(I_parts, V_parts, rows, backend, dtype=None, device="cuda") -> PVector:
     """The disassembled COO vector assembled on the row partition (no new
     ghosts): every part's (global id, value) contributions summed on their
-    owners, each owner adding the parts' contributions in part order.
-    Every part's contributions must be given: on the serial backend all
-    parts are this process's (a ``None`` part is the per-process form)."""
+    owners, each owner adding the parts' contributions in part order.  A
+    process gives the contributions of its own parts only (the others may
+    be None); those whose owner lives in another process travel as host
+    messages (``parallel/host_exchange.py``), the rest stay in the
+    process."""
+    from .parallel.host_exchange import exchange_part_messages
+
     pr = rows if isinstance(rows, PRange) else PRange(list(rows))
-    if any(I is None for I in I_parts) or any(V is None for V in V_parts):
-        raise NotImplementedError(
-            "pvector_local with parts of other processes: ROADMAP Queue 1 item 15")
-    np_dtype = numpy_dtype(np.asarray(V_parts[0]).dtype if dtype is None else dtype)
+    P = pr.n_parts
+    local = backend.local_parts()
+    if any(I_parts[p] is None or V_parts[p] is None for p in local):
+        raise ValueError("pvector_local: a local part's contributions are missing")
+    np_dtype = numpy_dtype(np.asarray(V_parts[local[0]]).dtype if dtype is None else dtype)
     lay = layout_of(pr)
-    I_parts = [np.asarray(I, dtype=INT) for I in I_parts]
-    owners = find_owner(pr.parts, I_parts)
-    own = np.zeros((lay.n_parts, lay.n_own_pad), dtype=np_dtype)
-    for I, V, o in zip(I_parts, V_parts, owners):
-        V = np.asarray(V, dtype=np_dtype)
+    msgs = {}
+    for p in local:
+        I = np.asarray(I_parts[p], dtype=INT)
+        V = np.asarray(V_parts[p], dtype=np_dtype)
+        o = find_owner(pr.parts, [I])[0]
         order = np.argsort(o, kind="stable")
-        bounds = np.searchsorted(o[order], np.arange(lay.n_parts + 1))
-        for d in range(lay.n_parts):
+        bounds = np.searchsorted(o[order], np.arange(P + 1))
+        for d in range(P):
             seg = order[bounds[d]:bounds[d + 1]]
             if seg.size:
-                np.add.at(own[d], pr.parts[d].global_to_own(I[seg]), V[seg])
-    ghost = torch.zeros((lay.n_parts, lay.n_ghost_pad), dtype=torch_dtype(np_dtype),
+                msgs[(p, d)] = (I[seg], V[seg])
+    got = exchange_part_messages(backend, P, msgs, (INT, np_dtype))
+    own = np.zeros((len(local), lay.n_own_pad), dtype=np_dtype)
+    for (src, d) in sorted(got, key=lambda k: (k[1], k[0])):
+        gid, val = got[(src, d)]
+        np.add.at(own[d - local[0]], pr.parts[d].global_to_own(gid), val)
+    ghost = torch.zeros((len(local), lay.n_ghost_pad), dtype=torch_dtype(np_dtype),
                         device=device)
     return PVector(torch.from_numpy(own).to(device), ghost, lay, backend)
 
@@ -232,13 +260,15 @@ def pvector_from_local(local_parts: Sequence[np.ndarray], pr: PRange, backend,
                        device="cuda") -> PVector:
     """Build from per-part local values (own and ghost, in local order)."""
     lay = layout_of(pr)
-    parts = [np.asarray(lv) for lv in local_parts]
-    dt = np.result_type(*[lv.dtype for lv in parts])
-    own = np.zeros((lay.n_parts, lay.n_own_pad), dtype=dt)
-    ghost = np.zeros((lay.n_parts, lay.n_ghost_pad), dtype=dt)
-    for p, (li, lv) in enumerate(zip(pr.parts, parts)):
-        own[p, : li.n_own] = lv[li.own_to_local()]
-        ghost[p, : li.n_ghost] = lv[li.ghost_to_local()]
+    local = backend.local_parts()
+    parts = {p: np.asarray(local_parts[p]) for p in local}
+    dt = np.result_type(*[lv.dtype for lv in parts.values()])
+    own = np.zeros((len(local), lay.n_own_pad), dtype=dt)
+    ghost = np.zeros((len(local), lay.n_ghost_pad), dtype=dt)
+    for k, p in enumerate(local):
+        li, lv = pr.parts[p], parts[p]
+        own[k, : li.n_own] = lv[li.own_to_local()]
+        ghost[k, : li.n_ghost] = lv[li.ghost_to_local()]
     return PVector(torch.from_numpy(own).to(device), torch.from_numpy(ghost).to(device), lay,
                    backend)
 
@@ -258,8 +288,8 @@ def pvector_from_split_blocks(own: torch.Tensor, ghost: torch.Tensor, pr: PRange
     """Adopt stacked ``own[P, n_own_pad]`` and ``ghost[P, n_ghost_pad]``
     tensors as a vector on ``pr``."""
     lay = layout_of(pr)
-    if tuple(own.shape) != (lay.n_parts, lay.n_own_pad) or tuple(ghost.shape) != (
-            lay.n_parts, lay.n_ghost_pad):
+    n = len(backend.local_parts())
+    if tuple(own.shape) != (n, lay.n_own_pad) or tuple(ghost.shape) != (n, lay.n_ghost_pad):
         raise ValueError(f"blocks {tuple(own.shape)}, {tuple(ghost.shape)} for {lay}")
     return PVector(own, ghost, lay, backend)
 
@@ -309,9 +339,9 @@ def repartition(x: PVector, new_rows: PRange, backend=None) -> PVector:
     if plan is None:
         plan = pr_from._repartition_plans[new_rows] = repartition_plan(pr_from, new_rows)
     lay = layout_of(new_rows)
-    own = x.own.new_zeros((lay.n_parts, lay.n_own_pad))
-    own = plan.apply(x.own, own, "set")
-    ghost = x.own.new_zeros((lay.n_parts, lay.n_ghost_pad))
+    n = x.own.shape[0]
+    own = plan.apply(x.own, x.own.new_zeros((n, lay.n_own_pad)), "set", x.backend)
+    ghost = x.own.new_zeros((n, lay.n_ghost_pad))
     return PVector(own, ghost, lay, backend or x.backend)
 
 
@@ -396,7 +426,7 @@ def consistent(v: PVector) -> Task:
     lay = v.layout
     if lay.n_ghost_pad == 0 or lay.consistent_plan.n_rounds == 0:
         return Task(v)
-    ghost = lay.consistent_plan.apply(v.own, v.ghost, "set")
+    ghost = lay.consistent_plan.apply(v.own, v.ghost, "set", v.backend)
     return Task(PVector(v.own, ghost, lay, v.backend))
 
 
@@ -406,28 +436,39 @@ def assemble(v: PVector) -> Task:
     lay = v.layout
     if lay.n_ghost_pad == 0 or lay.assemble_plan.n_rounds == 0:
         return Task(v)
-    own = lay.assemble_plan.apply(v.ghost, v.own, "add")
+    own = lay.assemble_plan.apply(v.ghost, v.own, "add", v.backend)
     return Task(PVector(own, torch.zeros_like(v.ghost), lay, v.backend))
 
 
 def collect(x: PVector) -> np.ndarray:
-    """The whole vector on the host, in global order."""
-    own = x.own.cpu().numpy()
-    out = np.zeros(x.n_global, dtype=own.dtype)
-    for p, li in enumerate(x.layout.pr.parts):
-        out[li.own_to_global] = own[p, : li.n_own]
+    """The whole vector on the host, in global order (on several processes
+    the own values are all-gathered: COLLECTIVE)."""
+    from .parallel.host_exchange import allgather_part_arrays
+
+    own = x.own_values()
+    if x.backend.is_multiprocess:
+        own = allgather_part_arrays(
+            x.backend, x.layout.n_parts,
+            {p: v for p, v in enumerate(own) if v is not None}, numpy_dtype(x.dtype))
+    out = np.zeros(x.n_global, dtype=numpy_dtype(x.dtype))
+    for li, vals in zip(x.layout.pr.parts, own):
+        out[li.own_to_global] = vals
     return out
 
 
-def _own_mask(layout: VectorLayout, device) -> torch.Tensor:
-    """[P, n_own_pad] True on the own lanes, False on the padding."""
-    n = torch.as_tensor(layout.n_own, device=device)
+def _own_mask(layout: VectorLayout, device, backend=None) -> torch.Tensor:
+    """[P_local, n_own_pad] True on the own lanes, False on the padding
+    (every part's without a backend)."""
+    n = layout.n_own if backend is None else layout.n_own[backend.part_slice]
+    n = torch.as_tensor(n, device=device)
     return torch.arange(layout.n_own_pad, device=device)[None, :] < n[:, None]
 
 
-def _ghost_mask(layout: VectorLayout, device) -> torch.Tensor:
-    """[P, n_ghost_pad] True on the ghost lanes, False on the padding."""
-    n = torch.as_tensor(layout.n_ghost, device=device)
+def _ghost_mask(layout: VectorLayout, device, backend=None) -> torch.Tensor:
+    """[P_local, n_ghost_pad] True on the ghost lanes, False on the padding
+    (every part's without a backend)."""
+    n = layout.n_ghost if backend is None else layout.n_ghost[backend.part_slice]
+    n = torch.as_tensor(n, device=device)
     return torch.arange(layout.n_ghost_pad, device=device)[None, :] < n[:, None]
 
 
@@ -448,25 +489,29 @@ def axpy(a, x: PVector, y: PVector) -> PVector:
 # -- reductions and distances over own values (0-d tensors on the device) ---
 
 def psum_reduce(x: PVector) -> torch.Tensor:
-    return x.own.sum()
+    return x.backend.allreduce(x.own.sum())
 
 
 def pmaximum(x: PVector) -> torch.Tensor:
-    m = _own_mask(x.layout, x.own.device)
-    return torch.where(m, x.own, torch.full_like(x.own, -torch.inf)).max()
+    m = _own_mask(x.layout, x.own.device, x.backend)
+    return x.backend.allreduce(
+        torch.where(m, x.own, torch.full_like(x.own, -torch.inf)).max(), "max")
 
 
 def pminimum(x: PVector) -> torch.Tensor:
-    m = _own_mask(x.layout, x.own.device)
-    return torch.where(m, x.own, torch.full_like(x.own, torch.inf)).min()
+    m = _own_mask(x.layout, x.own.device, x.backend)
+    return x.backend.allreduce(
+        torch.where(m, x.own, torch.full_like(x.own, torch.inf)).min(), "min")
 
 
 def pany(x: PVector, pred=lambda v: v != 0) -> bool:
-    return bool((_own_mask(x.layout, x.own.device) & pred(x.own)).any())
+    hit = (_own_mask(x.layout, x.own.device, x.backend) & pred(x.own)).any()
+    return bool(x.backend.allreduce(hit.to(torch.int32), "max"))
 
 
 def pall(x: PVector, pred=lambda v: v != 0) -> bool:
-    return bool((~_own_mask(x.layout, x.own.device) | pred(x.own)).all())
+    ok = (~_own_mask(x.layout, x.own.device, x.backend) | pred(x.own)).all()
+    return bool(x.backend.allreduce(ok.to(torch.int32), "min"))
 
 
 def peuclidean(x: PVector, y: PVector) -> torch.Tensor:
@@ -475,15 +520,15 @@ def peuclidean(x: PVector, y: PVector) -> torch.Tensor:
 
 def psqeuclidean(x: PVector, y: PVector) -> torch.Tensor:
     d = x.own - y.own
-    return (d * d).sum()
+    return x.backend.allreduce((d * d).sum())
 
 
 def pcityblock(x: PVector, y: PVector) -> torch.Tensor:
-    return (x.own - y.own).abs().sum()
+    return x.backend.allreduce((x.own - y.own).abs().sum())
 
 
 def pchebyshev(x: PVector, y: PVector) -> torch.Tensor:
-    return (x.own - y.own).abs().max()
+    return x.backend.allreduce((x.own - y.own).abs().max(), "max")
 
 
 def pdistance(x: PVector, y: PVector, eval_op, reduce: str = "sum", eval_end=None):
@@ -494,8 +539,10 @@ def pdistance(x: PVector, y: PVector, eval_op, reduce: str = "sum", eval_end=Non
     if fill is None:
         raise ValueError(f"reduce must be sum/max/min, got {reduce!r}")
     vals = eval_op(x.own, y.own)
-    vals = torch.where(_own_mask(x.layout, vals.device), vals, torch.full_like(vals, fill))
-    s = {"sum": torch.sum, "max": torch.max, "min": torch.min}[reduce](vals)
+    vals = torch.where(_own_mask(x.layout, vals.device, x.backend), vals,
+                       torch.full_like(vals, fill))
+    s = x.backend.allreduce({"sum": torch.sum, "max": torch.max, "min": torch.min}[reduce](vals),
+                            reduce)
     return eval_end(s) if eval_end is not None else s
 
 
@@ -506,7 +553,7 @@ DFPair = Tuple[PVector, PVector]
 
 def _pair_on(hi: torch.Tensor, lo: torch.Tensor, layout: VectorLayout, backend) -> DFPair:
     """(hi, lo) own words -> a pair of PVectors with zero float32 ghosts."""
-    zg = hi.new_zeros((layout.n_parts, layout.n_ghost_pad))
+    zg = hi.new_zeros((hi.shape[0], layout.n_ghost_pad))
     return PVector(hi, zg, layout, backend), PVector(lo, zg, layout, backend)
 
 
@@ -516,10 +563,11 @@ def pvector_df64(
     """(hi, lo) PVector pair from per-part float64 own values (exact split,
     on ``device``)."""
     lay = layout_of(pr)
-    own = np.zeros((lay.n_parts, lay.n_own_pad), dtype=np.float64)
-    for p, o in enumerate(own_f64_parts):
-        o = np.asarray(o, dtype=np.float64)
-        own[p, : o.size] = o
+    local = backend.local_parts()
+    own = np.zeros((len(local), lay.n_own_pad), dtype=np.float64)
+    for k, p in enumerate(local):
+        o = np.asarray(own_f64_parts[p], dtype=np.float64)
+        own[k, : o.size] = o
     hi, lo = df.from_f64(torch.from_numpy(own).to(device))
     return _pair_on(hi, lo, lay, backend)
 

@@ -8,10 +8,8 @@ per-aggregate nullspace QR (:249-340), ``_diag_parts`` and ``_dinv_parts``
 (:343-385), the host power method ``spectral_radius`` (:388-429), ``_make_S``
 and ``smoothed_prolongator`` (:494-545), ``_GalerkinCache`` with its
 reuse plans (:548-664), ``AMGLevel``, ``AMGParams`` and
-``AMGPreconditioner`` (``_setup`` with the box levels' ``struct`` and the
-Schwarz level smoother :717-805, without the reference's
-``reuse_aggregates``, whose one caller is the re-setup of per-process
-matrices, ROADMAP Queue 1 item 15;
+``AMGPreconditioner`` (``_setup`` with ``reuse_aggregates``, the box
+levels' ``struct`` and the Schwarz level smoother :717-805;
 ``_coarse_factorize``, ``update`` :905-942, ``_coarse_solve``, the
 structured transfers :991-1062, the flat
 cycle :1064-1181 and the dispatch of ``_cycle`` :1184-1226 for V and W
@@ -41,9 +39,9 @@ Galerkin products are the distributed ``spmm``/``spmtm``, the restriction
 a box level with ghost columns takes the ghosted flat cycle
 (``_cycle_flat_g``: the frozen ghost contribution folded into the core
 rhs).  Per-part boxes of unequal shape fall back to generic aggregation,
-as in the reference.  Where the reference takes another branch, the port
-raises ``NotImplementedError`` naming the ROADMAP item, never silently
-taking a different one: per-process matrices (item 15).
+as in the reference.  On a multi-process backend each process aggregates
+and multiplies its own parts (the counts and the products' messages
+cross processes), and the coarsest operator is gathered on every process.
 
 ``update(A)`` re-coarsens for new values of A at the setup's sparsity:
 each level's P, AP and Ac are refilled through its ``_GalerkinCache`` (at
@@ -72,6 +70,8 @@ from ..parallel.primitives import host_consistent
 from ..psparse import (
     PSparseMatrix,
     _canonicalize_blocks,
+    _data_parts,
+    _is_local_only,
     gather_global_scipy,
     host_blocks,
     psparse,
@@ -189,12 +189,22 @@ def aggregate_psparse(A: PSparseMatrix, epsilon: float = 0.0, block_size: int = 
     ``block_size`` > 1 on the node strength graph, every dof taking its
     node's aggregate.  Returns (aggregate ids per dof per part, coarse
     PRange of the aggregates)."""
-    aggs = []
-    for b in host_blocks(A):
+    P = A.row_prange.n_parts
+    aggs = [None] * P
+    for p in _data_parts(A):
+        b = host_blocks(A)[p]
         node_agg = aggregate(strength_graph(b["oo"], block_size), epsilon)
-        aggs.append(node_agg if block_size == 1 else np.repeat(node_agg, block_size)[: b["oo"].shape[0]])
-    counts = [int(a.max()) + 1 if a.size else 0 for a in aggs]
+        aggs[p] = node_agg if block_size == 1 else np.repeat(node_agg, block_size)[: b["oo"].shape[0]]
+    counts = _part_counts(A, [int(a.max()) + 1 if a is not None and a.size else 0 for a in aggs])
     return aggs, PRange(variable_partition(counts))
+
+
+def _part_counts(A: PSparseMatrix, counts) -> List[int]:
+    """Per-part counts known on each part's process, made known to all
+    (summed: a part's count is zero elsewhere)."""
+    if not A.backend.is_multiprocess:
+        return list(counts)
+    return [int(c) for c in np.sum(A.backend.allgather_object(np.asarray(counts)), axis=0)]
 
 
 def _detect_box(offsets, n_own: int):
@@ -254,9 +264,9 @@ def box_aggregate_psparse(A: PSparseMatrix):
 def constant_prolongator(A: PSparseMatrix, aggs: List[np.ndarray], coarse: PRange) -> PSparseMatrix:
     """Piecewise-constant P0: row i has a 1 in the column of its aggregate."""
     fine_parts = A.row_prange.parts
-    I = [li.own_to_global for li in fine_parts]
-    J = [cp.own_to_global[a] for cp, a in zip(coarse.parts, aggs)]
-    V = [np.ones(a.size, dtype=_host_dtype(A)) for a in aggs]
+    I = [li.own_to_global if a is not None else None for li, a in zip(fine_parts, aggs)]
+    J = [cp.own_to_global[a] if a is not None else None for cp, a in zip(coarse.parts, aggs)]
+    V = [np.ones(a.size, dtype=_host_dtype(A)) if a is not None else None for a in aggs]
     fine_rows = PRange([li.remove_ghost() for li in fine_parts])
     return psparse(I, J, V, fine_rows, coarse, A.backend, assembled=True, device=A.torch_device)
 
@@ -268,11 +278,16 @@ def tentative_prolongator(A: PSparseMatrix, aggs, coarse: PRange, nullspace=None
     if nullspace is None:
         return constant_prolongator(A, aggs, coarse), None, coarse
     n_modes = len(next(m for m in nullspace if m is not None))
-    counts = [int(a.max() + 1) * n_modes if a.size else 0 for a in aggs]
+    counts = _part_counts(A, [int(a.max() + 1) * n_modes if a is not None and a.size else 0
+                              for a in aggs])
     coarse_dofs = PRange(variable_partition(counts))
     tri = []
     coarse_ns = []
     for li_f, li_cd, a, modes in zip(A.row_prange.parts, coarse_dofs.parts, aggs, nullspace):
+        if a is None:  # a part of another process
+            tri.append((None, None, None))
+            coarse_ns.append(None)
+            continue
         n_agg = int(a.max() + 1) if a.size else 0
         B = np.stack(modes, axis=1) if modes else np.zeros((a.size, 0))
         Is, Js, Vs = [], [], []
@@ -303,7 +318,8 @@ def tentative_prolongator(A: PSparseMatrix, aggs, coarse: PRange, nullspace=None
 
 
 def _diag_parts(A: PSparseMatrix) -> List[np.ndarray]:
-    """Per-part diagonal of the own-own block, matched by global ids."""
+    """Per-part diagonal of the own-own block, matched by global ids (zero
+    on a part of another process)."""
     out = []
     for b, li_r, li_c in zip(host_blocks(A), A.row_prange.parts, A.col_prange.parts):
         d = np.zeros(li_r.n_own, dtype=b["oo"].dtype)
@@ -322,9 +338,11 @@ def _box_dinv(A: PSparseMatrix) -> torch.Tensor:
     """A's inverse diagonal ``[P, n_own_pad]`` in its device dtype on its
     device (a box level's ``BoxTransfer.dinv``)."""
     lay = A.row_layout()
-    dinv = torch.zeros((lay.n_parts, lay.n_own_pad), dtype=torch.float64)
-    for p, d in enumerate(_dinv_parts(A)):
-        dinv[p, : d.size] = torch.from_numpy(d)
+    local = A.backend.local_parts()
+    dinv = torch.zeros((len(local), lay.n_own_pad), dtype=torch.float64)
+    parts = _dinv_parts(A)
+    for k, p in enumerate(local):
+        dinv[k, : parts[p].size] = torch.from_numpy(parts[p])
     return dinv.to(A.torch_device, A.dtype)
 
 
@@ -336,17 +354,25 @@ def spectral_radius(A: PSparseMatrix, Dinv=None, iters: int = 20) -> float:
     parts = A.row_prange.parts
     dinv = _dinv_parts(A) if Dinv is None else [np.asarray(d) for d in Dinv]
     blocks = host_blocks(A)
+    data = set(_data_parts(A))
     rng = np.random.default_rng(0)
     x = [rng.standard_normal(li.n_own) for li in parts]
     lam = 1.0
+
+    def norm(vs):
+        sq = sum(float(v @ v) for p, v in enumerate(vs) if p in data)
+        if A.backend.is_multiprocess:
+            sq = float(sum(A.backend.allgather_object(sq)))
+        return np.sqrt(sq)
+
     for _ in range(iters):
-        xg = host_consistent(A.col_prange, x)
+        xg = host_consistent(A.col_prange, x, A.backend)
         y = [
-            dv * (b["oo"] @ xo + (b["oh"] @ g if g.size else 0.0))
-            for b, xo, g, dv in zip(blocks, x, xg, dinv)
+            dv * (b["oo"] @ xo + (b["oh"] @ g if g.size else 0.0)) if p in data
+            else np.zeros_like(xo)
+            for p, (b, xo, g, dv) in enumerate(zip(blocks, x, xg, dinv))
         ]
-        ny = np.sqrt(sum(float(v @ v) for v in y))
-        nx = np.sqrt(sum(float(v @ v) for v in x))
+        ny, nx = norm(y), norm(x)
         if ny == 0:
             return 1.0
         lam = ny / nx if nx else 1.0
@@ -359,17 +385,24 @@ def _make_S(A: PSparseMatrix, omega: float, dinv) -> PSparseMatrix:
     are stored zeros, and rows with a zero diagonal, are pruned by the
     scaling product, as in the reference)."""
     dtype = _host_dtype(A)
+    data = set(_data_parts(A))
     s_blocks = []
-    for b, dv, li_r, li_c in zip(host_blocks(A), dinv, A.row_prange.parts, A.col_prange.parts):
+    for p, (b, dv, li_r, li_c) in enumerate(zip(host_blocks(A), dinv, A.row_prange.parts,
+                                                A.col_prange.parts)):
+        if p not in data:  # a part of another process: placeholders
+            s_blocks.append({k: sp.csr_matrix(b[k].shape, dtype=dtype) for k in ("oo", "oh")})
+            continue
         scale = sp.diags(omega * dv)
         jco = li_c.global_to_own(li_r.own_to_global)
         rows = np.flatnonzero(jco >= 0)
         D = sp.csr_matrix((np.ones(rows.size, dtype=dtype), (rows, jco[rows])), shape=b["oo"].shape)
         s_blocks.append({"oo": (D - scale @ b["oo"]).tocsr(), "oh": (-(scale @ b["oh"])).tocsr()})
-    return PSparseMatrix(
+    S = PSparseMatrix(
         None, A.row_prange, A.col_prange, A.backend, blocks=s_blocks,
         device=A.torch_device, device_dtype=A.dtype,
     )
+    S._local_only = _is_local_only(A)
+    return S
 
 
 def smoothed_prolongator(A: PSparseMatrix, P0: PSparseMatrix, omega: Optional[float] = None,
@@ -400,10 +433,14 @@ class _GalerkinCache:
         self.P0 = P0
         self.omega = float(omega)
         dtype = _host_dtype(A)
-        s_blocks, self._s_maps = [], []
-        for ab, dv, li_r, li_c in zip(host_blocks(A), _dinv_parts(A), A.row_prange.parts,
-                                      A.col_prange.parts):
+        s_blocks, self._s_maps = [], {}
+        data = set(_data_parts(A))
+        for p, (ab, dv, li_r, li_c) in enumerate(zip(host_blocks(A), _dinv_parts(A),
+                                                     A.row_prange.parts, A.col_prange.parts)):
             a_oo, a_oh = ab["oo"], ab["oh"]
+            if p not in data:  # a part of another process: placeholders
+                s_blocks.append({k: sp.csr_matrix(ab[k].shape, dtype=dtype) for k in ("oo", "oh")})
+                continue
             jco = li_c.global_to_own(li_r.own_to_global)
             drows = np.flatnonzero(jco >= 0)
             coo = a_oo.tocoo()
@@ -422,11 +459,12 @@ class _GalerkinCache:
             diag_pos = precompute_nzindex(s_oo, drows, jco[drows])
             if (map_a < 0).any() or (diag_pos < 0).any():
                 raise AssertionError("S misses an entry of A or of the identity")
-            self._s_maps.append((map_a, coo.row.astype(np.int64), diag_pos, rows_oh))
+            self._s_maps[p] = (map_a, coo.row.astype(np.int64), diag_pos, rows_oh)
         self.S = PSparseMatrix(
             None, A.row_prange, A.col_prange, A.backend, blocks=s_blocks,
             device=A.torch_device, device_dtype=A.dtype,
         )
+        self.S._local_only = _is_local_only(A)
         self.P, self._cP = spmm(self.S, P0, reuse=True)
         self.AP, self._c1 = spmm(A, self.P, reuse=True)
         self.Ac, self._c2 = spmtm(self.P, self.AP, reuse=True)
@@ -435,8 +473,9 @@ class _GalerkinCache:
         """S from A's new values, then P, AP and Ac through their frozen
         plans; returns the refilled coarse operator."""
         _canonicalize_blocks(A)
-        for sb, ab, dv, (map_a, rows_a, diag_pos, rows_oh) in zip(
-                self.S.blocks, host_blocks(A), _dinv_parts(A), self._s_maps):
+        dinv = _dinv_parts(A)
+        for p, (map_a, rows_a, diag_pos, rows_oh) in self._s_maps.items():
+            sb, ab, dv = self.S.blocks[p], host_blocks(A)[p], dinv[p]
             soo = sb["oo"].data
             soo[:] = 0
             soo[map_a] = -self.omega * dv[rows_a] * ab["oo"].data
@@ -493,38 +532,48 @@ class AMGPreconditioner:
     def __init__(self, A: PSparseMatrix, params: Optional[AMGParams] = None, nullspace=None):
         self.params = params or AMGParams()
         self.nullspace = nullspace
-        self._setup(A)
+        self._setup(A, reuse_aggregates=False)
 
     @property
     def aggregates(self):
         """(aggregates per part, coarse PRange) of every coarsened level."""
-        return list(self._aggs)
+        return [(aggs, coarse) for aggs, coarse, _ in self._aggs]
 
-    def _setup(self, A: PSparseMatrix) -> None:
-        """The hierarchy from A."""
+    def _setup(self, A: PSparseMatrix, reuse_aggregates: bool = False) -> None:
+        """The hierarchy from A.  ``reuse_aggregates``: a new setup on the
+        aggregates of the last one (no aggregation; the power method, the
+        products and the smoothers run anew), for a matrix of another
+        sparsity on the same partition, where ``update``'s refill does not
+        apply."""
         params = self.params
         if params.smoother not in ("gs", "schwarz"):
             raise ValueError(f"AMG smoother {params.smoother!r}: 'gs' or 'schwarz'")
+        old_aggs = self._aggs if reuse_aggregates else None
         self.levels: List[AMGLevel] = []
         self._galerkin: List[_GalerkinCache] = []
-        self._aggs = []  # (aggregates, coarse PRange) per level
+        self._aggs = []  # (aggregates, coarse PRange, box shapes) per level
         self.omegas = []
         current = A
         ns = self.nullspace
         bs = params.block_size if ns is not None else 1
-        for _ in range(params.max_levels - 1):
+        for level in range(params.max_levels - 1):
             if current.shape[0] <= params.coarse_size:
                 break
-            box = (
-                box_aggregate_psparse(current)
-                if params.epsilon == 0 and bs == 1 and ns is None
-                else None
-            )
-            if box is not None:
-                aggs, coarse, shapes = box
+            if old_aggs is not None:
+                if level >= len(old_aggs):
+                    break
+                aggs, coarse, shapes = old_aggs[level]
             else:
-                (aggs, coarse), shapes = aggregate_psparse(current, params.epsilon, bs), None
-            self._aggs.append((aggs, coarse))
+                box = (
+                    box_aggregate_psparse(current)
+                    if params.epsilon == 0 and bs == 1 and ns is None
+                    else None
+                )
+                if box is not None:
+                    aggs, coarse, shapes = box
+                else:
+                    (aggs, coarse), shapes = aggregate_psparse(current, params.epsilon, bs), None
+            self._aggs.append((aggs, coarse, shapes))
             P0, ns, _ = tentative_prolongator(current, aggs, coarse, ns)
             # the coarse level has n_modes dofs per aggregate
             bs = len(next(m for m in ns if m is not None)) if ns is not None else 1
@@ -619,8 +668,9 @@ class AMGPreconditioner:
             )
         lay = current.row_layout()
         flat, gids = [], []
-        for p, li in enumerate(current.row_prange.parts):
-            flat.append(p * lay.n_own_pad + np.arange(li.n_own))
+        for k, p in enumerate(current.backend.local_parts()):
+            li = current.row_prange.parts[p]
+            flat.append(k * lay.n_own_pad + np.arange(li.n_own))
             gids.append(li.own_to_global)
         self._coarse_slots = torch.from_numpy(np.concatenate(flat)).to(dev)
         self._coarse_gids = torch.from_numpy(np.concatenate(gids)).to(dev)
@@ -631,6 +681,7 @@ class AMGPreconditioner:
         n = b.layout.pr.n_global
         flat = b.own.new_zeros(n)
         flat[self._coarse_gids] = b.own.reshape(-1)[self._coarse_slots]
+        flat = b.backend.allreduce(flat)  # the other processes' parts
         if self.coarse_kind == "inv":
             z = self._coarse[0].to(b.own.dtype) @ flat
         else:

@@ -86,8 +86,9 @@ def _wave_schedule(adj, nt: int, B: int, topo: bool = False) -> List[List[int]]:
 
 
 class NaturalTileGS:
-    """Sweep state of one matrix: ``schedules[p]`` (part p's forward waves,
-    tile ids), ``W`` waves of at most ``B`` tiles, ``n_real_tiles`` tiles of
+    """Sweep state of one matrix: ``schedules[k]`` (the k-th local part's
+    forward waves, tile ids), ``W`` waves of at most ``B`` tiles (agreed by
+    every process of a multi-process backend), ``n_real_tiles`` tiles of
     ``TILE`` rows (``Rp`` rows with padding), and the device operands of K6
     (``pack`` with one plane per tile for each of ``directions``, ``rows``,
     ``cols``, ``vals``, ``tile_ptr``, ``wave_tiles``, and the off-tile
@@ -116,9 +117,10 @@ class NaturalTileGS:
         """The structure half: the tiles, their wave schedule (``topo``:
         the level schedule), the off-tile compressed rows and K6's tables,
         from the sparsity of A's own-own blocks only."""
-        from ..psparse import host_blocks
+        from ..psparse import _agree_max_i32, host_blocks
 
-        blocks = host_blocks(A)
+        local = A.backend.local_parts()
+        blocks = [host_blocks(A)[p] for p in local]
         lay = A.row_layout()
         Rp = _round_up(lay.n_own_pad, TILE)
         nt = Rp // TILE
@@ -151,6 +153,9 @@ class NaturalTileGS:
         # shrink B to the largest wave: on densely coupled tile graphs the
         # waves degenerate toward single tiles
         B = max(max((len(w) for s in schedules for w in s), default=1), 1)
+        # every process launches K6 with the same wave count and cluster
+        # width (the reference's agreed dims, gs_slot.py:290)
+        W, B = (int(v) for v in _agree_max_i32(A.backend, [W, B]))
         rows, cols, src = stack_rows(off_src, Rp)
         tile_ptr = np.zeros((P, nt + 1), dtype=np.int32)
         wave_tiles = np.full((P, W, B), -1, dtype=np.int32)
@@ -180,7 +185,7 @@ class NaturalTileGS:
         planned; the schedule and the tables are kept."""
         from ..psparse import host_blocks
 
-        blocks = host_blocks(A)
+        blocks = [host_blocks(A)[p] for p in A.backend.local_parts()]
         P, nt = len(blocks), self.n_real_tiles
         datas = [b["oo"].tocoo().data for b in blocks]
         dtype = datas[0].dtype

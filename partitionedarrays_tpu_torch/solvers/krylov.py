@@ -211,14 +211,14 @@ def _as_col_vector(A: PSparseMatrix, v: PVector) -> PVector:
     clay = A.col_layout()
     if v.layout is clay:
         return v
-    return PVector(v.own, v.own.new_zeros((clay.n_parts, clay.n_ghost_pad)), clay, v.backend)
+    return PVector(v.own, v.own.new_zeros((v.own.shape[0], clay.n_ghost_pad)), clay, v.backend)
 
 
 def _as_row_vector(A: PSparseMatrix, v: PVector) -> PVector:
     rlay = A.row_layout()
     if v.layout is rlay:
         return v
-    return PVector(v.own, v.own.new_zeros((rlay.n_parts, rlay.n_ghost_pad)), rlay, v.backend)
+    return PVector(v.own, v.own.new_zeros((v.own.shape[0], rlay.n_ghost_pad)), rlay, v.backend)
 
 
 def _residual(A: PSparseMatrix, b: PVector, x: PVector) -> PVector:

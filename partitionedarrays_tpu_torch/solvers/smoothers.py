@@ -184,7 +184,7 @@ class GaussSeidel:
         A = self.A
         clay = A.col_layout()
         g = clay.consistent_plan.apply(
-            x_own, x_own.new_zeros((clay.n_parts, clay.n_ghost_pad)), "set"
+            x_own, x_own.new_zeros((x_own.shape[0], clay.n_ghost_pad)), "set", A.backend
         )
         return A.device().oh.spmv(g)
 
@@ -273,10 +273,11 @@ class AdditiveSchwarz:
     - "auto": dense up to ``_DENSE_MAX`` padded rows a part, else ilu0;
     - a ``local_solver`` callable r -> z replaces both ("custom").
 
-    A per-process matrix's placeholder parts (identity dense factors, zero
-    ILU factors in the reference) do not arise: the port's parts are all
-    real (ROADMAP Queue 1 item 15); a part with no rows keeps identity
-    padding in both tiers.  The reference falls back from ilu0 to dense
+    On a multi-process backend a process factors its own parts only; the
+    other processes' placeholder parts get no factors (the reference's
+    identity dense factors and zero ILU factors: ``_ilu0_factors`` keeps
+    empty placeholder blocks, which ``NaturalTileGS`` never reads).  A part
+    with no rows keeps identity padding in both tiers.  The reference falls back from ilu0 to dense
     when its VMEM gates decline the factors on the slot engine
     (smoothers.py:717-727); the port has no such gates, so ilu0 always
     builds."""
@@ -319,7 +320,7 @@ class AdditiveSchwarz:
         """The batched LU factors of the own-own blocks, each embedded in
         the identity of ``n_own_pad`` rows, on A's device in A's dtype."""
         n = A.row_layout().n_own_pad
-        blocks = host_blocks(A)
+        blocks = [host_blocks(A)[p] for p in A.backend.local_parts()]
         mats = np.zeros((len(blocks), n, n), dtype=blocks[0]["oo"].dtype)
         mats[:] = np.eye(n, dtype=mats.dtype)
         for d, b in zip(mats, blocks):
@@ -333,10 +334,14 @@ class AdditiveSchwarz:
         on A's row partition), host values in A's host dtype, frozen in
         A's device dtype."""
         Lb, Ub = [], []
-        for b in host_blocks(A):
+        local = set(A.backend.local_parts())
+        for p, b in enumerate(host_blocks(A)):
             oo = b["oo"]
-            L, U = ilu0(oo)
             none = sp.csr_matrix((oo.shape[0], 0), dtype=oo.dtype)
+            if p in local:
+                L, U = ilu0(oo)
+            else:  # a part of another process: a placeholder
+                L = U = sp.csr_matrix(oo.shape, dtype=oo.dtype)
             Lb.append({"oo": L.astype(oo.dtype), "oh": none})
             Ub.append({"oo": U.astype(oo.dtype), "oh": none})
         rows = A.row_prange
@@ -394,7 +399,7 @@ class AdditiveSchwarz:
             own = torch.linalg.lu_solve(self.lu, self.piv, r.own.unsqueeze(-1)).squeeze(-1)
         else:
             own = self.sgsU.sweeps(None, self.sgsL.sweeps(None, r.own, ("f",)), ("b",))
-        own = torch.where(_own_mask(r.layout, own.device), own, torch.zeros_like(own))
+        own = torch.where(_own_mask(r.layout, own.device, r.backend), own, torch.zeros_like(own))
         return PVector(own, torch.zeros_like(r.ghost), r.layout, r.backend)
 
 

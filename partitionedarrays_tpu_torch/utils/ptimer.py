@@ -2,9 +2,9 @@
 
 Counterpart of ``partitionedarrays_tpu/utils/ptimer.py``, with its names
 (``current_time``, ``barrier``, ``PTimer.tic``/``toc``/``statistics``/
-``gather_statistics``/``print_main``) and its report formats.  All parts
-run in one process, so a section's time is the host's wall clock between
-``tic`` and ``toc``.  The port's kernels run asynchronously on the card, so
+``gather_statistics``/``print_main``) and its report formats.  A section's
+time is the host's wall clock between ``tic`` and ``toc`` in each process;
+``gather_statistics`` all-gathers the processes' totals.  The port's kernels run asynchronously on the card, so
 ``barrier`` waits for every kernel queued on the timer's device
 (``torch.cuda.synchronize``), and ``toc`` fences before it reads the clock:
 a section's time includes the device work it queued.  The reference's
@@ -68,22 +68,33 @@ class PTimer:
         }
 
     def gather_statistics(self, backend=None) -> Dict[str, Dict[str, float]]:
-        """Each section's total over the processes, as min, max and avg
-        across them (reference: the gather of per-rank times to MAIN,
-        src/p_timer.jl:46-84).  The port runs one process (the serial
-        backend), so each is the section's total and ``procs`` is 1."""
-        if getattr(backend, "is_multiprocess", False):
-            raise NotImplementedError(
-                "gather_statistics across processes: multi-process is ROADMAP item 15")
+        """Each section's total, as min, max and avg across the processes
+        of a multi-process backend (all-gathered; reference: the gather of
+        per-rank times to MAIN, src/p_timer.jl:46-84), with ``procs`` the
+        number of processes.  Every process must have timed the same
+        sections (a mismatch raises).  In one process each is the
+        section's total and ``procs`` is 1.  COLLECTIVE on several
+        processes."""
         totals = {k: float(sum(v)) for k, v in self.data.items()}
-        return {k: {"min": totals[k], "max": totals[k], "avg": totals[k], "procs": 1}
+        if backend is None or not getattr(backend, "is_multiprocess", False):
+            return {k: {"min": totals[k], "max": totals[k], "avg": totals[k], "procs": 1}
+                    for k in sorted(totals)}
+        views = backend.allgather_object(totals)
+        if any(sorted(v) != sorted(totals) for v in views):
+            raise ValueError("gather_statistics: processes timed different sections")
+        return {k: {"min": min(v[k] for v in views), "max": max(v[k] for v in views),
+                    "avg": sum(v[k] for v in views) / len(views), "procs": len(views)}
                 for k in sorted(totals)}
 
     def print_main(self, backend=None) -> None:
-        """The statistics across processes, printed (reference: the MAIN
-        rank's printer, src/p_timer.jl:123-176)."""
+        """The statistics across processes, printed by the first process
+        only (reference: the MAIN rank's printer, src/p_timer.jl:123-176).
+        COLLECTIVE on several processes."""
+        stats = self.gather_statistics(backend)
+        if getattr(backend, "rank", 0) != 0:
+            return
         lines = [f"{'section':<24}{'min (s)':>12}{'avg (s)':>12}{'max (s)':>12}"]
-        for k, s in self.gather_statistics(backend).items():
+        for k, s in stats.items():
             lines.append(f"{k:<24}{s['min']:>12.3e}{s['avg']:>12.3e}{s['max']:>12.3e}")
         print("\n".join(lines))
 

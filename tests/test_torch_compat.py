@@ -55,15 +55,19 @@ def _li_arrays(li):
 
 
 def test_backend_names():
-    """DebugArray and with_debug are the serial backend; the MPI names
-    raise until the multi-process backend exists (ROADMAP item 15)."""
+    """DebugArray and with_debug are the serial backend; the MPI names are
+    the mesh backend over the process group, as the reference's are its
+    mesh backend (one process here: every part local)."""
+    from partitionedarrays_tpu_torch.backends import MeshBackend
+
     assert compat.DebugArray is SerialBackend
     assert compat.with_debug(lambda b: b.n_parts, 3) == 3 == jcompat.with_serial(
         lambda b: b.n_parts, 3)
-    for call in (lambda: compat.MPIArray(), lambda: compat.with_mpi(lambda b: b),
-                 lambda: compat.distribute_with_mpi(2)):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            call()
+    assert compat.MPIArray is MeshBackend and jcompat.MPIArray.__name__ == "MeshBackend"
+    for b in (compat.MPIArray(2), compat.with_mpi(lambda b: b, 2), compat.distribute_with_mpi(2)):
+        assert isinstance(b, MeshBackend) and b.n_parts == 2 and b.local_parts() == [0, 1]
+        assert not b.is_multiprocess
+    assert compat.distribute_with_mpi().n_parts == 1
 
 
 def test_index_types_match_jax():

@@ -1020,3 +1020,76 @@ def test_block_cg_on_the_card_runs_k1_and_k5(cuda, dtype):
     assert it_gpu == it_cpu > 10 and (k1, k5) == (4 * it_gpu, 2 * it_gpu)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert np.abs(x_gpu - x_cpu).max() <= tol * np.abs(x_cpu).max()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_block_products_tangents_are_the_kernels(cuda, dtype):
+    """Forward-mode AD through ``DeviceBlock.spmv``/``spmv_add`` on the
+    card: the tangent of K1 (the own-own DIA block) and of K5 (the
+    own-ghost block) of the (2,2,2) x 16^3 HPCG operator is the same
+    kernel launched on the tangent (one launch for the primal, one for the
+    tangent), held against the plain product of the tangent."""
+    import torch.autograd.forward_ad as fwAD
+
+    A, _ = build_hpcg_problem((16, 16, 16), (2, 2, 2), SerialBackend(8), dtype=dtype,
+                              device=cuda)
+    dev = A.device()
+    g = torch.Generator().manual_seed(21)
+    for block, counter in ((dev.oo, dia_spmv), (dev.oh, ghost_spmv)):
+        P = block.vals.shape[0]
+        x = torch.randn(P, block.n_cols_pad, generator=g, dtype=dtype).to(cuda)
+        v = torch.randn(P, block.n_cols_pad, generator=g, dtype=dtype).to(cuda)
+        y = torch.randn(P, block.n_rows, generator=g, dtype=dtype).to(cuda)
+        w = torch.randn(P, block.n_rows, generator=g, dtype=dtype).to(cuda)
+        before = counter.launches
+        with fwAD.dual_level():
+            t1 = fwAD.unpack_dual(block.spmv(fwAD.make_dual(x, v))).tangent
+            out = block.spmv_add(fwAD.make_dual(x, v), fwAD.make_dual(y.clone(), w.clone()))
+            p2, t2 = fwAD.unpack_dual(out)
+        assert counter.launches == before + 4
+        if block.kind == "dia":
+            plain = dia_spmv_plain(block.offsets, block.vals, v)
+        else:
+            plain = ghost_spmv_plain(block.rows, block.cols, block.vals, v,
+                                     v.new_zeros((P, block.n_rows)))
+        _assert_close(t1, plain, dtype)
+        _assert_close(t2, w + plain, dtype)
+        _assert_close(p2, y + block.spmv(x), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_newton_krylov_on_the_card_matches_the_cpu(cuda, dtype):
+    """``newton_krylov`` on the card, both products, with a Gauss-Seidel
+    preconditioner, on the reference's test problem at 12^3 on (2,2,2):
+    the CPU's outer iterations and x within 1e-5 (float32) / 1e-10."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.models.gallery import plaplacian_fdm
+    from partitionedarrays_tpu_torch.psparse import spmv
+    from partitionedarrays_tpu_torch.pvector import PVector, collect, pvector_from_own
+    from partitionedarrays_tpu_torch.solvers.nonlinear import newton_krylov
+
+    npdtype = np.float32 if dtype == torch.float32 else np.float64
+    for jvp, rtol in (("auto", 1e-6 if dtype == torch.float32 else 1e-10), ("fd", 1e-4)):
+        out = {}
+        for device in ("cpu", cuda):
+            A = plaplacian_fdm((12, 12, 12), (2, 2, 2), SerialBackend(8), dtype=npdtype,
+                               device=device)
+            pr = A.row_prange
+            rng = np.random.default_rng(0)
+            xs = pvector_from_own([(0.3 * rng.standard_normal(li.n_own)).astype(npdtype)
+                                   for li in pr.parts], pr, A.backend, device=device)
+            b = spmv(A, xs).own + xs.own ** 3
+
+            def residual(x, A=A, b=b):
+                ax = spmv(A, x)
+                return PVector(ax.own + x.own ** 3 - b, torch.zeros_like(ax.ghost), ax.layout,
+                               ax.backend)
+
+            x, iters, rn = newton_krylov(residual, xs * 0.0, M=GaussSeidel(A, 1, "symmetric"),
+                                         rtol=rtol, inner_rtol=1e-4, inner_maxiter=300, jvp=jvp)
+            out[str(device)] = (collect(x), int(iters))
+        (x_cpu, it_cpu), (x_gpu, it_gpu) = out["cpu"], out[str(cuda)]
+        assert it_gpu == it_cpu
+        tol = 1e-5 if dtype == torch.float32 else (1e-10 if jvp == "auto" else 1e-6)
+        assert np.abs(x_gpu - x_cpu).max() <= tol * np.abs(x_cpu).max()

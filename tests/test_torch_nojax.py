@@ -27,7 +27,9 @@ onto contiguous blocks, the AMG-CG on the repartitioned system and
 ``repartition`` of its solution back), and the remaining layers (float16
 preconditioner values, ``b_cg`` on a block system, ``PTimer``, a checkpoint
 round trip, the primitives and jagged arrays, the ``compat`` names and the
-port's examples); afterwards neither ``jax`` nor ``ml_dtypes`` (the
+port's examples), and ``newton_krylov`` (both products, with a Gauss-Seidel
+preconditioner, on a one-process mesh backend) and the host helpers of
+``ops/sparse_host.py``; afterwards neither ``jax`` nor ``ml_dtypes`` (the
 reference's bfloat16 numpy dtype, read by ``convert.py`` without it) may be
 among the loaded modules.  A second interpreter blocks ``jax`` outright
 (an import raises) and imports every module of the port and every example
@@ -243,6 +245,21 @@ with profiling.trace(d, device="cpu"):
         spmv(A, rhs)
 import torch_jacobi_tutorial
 assert torch_jacobi_tutorial.main(n=12, niters=20, n_parts=3, device="cpu")["error"] < 1e-10
+from partitionedarrays_tpu_torch import (MeshBackend, newton_krylov, nziterator, pvector_from_own,
+                                        split_locally, spmv_local, with_mesh)
+from partitionedarrays_tpu_torch.pvector import PVector
+from partitionedarrays_tpu_torch.solvers.smoothers import GaussSeidel
+A = plaplacian_fdm((6, 6), (2, 2), with_mesh(lambda b: b, 4), device="cpu")
+b = pvector_from_own([np.ones(li.n_own) for li in A.row_prange.parts], A.row_prange, A.backend,
+                     device="cpu")
+res = lambda x: PVector(spmv(A, x).own + x.own ** 3 - b.own, x.ghost * 0, x.layout, x.backend)
+for jvp in ("auto", "fd"):
+    xn, its, rn = newton_krylov(res, b * 0.0, M=GaussSeidel(A, 1, "symmetric"), jvp=jvp,
+                                rtol=1e-8)
+    assert int(its) > 0 and float(rn) < 1e-6, (jvp, its, rn)
+G = centralize(A)
+assert len(list(nziterator(G))) == G.nnz and np.allclose(spmv_local(G, np.ones(36)), G @ np.ones(36))
+assert split_locally(G, np.arange(30), np.arange(30, 36), np.arange(30), np.arange(30, 36))[1].shape == (30, 6)
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "ml_dtypes.")))
 print("JAX_MODULES", loaded)
@@ -278,8 +295,8 @@ print("IMPORTED", len(names), "MODULES", len(examples), "EXAMPLES")
 
 def test_every_module_imports_with_jax_blocked():
     """Every module of the port (the new layers among them: block_arrays,
-    compat, utils, ops.jagged, parallel.primitives) and every example of its
-    own import with ``jax``, ``ml_dtypes`` and the JAX package blocked."""
+    compat, utils, ops.jagged, parallel.primitives, backends,
+    parallel.host_exchange) and every example of its own import with ``jax``, ``ml_dtypes`` and the JAX package blocked."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OPENBLAS_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED], cwd=str(REPO), env=env,
@@ -287,7 +304,8 @@ def test_every_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     for name in ("block_arrays", "compat", "utils.ptimer", "utils.profiling", "utils.checkpoint",
-                 "ops.jagged", "parallel.primitives"):
+                 "ops.jagged", "parallel.primitives", "backends", "parallel.host_exchange",
+                 "solvers.nonlinear", "ops.sparse_host"):
         assert (REPO / "partitionedarrays_tpu_torch" / (name.replace(".", "/") + ".py")).exists()
     assert "MODULES 5 EXAMPLES" in proc.stdout, proc.stdout
 

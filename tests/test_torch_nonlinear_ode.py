@@ -177,11 +177,6 @@ def test_backward_euler_matches_jax():
     np.testing.assert_allclose([t for t, _ in steps], [t for t, _ in steps_r], rtol=0, atol=0)
 
 
-def test_newton_krylov_raises_with_its_step():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step 11"):
-        nonlinear.newton_krylov(None, None)
-
-
 def test_reaction_diffusion_matches_jax():
     """The implicit reaction-diffusion run at 8^3 on (2,2,2) parts: the
     AMG built at the first Jacobian and updated at every later one; the

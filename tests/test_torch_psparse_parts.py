@@ -308,9 +308,9 @@ def test_filtered_negative_ids():
 
 
 def test_reuse_raises_with_its_item():
-    """The reuse forms now build their caches; what is left of the reuse
-    tier, the cross-process refill of per-process matrices, raises naming
-    its ROADMAP item."""
+    """The reuse forms build their caches; the cross-process refill of
+    per-process matrices sets up its exchange (in one process every route
+    stays local, and the refill is the serial one)."""
     from partitionedarrays_tpu_torch.pvector import pvector
 
     I, J, V, rows, cols = gallery.laplacian_fem((6, 6), (2, 2))
@@ -318,5 +318,8 @@ def test_reuse_raises_with_its_item():
     assert len(cache) == 3 and A.assembled
     v, vcache = pvector(I, V, rows, SerialBackend(4), reuse=True, device="cpu")
     assert vcache.layout is v.layout
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ps._MatRoutes().finalize_multiprocess(SerialBackend(4), 4, np.float64)
+    routes = ps.consistent_matrix(A, A.row_prange, reuse=True).wait()[1]
+    n_routes = len(routes.routes)
+    assert routes.finalize_multiprocess(SerialBackend(4), 4, np.float64) is routes
+    assert routes.multiprocess and len(routes.routes) == n_routes
+    assert routes.send_plan == {} and routes.recv_scatter == {}

@@ -243,7 +243,7 @@ def test_pvector_local_from_local_and_split_blocks_match_jax():
     v_ref = jax_pvector.pvector_local(I, V, pr_ref, JaxSerialBackend(4))
     np.testing.assert_array_equal(v.own.numpy(), np.asarray(v_ref.own))
     assert not v.ghost.any()
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="local part's contributions are missing"):
         pv.pvector_local([None] + I[1:], V, pr, SerialBackend(4), device="cpu")
     local = [rng.standard_normal(li.n_local) for li in pr.parts]
     w = pv.pvector_from_local(local, pr, SerialBackend(4), device="cpu")

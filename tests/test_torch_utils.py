@@ -60,8 +60,8 @@ def test_ptimer_print_main_matches_the_reference(capsys):
 
 def test_ptimer_times_sections_and_fences():
     """tic/toc (and the compat functions) record every call; ``toc``
-    returns the section's seconds; a CPU timer's fence is a no-op; a
-    multi-process backend has no statistics yet (ROADMAP item 15)."""
+    returns the section's seconds; a CPU timer's fence is a no-op; across
+    processes the statistics take every process's totals."""
     t = ptimer.PTimer(barrier_at_tic=True, device="cpu")
     for _ in range(3):
         compat.tic(t, "a")
@@ -75,10 +75,20 @@ def test_ptimer_times_sections_and_fences():
     with pytest.raises(KeyError):
         t.toc("never opened")
 
-    class Multi:
+    class Multi:  # three processes that timed the same sections
         is_multiprocess = True
+        rank = 1
 
-    with pytest.raises(NotImplementedError, match="item 15"):
+        @staticmethod
+        def allgather_object(obj):
+            return [obj, {k: 2 * v for k, v in obj.items()}, {k: 3 * v for k, v in obj.items()}]
+
+    g = t.gather_statistics(Multi())
+    total = sum(t.data["a"])
+    assert g["a"]["procs"] == 3 and g["a"]["min"] == total and g["a"]["max"] == 3 * total
+    assert abs(g["a"]["avg"] - 2 * total) <= 1e-12 * total
+    Multi.allgather_object = staticmethod(lambda obj: [obj, {"other": 1.0}])
+    with pytest.raises(ValueError, match="different sections"):
         t.gather_statistics(Multi())
     ptimer.barrier("cpu")
     assert ptimer.current_time() <= ptimer.current_time()
