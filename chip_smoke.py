@@ -2003,10 +2003,10 @@ def _count_exchanges(fn):
     apply = ExchangePlan.apply
     count = {"set": 0, "add": 0}
 
-    def counted(plan, src, dst, combine):
+    def counted(plan, src, dst, combine, backend=None):
         if plan.n_rounds:
             count[combine] += 1
-        return apply(plan, src, dst, combine)
+        return apply(plan, src, dst, combine, backend)
 
     ExchangePlan.apply = counted
     try:
