@@ -126,7 +126,7 @@ Phases, one output line each:
       parts, K6 with P = 8; the JAX package's count) and
       ``amg_schwarz_elasticity`` (phase 4d's elasticity with Schwarz level
       smoothers: 16^3 float32 held to the JAX package's count, 40^3 float32
-      and 24^3 float64 to phase 4d's residual limits, both Schwarz tiers): the
+      and float64 to phase 4d's residual limits, both Schwarz tiers): the
       factors' W and B, setup seconds, iterations, true residual, solve
       seconds, an apply's time and launches; then K6's triangular solves
       against their plain version (``TRI_RTOL``) and, in float64, against
@@ -358,6 +358,10 @@ PATH_KERNELS = {
 AMG_PARAMS = dict(coarse_size=400, block_size=3, max_levels=4)
 AMG_RTOL = 1e-8
 AMG_MAXITER = 200
+# phase 4d's one-part elasticity matrices that phase 4h's
+# amg_schwarz_elasticity runs take again (the same nodes and dtype), with
+# their assembly seconds: built once, as the 40^3 build is ~16 s of host work
+SHARED_ELASTICITY = {}
 AMG_RUNS = (
     ((16, 16, 16), "float32", (8, 10), 1e-5),
     ((40, 40, 40), "float32", None, 1e-5),
@@ -462,9 +466,8 @@ ELASTICITY_UPDATE_NODES = (40, 40, 40)
 #   (203 s), held exactly in float64 and within one in float32;
 # - amg_schwarz_elasticity: phase 4d's elasticity with AMGParams(smoother=
 #   "schwarz"), CG to 1e-8: 16^3 float32 (the JAX package on the CPU: 6
-#   iterations, held within one), 40^3 float32 and 24^3 float64 with phase
-#   4d's residual limits; at 40^3 the ilu0 tier on levels 0 and 1, dense on
-#   level 2.
+#   iterations, held within one), 40^3 float32 and float64 with phase 4d's
+#   residual limits; the ilu0 tier on levels 0 and 1, dense on level 2.
 # (dtype, allowed CG iterations)
 SCHWARZ_LOCAL = (32, 32, 32)
 SCHWARZ_PARTS = (2, 2, 2)
@@ -472,13 +475,10 @@ SCHWARZ_RTOL = 1e-6
 SCHWARZ_MAXITER = 200
 SCHWARZ_RUNS = (("float32", (19, 21)), ("float64", (20, 20)))
 SCHWARZ_PARTS_RUNS = (("float32", (46, 48)), ("float64", (47, 47)))
-# (the float64 run is at 24^3 nodes since PR 15, to hold the whole script
-# under 800 s with phases 4l and 4m: at 40^3 it took ~45 s of assembly and
-# setup; the 40^3 float32 run keeps the kernel holds of both tiers)
 AMG_SCHWARZ_RUNS = (
     ((16, 16, 16), "float32", (5, 7), 1e-5),
     ((40, 40, 40), "float32", None, 1e-5),
-    ((24, 24, 24), "float64", None, 2e-8),
+    ((40, 40, 40), "float64", None, 2e-8),
 )
 # K6's triangular solves against their plain version, relative to the
 # largest plain entry: float32 as every kernel; float64 1e-15 (4.5 ulps):
@@ -1818,6 +1818,8 @@ def phase_amg_elasticity(device, counters):
             _hold_k1(results, f"{len(oo.offsets)} diagonals, {nodes[0]}^3 elasticity", oo, xs)
             _hold_k3(results, f"level 0 of {nodes[0]}^3 elasticity", M.levels[0].smoother,
                      dtype, g, device)
+        if any((nodes, dtype) == run[:2] for run in AMG_SCHWARZ_RUNS):
+            SHARED_ELASTICITY[(nodes, dtype)] = (A, assembly)
         del A, M, b, x, G
         torch.cuda.empty_cache()
     # K6 on the forced tile tier of the 20^3 block (its fine level is DIA)
@@ -3149,12 +3151,16 @@ def phase_schwarz(device, counters):
     # amg_schwarz_elasticity: phase 4d's workload with Schwarz level smoothers
     for nodes, dtype, iter_range, limit in AMG_SCHWARZ_RUNS:
         key = f"amg_schwarz_elasticity {dtype}@{nodes[0]}^3"
-        t0 = time.perf_counter()
-        A = psparse(*linear_elasticity_fem(nodes, (1, 1, 1), dtype=getattr(np, dtype)),
-                    SerialBackend(1), device=device)
-        A.device()
-        torch.cuda.synchronize()
-        assembly = time.perf_counter() - t0
+        shared = SHARED_ELASTICITY.pop((nodes, dtype), None)
+        if shared is None:
+            t0 = time.perf_counter()
+            A = psparse(*linear_elasticity_fem(nodes, (1, 1, 1), dtype=getattr(np, dtype)),
+                        SerialBackend(1), device=device)
+            A.device()
+            torch.cuda.synchronize()
+            assembly = time.perf_counter() - t0
+        else:
+            A, assembly = shared
         coords, _ = node_coordinates_unit_cube(nodes, (1, 1, 1))
         t0 = time.perf_counter()
         M = AMGPreconditioner(A, AMGParams(smoother="schwarz", **AMG_PARAMS),
@@ -3167,8 +3173,9 @@ def phase_schwarz(device, counters):
         add("amg_schwarz_elasticity", counts)
         tiers = [lev.smoother.mode for lev in M.levels if lev.smoother is not None]
         rec = {
-            "rows": A.shape[0], "assembly_s": assembly, "setup_s": setup,
-            "levels": _level_info(M), "tiers": tiers, "iterations": info.iterations,
+            "rows": A.shape[0], "assembly_s": assembly, "matrix_of_phase_4d": shared is not None,
+            "setup_s": setup, "levels": _level_info(M), "tiers": tiers,
+            "iterations": info.iterations,
             "anchor": iter_range, "cg_residual": float(info.residual), "true_relres": relres,
             "solve_s": seconds, "launches_per_solve": counts,
             "vcycle": _vcycle(counters, M, b) if nodes == AMG_KERNEL_NODES else None,
@@ -3706,11 +3713,13 @@ def phase_multiprocess():
     checks, the modes' seconds, iterations and errors, and each mode's
     launches summed over the ranks (set to 0 just before the mode's
     multi-process path and read just after, in each rank).  Returns the
-    launches by path (``mp_<mode>_<ranks>``)."""
+    launches by path (``mp_<mode>_<ranks>``) and, by kernel, the largest
+    difference from its plain version that a rank's ``cg`` mode found on
+    its ``[P_local, ...]`` tensors (K1, K5, K3)."""
     env = dict(os.environ)
     env.update(PYTHONPATH=str(MP_DRIVER.parent.parent) + os.pathsep + env.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    launches, failures = {}, []
+    launches, holds, failures = {}, {}, []
     for nproc, modes, kw in MP_RUNS:
         args = [f"{k}={v}" for k, v in dict(kw, device="cuda", timeout=MP_LIMIT).items()]
         port = _free_port()
@@ -3746,12 +3755,15 @@ def phase_multiprocess():
                 for k, v in res[mode]["launches"].items():
                     counts[k] = counts.get(k, 0) + v
             launches[f"mp_{mode}_{nproc}"] = counts
+            for res in results:
+                for k, h in res[mode].get("kernels_vs_plain", {}).items():
+                    holds[k] = max(holds.get(k, 0.0), h["max_abs_err"])
             emit(f"4m multiprocess {mode} on {nproc} ranks (one card, gloo; not multi-GPU "
                  f"figures)", {"ranks": per_rank, "launches": counts})
         emit(f"4m multiprocess group of {nproc} ranks", {"wall_s": wall, "modes": modes})
     if failures:
         raise AssertionError("; ".join(failures))
-    return launches
+    return launches, holds
 
 
 def main() -> int:
@@ -3841,7 +3853,8 @@ def main() -> int:
     with timed("4l newton_krylov"):
         launches["newton_krylov"], nk_results = phase_newton_krylov(device, counters)
     with timed("4m multiprocess"):
-        launches.update(phase_multiprocess())
+        mp_launches, mp_holds = phase_multiprocess()
+        launches.update(mp_launches)
     emit("5 launches", launches)
     missing = [
         f"{path}:{k}" for path, names in PATH_KERNELS.items() for k in names
@@ -3865,7 +3878,9 @@ def main() -> int:
     # their launches on the precond_values and hpcg_float16 paths; K1 and K5
     # also as tangent products (phase 4l, float64, with their launches on
     # the newton_krylov path); every kernel that phase 4m's ranks launched,
-    # with those launches (``per_rank_launches``)
+    # with those launches (``per_rank_launches``), and K1's, K5's and K3's
+    # largest difference from their plain versions on a rank's parts
+    # (``per_rank_max_abs_err``)
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         r = next(r for r in kernel_results
@@ -3888,6 +3903,8 @@ def main() -> int:
         per_rank = sum(n.get(kname, 0) for path, n in launches.items() if path.startswith("mp_"))
         if per_rank:
             rows[-1]["per_rank_launches"] = per_rank
+        if kname in mp_holds:
+            rows[-1]["per_rank_max_abs_err"] = mp_holds[kname]
         for tag, values, found, path in (("values_bf16", "bfloat16", narrow_results,
                                           "precond_values"),
                                          ("values_f16", "float16", f16_results, "hpcg_float16")):

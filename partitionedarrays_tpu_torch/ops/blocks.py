@@ -30,6 +30,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch.autograd import forward_ad
 
 from . import df64 as df
 from .dia import MAX_DIAGS, dia_viable, stack_dia
@@ -61,15 +62,21 @@ class DeviceBlock:
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         """Per-part SpMV: x [P, n_cols_pad] -> [P, n_rows] (K1 or K5).
-        Forward-mode AD sees a linear map: the tangent of the product is
-        the same kernel launched on x's tangent (``_BlockSpmv``)."""
+        Inside a forward-AD level (``torch.autograd.forward_ad``) the
+        product is a linear map whose tangent is the same kernel launched
+        on x's tangent (``_BlockSpmv``); outside one the kernel is called
+        directly."""
+        if forward_ad._current_level < 0:
+            return self._spmv(x)
         return _BlockSpmv.apply(self, x)
 
     def spmv_add(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """``y + block @ x``.  An "ell" block accumulates into y in place
         (K5): each row gets one sum added, so the rounding is that of adding
-        the two products.  Its tangent is ``y' + block @ x'``
-        (``_BlockSpmvAdd``)."""
+        the two products.  Inside a forward-AD level its tangent is ``y' +
+        block @ x'`` (``_BlockSpmvAdd``)."""
+        if forward_ad._current_level < 0:
+            return self._spmv_add(x, y)
         return _BlockSpmvAdd.apply(self, x, y)
 
     def _spmv(self, x: torch.Tensor) -> torch.Tensor:
@@ -108,7 +115,7 @@ class _BlockSpmvAdd(torch.autograd.Function):
 
     @staticmethod
     def forward(block: DeviceBlock, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return block._spmv_add(x, y)
+        return _written(block._spmv_add(x, y), y)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -122,7 +129,16 @@ class _BlockSpmvAdd(torch.autograd.Function):
             return y_t
         if y_t is None:
             return ctx.block._spmv(x_t)
-        return ctx.block._spmv_add(x_t, y_t)
+        return _written(ctx.block._spmv_add(x_t, y_t), y_t)
+
+
+def _written(out: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """K5 writes y in place through its pointer, unseen by autograd, whose
+    forward mode checks that an in-place Function modified its input and
+    that input's tangent: bump y's version where the output is y."""
+    if out is y:
+        torch.autograd.graph.increment_version(y)
+    return out
 
 
 def make_dia_block(offsets, n_cols_pad: int, vals: torch.Tensor) -> DeviceBlock:

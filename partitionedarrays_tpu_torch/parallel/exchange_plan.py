@@ -9,8 +9,8 @@ on ``P`` parts is stored as ``own[P, n_own_pad]`` and ``ghost[P,
 n_ghost_pad]`` with sizes padded to a multiple of 8 and the padding kept at
 zero (``VectorLayout`` :243-293).
 
-On the serial backend every part lives on one device and each round only
-moves data along dim 0, so ``ExchangePlan.apply`` does not run rounds: at
+Parts in one process live on one device and each round only moves data
+along dim 0, so ``ExchangePlan.apply`` does not run rounds between them: at
 build time all rounds are folded into one pair of flat index tensors that
 hold only the valid (source slot, destination slot) pairs, and an exchange
 is one gather plus one ``index_copy_`` ("set") or ``index_add_`` ("add").
@@ -27,6 +27,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..backends import SerialBackend, stage
 from .partition import PRange, find_owner
 
 # the reference's padding index: any index >= 2**31 - 2**8
@@ -86,29 +87,11 @@ class ExchangePlan:
         self.dst_part, self.dst_pos = cat(dp), cat(do)
         if (self.src_pos == OOB).any():
             raise ValueError("exchange plan: a valid destination lane has no source")
-        self._flat: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._per_process: Dict[Tuple, "_CrossPlan"] = {}
 
     @property
     def n_rounds(self) -> int:
         return len(self.perms)
-
-    def _flat_indices(self, n_src: int, n_dst: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The valid pairs as flat positions ``part * n_src + pos`` and
-        ``part * n_dst + pos`` into ``[P, n_src]`` and ``[P, n_dst]``
-        tensors, built once per shape and device."""
-        key = (int(n_src), int(n_dst), torch.device(device))
-        got = self._flat.get(key)
-        if got is None:
-            if self.src_pos.size and (
-                self.src_pos.max() >= n_src or self.dst_pos.max() >= n_dst
-            ):
-                raise ValueError(
-                    f"exchange plan: slots beyond the tensors ({n_src}, {n_dst})"
-                )
-            src = torch.from_numpy(self.src_part * n_src + self.src_pos).to(device)
-            dst = torch.from_numpy(self.dst_part * n_dst + self.dst_pos).to(device)
-            got = self._flat[key] = (src, dst)
-        return got
 
     def apply(
         self, src_vals: torch.Tensor, dst_vals: torch.Tensor, combine: str, backend=None
@@ -116,27 +99,24 @@ class ExchangePlan:
         """All rounds at once: the source slots' values of ``src_vals[P,
         n_src]`` are set into ("set", consistent) or added to ("add",
         assemble) the destination slots of a copy of ``dst_vals[P, n_dst]``,
-        which is returned.  On a multi-process ``backend`` the tensors hold
-        the local parts only (``[P_local, ...]``); pairs inside the process
-        stay one index op, and pairs across processes travel as the padded
-        rounds' messages (``_CrossPlan``)."""
+        which is returned.  The tensors hold the parts of this process of
+        ``backend`` (default: a serial backend, every part): pairs inside the
+        process are one index op, and on a multi-process backend the pairs
+        across processes travel as the padded rounds' messages
+        (``_CrossPlan``)."""
         if combine not in ("add", "set"):
             raise ValueError(combine)
         if self.n_rounds == 0:
             return dst_vals
-        if getattr(backend, "is_multiprocess", False):
-            return self._cross_plan(backend, src_vals.shape[1], dst_vals.shape[1],
-                                    src_vals.device).apply(src_vals, dst_vals, combine)
-        src, dst = self._flat_indices(src_vals.shape[1], dst_vals.shape[1], src_vals.device)
-        moved = src_vals.reshape(-1).index_select(0, src)
-        return _scatter(dst_vals, dst, moved, combine)
-
-    def _cross_plan(self, backend, n_src: int, n_dst: int, device) -> "_CrossPlan":
-        key = ("cross", id(backend), int(n_src), int(n_dst), torch.device(device))
-        got = self._flat.get(key)
+        if backend is None:
+            backend = SerialBackend(self.snd_idx[0].shape[0])
+        key = (tuple(backend.local_parts()), getattr(backend, "n_procs", 1),
+               int(src_vals.shape[1]), int(dst_vals.shape[1]), src_vals.device)
+        got = self._per_process.get(key)
         if got is None:
-            got = self._flat[key] = _CrossPlan(self, backend, n_src, n_dst, device)
-        return got
+            got = self._per_process[key] = _CrossPlan(self, backend, src_vals.shape[1],
+                                               dst_vals.shape[1], src_vals.device)
+        return got.apply(src_vals, dst_vals, combine)
 
 
 def _scatter(dst_vals: torch.Tensor, dst: torch.Tensor, moved: torch.Tensor,
@@ -154,11 +134,12 @@ def _scatter(dst_vals: torch.Tensor, dst: torch.Tensor, moved: torch.Tensor,
 
 
 class _CrossPlan:
-    """An exchange plan on one process of a multi-process backend, for
-    tensors ``[P_local, n]`` of the local parts:
+    """An exchange plan on one process of a backend, for tensors
+    ``[P_local, n]`` of the local parts (all of them on a serial backend,
+    where there are no messages):
 
     - the pairs whose source and destination parts are both local: flat
-      gather and scatter indices, as on the serial backend;
+      gather and scatter indices (all rounds folded into one index op);
     - each round's messages from a local part to a part of another process:
       the gather index of the message's K_r lanes (its valid lanes, then
       padding lanes that repeat the first, which the receiver ignores);
@@ -214,11 +195,12 @@ class _CrossPlan:
         self.wire_entries = int(sum(k for _, _, k in self.sends) + n_recv)
 
     def apply(self, src_vals: torch.Tensor, dst_vals: torch.Tensor, combine: str) -> torch.Tensor:
+        flat_src = src_vals.reshape(-1)
+        if not (self.sends or self.recvs):
+            return _scatter(dst_vals, self.dst, flat_src.index_select(0, self.src_local),
+                            combine)
         import torch.distributed as dist
 
-        from ..backends import stage
-
-        flat_src = src_vals.reshape(-1)
         work = []
         if self.sends:
             out_host = stage(flat_src.index_select(0, self.send_idx))

@@ -54,9 +54,9 @@ On a multi-process backend (``backends.MeshBackend``) a matrix's device
 blocks hold the process's own parts (``[P_local, ...]``), frozen from its
 parts' host blocks.  ``psparse_local`` builds a per-process matrix from
 each process's own triplets: the other processes' parts hold empty
-placeholder blocks (``_local_only``), and the host setup products route
-their part-to-part messages through ``parallel/host_exchange.py``
-(``_route_msgs``), their refill routes across processes included
+placeholder blocks, and the host setup products route their part-to-part
+messages through ``parallel/host_exchange.py``
+(``exchange_part_messages``), their refill routes across processes included
 (``_MatRoutes.finalize_multiprocess``).
 """
 from __future__ import annotations
@@ -79,6 +79,7 @@ from .ops.blocks import (
 )
 from .ops.dia import host_dia
 from .ops.sparse_host import compresscoo, precompute_nzindex
+from .parallel.host_exchange import allgather_part_arrays, exchange_part_messages
 from .parallel.exchange_plan import VectorLayout, layout_of
 from .parallel.partition import (INT, PRange, find_owner, map_local_to_global,
                                  matching_own_indices, renumber_partition)
@@ -715,41 +716,21 @@ def psparse_from_blocks(blocks: List[dict], rows, cols, backend: SerialBackend,
 
 # -- per-process matrices (the multi-process backend) -----------------------
 
-def _is_local_only(A: PSparseMatrix) -> bool:
-    """True for a matrix on a multi-process backend: its host setup runs on
-    this process's parts and routes its messages across processes."""
-    return bool(getattr(A, "_local_only", False)) or A.backend.is_multiprocess
-
-
 def _require_full_blocks(A: PSparseMatrix, op: str) -> None:
     """A per-process matrix (``psparse_local``) holds real host blocks only
     for its process's parts, and empty placeholders elsewhere: a host setup
     operation without a per-process form would sum the placeholders and
     return a partial result, so it raises instead."""
-    if _is_local_only(A):
+    if A.backend.is_multiprocess:
         raise ValueError(
-            f"{op}: unsupported on a per-process (_local_only) PSparseMatrix: the other "
+            f"{op}: unsupported on a per-process PSparseMatrix: the other "
             "processes' parts hold empty placeholder blocks; use replicate_psparse(A) "
             "first if the matrix is small enough to hold on every process")
 
 
 def _data_parts(A: PSparseMatrix) -> List[int]:
     """The parts whose host blocks are real in this process."""
-    if _is_local_only(A):
-        return list(A.backend.local_parts())
-    return list(range(A.row_prange.n_parts))
-
-
-def _route_msgs(backend, P, msgs, dtypes, local_only, stats=None):
-    """Deliver part-to-part setup messages: passed through when every part's
-    messages were made in this process, else by ``exchange_part_messages``."""
-    if not local_only:
-        if stats is not None:
-            stats.update(wire_bytes=0, wire_entries=0, n_rounds=0, cross_msgs=0)
-        return dict(msgs)
-    from .parallel.host_exchange import exchange_part_messages
-
-    return exchange_part_messages(backend, P, msgs, dtypes, stats=stats)
+    return list(A.backend.local_parts())
 
 
 def _sync_ghosted_partition(backend, P, base_parts, built: dict):
@@ -758,8 +739,6 @@ def _sync_ghosted_partition(backend, P, base_parts, built: dict):
     owners on the same base part (the same on every process)."""
     if len(built) == P:
         return [built[p] for p in range(P)]
-    from .parallel.host_exchange import allgather_part_arrays
-
     gids = allgather_part_arrays(backend, P, {p: li.ghost_to_global for p, li in built.items()},
                                  INT)
     gown = allgather_part_arrays(backend, P, {p: li.ghost_to_owner for p, li in built.items()},
@@ -825,7 +804,7 @@ class _LocalCooCache:
     def refill(self, A: PSparseMatrix, V_parts) -> None:
         msgs = {k: (np.asarray(V_parts[k[0]], dtype=self.dtype)[idx],)
                 for k, idx in self.send_idx.items()}
-        got = _route_msgs(A.backend, A.row_prange.n_parts, msgs, (self.dtype,), True)
+        got = exchange_part_messages(A.backend, A.row_prange.n_parts, msgs, (self.dtype,))
         for p in A.backend.local_parts():
             for name in _BLOCK_NAMES:
                 if A.blocks[p].get(name) is not None:
@@ -849,13 +828,11 @@ def psparse_local(I_parts, J_parts, V_parts, rows, cols, backend, dtype=None,
     sums its triplets in source-part order, as ``psparse`` does.  The
     column ghosts (O(surface)) are then all-gathered, so that every process
     holds the same partitions and exchange plans, and the other processes'
-    parts keep empty placeholder blocks.  The result is assembled and
-    marked ``_local_only``; its blocks are frozen here, the DIA choice
+    parts keep empty placeholder blocks.  The result is assembled; its
+    blocks are frozen here, the DIA choice
     agreed by all processes.  The shuffle's wire cost is left in
     ``backend._last_local_build_stats``.  ``reuse=True`` returns ``(A,
     cache)`` for ``psparse_refill``."""
-    from .parallel.host_exchange import allgather_part_arrays
-
     rows_pr, cols_pr = as_prange(rows), as_prange(cols)
     P = rows_pr.n_parts
     local = backend.local_parts()
@@ -877,7 +854,7 @@ def psparse_local(I_parts, J_parts, V_parts, rows, cols, backend, dtype=None,
                 msgs[(p, d)] = (I[lo:hi], J[lo:hi], V[lo:hi])
                 send_idx[(p, d)] = order[lo:hi]
     stats: dict = {}
-    got = _route_msgs(backend, P, msgs, (INT, INT, dtype), True, stats=stats)
+    got = exchange_part_messages(backend, P, msgs, (INT, INT, dtype), stats=stats)
     backend._last_local_build_stats = stats
     built, recv_maps = {}, {}
     for d in local:
@@ -909,7 +886,6 @@ def psparse_local(I_parts, J_parts, V_parts, rows, cols, backend, dtype=None,
     A = PSparseMatrix(None, rows_pr, PRange(col_parts), backend, nnz=nnz, blocks=blocks,
                       device=device,
                       device_dtype=None if device_dtype is None else torch_dtype(device_dtype))
-    A._local_only = True
     A.device()
     return (A, _LocalCooCache(send_idx, recv_maps, dtype)) if reuse else A
 
@@ -988,7 +964,7 @@ def gather_global_scipy(A: PSparseMatrix, max_rows: Optional[int] = None) -> sp.
     COLLECTIVE)."""
     if max_rows is not None and A.shape[0] > max_rows:
         raise ValueError(f"gather_global_scipy: {A.shape[0]} rows exceeds max_rows={max_rows}")
-    if not _is_local_only(A):
+    if not A.backend.is_multiprocess:
         return to_global_scipy(A)
     blocks = host_blocks(A)
     mine = [_part_triplets(blocks[p], A.row_prange.parts[p], A.col_prange.parts[p],
@@ -1173,7 +1149,7 @@ class _MatRoutes:
             dpos = np.concatenate([r[5] for r in rs]).astype(np.int64)
             reqs[(dst_p, src_p)] = (sbi, spos)
             self.recv_scatter[(src_p, dst_p)] = (dbi, dpos)
-        got = _route_msgs(backend, P, reqs, (np.int64, np.int64), True)
+        got = exchange_part_messages(backend, P, reqs, (np.int64, np.int64))
         for (dst_p, src_p), (sbi, spos) in got.items():
             self.send_plan[(src_p, dst_p)] = (sbi, spos)
         return self
@@ -1200,7 +1176,7 @@ class _MatRoutes:
                     m = sbi == bi
                     vals[m] = data_of(src_p, _BLOCK_NAMES[int(bi)])[spos[m]]
                 msgs[(src_p, dst_p)] = (vals,)
-            got = _route_msgs(out.backend, out.row_prange.n_parts, msgs, (self.dtype,), True)
+            got = exchange_part_messages(out.backend, out.row_prange.n_parts, msgs, (self.dtype,))
             for key, (vals,) in sorted(got.items()):
                 dbi, dpos = self.recv_scatter[key]
                 for bi in np.unique(dbi):
@@ -1321,7 +1297,6 @@ def consistent_matrix(A: PSparseMatrix, rows_co, reuse: bool = False) -> Task:
         _canonicalize_blocks(A)
     col_parts = A.col_prange.parts
     blocks_in = host_blocks(A)
-    local_only = _is_local_only(A)
     data = _data_parts(A)
     wanted = {}  # owner -> [(requester, gids)]
     for p, li in enumerate(rows_co.parts):
@@ -1354,8 +1329,8 @@ def consistent_matrix(A: PSparseMatrix, rows_co, reuse: bool = False) -> Task:
             msgs[(o, p)] = (gids[sub.row], col_g[sub.col], sub.data.astype(dtype, copy=False))
             if reuse:
                 msgs[(o, p)] += (loc_tags[_csr_row_slice_positions(loc, pos)],)
-    msgs = _route_msgs(A.backend, P, msgs, (INT, INT, dtype) + ((np.int64,) if reuse else ()),
-                       local_only)
+    msgs = exchange_part_messages(A.backend, P, msgs,
+                                  (INT, INT, dtype) + ((np.int64,) if reuse else ()))
     routes = _MatRoutes() if reuse else None
     blocks, new_cols = {}, {}
     for p in data:
@@ -1378,10 +1353,9 @@ def consistent_matrix(A: PSparseMatrix, rows_co, reuse: bool = False) -> Task:
                 _placeholder_blocks(rows_co.parts[p], cols_all[p], dtype, True) for p in range(P)],
         device=A.torch_device, device_dtype=A.dtype, assembled=False,
     )
-    out._local_only = local_only
     if reuse:
         routes.finalize()
-        if local_only:
+        if A.backend.is_multiprocess:
             routes.finalize_multiprocess(A.backend, P, dtype)
     return Task((out, routes)) if reuse else Task(out)
 
@@ -1561,7 +1535,6 @@ def spmm(A: PSparseMatrix, B: PSparseMatrix, reuse: bool = False):
                 for p in range(P)],
         device=A.torch_device, device_dtype=A.dtype,
     )
-    out._local_only = _is_local_only(A)
     return (out, cache) if reuse else out
 
 

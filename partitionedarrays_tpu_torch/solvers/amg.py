@@ -71,7 +71,6 @@ from ..psparse import (
     PSparseMatrix,
     _canonicalize_blocks,
     _data_parts,
-    _is_local_only,
     gather_global_scipy,
     host_blocks,
     psparse,
@@ -401,7 +400,6 @@ def _make_S(A: PSparseMatrix, omega: float, dinv) -> PSparseMatrix:
         None, A.row_prange, A.col_prange, A.backend, blocks=s_blocks,
         device=A.torch_device, device_dtype=A.dtype,
     )
-    S._local_only = _is_local_only(A)
     return S
 
 
@@ -464,7 +462,6 @@ class _GalerkinCache:
             None, A.row_prange, A.col_prange, A.backend, blocks=s_blocks,
             device=A.torch_device, device_dtype=A.dtype,
         )
-        self.S._local_only = _is_local_only(A)
         self.P, self._cP = spmm(self.S, P0, reuse=True)
         self.AP, self._c1 = spmm(A, self.P, reuse=True)
         self.Ac, self._c2 = spmtm(self.P, self.AP, reuse=True)

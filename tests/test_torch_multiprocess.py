@@ -42,7 +42,7 @@ from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
 from partitionedarrays_tpu_torch.parallel.host_exchange import (allgather_part_arrays,
                                                                 exchange_part_messages)
 from partitionedarrays_tpu_torch.parallel.partition import PRange
-from partitionedarrays_tpu_torch.psparse import psparse, psparse_local, spmv
+from partitionedarrays_tpu_torch.psparse import psparse, psparse_local, spmv, to_global_scipy
 from partitionedarrays_tpu_torch.pvector import collect, pdot, pones, pvector_from_own
 from partitionedarrays_tpu_torch.solvers.amg import AMGParams, AMGPreconditioner
 from partitionedarrays_tpu_torch.solvers.krylov import cg
@@ -173,6 +173,7 @@ def test_multiprocess_cg_matches_serial_and_jax(run, request, groups):
     for r in results:
         assert r["cg"]["iterations"] == iters
         assert r["cg"]["x_vs_serial"] <= 1e-9 and r["cg"]["x_vs_scipy"] <= 1e-6
+        assert {"dia_spmv", "gs_sweeps"} <= set(r["cg"]["kernels_vs_plain"])
 
 
 @pytest.mark.parametrize("run", ["two", "four"])
@@ -313,12 +314,14 @@ def test_mesh_backend_in_one_process_is_the_serial_backend():
 
 def test_psparse_local_in_one_process_equals_psparse():
     """``psparse_local`` with every part local is the COO constructor: the
-    same blocks, bit for bit, and the wire untouched."""
+    same blocks, bit for bit, the wire untouched, and the matrix complete
+    (the host setup operations take it)."""
     I, J, V, rows, cols = laplacian_fem((9, 9), (2, 2), dtype=np.float64)
     bk = SerialBackend(4)
     A = psparse(I, J, V, PRange(rows), PRange(cols), bk, device="cpu")
     B = psparse_local(I, J, V, PRange(rows), PRange(cols), bk, device="cpu")
-    assert bk._last_local_build_stats["wire_bytes"] == 0 and B._local_only
+    assert bk._last_local_build_stats["wire_bytes"] == 0
+    assert (to_global_scipy(B) != to_global_scipy(A)).nnz == 0
     for ba, bb in zip(A.blocks, B.blocks):
         for k in ("oo", "oh"):
             assert (ba[k] != bb[k]).nnz == 0 and ba[k].shape == bb[k].shape

@@ -15,7 +15,9 @@ and exits nonzero on any mismatch.  Modes:
 
 - ``cg``: the reference driver's main mode, ``build_hpcg_problem`` and a
   symmetric Gauss-Seidel preconditioned CG, with the timer's statistics
-  across processes (``n``: local box edge, ``parts``: "px,py,pz");
+  across processes, and the process's K1, K5 and K3 launches on its parts
+  held against their plain versions (``n``: local box edge, ``parts``:
+  "px,py,pz");
 - ``fail``: rank 1 raises after the group is up (every rank must end
   nonzero);
 - ``fem``: the per-process FEM construction (``laplacian_fem(...,
@@ -101,6 +103,48 @@ def _serial_own(v, local):
     return [own[p] for p in local]
 
 
+def _hold_local_kernels(A, M, device, seed):
+    """This process's K1 (own-own block), K5 (own-ghost block) and K3 (the
+    smoother's sweep sequence) on its ``[P_local, ...]`` tensors, each
+    against its plain version on the same random inputs: the largest
+    difference of each, absolute and relative to the largest entry.
+    Raises beyond 1e-12 (float64) or 1e-5 (float32) relative.  (On the
+    CPU both sides are the plain version.)"""
+    from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
+    from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv_plain
+    from partitionedarrays_tpu_torch.ops.gs_dia_kernels import gs_sweeps, gs_sweeps_plain
+
+    g = torch.Generator().manual_seed(seed)
+    dev = A.device()
+    pairs = []
+    for blk in (dev.oo, dev.oh):
+        P = blk.vals.shape[0]
+        x = torch.randn(P, blk.n_cols_pad, generator=g, dtype=blk.vals.dtype).to(device)
+        if blk.kind == "dia":
+            want = dia_spmv_plain(blk.offsets, blk.vals, x)
+        else:
+            want = ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, x.new_zeros((P, blk.n_rows)))
+        pairs.append(("dia_spmv" if blk.kind == "dia" else "ghost_spmv", blk.spmv(x), want))
+    col, order = M.colored, M._order_seq()
+    shape = col.vals_d.shape[:2] + col.vals_d.shape[3:]
+    x0, bd = (torch.randn(shape, generator=g, dtype=col.invd_d.dtype).to(device)
+              for _ in range(2))
+    pairs.append(("gs_sweeps", gs_sweeps(col.vals_d, bd, col.invd_d, x0, col.taps, order),
+                  gs_sweeps_plain(col.vals_d, bd, col.invd_d, x0, col.taps, order)))
+    out = {}
+    for name, got, want in pairs:
+        err = float((got - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-300)
+        tol = 1e-12 if want.dtype == torch.float64 else 1e-5
+        if not rel <= tol:
+            raise AssertionError(f"{name} on this process's parts: {rel:.3e} > {tol:.0e} "
+                                 "relative to its plain version")
+        prev = out.get(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
+        out[name] = {"max_abs_err": max(err, prev["max_abs_err"]),
+                     "max_rel_err": max(rel, prev["max_rel_err"]), "shape": list(got.shape)}
+    return out
+
+
 def mode_cg(backend, kw, device):
     from partitionedarrays_tpu_torch.backends import SerialBackend
     from partitionedarrays_tpu_torch.models.hpcg.problem import build_hpcg_problem
@@ -123,12 +167,14 @@ def mode_cg(backend, kw, device):
     x, info = cg(A, b, M=M, rtol=rtol, maxiter=500)
     timer.toc("solve")
     launches = _counts()
+    kernels = _hold_local_kernels(A, M, device, seed=backend.rank)
     stats = timer.gather_statistics(backend)
     assert stats["setup"]["procs"] == backend.n_procs, "the timer did not span the processes"
     assert stats["solve"]["min"] <= stats["solve"]["avg"] <= stats["solve"]["max"]
     timer.print_main(backend)
     out = {"iterations": int(info.iterations), "solve_s": stats["solve"]["max"],
-           "setup_s": stats["setup"]["max"], "rows": A.shape[0], "launches": launches}
+           "setup_s": stats["setup"]["max"], "rows": A.shape[0], "launches": launches,
+           "kernels_vs_plain": kernels}
     local = backend.local_parts()
     # the single-process run of the same problem
     As, bs = build_hpcg_problem((n, n, n), parts, SerialBackend(backend.n_parts), dtype=dtype,
@@ -163,7 +209,7 @@ def mode_fem(backend, kw, device):
     from partitionedarrays_tpu_torch.backends import SerialBackend
     from partitionedarrays_tpu_torch.models.gallery import laplacian_fem
     from partitionedarrays_tpu_torch.parallel.partition import INT, PRange
-    from partitionedarrays_tpu_torch.psparse import psparse, psparse_local, spmv
+    from partitionedarrays_tpu_torch.psparse import psparse, psparse_local, spmv, to_global_scipy
     from partitionedarrays_tpu_torch.pvector import pones, pvector_local
 
     nodes = _ints(kw.get("fem_nodes", "33,33"))
@@ -176,7 +222,13 @@ def mode_fem(backend, kw, device):
     for p in range(P):
         assert (I[p] is not None) == (p in local), "a part of another process was made"
     A = psparse_local(I, J, V, PRange(rows), PRange(cols), backend, device=device)
-    assert A._local_only
+    if backend.is_multiprocess:
+        try:
+            to_global_scipy(A)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("to_global_scipy took a per-process matrix")
     _sync(device)
     build_s = time.perf_counter() - t0
     st = dict(backend._last_local_build_stats)
