@@ -30,7 +30,10 @@ the matrix-free Newton (``newton_krylov``, forward derivatives of K1 and
 K5), and the multi-process tier: ``MeshBackend`` over ``torch.distributed``
 (``with_multihost``), each process holding its own parts, with per-process
 construction (``psparse_local``, ``pvector_local``), AMG setup and
-``hpcg_benchmark_mpi``; see ROADMAP.md.
+``hpcg_benchmark_mpi``, and the sorted-by-color Gauss-Seidel tier with
+``ops/ell.py``.  Every public name of the JAX package is here but its two
+TPU settings (``pallas_enabled``, ``enable_compilation_cache``); see
+ROADMAP.md.
 """
 from . import config
 from .backends import (
@@ -109,11 +112,23 @@ from .models.gallery import (
 )
 from .models.hpcg import (
     HPCGMGPreconditioner,
+    HPCGReport,
     build_hpcg_problem,
+    build_matrix,
+    build_p_matrix,
+    compute_optimal_shape_xyz,
     hpcg_benchmark,
+    hpcg_benchmark_debug,
     hpcg_benchmark_mesh,
     hpcg_benchmark_mpi,
+    hpcg_cg,
+    opt_cg,
+    pc_setup,
+    pc_solve,
+    ref_cg,
 )
+from .ops.dia import csr_diagonals, dia_spmv
+from .ops.ell import csr_to_ell, ell_spmv
 from .ops.jagged import (
     GenericJaggedArray,
     JaggedArray,
@@ -283,24 +298,59 @@ from .pvector import (
     split_vector_blocks,
 )
 from .ops.sparse_host import (
+    compresscoo,
     indextype,
+    nzindex,
     nziterator,
+    precompute_nzindex,
+    sparse_matrix,
+    sparse_matrix_refill,
     split_locally,
     sub_sparse_matrix,
 )
+from .ops.stencil import stencil_psparse, stencil_rhs_counts
 from .ops.sparse_host import spmtv as spmtv_local
 from .ops.sparse_host import spmv as spmv_local
-from .solvers.amg import AMGParams, AMGPreconditioner
-from .solvers.interfaces import additive_schwarz_solver
-from .solvers.nonlinear import newton_krylov, newton_raphson
-from .solvers.ode import backward_euler
+from .solvers.amg import (
+    AMGLevel,
+    AMGParams,
+    AMGPreconditioner,
+    aggregate,
+    amg,
+    constant_prolongator,
+    default_nullspace,
+    smoothed_prolongator,
+    spectral_radius,
+    tentative_prolongator,
+)
+from .solvers.interfaces import (
+    LinearProblem,
+    NonlinearProblem,
+    ODEProblem,
+    additive_schwarz_solver,
+    amg_solver,
+    cg_solver,
+    gauss_seidel_solver,
+    history,
+    jacobi_solver,
+    lu_solver,
+    preconditioner,
+    richardson_solver,
+    smooth,
+    solve,
+)
+from .solvers.krylov import CGInfo, cg, cg_df64, pipelined_cg, richardson_iteration
+from .solvers.nonlinear import NewtonInfo, newton_krylov, newton_raphson
+from .solvers.ode import backward_euler, single_stage_solver
 from .solvers.smoothers import (
     AdditiveSchwarz,
     GaussSeidel,
+    JacobiCorrection,
     additive_schwarz,
     gauss_seidel,
     greedy_coloring,
     identity_solver,
+    jacobi,
 )
 from .utils.ptimer import PTimer, barrier, current_time
 

@@ -64,6 +64,12 @@ class Backend:
         """``x`` reduced across the processes ("sum", "max" or "min")."""
         return x
 
+    def allgather_parts(self, x: torch.Tensor) -> torch.Tensor:
+        """The per-part values ``x[P_local, ...]`` of every process stacked
+        ``[P, ...]`` in part order (the processes hold contiguous parts in
+        rank order); the values travel exactly."""
+        return x
+
     def allgather_object(self, obj) -> list:
         """Every process's ``obj``, in rank order."""
         return [obj]
@@ -131,6 +137,23 @@ class MeshBackend(Backend):
         dist.all_reduce(h, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                                "min": dist.ReduceOp.MIN}[op])
         return h.to(x.device)
+
+    def allgather_parts(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.is_multiprocess:
+            return x
+        import torch.distributed as dist
+
+        counts = np.diff(self._bounds)
+        h = stage(x)
+        if h.shape[0] != counts[self.rank]:
+            raise ValueError(f"allgather_parts: {h.shape[0]} rows on a process of "
+                             f"{counts[self.rank]} parts")
+        # gloo gathers equal shapes: pad each process's rows to the most
+        pad = h.new_zeros((int(counts.max()),) + tuple(h.shape[1:]))
+        pad[: h.shape[0]] = h
+        out = [torch.empty_like(pad) for _ in range(self.n_procs)]
+        dist.all_gather(out, pad)
+        return torch.cat([o[: int(c)] for o, c in zip(out, counts)]).to(x.device)
 
     def allgather_object(self, obj) -> list:
         if not self.is_multiprocess:

@@ -3,8 +3,10 @@
 The reference's state arrives as numpy arrays (``np.asarray`` of the JAX
 arrays) and scipy matrices, so that both packages can be fed exactly the
 same operator, right-hand side and smoother values: ``from_jax_arrays``
-(an HPCG MG hierarchy) and ``psparse_from_host_blocks`` (any partitioned
-matrix, e.g. an AMG level operator).  This module imports no JAX.
+(an HPCG MG hierarchy), ``psparse_from_host_blocks`` (any partitioned
+matrix, e.g. an AMG level operator) and ``sorted_gs_from_color_tabs`` (a
+Gauss-Seidel smoother on the sorted-by-color tier from the reference's
+``color_tabs``).  This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from .parallel.partition import INT, LocalIndices, PRange, uniform_partition
 from .psparse import DeviceSpMat, PSparseMatrix
 from .pvector import PVector
 from .solvers.gs_dia import ColoredDIAGS
-from .solvers.smoothers import GaussSeidel
+from .solvers.smoothers import GaussSeidel, SortedColorGS
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -176,3 +178,16 @@ def psparse_from_host_blocks(
         device_dtype=None if device_dtype is None else torch_dtype(device_dtype),
         assembled=assembled,
     )
+
+
+def sorted_gs_from_color_tabs(A: PSparseMatrix, color_tabs: Sequence[Sequence[np.ndarray]],
+                              iterations: int = 1, sweep: str = "symmetric") -> GaussSeidel:
+    """A GaussSeidel of A on the sorted-by-color tier whose state is the
+    reference's ``GaussSeidel.color_tabs``: per color the six arrays (the
+    color's rows, the ELL columns and values of its rows of A_oo and A_oh,
+    and the inverse diagonal; ``np.asarray`` of the reference's), kept bit
+    for bit, with K5's operands frozen from them on A's device."""
+    tabs = [tuple(np.asarray(a) for a in t) for t in color_tabs]
+    state = SortedColorGS(tabs, A.row_layout().n_own_pad, A.col_layout().n_ghost_pad,
+                          A.torch_device, A.dtype, backend=A.backend)
+    return GaussSeidel(A, iterations, sweep, _sorted=state)

@@ -156,7 +156,8 @@ def hpcg_cg_df64(
     backend = bh.backend
     lay = bh.layout
     clay = A.col_layout()
-    dot = df.dot_parts
+    def dot(a, b):
+        return df.dot_parts(a, b, backend)
 
     if M is None:
         # identity preconditioner: z = r exactly, both words.  Keeping only

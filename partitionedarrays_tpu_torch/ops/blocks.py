@@ -60,6 +60,24 @@ class DeviceBlock:
         self.cols = cols
         self.plan = plan
 
+    def nbytes(self) -> int:
+        """The device bytes of the block: its values and, for compressed
+        rows, the int32 rows and columns and K5's per-group lane counts
+        (the reference's counts its values, columns and slot arrays)."""
+        arrs = [self.vals, self.rows, self.cols]
+        if self.plan is not None:
+            arrs.append(self.plan.group_lanes)
+        return sum(t.numel() * t.element_size() for t in arrs if t is not None)
+
+    def astype(self, dtype) -> "DeviceBlock":
+        """A copy with the values cast to ``dtype`` (a torch or numpy dtype);
+        the offsets, rows, columns and K5's plan are shared."""
+        from ..config import values_dtype
+
+        return DeviceBlock(self.kind, self.offsets, self.n_rows, self.n_cols_pad,
+                           self.vals.to(values_dtype(dtype)).contiguous(), rows=self.rows,
+                           cols=self.cols, plan=self.plan)
+
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         """Per-part SpMV: x [P, n_cols_pad] -> [P, n_rows] (K1 or K5).
         Inside a forward-AD level (``torch.autograd.forward_ad``) the
@@ -196,6 +214,7 @@ def freeze_block(
     prefer_dia: bool = True,
     dtype=None,
     agree=None,
+    agree_lanes=None,
 ) -> DeviceBlock:
     """Per-part host blocks -> one DeviceBlock on ``device``: DIA when
     every part block is banded with a small common diagonal set and the
@@ -205,7 +224,8 @@ def freeze_block(
     K1 takes).  ``dtype``: the values' torch dtype on the device (default:
     the host blocks' own).  ``agree``: on several processes, maps this
     process's (offsets or None, widest row) to the ones all processes
-    use (``psparse._agreed_dia_offsets``)."""
+    use (``psparse._agreed_dia_offsets``); ``agree_lanes``: the agreement
+    of K5's plan (``ell_rows.plan_of``)."""
     csrs = [b.tocsr() for b in blocks]
     for b in csrs:
         b.sort_indices()
@@ -226,7 +246,7 @@ def freeze_block(
     return DeviceBlock(
         "ell", None, n_rows_pad, n_cols_pad, torch.from_numpy(vals).to(device, dtype),
         rows=torch.from_numpy(rows).to(device), cols=torch.from_numpy(cols).to(device),
-        plan=plan_of(cols, torch.device(device)),
+        plan=plan_of(cols, torch.device(device), agree_lanes),
     )
 
 

@@ -147,22 +147,27 @@ def dot(a: Pair, b: Pair) -> Pair:
                         (b[0].reshape(-1), b[1].reshape(-1))))
 
 
-def dot_parts(a: Pair, b: Pair) -> Pair:
-    """df64 dot of part-stacked vectors ``[P, n]``: each part's compensated
-    dot, then a df64 fold of the P partial pairs (the reference's
-    ``dot_spmd`` :213, whose all-gather is dim 0 here).  A plain sum of
-    the hi words would re-round in float32 and lose the compensation."""
+def dot_parts(a: Pair, b: Pair, backend=None) -> Pair:
+    """df64 dot of part-stacked vectors ``[P_local, n]``: each part's
+    compensated dot, the partial pairs of every process gathered in part
+    order (``backend.allgather_parts``; nothing is sent on one process),
+    then one df64 fold over all P: the reference's ``dot_spmd`` (:213,
+    all-gather then ``tree_sum``), bit-equal on any number of processes
+    to the serial backend.  A plain sum of the hi words would re-round in
+    float32 and lose the compensation."""
     P = a[0].shape[0]
-    per_part = tree_sum(mul((a[0].reshape(P, -1), a[1].reshape(P, -1)),
-                            (b[0].reshape(P, -1), b[1].reshape(P, -1))))
-    return tree_sum(per_part)
+    ph, pl = tree_sum(mul((a[0].reshape(P, -1), a[1].reshape(P, -1)),
+                          (b[0].reshape(P, -1), b[1].reshape(P, -1))))
+    if backend is not None and backend.is_multiprocess:
+        ph, pl = backend.allgather_parts(torch.stack([ph, pl], dim=1)).unbind(dim=1)
+    return tree_sum((ph, pl))
 
 
-def dot_spmd(a: Pair, b: Pair, axis_name=None) -> Pair:
+def dot_spmd(a: Pair, b: Pair, axis_name=None, backend=None) -> Pair:
     """The reference's ``dot_spmd`` (:213): its per-part dots and fold over
-    the SPMD axis ``axis_name`` are ``dot_parts`` over dim 0 here, which
-    needs no axis name."""
-    return dot_parts(a, b)
+    the SPMD axis ``axis_name`` are ``dot_parts`` over the part axis and
+    the processes of ``backend`` here, which needs no axis name."""
+    return dot_parts(a, b, backend)
 
 
 # -- conversions --------------------------------------------------------------

@@ -105,3 +105,13 @@ def dia_spmv_plain(
     for d, off in enumerate(offsets):
         y = y + vals[:, d].to(x.dtype) * xpad[:, off - lo : off - lo + R]
     return y
+
+
+def dia_spmv(offsets: Tuple[int, ...], vals: torch.Tensor, x: torch.Tensor,
+             n_cols_pad: int) -> torch.Tensor:
+    """The reference's per-part ``dia_spmv`` (``ops/dia.py:69``), its
+    signature kept: y[i] = sum_d vals[d, i] * x[i + offsets[d]] for one
+    part, vals ``[n_off, R]``, x ``[n_cols_pad]``, x zero outside, returns
+    ``[R]``.  It runs ``dia_spmv_plain`` on the part as a stack of one, on
+    x's device; the stacked kernel K1 is ``ops/dia_spmv.py::dia_spmv``."""
+    return dia_spmv_plain(tuple(offsets), vals.unsqueeze(0), x[:n_cols_pad].unsqueeze(0))[0]

@@ -103,11 +103,19 @@ def warps_per_group(groups: int, mean_lanes: float) -> int:
     return lanes
 
 
-def plan_of(cols, device: Optional[torch.device] = None) -> EllPlan:
+def plan_of(cols, device: Optional[torch.device] = None, agree=None) -> EllPlan:
     """The plan of a block from its columns ``[P, K, Nr]`` (host or
-    device; the counts go to ``device``, by default the columns')."""
+    device; the counts go to ``device``, by default the columns').
+    ``agree``: on several processes, maps this process's (groups a part,
+    lanes summed over its groups) to the whole block's (groups, lanes
+    summed) over every part, so that every process picks the G of the
+    serial backend's block and sums each row in its order
+    (``psparse._agreed_ell_groups``)."""
     counts = group_lane_counts(cols)
     if device is None:
         device = cols.device if isinstance(cols, torch.Tensor) else torch.device("cpu")
-    mean = float(counts.mean()) if counts.size else 0.0
-    return EllPlan(warps_per_group(counts.size, mean), torch.from_numpy(counts).to(device))
+    groups, total = counts.size, int(counts.sum())
+    if agree is not None:
+        groups, total = agree(counts.shape[1], total)
+    mean = total / groups if groups else 0.0
+    return EllPlan(warps_per_group(groups, mean), torch.from_numpy(counts).to(device))

@@ -156,22 +156,26 @@ def gs_sweeps_plain(
 
 
 def ax_core(
-    vals: torch.Tensor, xcore: torch.Tensor, tap: TapTable, _plan: Optional[AxPlan] = None
+    vals: torch.Tensor, xcore: torch.Tensor, tap: TapTable, plan_parts: Optional[int] = None,
+    _plan: Optional[AxPlan] = None,
 ) -> torch.Tensor:
     """K4.  vals [P, m, n_off, Lq] (the vectors' dtype or a narrow pair),
     xcore [P, m, Lq] -> [P, m, Lq].  A CPU tensor goes to
     ``ax_core_plain``; a CUDA tensor goes to the kernel, one launch over
     every color and part (Lq and every start in whole loads:
     ``dia_rows.check_rows``), or the call raises.  The lanes per row group
-    are ``dia_rows.ax_plan`` of the shape; ``_plan`` overrides them for
-    the GPU tests and ``chip_smoke.py``, which time and check every plan."""
+    are ``dia_rows.ax_plan`` of the shape, for ``plan_parts`` parts (default
+    the tensors' P: a process of a multi-process run passes the count of
+    all parts, so that its sums run in the serial backend's order);
+    ``_plan`` overrides them for the GPU tests and ``chip_smoke.py``, which
+    time and check every plan."""
     if not _check("ax_core", vals, (xcore,), tap):
         return ax_core_plain(vals, xcore, tap)
     P, m, n_off, Lq = vals.shape
     check_rows("ax_core", Lq, (vals, xcore), vec_of(xcore.element_size()))
     if max(n_off, m) * Lq >= 2**31:
         raise ValueError(f"ax_core: {max(n_off, m) * Lq} rows of a part exceed int32 offsets")
-    plan = _plan or ax_plan(P, m, n_off, Lq, xcore.element_size())
+    plan = _plan or ax_plan(plan_parts or P, m, n_off, Lq, xcore.element_size())
     out = torch.empty_like(xcore)
     code = _build.entry("pat_ax_core", xcore.dtype, vals.dtype)(
         vals.data_ptr(), xcore.data_ptr(), out.data_ptr(),
@@ -192,6 +196,7 @@ def gs_sweeps(
     xcore: Optional[torch.Tensor],
     tap: TapTable,
     order: Sequence[int],
+    plan_parts: Optional[int] = None,
     _plan: Optional[SweepPlan] = None,
 ) -> torch.Tensor:
     """K3.  Runs the color steps of ``order`` on a copy of ``xcore``
@@ -201,8 +206,9 @@ def gs_sweeps(
     ``gs_sweeps_plain``; a CUDA tensor goes to the kernel, one launch for
     the whole sequence (Lq and every start in whole 16-byte steps), or the
     call raises.  The launch's lanes and CTAs are
-    ``dia_rows.sweep_plan`` of the shape; ``_plan`` overrides them for
-    the GPU tests and ``chip_smoke.py``, which time and check every plan."""
+    ``dia_rows.sweep_plan`` of the shape, for ``plan_parts`` parts (as in
+    ``ax_core``); ``_plan`` overrides them for the GPU tests and
+    ``chip_smoke.py``, which time and check every plan."""
     cores = (bd, invd) if xcore is None else (bd, invd, xcore)
     if not _check("gs_sweeps", vals, cores, tap):
         start = torch.zeros_like(bd) if xcore is None else xcore
@@ -211,7 +217,7 @@ def gs_sweeps(
     check_rows("gs_sweeps", Lq, (vals, *cores), vec_of(bd.element_size()))
     if m * n_off * Lq >= 2**31:
         raise ValueError(f"gs_sweeps: a part's {m * n_off * Lq} values exceed int32 offsets")
-    plan = _plan or sweep_plan(P, m, n_off, Lq, bd.element_size())
+    plan = _plan or sweep_plan(plan_parts or P, m, n_off, Lq, bd.element_size())
     x = torch.empty_like(bd)
     code = _build.entry("pat_gs_sweeps", bd.dtype, vals.dtype)(
         vals.data_ptr(), bd.data_ptr(), invd.data_ptr(),

@@ -18,9 +18,13 @@ import numpy as np
 import scipy.sparse as sp
 
 
-def compresscoo(I, J, V, m: int, n: int) -> sp.csr_matrix:
+def compresscoo(I, J, V, m: int, n: int, combine="add") -> sp.csr_matrix:
     """COO triplets -> CSR with duplicates summed and column indices sorted.
-    Entries with a negative row or column index are dropped."""
+    Entries with a negative row or column index are dropped.  ``combine``:
+    how duplicates combine; "add" is the only one (the reference takes the
+    argument and always adds, so any other raises here instead)."""
+    if combine != "add":
+        raise ValueError(f"compresscoo: duplicates combine by 'add' only, got {combine!r}")
     I = np.asarray(I)
     J = np.asarray(J)
     V = np.asarray(V)
@@ -31,6 +35,17 @@ def compresscoo(I, J, V, m: int, n: int) -> sp.csr_matrix:
     A.sum_duplicates()
     A.sort_indices()
     return A
+
+
+def nzindex(A: sp.csr_matrix, i: int, j: int) -> int:
+    """The position of entry (i, j) in A's stored entries, -1 if not
+    stored (A: CSR with sorted indices).  The reference's ``nzindex``
+    (``ops/sparse_host.py:61``)."""
+    lo, hi = A.indptr[i], A.indptr[i + 1]
+    k = np.searchsorted(A.indices[lo:hi], j)
+    if k < hi - lo and A.indices[lo + k] == j:
+        return int(lo + k)
+    return -1
 
 
 def precompute_nzindex(A: sp.csr_matrix, I, J) -> np.ndarray:

@@ -37,7 +37,7 @@ import torch
 from ..config import numpy_dtype, torch_dtype
 from ..parallel.exchange_plan import layout_of
 from ..parallel.partition import INT, PRange, uniform_partition
-from ..psparse import DeviceSpMat, PSparseMatrix, _sorted_ghosts
+from ..psparse import DeviceSpMat, PSparseMatrix, _freeze_agreements, _sorted_ghosts
 from .blocks import freeze_block, make_dia_block
 from .dia import host_dia
 from .sparse_host import compresscoo
@@ -224,7 +224,7 @@ def stencil_psparse(
     nnz = P * int(torch.count_nonzero(one)) + sum(m.nnz for m in oh_csrs)
     oo = make_dia_block(tuple(all_offs), clay.n_own_pad, vals)
     oh = freeze_block([oh_csrs[p] for p in local], rlay.n_own_pad, max(clay.n_ghost_pad, 1),
-                      device=device)
+                      device=device, **_freeze_agreements(backend))
     blocks = [
         _LazyStencilBlocks(oh_csr, lambda ncc=cp.n_own: _host_dia_mirror(
             loc, ncc, all_offs, terms, np_dtype))
@@ -269,7 +269,7 @@ def _unequal_boxes(row_pr, col_pr, oh_csrs, stencil, backend, np_dtype, device):
     vals = vals[backend.part_slice]
     oo = make_dia_block(tuple(all_offs), clay.n_own_pad, torch.from_numpy(vals).to(device))
     oh = freeze_block([oh_csrs[p] for p in local], rlay.n_own_pad, max(clay.n_ghost_pad, 1),
-                      device=device)
+                      device=device, **_freeze_agreements(backend))
     A = PSparseMatrix(DeviceSpMat(oo, oh), row_pr, col_pr, backend, nnz, blocks=blocks)
     A._oo_dia_host = (tuple(all_offs), vals)
     return A

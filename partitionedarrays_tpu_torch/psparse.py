@@ -106,6 +106,16 @@ class DeviceSpMat:
         self.ho = ho
         self.hh = hh
 
+    def nbytes(self) -> int:
+        """The device bytes of the blocks (``DeviceBlock.nbytes``)."""
+        return sum(b.nbytes() for b in (self.oo, self.oh, self.ho, self.hh) if b is not None)
+
+    def astype(self, dtype) -> "DeviceSpMat":
+        """A copy with every block's values cast to ``dtype`` (structure
+        shared)."""
+        return DeviceSpMat(*(b.astype(dtype) if b is not None else None
+                             for b in (self.oo, self.oh, self.ho, self.hh)))
+
 
 class PSparseMatrix:
     """A matrix with rows partitioned by ``row_prange`` and columns by
@@ -189,10 +199,10 @@ class PSparseMatrix:
         """Freeze the local parts' host blocks; on several processes the
         DIA-or-compressed-rows choice and the DIA offsets are agreed by all
         (``_agreed_dia_offsets``), so that every process takes the same
-        kernels and smoother tier."""
-        agree = _agreed_dia_offsets(self.backend) if self.backend.is_multiprocess else None
+        kernels and smoother tier, and so is K5's plan
+        (``_agreed_ell_groups``)."""
         return freeze_block(parts, n_rows, n_cols, device=device, dtype=self.dtype,
-                            agree=agree)
+                            **_freeze_agreements(self.backend))
 
     def device(self) -> DeviceSpMat:
         """The frozen blocks; a matrix built from host blocks freezes them
@@ -786,6 +796,27 @@ def _agreed_dia_offsets(backend):
         return union, kmax_all
 
     return agree
+
+
+def _agreed_ell_groups(backend):
+    """The agreement of K5's plan on several processes: the row groups of
+    the whole block (every part padded to the most groups of any part, as
+    the serial backend's stacked block is) and the lanes summed over them,
+    from each process's (groups a part, lanes summed)."""
+
+    def agree(groups_per_part: int, total: int):
+        views = backend.allgather_object((int(groups_per_part), int(total)))
+        return backend.n_parts * max(g for g, _ in views), sum(t for _, t in views)
+
+    return agree
+
+
+def _freeze_agreements(backend) -> dict:
+    """``freeze_block``'s agreements on a multi-process backend (none on
+    one process)."""
+    if not backend.is_multiprocess:
+        return {}
+    return {"agree": _agreed_dia_offsets(backend), "agree_lanes": _agreed_ell_groups(backend)}
 
 
 class _LocalCooCache:
@@ -1386,9 +1417,8 @@ def sparse_diag_matrix(v: PVector, rows: Optional[PRange] = None) -> PSparseMatr
     """The diagonal matrix of v's own values, on ``rows`` (default: v's
     partition) without ghosts."""
     pr = PRange([li.remove_ghost() for li in (rows or v.layout.pr).parts])
-    own = v.own.cpu().numpy()
     I_parts = [li.own_to_global for li in pr.parts]
-    V_parts = [own[p, : li.n_own] for p, li in enumerate(pr.parts)]
+    V_parts = v.own_values()  # None for the parts of another process
     return psparse(I_parts, I_parts, V_parts, pr, pr, v.backend, assembled=True,
                    device=v.own.device)
 
@@ -1398,8 +1428,14 @@ def _check_assembled(*mats) -> None:
         raise ValueError("the sparse products need assembled matrices")
 
 
+class _RefillOutsidePattern(ValueError):
+    """A refilled product has a real entry outside the sparsity of its
+    build (``_refilled_product``); ``AMGPreconditioner.update`` answers it
+    with a new setup on the same aggregates."""
+
+
 def _refilled_product(L: sp.csr_matrix, R: sp.csr_matrix, indptr: np.ndarray,
-                      indices: np.ndarray) -> np.ndarray:
+                      indices: np.ndarray, outside: Optional[list] = None) -> np.ndarray:
     """The values of the recomputed local product ``L @ R`` on the pattern
     of its build (``indptr``, ``indices``).
 
@@ -1409,10 +1445,13 @@ def _refilled_product(L: sp.csr_matrix, R: sp.csr_matrix, indptr: np.ndarray,
     leave a rounding residue there: an entry within k eps of its row's
     largest (k the most terms a sum has, eps that of the operands' lower
     precision) stands for the same zero and is not kept.  A larger entry
-    there raises: new values made real a product the build saw cancel, as
-    in an elasticity hierarchy built at constant coefficients and refilled
-    with variable ones (ROADMAP Queue 3).  An entry of the pattern that now
-    cancels is stored as zero."""
+    there raises ``_RefillOutsidePattern``: new values made real a product
+    the build saw cancel, as in an elasticity hierarchy built at constant
+    coefficients and refilled with variable ones.  With a list
+    ``outside`` the entry is counted there instead and left out, so that
+    a caller on several processes finishes the refill's collective steps
+    before it acts on the fault.  An entry of the pattern that now cancels
+    is stored as zero."""
     C = L @ R
     C.sum_duplicates()
     C.sort_indices()
@@ -1429,10 +1468,13 @@ def _refilled_product(L: sp.csr_matrix, R: sp.csr_matrix, indptr: np.ndarray,
         k = max(int(np.diff(L.indptr).max(initial=0)), 1)
         row_max = np.zeros(C.shape[0])
         np.maximum.at(row_max, coo.row, np.abs(coo.data))
-        if (np.abs(coo.data[extra]) > k * eps * row_max[coo.row[extra]]).any():
-            raise ValueError(
+        real = int(np.count_nonzero(np.abs(coo.data[extra]) > k * eps * row_max[coo.row[extra]]))
+        if real and outside is None:
+            raise _RefillOutsidePattern(
                 "a refilled product has an entry outside the sparsity of its build: its terms "
-                "cancelled exactly at the build (ROADMAP Queue 3)")
+                "cancelled exactly at the build; AMGPreconditioner.update sets up anew there")
+        if real:
+            outside.append(real)
     return out
 
 
@@ -1449,7 +1491,7 @@ class _SpmmCache:
         self.parts: dict = {}
 
     def refill(self, C: PSparseMatrix, A: PSparseMatrix, B: PSparseMatrix,
-               refresh_b: bool = True) -> None:
+               refresh_b: bool = True, outside: Optional[list] = None) -> None:
         _canonicalize_blocks(A)
         if refresh_b:
             consistent_matrix_into(self.Bc, B, self.bc_cache)
@@ -1458,7 +1500,7 @@ class _SpmmCache:
                 A_loc.data[idx] = A.blocks[p][_BLOCK_NAMES[bi]].data
             for bi, idx in b_fill.items():
                 B_loc.data[idx] = _canon_data(self.Bc.blocks[p][_BLOCK_NAMES[bi]])
-            data = _refilled_product(A_loc, B_loc, *pattern)
+            data = _refilled_product(A_loc, B_loc, *pattern, outside=outside)
             for name, cpos, dpos in dst:
                 d = C.blocks[p][name].data
                 d[:] = 0
@@ -1557,7 +1599,8 @@ class _SpmtmCache:
         self.parts: dict = {}
         self.pcache = None
 
-    def refill(self, C: PSparseMatrix, A: PSparseMatrix, B: PSparseMatrix) -> None:
+    def refill(self, C: PSparseMatrix, A: PSparseMatrix, B: PSparseMatrix,
+               outside: Optional[list] = None) -> None:
         _canonicalize_blocks(A)
         _canonicalize_blocks(B)
         V_parts = [None] * C.row_prange.n_parts
@@ -1567,7 +1610,7 @@ class _SpmtmCache:
             for bi, idx in b_fill.items():
                 B_loc.data[idx] = B.blocks[p][_BLOCK_NAMES[bi]].data
             AT.data[tpos] = A_loc.data
-            V_parts[p] = _refilled_product(AT, B_loc, *pattern)
+            V_parts[p] = _refilled_product(AT, B_loc, *pattern, outside=outside)
         psparse_refill(C, V_parts, self.pcache)
 
 
@@ -1870,8 +1913,8 @@ def spmv_df64(A: PSparseMatrix, x_pair) -> Tuple[PVector, PVector]:
     devh, devl = device_df64(A)
     y = block_spmv_df(devh.oo, devl.oo, (xh.own, xl.own))
     if _has_exchange(clay):
-        gh = clay.consistent_plan.apply(xh.own, xgh, "set")
-        gl = clay.consistent_plan.apply(xl.own, xgl, "set")
+        gh = clay.consistent_plan.apply(xh.own, xgh, "set", A.backend)
+        gl = clay.consistent_plan.apply(xl.own, xgl, "set", A.backend)
         y = df.add(y, block_spmv_df(devh.oh, devl.oh, (gh, gl)))
     zg = y[0].new_zeros((y[0].shape[0], rlay.n_ghost_pad))
     return PVector(y[0], zg, rlay, A.backend), PVector(y[1], zg, rlay, A.backend)

@@ -297,9 +297,14 @@ def pvector_from_split_blocks(own: torch.Tensor, ghost: torch.Tensor, pr: PRange
 def find_local_indices(mask: PVector):
     """The sub-partition of the ids whose own value in ``mask`` is nonzero,
     renumbered part by part in own order, and the map from old global id
-    to new (-1 where not selected): (PRange, new_of_old)."""
+    to new (-1 where not selected): (PRange, new_of_old), the same on
+    every process (the selections are all-gathered: COLLECTIVE)."""
+    from .parallel.host_exchange import allgather_part_arrays
+
     pr = mask.layout.pr
-    sel = [np.asarray(v) != 0 for v in mask.own_values()]
+    sel = allgather_part_arrays(
+        mask.backend, pr.n_parts,
+        {p: np.asarray(v) != 0 for p, v in enumerate(mask.own_values()) if v is not None}, bool)
     counts = [int(s.sum()) for s in sel]
     starts = np.zeros(len(counts) + 1, dtype=INT)
     np.cumsum(counts, out=starts[1:])
@@ -366,8 +371,11 @@ def pvector(I_parts, V_parts, rows, backend, assemble_result: bool = True, dtype
     """The COO constructor: per-part (global id, value) contributions,
     summed.  An id owned by another part lands in a ghost slot (the
     partition gains it as a ghost, by ``union_ghost``) and, with
-    ``assemble_result``, is then added to its owner.  ``reuse=True``
-    returns ``(v, cache)`` for ``pvector_refill``."""
+    ``assemble_result``, is then added to its owner.  On several
+    processes every process gives every part's ids, so that the partition
+    with the new ghosts is the same on all, and its own parts' values (the
+    others may be None).  ``reuse=True`` returns ``(v, cache)`` for
+    ``pvector_refill``."""
     pr = rows if isinstance(rows, PRange) else PRange(list(rows))
     owners = find_owner(pr.parts, I_parts)
     pr2 = PRange([
@@ -375,7 +383,8 @@ def pvector(I_parts, V_parts, rows, backend, assemble_result: bool = True, dtype
         for li, g, o in zip(pr.parts, I_parts, owners)
     ])
     lay = layout_of(pr2)
-    np_dtype = numpy_dtype(np.asarray(V_parts[0]).dtype if dtype is None else dtype)
+    first = np.asarray(V_parts[backend.local_parts()[0]])
+    np_dtype = numpy_dtype(first.dtype if dtype is None else dtype)
     positions = []
     for li, gids in zip(pr2.parts, I_parts):
         po = li.global_to_own(gids)
@@ -391,17 +400,19 @@ def _assemble_parts(V_parts, cache: PVectorAssemblyCache) -> PVector:
     the cache's dtype (summed in the contributions' own dtype per part, as
     the build does)."""
     lay = cache.layout
-    own = np.zeros((lay.n_parts, lay.n_own_pad), dtype=cache.dtype)
-    ghost = np.zeros((lay.n_parts, lay.n_ghost_pad), dtype=cache.dtype)
-    for p, ((po, mo, pg, mg), vals) in enumerate(zip(cache.positions, V_parts)):
-        vals = np.asarray(vals)
+    local = cache.backend.local_parts()
+    own = np.zeros((len(local), lay.n_own_pad), dtype=cache.dtype)
+    ghost = np.zeros((len(local), lay.n_ghost_pad), dtype=cache.dtype)
+    for k, p in enumerate(local):
+        po, mo, pg, mg = cache.positions[p]
+        vals = np.asarray(V_parts[p])
         li = lay.pr.parts[p]
         o = np.zeros(li.n_own, dtype=vals.dtype)
         g = np.zeros(li.n_ghost, dtype=vals.dtype)
         np.add.at(o, po, vals[mo])
         np.add.at(g, pg, vals[mg])
-        own[p, : li.n_own] = o
-        ghost[p, : li.n_ghost] = g
+        own[k, : li.n_own] = o
+        ghost[k, : li.n_ghost] = g
     dev = cache.device
     v = PVector(torch.from_numpy(own).to(dev), torch.from_numpy(ghost).to(dev), lay, cache.backend)
     return assemble(v).wait() if cache.assemble_result else v
@@ -579,19 +590,17 @@ def pvector_split_df64(v: PVector) -> DFPair:
 
 
 def collect_df64(pair: DFPair) -> np.ndarray:
-    """A df64 pair as one host float64 array in global order (exact)."""
+    """A df64 pair as one host float64 array in global order (exact; on
+    several processes through ``collect``'s all-gather: COLLECTIVE)."""
     vh, vl = pair
-    own = df.to_f64(vh.own, vl.own).cpu().numpy()
-    out = np.zeros(vh.n_global, dtype=np.float64)
-    for p, part in enumerate(vh.layout.pr.parts):
-        out[part.own_to_global] = own[p, : part.n_own]
-    return out
+    return collect(PVector(df.to_f64(vh.own, vl.own), vh.ghost.to(torch.float64), vh.layout,
+                           vh.backend))
 
 
 def pdot_df64(x_pair: DFPair, y_pair: DFPair):
     """Compensated global dot of two df64 pairs -> (hi, lo) 0-d tensors."""
     (xh, xl), (yh, yl) = x_pair, y_pair
-    return df.dot_parts((xh.own, xl.own), (yh.own, yl.own))
+    return df.dot_parts((xh.own, xl.own), (yh.own, yl.own), xh.backend)
 
 
 def pnorm_df64(x_pair: DFPair):

@@ -46,8 +46,11 @@ cross processes), and the coarsest operator is gathered on every process.
 ``update(A)`` re-coarsens for new values of A at the setup's sparsity:
 each level's P, AP and Ac are refilled through its ``_GalerkinCache`` (at
 the frozen aggregates and omega), its smoother and box transfer are
-refreshed, the coarse factors recomputed and every frozen block restacked;
-it never falls back to a new setup.
+refreshed, the coarse factors recomputed and every frozen block restacked.
+Where a refilled product has a real entry outside its build's sparsity it
+sets up anew on the same aggregates and counts that in ``n_resetups``: the
+re-setup that the reference's ``update`` promises (:727, :913) and never
+takes.
 
 The reference's ``zsel`` (its z-axis pool as a TPU matmul) is not ported:
 the pool pads all three axes.
@@ -75,9 +78,7 @@ from ..psparse import (
     host_blocks,
     psparse,
     spmm,
-    spmm_into,
     spmtm,
-    spmtm_into,
     spmtv,
     spmv,
 )
@@ -466,9 +467,11 @@ class _GalerkinCache:
         self.AP, self._c1 = spmm(A, self.P, reuse=True)
         self.Ac, self._c2 = spmtm(self.P, self.AP, reuse=True)
 
-    def refill(self, A: PSparseMatrix) -> PSparseMatrix:
+    def refill(self, A: PSparseMatrix, outside: Optional[list] = None) -> PSparseMatrix:
         """S from A's new values, then P, AP and Ac through their frozen
-        plans; returns the refilled coarse operator."""
+        plans; returns the refilled coarse operator.  ``outside``: a list
+        that counts the products' real entries outside their build's
+        sparsity instead of raising (``psparse._refilled_product``)."""
         _canonicalize_blocks(A)
         dinv = _dinv_parts(A)
         for p, (map_a, rows_a, diag_pos, rows_oh) in self._s_maps.items():
@@ -480,9 +483,9 @@ class _GalerkinCache:
             sb["oh"].data[:] = -self.omega * dv[rows_oh] * ab["oh"].data
         self.S.invalidate_device()
         # P0 is frozen: its fetched rows need no refresh
-        spmm_into(self.P, self.S, self.P0, self._cP, refresh_b=False)
-        spmm_into(self.AP, A, self.P, self._c1)
-        spmtm_into(self.Ac, self.P, self.AP, self._c2)
+        self._cP.refill(self.P, self.S, self.P0, refresh_b=False, outside=outside)
+        self._c1.refill(self.AP, A, self.P, outside=outside)
+        self._c2.refill(self.Ac, self.P, self.AP, outside=outside)
         return self.Ac
 
 
@@ -529,6 +532,7 @@ class AMGPreconditioner:
     def __init__(self, A: PSparseMatrix, params: Optional[AMGParams] = None, nullspace=None):
         self.params = params or AMGParams()
         self.nullspace = nullspace
+        self.n_resetups = 0  # the updates that set up anew (``update``)
         self._setup(A, reuse_aggregates=False)
 
     @property
@@ -615,13 +619,32 @@ class AMGPreconditioner:
         ``_GalerkinCache``, refreshes its smoother's values and its box
         transfer's D^-1, then the coarse factors are recomputed and every
         level's frozen blocks restack their new values.  The result equals
-        a fresh setup at the same omegas and aggregates."""
+        a fresh setup at the same omegas and aggregates.
+
+        Where a refilled Galerkin product has a real entry outside its
+        build's sparsity (its terms cancelled exactly at the build, as in
+        an elasticity hierarchy set up at constant coefficients), the
+        refill cannot hold it: ``update`` then sets up anew on the same
+        aggregates (``_setup(A, reuse_aggregates=True)``: the power method,
+        the products and the smoothers run again) and counts it in
+        ``n_resetups``.  The processes agree on it after the refill's
+        collective steps."""
         if len(self._galerkin) != len(self.levels) - 1:
             raise RuntimeError("AMGPreconditioner.update: the hierarchy has no reuse plans")
+        outside: list = []
         current = A
-        for lev, gk in zip(self.levels, self._galerkin):
+        coarse = []
+        for gk in self._galerkin:
+            coarse.append(gk.refill(current, outside))
+            current = coarse[-1]
+        n_out = A.backend.allreduce(torch.tensor(len(outside)), "max")
+        if int(n_out) > 0:
+            self.n_resetups += 1
+            self._setup(A, reuse_aggregates=True)
+            return self
+        current = A
+        for lev, gk, Ac in zip(self.levels, self._galerkin, coarse):
             lev.A = current
-            Ac = gk.refill(current)
             lev.P = gk.P
             lev.smoother.refresh_values(current)
             if lev.struct is not None:

@@ -79,7 +79,12 @@ def find_mod_coloring(offsets, max_m: int = 512) -> Optional[int]:
 class ColoredDIAGS:
     """Sweep state of one DIA block: the geometry from ``_plan`` and the
     de-interleaved values ``vals_d`` (in their storage dtype) and inverse
-    diagonal ``invd_d`` (in the vectors' dtype)."""
+    diagonal ``invd_d`` (in the vectors' dtype).  ``plan_parts``: the part
+    count K3's and K4's launches are planned for (None: the tensors'; the
+    smoother sets the count of all parts, so that a process of a
+    multi-process run sums in the serial backend's order)."""
+
+    plan_parts = None
 
     def _plan(self, offsets: Tuple[int, ...], R: int):
         """Static geometry, identical to the reference's ``_plan`` so that
@@ -199,7 +204,7 @@ class ColoredDIAGS:
     # -- the kernels ---------------------------------------------------
     def ax_core(self, xcore: torch.Tensor, vals_d: torch.Tensor) -> torch.Tensor:
         """A_own_own @ x in the core layout, core in and core out (K4)."""
-        return ax_core(vals_d, xcore, self.taps)
+        return ax_core(vals_d, xcore, self.taps, self.plan_parts)
 
     def sweeps_core(
         self,
@@ -211,7 +216,8 @@ class ColoredDIAGS:
     ) -> torch.Tensor:
         """Run the color sequence ``order_seq`` on the core (K3, one
         launch); ``xcore=None`` means a zero initial guess."""
-        return gs_sweeps(vals_d, bd, invd_d, xcore, self.taps, tuple(int(c) for c in order_seq))
+        return gs_sweeps(vals_d, bd, invd_d, xcore, self.taps, tuple(int(c) for c in order_seq),
+                         self.plan_parts)
 
     def sweep_flat(
         self,

@@ -107,7 +107,8 @@ def cg_df64(
         x = (xh.own, xl.own)
     backend = A.backend
     rlay, clay = A.row_layout(), A.col_layout()
-    dot = df.dot_parts
+    def dot(a, b):
+        return df.dot_parts(a, b, backend)
 
     def a_apply(p):
         zgc = p[0].new_zeros((p[0].shape[0], clay.n_ghost_pad))

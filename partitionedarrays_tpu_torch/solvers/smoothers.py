@@ -19,9 +19,13 @@ and their contribution ``A_oh g`` is subtracted from the rhs before the
 sweeps.  An own block that is a DIA band with a mod-m coloring takes the
 colored tier (kernels K3, K4); any other takes the tile tier
 (``solvers/gs_slot.py::NaturalTileGS``, kernel K6), built from the host
-blocks.  The reference's tier 2, the sorted-by-color sweep, runs only where
-its TPU gates decline the tile tier; the port has no such gates (ROADMAP
-Queue 1 item 12).
+blocks, unless K6's packed planes would pass ``MAX_TILE_PACK_BYTES``: then
+it takes the reference's tier 2, the sorted-by-color sweep
+(``SortedColorGS``, :219-265, :294, :575-597), whose color steps run on
+kernel K5.  The reference takes tier 2 where its TPU gates decline the tile
+tier (``gs_slot.py:356-419``); the port's gate is its own, a budget of the
+card's memory.  ``GaussSeidel(..., _sorted=True)`` forces tier 2 (tests and
+``chip_smoke.py``).
 
 ``AdditiveSchwarz`` solves each part's own-own block alone and adds the
 parts' corrections: with dense LU factors of the block (small parts) or
@@ -36,12 +40,27 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..backends import stack_parts
 from ..config import values_dtype as _values_dtype
+from ..ops.blocks import freeze_block
+from ..ops.ell import ell_spmv, stack_ell
 from ..ops.native import greedy_coloring_native, ilu0
-from ..psparse import PSparseMatrix, dense_diag, host_blocks, spmv
+from ..ops.tile_gs import TILE
+from ..psparse import (PSparseMatrix, _agree_max_i32, _agreed_ell_groups, dense_diag, host_blocks,
+                       spmv)
 from ..pvector import PVector, _own_mask
 from .gs_dia import ColoredDIAGS, find_mod_coloring
 from .gs_slot import NaturalTileGS
+
+# The tile tier's budget: K6's packed inverse planes (one 128 x 128 plane
+# per tile and direction, 128 KiB a plane in float64) of all the parts.
+# Beyond it the smoother takes the sorted-by-color tier, which stores only
+# the entries (its planes are the block's ELL rows).  A fifth of the card's
+# 80 GB, so that the hierarchy's matrices, the other levels and the solver's
+# vectors keep the rest: the planes hold 2 x 128 values a row against the
+# operator's ~81 (3-D elasticity), so the tile tier stops at about 8 * 10^6
+# rows of one level in float64.
+MAX_TILE_PACK_BYTES = 16 << 30
 
 
 def greedy_coloring(A: sp.spmatrix) -> np.ndarray:
@@ -91,6 +110,156 @@ def jacobi(A, b, x, iterations: int = 1, omega: float = 1.0) -> PVector:
     )
 
 
+def tile_pack_bytes(A: PSparseMatrix, directions: int = 2) -> int:
+    """The bytes of K6's packed planes for A's own-own blocks: a plane of
+    TILE x TILE values per tile and direction, for every part (the same
+    on every process)."""
+    nt = -(-A.row_layout().n_own_pad // TILE)
+    return A.row_prange.n_parts * nt * directions * TILE * TILE * A.dtype.itemsize
+
+
+class SortedColorGS:
+    """The reference's tier 2: Gauss-Seidel sorted by color.  Each part's
+    own-own block is greedily colored; a sweep visits the colors in order
+    (reversed backward), and a color step updates its rows at once from
+    the current x: ``x_r += (b_r - A_oo[r] x - A_oh[r] g) / a_rr``.
+
+    Per color c the state is the reference's six arrays (``tabs[c]``):
+    ``rows[P, nc]`` (the color's rows of each part, padding ``n_own_pad``), the
+    ELL planes ``oo_cols``, ``oo_vals`` of its rows of A_oo and ``oh_cols``,
+    ``oh_vals`` of A_oh (``ops/ell.py``), and ``invd[P, nc]`` (0 on the
+    padding).  The same rows freeze as compressed-row operands of kernel K5
+    (``blocks[c]``: the A_oo and A_oh slices), which a sweep launches: one
+    K5 a color, two where the color's rows have ghost columns.  The gather
+    of x and b at the rows, the update and the scatter run in torch.
+    ``sweep(..., plain=True)`` runs the same steps on the ELL planes
+    through ``ell_spmv``, the plain version of the products.
+
+    On several processes each one colors its own parts; the color count is
+    agreed (the most of any process), so that every process runs the same
+    steps."""
+
+    def __init__(self, tabs, n_own_pad: int, n_ghost_pad: int, device, dtype, backend=None):
+        """``tabs``: the six host arrays of each color (``build``, or the
+        reference's ``GaussSeidel.color_tabs`` through ``convert.py``), the
+        values cast to ``dtype`` on ``device``; ``backend``: the matrix's
+        (on several processes K5's plans are agreed)."""
+        self.n_own_pad, self.n_ghost_pad = int(n_own_pad), int(n_ghost_pad)
+        self.n_colors = len(tabs)
+        self.backend = backend
+        self._set(tabs, device, dtype)
+
+    @classmethod
+    def build(cls, A: PSparseMatrix) -> "SortedColorGS":
+        """From A's host blocks of this process's parts (the reference's
+        :219-265, the colors agreed across processes)."""
+        lay, clay = A.row_layout(), A.col_layout()
+        return cls(_sorted_tabs(A), lay.n_own_pad, clay.n_ghost_pad, A.torch_device, A.dtype,
+                   A.backend)
+
+    def _set(self, tabs, device, dtype) -> None:
+        self.tabs, self.blocks = [], []
+        for rows, ooc, oov, ohc, ohv, invd in tabs:
+            self.tabs.append(tuple(
+                torch.from_numpy(np.array(a)).to(device, dt) for a, dt in (
+                    (rows, torch.int64), (ooc, torch.int32), (oov, dtype), (ohc, torch.int32),
+                    (ohv, dtype), (invd, dtype))))
+            self.blocks.append(tuple(
+                _ell_freeze(c, v, n_cols, device, dtype, self.backend)
+                for c, v, n_cols in ((ooc, oov, self.n_own_pad), (ohc, ohv, self.n_ghost_pad))))
+
+    def refresh(self, A: PSparseMatrix) -> None:
+        """The state for new values of A, built anew in place, as the
+        reference's ``refresh_values`` does (:267-291): the coloring is
+        that of A + A^T's nonzero values, which new values may change."""
+        tabs = _sorted_tabs(A)
+        self.n_colors = len(tabs)
+        self._set(tabs, self.tabs[0][0].device, A.dtype)
+
+    def _step(self, x, b, g, c, plain: bool):
+        """One color step on the padded x ``[P, n_own_pad + 1]`` (slot
+        ``n_own_pad`` takes the padding rows' writes)."""
+        rows, ooc, oov, ohc, ohv, invd = self.tabs[c]
+        if plain:
+            ax = ell_spmv(ooc, oov, x[:, : self.n_own_pad]) + ell_spmv(ohc, ohv, g)
+        else:
+            boo, boh = self.blocks[c]
+            ax = boo.spmv(x) if boo is not None else x.new_zeros(rows.shape)
+            if boh is not None and g.shape[1]:
+                ax = boh.spmv_add(g, ax)
+        xc = torch.gather(x, 1, rows)
+        bc = torch.gather(b, 1, rows)
+        # the row residual keeps the diagonal term: x_r + (b_r - (A x)_r) / a_rr
+        x.scatter_(1, rows, xc + (bc - ax) * invd)
+
+    def sweep(self, xo: torch.Tensor, g: torch.Tensor, bo: torch.Tensor, order,
+              plain: bool = False) -> torch.Tensor:
+        """One pass over the colors of ``order`` (the reference's
+        ``_sweep_once``): own values xo ``[P, n_own_pad]``, the frozen ghost
+        values g ``[P, n_ghost_pad]``, the rhs bo; returns the new xo.
+        ``plain``: the products through ``ell_spmv`` instead of K5."""
+        P = xo.shape[0]
+        x = torch.cat([xo, xo.new_zeros((P, 1))], dim=1)
+        b = torch.cat([bo, bo.new_zeros((P, 1))], dim=1)
+        for c in order:
+            self._step(x, b, g, c, plain)
+        return x[:, : self.n_own_pad].contiguous()
+
+
+def _sorted_tabs(A: PSparseMatrix) -> list:
+    """The six host arrays of each color over this process's parts, the
+    color count agreed by every process (the reference's :231-265)."""
+    lay = A.row_layout()
+    blocks = [host_blocks(A)[p] for p in A.backend.local_parts()]
+    oo = [b["oo"].tocsr() for b in blocks]
+    oh = [b["oh"].tocsr() for b in blocks]
+    color_parts = [greedy_coloring(b) for b in oo]
+    n_colors = int(max((int(c.max()) + 1 if c.size else 1 for c in color_parts), default=1))
+    n_colors = int(_agree_max_i32(A.backend, [n_colors])[0])
+    diag = stack_parts([b.diagonal() for b in oo], pad_to=lay.n_own_pad, fill=0.0)
+    inv = np.where(diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 0.0).astype(diag.dtype)
+    P = len(blocks)
+    tabs = []
+    for c in range(n_colors):
+        rows_pc = [np.flatnonzero(cp == c) for cp in color_parts]
+        nc_pad = max(max((r.size for r in rows_pc), default=0), 1)
+        row_tab = np.full((P, nc_pad), lay.n_own_pad, dtype=np.int32)  # a scatter's sink
+        invd_c = np.zeros((P, nc_pad), dtype=inv.dtype)
+        for p, r in enumerate(rows_pc):
+            row_tab[p, : r.size] = r
+            invd_c[p, : r.size] = inv[p, r]
+        ooc, oov = stack_ell([m[r] for m, r in zip(oo, rows_pc)], nc_pad)
+        ohc, ohv = stack_ell([m[r] for m, r in zip(oh, rows_pc)], nc_pad)
+        tabs.append((row_tab, ooc, oov, ohc, ohv, invd_c))
+    return tabs
+
+
+def _ell_csrs(cols, vals, n_cols: int):
+    """Per-part CSR blocks of stacked ELL planes ``[P, R, K]`` (the lanes
+    with a column in range)."""
+    cols, vals = np.asarray(cols), np.asarray(vals)
+    out = []
+    for c, v in zip(cols, vals):
+        live = (c >= 0) & (c < n_cols)
+        r = np.broadcast_to(np.arange(c.shape[0])[:, None], c.shape)[live]
+        out.append(sp.csr_matrix((v[live], (r, c[live])), shape=(c.shape[0], n_cols)))
+    return out
+
+
+def _ell_freeze(cols, vals, n_cols: int, device, dtype, backend=None):
+    """K5's compressed-row block of ELL planes, or None without entries.
+    Explicit zeros of the planes stay entries, as in the ELL.  On several
+    processes K5's plan is agreed, so every process freezes (collective)
+    and then drops a block without entries."""
+    if n_cols == 0:
+        return None
+    agree = _agreed_ell_groups(backend) if backend is not None and backend.is_multiprocess \
+        else None
+    blk = freeze_block(_ell_csrs(cols, vals, n_cols), np.asarray(cols).shape[1], n_cols,
+                       device=device, prefer_dia=False, dtype=dtype, agree_lanes=agree)
+    return blk if blk.vals.shape[1] else None
+
+
 class GaussSeidel:
     """Gauss-Seidel smoother, ``sweep`` "forward", "backward" or
     "symmetric", ``iterations`` times per application.  Called on a vector
@@ -103,9 +272,13 @@ class GaussSeidel:
         sweep: str = "symmetric",
         colored: ColoredDIAGS = None,
         values_dtype=None,
+        _sorted=False,
     ):
         """``colored``: sweep state built elsewhere (``convert.py``);
-        by default it is built from A's DIA values.  ``values_dtype``:
+        by default it is built from A's DIA values.  ``_sorted``: take the
+        sorted-by-color tier whatever the block (True, or a
+        ``SortedColorGS`` built elsewhere); the private hook of the tests
+        and ``chip_smoke.py``.  ``values_dtype``:
         storage of the colored tier's streamed values narrower than A's
         (``torch.bfloat16`` or ``torch.float16``; ``torch.float32`` for a
         float64 A); the sweeps
@@ -116,20 +289,29 @@ class GaussSeidel:
         self.A = A
         self.iterations = iterations
         self.sweep = sweep
-        self.colored = self.tile_gs = None
+        self.colored = self.tile_gs = self.sorted = None
         oo = A.device().oo
-        if oo.kind == "dia" and find_mod_coloring(oo.offsets) is not None:
+        if _sorted is not False:
+            if colored is not None:
+                raise ValueError("GaussSeidel: a colored sweep state and the sorted tier")
+            self.sorted = _sorted if isinstance(_sorted, SortedColorGS) else SortedColorGS.build(A)
+            self.n_colors = self.sorted.n_colors
+        elif oo.kind == "dia" and find_mod_coloring(oo.offsets) is not None:
             if colored is None:
                 colored = ColoredDIAGS.from_device(
                     oo.offsets, oo.vals, _own_diagonal(A), _values_dtype(values_dtype)
                 )
+            colored.plan_parts = A.row_prange.n_parts
             self.colored = colored
             self.n_colors = colored.m
         elif colored is not None:
             raise ValueError("a colored sweep state for an own block without a DIA coloring")
-        else:
+        elif tile_pack_bytes(A) <= MAX_TILE_PACK_BYTES:
             self.tile_gs = NaturalTileGS.build(A)
             self.n_colors = 1
+        else:
+            self.sorted = SortedColorGS.build(A)
+            self.n_colors = self.sorted.n_colors
 
     def refresh_values(self, A: PSparseMatrix) -> None:
         """The smoother for new values of a matrix of the same sparsity
@@ -138,9 +320,14 @@ class GaussSeidel:
         coloring, K3's tap table and the values' storage dtype kept), the
         tile tier recomputes its
         packed inverse planes and off-tile values (``NaturalTileGS.refresh``:
-        the schedule and K6's tables kept).  A matrix that would select the
+        the schedule and K6's tables kept), the sorted tier builds its state
+        anew (``SortedColorGS.refresh``).  A matrix that would select the
         other tier, or another band, raises."""
         oo = A.device().oo
+        if self.sorted is not None:
+            self.sorted.refresh(A)
+            self.A, self.n_colors = A, self.sorted.n_colors
+            return
         colored = oo.kind == "dia" and find_mod_coloring(oo.offsets) is not None
         if colored != (self.colored is not None) or (
             colored and tuple(int(o) for o in oo.offsets) != self.colored.offsets
@@ -195,6 +382,8 @@ class GaussSeidel:
         return self._apply(x, b, zero_guess=False)
 
     def _apply(self, x: PVector, b: PVector, zero_guess: bool) -> PVector:
+        if self.sorted is not None:
+            return self._apply_sorted(x, b)
         col = self.colored
         bo = b.own
         if not self.flat_viable():
@@ -205,6 +394,25 @@ class GaussSeidel:
         xc = None if zero_guess else col.deinterleave(x.own)
         xc = col.sweeps_core(xc, col.deinterleave(bo), col.vals_d, col.invd_d, self._order_seq())
         return PVector(col.interleave_core(xc), x.ghost, x.layout, x.backend)
+
+    def _apply_sorted(self, x: PVector, b: PVector, plain: bool = False) -> PVector:
+        """The sorted tier (the reference's :575-597): with ghost columns the
+        ghost values are refreshed by one exchange before each pass, and
+        each pass is one ``SortedColorGS.sweep``.  ``plain``: the products
+        through ``ell_spmv`` (the plain version, for comparisons)."""
+        A = self.A
+        clay = A.col_layout()
+        fwd = list(range(self.n_colors))
+        orders = {"forward": [fwd], "backward": [fwd[::-1]],
+                  "symmetric": [fwd, fwd[::-1]]}[self.sweep]
+        xo = x.own
+        g = xo.new_zeros((xo.shape[0], clay.n_ghost_pad))
+        for _ in range(self.iterations):
+            for order in orders:
+                if not self.flat_viable():
+                    g = clay.consistent_plan.apply(xo, g, "set", A.backend)
+                xo = self.sorted.sweep(xo, g, b.own, order, plain=plain)
+        return PVector(xo, x.ghost, x.layout, x.backend)
 
     def __call__(self, r: PVector) -> PVector:
         """Preconditioner form: smooth ``A z = r`` from z = 0 and return z.

@@ -26,6 +26,8 @@ operator bit for bit on both tiers; one CG after the update takes the
 reference's iterations.
 """
 import importlib
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -46,6 +48,10 @@ from partitionedarrays_tpu_torch.pvector import collect, pvector_from_own
 from partitionedarrays_tpu_torch.solvers import amg, krylov
 from partitionedarrays_tpu_torch.solvers.gs_slot import NaturalTileGS
 from partitionedarrays_tpu_torch.solvers.smoothers import GaussSeidel
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "examples"))
+import implicit_reuse  # noqa: E402
 
 jax_ps = importlib.import_module("partitionedarrays_tpu.psparse")
 jax_pv = importlib.import_module("partitionedarrays_tpu.pvector")
@@ -294,8 +300,10 @@ def test_update_after_a_constant_coefficient_build(name):
     box Laplacian's build cancels exactly, so ``update`` equals a fresh
     build.  The elasticity build's products cancel exactly at some entries
     (scipy's pattern, the reference's, lacks them); the refilled products
-    are real there, outside the frozen sparsity, and ``update`` raises
-    (ROADMAP Queue 3)."""
+    are real there, outside the frozen sparsity, so ``update`` sets up anew
+    on the same aggregates: its hierarchy equals ``_setup(A,
+    reuse_aggregates=True)`` of a copy, and ``n_resetups`` counts it.  (The
+    reference raises here.)"""
     gen, nodes, parts, kw, params, with_ns = CONSTANT_BUILDS[name]
     I, J, V, rows, cols = getattr(gallery, gen)(nodes, parts)
     A, cache = ps.psparse(I, J, V, rows, cols, SerialBackend(8), reuse=True, device="cpu", **kw)
@@ -307,9 +315,36 @@ def test_update_after_a_constant_coefficient_build(name):
     d = 1.0 + 0.5 * np.random.default_rng(6).random(A.shape[0])
     ps.psparse_refill(A, [v * d[np.asarray(i)] * d[np.asarray(j)] for i, j, v in zip(I, J, V)],
                       cache)
+    aggs = M._aggs
     if name == "elasticity":
+        # the frozen products alone keep their contract (spmm_into's and
+        # spmtm_into's refills): a real entry outside the build's sparsity
+        # raises
         with pytest.raises(ValueError, match="outside the sparsity of its build"):
-            M.update(A)
-        return
+            M._galerkin[0].refill(A)
     M.update(A)
     check_update(M)
+    assert M.n_resetups == (1 if name == "elasticity" else 0)
+    if name == "box":
+        return
+    fresh = amg.AMGPreconditioner.__new__(amg.AMGPreconditioner)
+    fresh.params, fresh.nullspace, fresh._aggs = M.params, M.nullspace, aggs
+    fresh._setup(A.copy(), reuse_aggregates=True)
+    assert M._aggs == aggs and M.omegas == fresh.omegas
+    assert len(M.levels) == len(fresh.levels)
+    for lev, lev_f in zip(M.levels, fresh.levels):
+        _same_blocks(lev.A, lev_f.A)
+        if lev.P is not None:
+            _same_blocks(lev.P, lev_f.P)
+
+
+@pytest.mark.slow
+def test_elasticity_update_24_nodes_sets_up_anew():
+    """The user case of ``examples/implicit_reuse.py``: ``elasticity_update``
+    at 24^3 nodes in float32 (one part, a mass-like shift) refills products
+    whose terms cancelled at the build; ``update`` sets up anew once and the
+    CG takes no more than one iteration beyond a fresh setup's.  The port
+    alone: the reference raises here."""
+    r = implicit_reuse.elasticity_update(implicit_reuse.port("cpu"), nodes=(24, 24, 24))
+    assert r["M"].n_resetups == 1
+    assert abs(r["iterations"] - r["fresh_iterations"]) <= 1 and r["relres"] <= 1e-5

@@ -1,5 +1,5 @@
-"""The port's examples (``examples/torch_*.py``) on the CPU against the JAX
-package's examples they follow: the same problem, the same iteration
+"""The port's examples (``examples/torch_*.py``, ``torch_per_process_example``
+among them) on the CPU against the JAX package's examples they follow: the same problem, the same iteration
 counts, the reference's acceptance checks.  The JAX examples run in this
 process (Pallas off) and their printed lines are read.
 
@@ -79,3 +79,17 @@ def test_reuse_example_matches_jax_with_fresh_cg(capsys, monkeypatch):
     relres = [float(r) for r in re.findall(r"relres=([0-9.e+-]+)", want)]
     np.testing.assert_allclose(got["relres"], relres, rtol=0.05)
     assert max(got["relres"]) < 1e-8
+
+
+def test_per_process_example_matches_jax(capsys):
+    """``torch_per_process_example``: per-process construction, ``spmm``,
+    ``repartition_system`` and the AMG-CG as the JAX package's example: the
+    same iterations, spmm nonzeros and repartitioned rows, |x - x*| < 1e-6."""
+    import torch_per_process_example
+
+    got = torch_per_process_example.main(device="cpu")
+    want = _jax_example("per_process_example", capsys)
+    assert [got["iterations"]] == _iters(want)
+    assert got["spmm_nnz"] == int(re.findall(r"spmm nnz=(\d+)", want)[0])
+    assert got["rows0"] == int(re.findall(r"part0=(\d+)", want)[0])
+    assert got["error"] < 1e-6

@@ -44,6 +44,10 @@ boxes of unequal shape (13 offsets, the union of the parts', with zero
 diagonals and zero padding rows).  ``b_cg`` on a coupled two-field block
 system (8^3 on (2,2,2) parts) runs four K1 and two K5 launches an
 iteration on the card and takes the CPU's iterations to its solution.
+The sorted-by-color Gauss-Seidel tier (forced by ``GaussSeidel(...,
+_sorted=True)``) sweeps with K5 on each color's rows of the 8^3-node
+elasticity block and of the 8^3 HPCG operator on (2,2,2) parts (ghost
+columns), against its plain sweep through ``ell_spmv``.
 
 Every test is marked ``gpu`` and skips without a CUDA card.  This module
 imports torch and the port only (no JAX), so that it also runs on a
@@ -1093,3 +1097,37 @@ def test_newton_krylov_on_the_card_matches_the_cpu(cuda, dtype):
         assert it_gpu == it_cpu
         tol = 1e-5 if dtype == torch.float32 else (1e-10 if jvp == "auto" else 1e-6)
         assert np.abs(x_gpu - x_cpu).max() <= tol * np.abs(x_cpu).max()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["elasticity", "ghosted"])
+def test_sorted_tier_sweep_matches_plain(cuda, dtype, case):
+    """Every color step of the sorted tier launches K5 (two with ghost
+    columns); the sweep agrees with the plain tier-2 sweep on the card."""
+    import numpy as np
+
+    from partitionedarrays_tpu_torch.models.gallery import linear_elasticity_fem
+    from partitionedarrays_tpu_torch.psparse import psparse
+    from partitionedarrays_tpu_torch.pvector import PVector, _own_mask
+
+    if case == "elasticity":
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        A = psparse(*linear_elasticity_fem((8, 8, 8), (1, 1, 1), dtype=np_dtype),
+                    SerialBackend(1), device=cuda)
+    else:
+        A, _ = build_hpcg_problem((8, 8, 8), (2, 2, 2), SerialBackend(8), dtype=dtype,
+                                  device=cuda)
+    gs = GaussSeidel(A, 1, "symmetric", _sorted=True)
+    lay = A.row_layout()
+    g = torch.Generator().manual_seed(3)
+    own = torch.randn(lay.n_parts, lay.n_own_pad, generator=g, dtype=dtype).to(cuda)
+    b = PVector(torch.where(_own_mask(lay, cuda), own, 0),
+                torch.zeros((lay.n_parts, lay.n_ghost_pad), dtype=dtype, device=cuda), lay,
+                A.backend)
+    before = ghost_spmv.launches
+    got = gs(b).own
+    per_color = sum(1 for oo, oh in gs.sorted.blocks if oo is not None) + sum(
+        1 for oo, oh in gs.sorted.blocks if oh is not None)
+    assert ghost_spmv.launches - before == 2 * per_color
+    zero = PVector(torch.zeros_like(b.own), b.ghost, lay, A.backend)
+    _assert_close(got, gs._apply_sorted(zero, b, plain=True).own, dtype)

@@ -33,7 +33,11 @@ from partitionedarrays_tpu.pvector import pones as jax_pones
 from partitionedarrays_tpu.pvector import pvector_from_own as jax_pvector_from_own
 from partitionedarrays_tpu.solvers.amg import AMGParams as JaxAMGParams
 from partitionedarrays_tpu.solvers.amg import AMGPreconditioner as JaxAMGPreconditioner
+from partitionedarrays_tpu.models.hpcg.problem import STENCIL_27PT as JAX_STENCIL_27PT
+from partitionedarrays_tpu.ops.stencil import stencil_psparse as jax_stencil_psparse
+from partitionedarrays_tpu.pvector import pvector_df64 as jax_pvector_df64
 from partitionedarrays_tpu.solvers.krylov import cg as jax_cg
+from partitionedarrays_tpu.solvers.krylov import cg_df64 as jax_cg_df64
 from partitionedarrays_tpu.solvers.smoothers import GaussSeidel as JaxGaussSeidel
 
 from partitionedarrays_tpu_torch.backends import MeshBackend, SerialBackend, stack_parts, with_mesh
@@ -52,11 +56,11 @@ jax_config.use_pallas = False
 
 DRIVER = os.path.join(os.path.dirname(__file__), "torch_multiprocess_driver.py")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LIMIT = 60  # seconds a rank may take
+LIMIT = 90  # seconds a rank may take
 
 # the two-process run: every mode in one group of 2 ranks holding 4 parts
 TWO = dict(P=4, n=6, parts="1,1,4", fem_nodes="65,65", amg_nodes="17,17", hpcg_n=4,
-           hpcg_parts="1,1,4", hpcg_levels=2, hpcg_iterations=5)
+           hpcg_parts="1,1,4", hpcg_levels=2, hpcg_iterations=5, folds_n=16)
 # the four-process run: 8 parts on a (4, 2) grid, edge and corner neighbours
 FOUR = dict(P=8, n=4, parts="2,2,2", fem_nodes="31,31", fem_grid="4,2", amg_nodes="17,17",
             amg_grid="4,2")
@@ -124,7 +128,7 @@ def _ok(group: _Group):
 def groups():
     """Every group starts at once and runs while this process computes the
     serial and JAX runs."""
-    gs = {"two": _Group(2, "cg,fem,gsslot,amg,hpcg", **TWO),
+    gs = {"two": _Group(2, "cg,fem,gsslot,amg,hpcg,hpcg_df64,folds", **TWO),
           "four": _Group(4, "cg,fem,amg", **FOUR),
           "fail": _Group(2, "fail", P=2, timeout=30)}
     yield gs
@@ -276,6 +280,48 @@ def test_multiprocess_hpcg_benchmark_mpi(two):
     residual history."""
     for r in two:
         assert r["hpcg"]["relres_vs_serial"] <= 1e-9 and r["hpcg"]["nrow"] == 4 ** 3 * 4
+
+
+def test_multiprocess_hpcg_df64_history_bit_equal(two):
+    """``hpcg_benchmark_mpi(precision="df64")``: the df64 dots fold every
+    part's compensated pair in part order on every rank, so each set's
+    residual history equals the single-process run's bit for bit (before,
+    each rank folded its own parts only and the histories were wrong)."""
+    for r in two:
+        h = r["hpcg_df64"]
+        assert h["dtype"] == "float64-df64" and h["history_bit_equal"]
+        assert h["history_sets"] >= 3 and h["relres_vs_serial"] == 0.0
+
+
+def _jax_cg_df64(n, parts):
+    """The reference's ``cg_df64`` on the driver's ``folds`` input: the
+    27-point operator of n^3 ids, b from ``default_rng(42)`` part by part."""
+    P = int(np.prod(parts))
+    A = jax_stencil_psparse(parts, (n, n, n), JAX_STENCIL_27PT, JaxSerialBackend(P),
+                            dtype=np.float64, host_only=True)
+    rng = np.random.default_rng(42)
+    own = [rng.standard_normal(li.n_own) for li in A.row_prange.partition()]
+    b = jax_pvector_df64(own, A.row_prange, A.backend)
+    _, info = jax_cg_df64(A, b, rtol=1e-10, maxiter=200)
+    return int(info.iterations)
+
+
+def test_multiprocess_folds_match_serial(two):
+    """The issue's input on 2 ranks holding 4 parts, x = 1..40 on
+    ``uniform_partition(4, 40)``: ``pdot_df64`` is 22140 on both ranks (it
+    was 2870 and 19270), and ``collect_df64``, ``find_local_indices`` (14
+    ids, as the serial backend), ``sparse_diag_matrix``,
+    ``renumber_pvector``, the COO ``pvector``, a sorted-by-color Gauss-Seidel
+    sweep and ``cg_df64`` on the 16^3 27-point operator equal
+    ``SerialBackend(4)``'s bit for bit in the driver; ``cg_df64`` takes the
+    reference's iterations."""
+    iters = _jax_cg_df64(TWO["folds_n"], tuple(int(v) for v in TWO["parts"].split(",")))
+    for r in two:
+        f = r["folds"]
+        assert f["pdot"] == f["pdot_df64"] == 22140.0
+        assert f["selected"] == 14
+        assert f["cg_df64_iterations"] == iters
+        assert f["sorted_colors"] > 1
 
 
 def test_multiprocess_failure_propagates(groups):

@@ -29,7 +29,8 @@ preconditioner values, ``b_cg`` on a block system, ``PTimer``, a checkpoint
 round trip, the primitives and jagged arrays, the ``compat`` names and the
 port's examples), and ``newton_krylov`` (both products, with a Gauss-Seidel
 preconditioner, on a one-process mesh backend) and the host helpers of
-``ops/sparse_host.py``; afterwards neither ``jax`` nor ``ml_dtypes`` (the
+``ops/sparse_host.py``, and a sweep of the sorted-by-color tier and
+``ops/ell.py``; afterwards neither ``jax`` nor ``ml_dtypes`` (the
 reference's bfloat16 numpy dtype, read by ``convert.py`` without it) may be
 among the loaded modules.  A second interpreter blocks ``jax`` outright
 (an import raises) and imports every module of the port and every example
@@ -257,6 +258,11 @@ for jvp in ("auto", "fd"):
     xn, its, rn = newton_krylov(res, b * 0.0, M=GaussSeidel(A, 1, "symmetric"), jvp=jvp,
                                 rtol=1e-8)
     assert int(its) > 0 and float(rn) < 1e-6, (jvp, its, rn)
+from partitionedarrays_tpu_torch import csr_to_ell, ell_spmv
+gs = GaussSeidel(A, 1, "symmetric", _sorted=True)
+assert gs.sorted is not None and float(gs(b).own.abs().max()) > 0
+c, v = csr_to_ell(A.blocks[0]["oo"], A.row_layout().n_own_pad)
+assert ell_spmv(torch.from_numpy(c), torch.from_numpy(v), b.own[0]).shape == (c.shape[0],)
 G = centralize(A)
 assert len(list(nziterator(G))) == G.nnz and np.allclose(spmv_local(G, np.ones(36)), G @ np.ones(36))
 assert split_locally(G, np.arange(30), np.arange(30, 36), np.arange(30), np.arange(30, 36))[1].shape == (30, 6)
@@ -296,7 +302,8 @@ print("IMPORTED", len(names), "MODULES", len(examples), "EXAMPLES")
 def test_every_module_imports_with_jax_blocked():
     """Every module of the port (the new layers among them: block_arrays,
     compat, utils, ops.jagged, parallel.primitives, backends,
-    parallel.host_exchange) and every example of its own import with ``jax``, ``ml_dtypes`` and the JAX package blocked."""
+    parallel.host_exchange, ops.ell) and every example of its own import
+    with ``jax``, ``ml_dtypes`` and the JAX package blocked."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OPENBLAS_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED], cwd=str(REPO), env=env,
@@ -305,9 +312,9 @@ def test_every_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     for name in ("block_arrays", "compat", "utils.ptimer", "utils.profiling", "utils.checkpoint",
                  "ops.jagged", "parallel.primitives", "backends", "parallel.host_exchange",
-                 "solvers.nonlinear", "ops.sparse_host"):
+                 "solvers.nonlinear", "ops.sparse_host", "ops.ell"):
         assert (REPO / "partitionedarrays_tpu_torch" / (name.replace(".", "/") + ".py")).exists()
-    assert "MODULES 5 EXAMPLES" in proc.stdout, proc.stdout
+    assert "MODULES 6 EXAMPLES" in proc.stdout, proc.stdout
 
 
 def test_port_does_not_load_jax():

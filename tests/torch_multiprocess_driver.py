@@ -29,13 +29,23 @@ and exits nonzero on any mismatch.  Modes:
   after it, ``spmm_into`` and ``repartition_system`` onto uneven blocks (``amg_nodes``, ``amg_grid``, ``epsilon``, ``coarse``,
   ``amg_levels``);
 - ``hpcg``: ``hpcg_benchmark_mpi`` (``hpcg_n``, ``hpcg_parts``,
-  ``hpcg_levels``, ``hpcg_iterations``).
+  ``hpcg_levels``, ``hpcg_iterations``);
+- ``hpcg_df64``: the same with ``precision="df64"``, every set's residual
+  history bit-equal to the single-process run's;
+- ``folds``: the reductions and host utilities that gather over all parts,
+  each bit-equal to ``SerialBackend(P)``: ``pdot_df64`` and
+  ``collect_df64`` of x = 1..40 on ``uniform_partition(P, 40)``,
+  ``find_local_indices`` (every third id), ``sparse_diag_matrix``,
+  ``renumber_pvector``, the COO ``pvector``, a GaussSeidel sweep on the
+  sorted-by-color tier, and ``cg_df64`` on the 27-point operator of
+  ``folds_n``^3 ids (``parts`` as "px,py,pz").
 
 ``device``: "cpu" (the tests) or "cuda" (every rank on the card
 ``rank % device_count``).  Each mode's entry has the kernels' launches of
 its multi-process path (the counts set to 0 just before it and read just
 after, before the single-process run), and the seconds of the mode.
 """
+import contextlib
 import json
 import sys
 import time
@@ -109,14 +119,15 @@ def _hold_local_kernels(A, M, device, seed):
     against its plain version on the same random inputs: the largest
     difference of each, absolute and relative to the largest entry.
     Raises beyond 1e-12 (float64) or 1e-5 (float32) relative.  (On the
-    CPU both sides are the plain version.)"""
+    CPU both sides are the plain version.)  On the card each kernel is also
+    timed on those inputs (``_time_local``)."""
     from partitionedarrays_tpu_torch.ops.dia import dia_spmv_plain
     from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv_plain
     from partitionedarrays_tpu_torch.ops.gs_dia_kernels import gs_sweeps, gs_sweeps_plain
 
     g = torch.Generator().manual_seed(seed)
     dev = A.device()
-    pairs = []
+    pairs, timed = [], {}
     for blk in (dev.oo, dev.oh):
         P = blk.vals.shape[0]
         x = torch.randn(P, blk.n_cols_pad, generator=g, dtype=blk.vals.dtype).to(device)
@@ -124,13 +135,23 @@ def _hold_local_kernels(A, M, device, seed):
             want = dia_spmv_plain(blk.offsets, blk.vals, x)
         else:
             want = ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, x.new_zeros((P, blk.n_rows)))
-        pairs.append(("dia_spmv" if blk.kind == "dia" else "ghost_spmv", blk.spmv(x), want))
+        name = "dia_spmv" if blk.kind == "dia" else "ghost_spmv"
+        pairs.append((name, blk.spmv(x), want))
+        timed[name] = (lambda blk=blk, x=x: blk.spmv(x), _block_work(blk),
+                       _library_call(blk, x) if str(device).startswith("cuda") else None)
     col, order = M.colored, M._order_seq()
     shape = col.vals_d.shape[:2] + col.vals_d.shape[3:]
     x0, bd = (torch.randn(shape, generator=g, dtype=col.invd_d.dtype).to(device)
               for _ in range(2))
     pairs.append(("gs_sweeps", gs_sweeps(col.vals_d, bd, col.invd_d, x0, col.taps, order),
                   gs_sweeps_plain(col.vals_d, bd, col.invd_d, x0, col.taps, order)))
+    itemsize = col.vals_d.element_size()
+    timed["gs_sweeps"] = (
+        lambda: gs_sweeps(col.vals_d, bd, col.invd_d, x0, col.taps, order),
+        # each input read once (values, bd, D^-1, x), x written once; two
+        # operations a value a step of its color
+        (itemsize * (col.vals_d.numel() + 4 * x0.numel()),
+         2 * col.vals_d.numel() * len(order) // col.m), None)
     out = {}
     for name, got, want in pairs:
         err = float((got - want).abs().max())
@@ -142,7 +163,66 @@ def _hold_local_kernels(A, M, device, seed):
         prev = out.get(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
         out[name] = {"max_abs_err": max(err, prev["max_abs_err"]),
                      "max_rel_err": max(rel, prev["max_rel_err"]), "shape": list(got.shape)}
+    if str(device).startswith("cuda"):
+        for name, (fn, (nbytes, ops), lib) in timed.items():
+            out[name].update(ms=_time_local(fn), bytes=nbytes, ops=ops,
+                             library_ms=None if lib is None else _time_local(lib))
     return out
+
+
+def _time_local(fn, reps=20):
+    """Mean ms of ``fn()`` on the card by CUDA events over ``reps`` calls
+    back to back, after two warm calls."""
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _block_work(blk):
+    """(bytes, operations) of a block's SpMV: each input read once (the
+    values, a compressed row's columns and rows, x) and y written once; two
+    operations an entry."""
+    P, item = blk.vals.shape[0], blk.vals.element_size()
+    if blk.kind == "dia":
+        nnz = blk.vals.numel()
+        return item * (nnz + P * blk.n_cols_pad + P * blk.n_rows), 2 * nnz
+    nnz = int((blk.cols >= 0).sum())
+    n_live = int((blk.rows >= 0).sum())
+    return item * (nnz + P * blk.n_cols_pad + 2 * n_live) + 4 * (nnz + n_live), 2 * nnz
+
+
+def _library_call(blk, x):
+    """One ``torch.sparse`` CSR ``mv`` of the same product over the stacked
+    parts (a block-diagonal matrix of ``P`` blocks)."""
+    P, R, n_cols = x.shape[0], blk.n_rows, blk.n_cols_pad
+    part = torch.arange(P, device=x.device)
+    if blk.kind == "dia":
+        r = torch.arange(R, device=x.device)
+        rows, cols, vals = [], [], []
+        for d, o in enumerate(blk.offsets):
+            ok = (r + o >= 0) & (r + o < n_cols)
+            rows.append(part.view(P, 1) * R + r[ok].view(1, -1))
+            cols.append(part.view(P, 1) * n_cols + (r[ok] + o).view(1, -1))
+            vals.append(blk.vals[:, d, ok])
+        rows, cols, vals = (torch.cat(t, dim=1) for t in (rows, cols, vals))
+        live = torch.ones_like(rows, dtype=torch.bool)
+    else:
+        K, Nr = blk.cols.shape[1:]
+        rows = (part.view(P, 1, 1) * R + blk.rows.view(P, 1, Nr)).expand(P, K, Nr).reshape(P, -1)
+        cols = (part.view(P, 1, 1) * n_cols + blk.cols).reshape(P, -1)
+        live = (blk.cols >= 0).reshape(P, -1)
+        vals = blk.vals.reshape(P, -1)
+    csr = torch.sparse_coo_tensor(torch.stack([rows[live], cols[live]]), vals[live],
+                                  (P * R, P * n_cols)).coalesce().to_sparse_csr()
+    xf = x.reshape(-1)
+    return lambda: torch.mv(csr, xf)
 
 
 def mode_cg(backend, kw, device):
@@ -451,7 +531,7 @@ def mode_gsslot(backend, kw, device):
     return out
 
 
-def mode_hpcg(backend, kw, device):
+def mode_hpcg(backend, kw, device, precision=None):
     """``hpcg_benchmark_mpi`` over the processes: the residual history held
     to the single-process benchmark's (``hpcg_benchmark_debug``)."""
     from partitionedarrays_tpu_torch.models.hpcg import hpcg_benchmark_debug, hpcg_benchmark_mpi
@@ -462,22 +542,143 @@ def mode_hpcg(backend, kw, device):
                 n_levels=int(kw.get("hpcg_levels", 3)),
                 iterations=int(kw.get("hpcg_iterations", 10)), ref_sets=1, timed_sets=1,
                 dtype=np.dtype(kw.get("dtype", "float64")).type, device=device)
-    _count_from_zero()
-    r = hpcg_benchmark_mpi(backend.n_parts, **args).summary()
-    launches = _counts()
-    rs = hpcg_benchmark_debug(backend.n_parts, **args).summary()
+    if precision is not None:
+        args["precision"] = precision
+    with _recorded_df64_histories() as hist:
+        _count_from_zero()
+        r = hpcg_benchmark_mpi(backend.n_parts, **args).summary()
+        launches = _counts()
+        rs = hpcg_benchmark_debug(backend.n_parts, **args).summary()
     rel = abs(r["final_relres"] - rs["final_relres"]) / rs["final_relres"]
-    tol = float(kw.get("x_rtol", 1e-9))
+    tol = 0.0 if precision == "df64" else float(kw.get("x_rtol", 1e-9))
     assert r["validation_passed"] and rel <= tol, (
         f"relres {r['final_relres']} against the serial run's {rs['final_relres']}")
-    return {"final_relres": r["final_relres"], "relres_vs_serial": rel,
-            "gflops_raw": r["GFLOPs"]["raw"], "time_solve_s": r["time_solve_s"],
-            "serial_time_solve_s": rs["time_solve_s"], "nrow": r["nrow"],
+    out = {"final_relres": r["final_relres"], "relres_vs_serial": rel,
+           "gflops_raw": r["GFLOPs"]["raw"], "time_solve_s": r["time_solve_s"],
+           "serial_time_solve_s": rs["time_solve_s"], "nrow": r["nrow"],
+           "launches": launches}
+    if precision == "df64":
+        # the sets of each run (reference, optimized, timed), in order
+        half = len(hist) // 2
+        assert half and all(torch.equal(a, b) for a, b in zip(hist[:half], hist[half:])), (
+            "a df64 residual history differs from the serial run's")
+        out.update(dtype=r["dtype"], history_sets=half, history_bit_equal=True)
+    return out
+
+
+def mode_hpcg_df64(backend, kw, device):
+    """``hpcg_benchmark_mpi(precision="df64")``: every set's residual
+    history bit-equal to the single-process benchmark's (the df64 dots fold
+    their per-part pairs over all parts in part order)."""
+    return mode_hpcg(backend, kw, device, precision="df64")
+
+
+@contextlib.contextmanager
+def _recorded_df64_histories():
+    """Record the residual norms of every df64 CG set that the benchmark
+    runs (a wrapper of ``hpcg_cg_df64`` as the driver module calls it)."""
+    from partitionedarrays_tpu_torch.models.hpcg import driver
+
+    hist, original = [], driver.hpcg_cg_df64
+
+    def recording(*a, **k):
+        out = original(*a, **k)
+        hist.append(out[1].detach().cpu().clone())
+        return out
+
+    driver.hpcg_cg_df64 = recording
+    try:
+        yield hist
+    finally:
+        driver.hpcg_cg_df64 = original
+
+
+def _folds(be, P, n, parts, device):
+    """The ``folds`` results of backend ``be`` (every one gathered over all
+    parts, so the same on every process)."""
+    from partitionedarrays_tpu_torch.models.hpcg.problem import STENCIL_27PT
+    from partitionedarrays_tpu_torch.ops import df64 as df
+    from partitionedarrays_tpu_torch.ops.stencil import stencil_psparse
+    from partitionedarrays_tpu_torch.parallel.partition import PRange, uniform_partition
+    from partitionedarrays_tpu_torch.psparse import sparse_diag_matrix, spmv
+    from partitionedarrays_tpu_torch.pvector import (collect, collect_df64, find_local_indices,
+                                                     pdot, pdot_df64, pvector, pvector_df64,
+                                                     pvector_from_own, pvector_split_df64,
+                                                     renumber_pvector)
+    from partitionedarrays_tpu_torch.solvers.krylov import cg_df64
+    from partitionedarrays_tpu_torch.solvers.smoothers import GaussSeidel
+
+    out = {}
+    pr = PRange(uniform_partition(P, 40))
+    x = pvector_from_own([(li.own_to_global + 1).astype(np.float64) for li in pr.parts], pr, be,
+                         device=device)
+    out["pdot"] = float(pdot(x, x))
+    out["pdot_df64"] = df.to_f64(*pdot_df64(pvector_split_df64(x), pvector_split_df64(x))).item()
+    out["collect_df64"] = collect_df64(pvector_split_df64(x))
+    mask = pvector_from_own([(li.own_to_global % 3 == 0).astype(np.float64) for li in pr.parts],
+                            pr, be, device=device)
+    out["find_local_indices"] = find_local_indices(mask)
+    out["sparse_diag_matrix"] = collect(spmv(sparse_diag_matrix(x), x))
+    ren = renumber_pvector(x)
+    out["renumber_pvector"] = (ren.layout.pr, collect(ren))
+    # the COO vector: every part adds to its own ids and to the first id of
+    # the next part (a ghost it gains), summed on the owners
+    nxt = [pr.parts[(p + 1) % P].own_to_global[:1] for p in range(P)]
+    I_parts = [np.concatenate([li.own_to_global, m]) for li, m in zip(pr.parts, nxt)]
+    V_parts = [np.arange(i.size, dtype=np.float64) + 0.5 * li.part
+               for i, li in zip(I_parts, pr.parts)]
+    v = pvector(I_parts, V_parts, pr, be, device=device)
+    out["pvector"] = (v.layout.pr, collect(v))
+    # the df64 CG on the 27-point operator, and a sorted-by-color GS on it
+    A = stencil_psparse(parts, (n, n, n), STENCIL_27PT, be, dtype=np.float64, device=device)
+    rng = np.random.default_rng(42)
+    b_own = [rng.standard_normal(li.n_own) for li in A.row_prange.parts]
+    xs, info = cg_df64(A, pvector_df64(b_own, A.row_prange, be, device=device), rtol=1e-10,
+                       maxiter=500)
+    out["cg_df64"] = (int(info.iterations), collect_df64(xs))
+    gs = GaussSeidel(A, 1, "symmetric", _sorted=True)
+    out["sorted_gs"] = (gs.n_colors, collect(gs(pvector_from_own(b_own, A.row_prange, be,
+                                                                 device=device))))
+    return out
+
+
+def _same(a, b, what):
+    """``a`` equal to ``b`` bit for bit (arrays, numbers, partitions and
+    tuples of them)."""
+    if isinstance(a, tuple):
+        for k, (u, w) in enumerate(zip(a, b)):
+            _same(u, w, f"{what}[{k}]")
+    elif hasattr(a, "parts"):
+        for li, ls in zip(a.parts, b.parts):
+            for name in ("own_to_global", "ghost_to_global", "ghost_to_owner"):
+                if not np.array_equal(getattr(li, name), getattr(ls, name)):
+                    raise AssertionError(f"{what}: part {li.part} {name} differs")
+    elif not np.array_equal(np.asarray(a), np.asarray(b)):
+        raise AssertionError(f"{what}: {a} against the serial {b}")
+
+
+def mode_folds(backend, kw, device):
+    """Every result of ``_folds`` on the processes equals the serial
+    backend's bit for bit."""
+    from partitionedarrays_tpu_torch.backends import SerialBackend
+
+    P = backend.n_parts
+    n = int(kw.get("folds_n", 8))
+    parts = _ints(kw.get("parts", f"1,1,{P}"))
+    _count_from_zero()
+    got = _folds(backend, P, n, parts, device)
+    launches = _counts()
+    want = _folds(SerialBackend(P), P, n, parts, device)
+    for key in want:
+        _same(got[key], want[key], key)
+    return {"pdot": got["pdot"], "pdot_df64": got["pdot_df64"],
+            "selected": int(got["find_local_indices"][0].n_global),
+            "cg_df64_iterations": got["cg_df64"][0], "sorted_colors": got["sorted_gs"][0],
             "launches": launches}
 
 
 MODES = {"cg": mode_cg, "fem": mode_fem, "amg": mode_amg, "gsslot": mode_gsslot,
-         "hpcg": mode_hpcg}
+         "hpcg": mode_hpcg, "hpcg_df64": mode_hpcg_df64, "folds": mode_folds}
 
 
 def main():
