@@ -1096,6 +1096,7 @@ def _hold_k3(results, where, gs, dtype_name, g, device, rtol=KERNEL_RTOL):
 
     from partitionedarrays_tpu_torch.ops.dia_rows import sweep_plan
     from partitionedarrays_tpu_torch.ops.gs_dia_kernels import gs_sweeps, gs_sweeps_plain
+    from partitionedarrays_tpu_torch.utils import profiling
 
     col = gs.colored
     dtype = getattr(torch, dtype_name)
@@ -1110,9 +1111,9 @@ def _hold_k3(results, where, gs, dtype_name, g, device, rtol=KERNEL_RTOL):
         plain_start = zero if start is None else start
         nbytes, ops, floor = _k3_work(col, order, itemsize, zero_guess=start is None)
         b_ms, b_by = bound(nbytes, ops, F32_FLOPS_PER_S if itemsize == 4 else F64_FLOPS_PER_S)
-        before = gs_sweeps.launches
+        before = profiling.launches("gs_sweeps")
         got = gs_sweeps(col.vals_d, bd, col.invd_d, start, col.taps, order)
-        launches = gs_sweeps.launches - before
+        launches = profiling.launches("gs_sweeps") - before
         torch.cuda.synchronize()
         want = gs_sweeps_plain(col.vals_d, bd, col.invd_d, plain_start, col.taps, order)
         err = (got - want).abs().max().item()
@@ -1341,6 +1342,7 @@ def phase_hpcg_ghosted(device):
     from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv
     from partitionedarrays_tpu_torch.psparse import spmv
     from partitionedarrays_tpu_torch.pvector import PVector
+    from partitionedarrays_tpu_torch.utils import profiling
 
     P = int(np.prod(GHOST_PARTS))
     out, failures = {}, []
@@ -1355,13 +1357,13 @@ def phase_hpcg_ghosted(device):
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
         route = cg_route(mg)
-        k5_before = ghost_spmv.launches
+        k5_before = profiling.launches("ghost_spmv")
         report = hpcg_benchmark(
             None, local_shape=shape, parts_per_dir=GHOST_PARTS, n_levels=LEVELS,
             iterations=ITERATIONS, ref_sets=1, timed_sets=3, dtype=dtype,
             mg=mg, setup_time=setup, device=device,
         )
-        k5_in_benchmark = ghost_spmv.launches - k5_before
+        k5_in_benchmark = profiling.launches("ghost_spmv") - k5_before
         s = report.summary()
         A, gs = mg.A, mg.gss[-1]
         col = gs.colored
@@ -1580,15 +1582,16 @@ def _timed(counters, fn):
     result, its seconds by CUDA events, the launches it made)."""
     import torch
 
-    for c in counters.values():
-        c.launches = 0
+    from partitionedarrays_tpu_torch.utils import profiling
+
+    profiling.reset_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     out = fn()
     end.record()
     end.synchronize()
-    return out, start.elapsed_time(end) / 1e3, {k: c.launches for k, c in counters.items()}
+    return out, start.elapsed_time(end) / 1e3, {k: profiling.launches(k) for k in counters}
 
 
 def _tile_work(tg, dirs, itemsize):
@@ -1616,6 +1619,7 @@ def _hold_tile(results, where, tg, dtype_name, g, device, rtol=KERNEL_RTOL):
     import torch
 
     from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps, tile_gs_sweeps_plain
+    from partitionedarrays_tpu_torch.utils import profiling
 
     dtype = getattr(torch, dtype_name)
     P = tg.pack.shape[0]  # one cluster per part
@@ -1625,12 +1629,12 @@ def _hold_tile(results, where, tg, dtype_name, g, device, rtol=KERNEL_RTOL):
     for dirs in (("f",), ("b",), ("f", "b")):
         for zero in (True, False):
             start = torch.zeros_like(x0) if zero else x0
-            before = tile_gs_sweeps.launches
+            before = profiling.launches("tile_gs_sweeps")
             got = tile_gs_sweeps(*tg.operands(), start.clone(), b, dirs, zero_guess=zero,
                                  tile_lanes=tg.tile_lanes)
-            if tile_gs_sweeps.launches != before + 1:
-                raise AssertionError(f"tile_gs_sweeps {where}: {tile_gs_sweeps.launches - before} "
-                                     "launches for one call")
+            n = profiling.launches("tile_gs_sweeps") - before
+            if n != 1:
+                raise AssertionError(f"tile_gs_sweeps {where}: {n} launches for one call")
             torch.cuda.synchronize()
             want = tile_gs_sweeps_plain(*tg.operands(), start.clone(), b, dirs, zero_guess=zero)
             err = (got - want).abs().max().item()
@@ -2167,27 +2171,6 @@ def phase_amg_box(device, counters):
     return box_launches, df64_launches, results
 
 
-def _count_exchanges(fn):
-    """``fn()``'s exchanges (``ExchangePlan.apply`` with at least one
-    round), by direction: "set" (consistent) and "add" (assemble)."""
-    from partitionedarrays_tpu_torch.parallel.exchange_plan import ExchangePlan
-
-    apply = ExchangePlan.apply
-    count = {"set": 0, "add": 0}
-
-    def counted(plan, src, dst, combine, backend=None):
-        if plan.n_rounds:
-            count[combine] += 1
-        return apply(plan, src, dst, combine, backend)
-
-    ExchangePlan.apply = counted
-    try:
-        fn()
-    finally:
-        ExchangePlan.apply = apply
-    return count
-
-
 def _parts_blocks(M):
     """The compressed-row blocks K5 runs in the V-cycle of a hierarchy
     across parts: the own-ghost block of every level's operator (the
@@ -2245,6 +2228,7 @@ def _amg_parts_run(device, counters, key, make, check, phase="4f"):
     from partitionedarrays_tpu_torch.psparse import to_global_scipy
     from partitionedarrays_tpu_torch.pvector import collect
     from partitionedarrays_tpu_torch.solvers.krylov import cg
+    from partitionedarrays_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
     A, build_M, b = make()
@@ -2264,7 +2248,10 @@ def _amg_parts_run(device, counters, key, make, check, phase="4f"):
             launches[k] += v
         solves.append((seconds, info.iterations, counts))
     _, vcycle_s, vcycle_launches = _timed(counters, lambda: M(b))
-    exchanges = _count_exchanges(lambda: M(b))
+    # the V-cycle's exchanges with at least one round, by direction: "set"
+    # (consistent) and "add" (assemble), and the bytes each sent
+    exchanges = {c: profiling.COUNTS[f"exchanges.{c}"] for c in ("set", "add")}
+    exchange_bytes = {c: profiling.COUNTS[f"exchange_bytes.{c}"] for c in ("set", "add")}
     prof = None
     if A.dtype == torch.float32:
         prof = _profile_set(lambda: cg(A, b, M=M, rtol=AMG_RTOL, maxiter=AMG_MAXITER), top=10,
@@ -2282,6 +2269,7 @@ def _amg_parts_run(device, counters, key, make, check, phase="4f"):
         "solve_s": {"cold": solves[0][0], "warm": solves[1][0]},
         "launches_per_solve": solves[-1][2], "vcycle_s": vcycle_s,
         "launches_per_vcycle": vcycle_launches, "exchanges_per_vcycle": exchanges,
+        "exchange_bytes_per_vcycle": exchange_bytes,
         "profiled_solve": prof,
     }
     emit(f"{phase} {key}", rec)
@@ -2958,6 +2946,7 @@ def phase_reuse(device, counters):
     import torch
 
     from partitionedarrays_tpu_torch.psparse import device_refill_plan
+    from partitionedarrays_tpu_torch.utils import profiling
 
     ir = _example()
     ns = ir.port(device)
@@ -2967,12 +2956,11 @@ def phase_reuse(device, counters):
 
     # reaction_diffusion_parts
     timer = _StepTimes()
-    for c in counters.values():
-        c.launches = 0
+    profiling.reset_counts()
     t0 = time.perf_counter()
     rd = ir.reaction_diffusion(ns, nodes=REUSE_RD_NODES, parts=REUSE_RD_PARTS, timer=timer)
     wall = time.perf_counter() - t0
-    launches["reaction_diffusion_parts"] = {k: c.launches for k, c in counters.items()}
+    launches["reaction_diffusion_parts"] = {k: profiling.launches(k) for k in counters}
     M, J = rd["M"], rd["J"]
     where = f"reaction-diffusion {REUSE_RD_NODES[0]}^3 on {REUSE_RD_PARTS}"
     b = ns.from_own([np.random.default_rng(5).standard_normal(li.n_own)
@@ -3012,10 +3000,9 @@ def phase_reuse(device, counters):
 
     # newton_reuse
     timer = _StepTimes()
-    for c in counters.values():
-        c.launches = 0
+    profiling.reset_counts()
     nr = ir.newton_reuse(ns, nodes=NEWTON_REUSE_NODES, timer=timer, fresh=False)
-    launches["newton_reuse"] = {k: c.launches for k, c in counters.items()}
+    launches["newton_reuse"] = {k: profiling.launches(k) for k in counters}
     A, M = nr["A"], nr["M"]
     where = f"newton_reuse {NEWTON_REUSE_NODES[0]}^3 float32"
     plan = device_refill_plan(A, nr["cache"])
@@ -3055,10 +3042,9 @@ def phase_reuse(device, counters):
 
     # elasticity_update
     timer = _StepTimes()
-    for c in counters.values():
-        c.launches = 0
+    profiling.reset_counts()
     eu = ir.elasticity_update(ns, nodes=ELASTICITY_UPDATE_NODES, timer=timer, fresh=False)
-    launches["elasticity_update"] = {k: c.launches for k, c in counters.items()}
+    launches["elasticity_update"] = {k: profiling.launches(k) for k in counters}
     A, M = eu["A"], eu["M"]
     where = f"elasticity_update {ELASTICITY_UPDATE_NODES[0]}^3 float32"
     t0 = time.perf_counter()
@@ -3108,10 +3094,9 @@ def phase_reuse(device, counters):
     # the build's cancelled exactly, so update sets up anew on the same
     # aggregates (n_resetups); the JAX package and the port before raised
     timer = _StepTimes()
-    for c in counters.values():
-        c.launches = 0
+    profiling.reset_counts()
     eu = ir.elasticity_update(ns, nodes=RESETUP_NODES, timer=timer, fresh=True)
-    launches["elasticity_update_24"] = {k: c.launches for k, c in counters.items()}
+    launches["elasticity_update_24"] = {k: profiling.launches(k) for k in counters}
     M = eu["M"]
     where = f"elasticity_update {RESETUP_NODES[0]}^3 float32"
     rec = {
@@ -3192,6 +3177,7 @@ def _hold_tri(results, where, S, dtype_name, g, device, scipy_check=True):
     from partitionedarrays_tpu_torch.ops.native import ilu0
     from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps, tile_gs_sweeps_plain
     from partitionedarrays_tpu_torch.psparse import host_blocks
+    from partitionedarrays_tpu_torch.utils import profiling
 
     dtype = getattr(torch, dtype_name)
     factors = [ilu0(blk["oo"]) for blk in host_blocks(S.A)]
@@ -3199,12 +3185,12 @@ def _hold_tri(results, where, S, dtype_name, g, device, scipy_check=True):
         P = tg.pack.shape[0]
         b = torch.randn(P, tg.Rp, generator=g, dtype=dtype).to(device)
         zero = torch.zeros_like(b)
-        before = tile_gs_sweeps.launches
+        before = profiling.launches("tile_gs_sweeps")
         got = tile_gs_sweeps(*tg.operands(), zero.clone(), b, (d,), zero_guess=True,
                              tile_lanes=tg.tile_lanes)
-        if tile_gs_sweeps.launches != before + 1:
-            raise AssertionError(f"tile_gs_sweeps {name} of {where}: "
-                                 f"{tile_gs_sweeps.launches - before} launches for one solve")
+        n = profiling.launches("tile_gs_sweeps") - before
+        if n != 1:
+            raise AssertionError(f"tile_gs_sweeps {name} of {where}: {n} launches for one solve")
         torch.cuda.synchronize()
         want = tile_gs_sweeps_plain(*tg.operands(), zero.clone(), b, (d,), zero_guess=True)
         err = (got - want).abs().max().item()
@@ -3986,10 +3972,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     try:
-        from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_df, dia_spmv_strided
-        from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv
-        from partitionedarrays_tpu_torch.ops.gs_dia_kernels import ax_core, gs_sweeps
-        from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps
+        from partitionedarrays_tpu_torch.utils import profiling
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable from here: {exc}", file=sys.stderr)
         return 2
@@ -4014,20 +3997,16 @@ def main() -> int:
         k3_results, k4_results = phase_k3_levels(device)
         kernel_results += k3_results + k4_results
 
-    counters = {
-        "dia_spmv": dia_spmv, "ax_core": ax_core, "gs_sweeps": gs_sweeps,
-        "dia_spmv_strided": dia_spmv_strided, "ghost_spmv": ghost_spmv,
-        "dia_spmv_df": dia_spmv_df, "tile_gs_sweeps": tile_gs_sweeps,
-    }
+    counters = ("dia_spmv", "ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv",
+                "dia_spmv_df", "tile_gs_sweeps")  # C entries, counted by profiling.COUNTS
     launches = {}
     for path, run_path in (
         ("one_part", phase_hpcg), ("ghosted", phase_hpcg_ghosted), ("df64", phase_hpcg_df64),
     ):
-        for fn in counters.values():
-            fn.launches = 0
+        profiling.reset_counts()
         with timed(f"4a-c {path}"):
             run_path(device)
-        launches[path] = {k: fn.launches for k, fn in counters.items()}
+        launches[path] = {k: profiling.launches(k) for k in counters}
     with timed("4d amg_elasticity"):
         launches["amg_elasticity"], k6_results = phase_amg_elasticity(device, counters)
     kernel_results += k6_results

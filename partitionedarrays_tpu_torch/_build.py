@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+from .utils import profiling
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -233,7 +235,9 @@ def entry(base: str, dtype: torch.dtype, values_dtype: Optional[torch.dtype] = N
 
 
 def check(code: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+    """Count a launch of the C entry ``what`` (``profiling.COUNTS``) and
+    raise if it returned a CUDA error code."""
+    profiling.count_launch(what)
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 

@@ -17,6 +17,7 @@ from ...ops import df64 as df
 from ...psparse import PSparseMatrix, spmv, spmv_df64
 from ...pvector import PVector, axpy, pdot
 from ...solvers.krylov import _as_col_vector, _as_row_vector
+from ...utils.profiling import span
 
 
 def hpcg_cg(
@@ -62,7 +63,8 @@ def hpcg_cg_flat_g(mg, b: PVector, iterations: int = 50):
     ``hpcg_cg_flat``; the A-apply is the core SpMV (K4) plus the
     ghost-column contribution (one exchange and K5, in standard order);
     the preconditioner is the ghosted V-cycle.  Standard order appears at
-    the exchange and the level transfers."""
+    the exchange and the level transfers.  A profiled set records the span
+    ``hpcg.cg``."""
     gs = mg.gss[-1]
     lay = b.layout
 
@@ -78,28 +80,29 @@ def hpcg_cg_flat_g(mg, b: PVector, iterations: int = 50):
         rv = PVector(r_std, r_std.new_zeros((r_std.shape[0], lay.n_ghost_pad)), lay, b.backend)
         return mg._cycle_flat_g(mg.n_levels - 1, rv)
 
-    bf = gs.make_bd(b)
-    x = torch.zeros_like(bf)
-    r = bf
-    norms = bf.new_zeros(iterations + 1)
-    norms[0] = torch.sqrt(_dot(r, r))
-    z = m_apply(r)
-    p = z
-    rz = _dot(r, z)
-    for k in range(iterations):
-        Ap = a_apply(p)
-        alpha = rz / _dot(p, Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
+    with span("hpcg.cg"):
+        bf = gs.make_bd(b)
+        x = torch.zeros_like(bf)
+        r = bf
+        norms = bf.new_zeros(iterations + 1)
+        norms[0] = torch.sqrt(_dot(r, r))
         z = m_apply(r)
-        rz_new = _dot(r, z)
-        beta = rz_new / rz
-        p = z + beta * p
-        rz = rz_new
-        norms[k + 1] = torch.sqrt(_dot(r, r))
-    x_own = gs.flat_interleave(x)
-    xv = PVector(x_own, x_own.new_zeros((x_own.shape[0], lay.n_ghost_pad)), lay, b.backend)
-    return xv, norms
+        p = z
+        rz = _dot(r, z)
+        for k in range(iterations):
+            Ap = a_apply(p)
+            alpha = rz / _dot(p, Ap)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = m_apply(r)
+            rz_new = _dot(r, z)
+            beta = rz_new / rz
+            p = z + beta * p
+            rz = rz_new
+            norms[k + 1] = torch.sqrt(_dot(r, r))
+        x_own = gs.flat_interleave(x)
+        xv = PVector(x_own, x_own.new_zeros((x_own.shape[0], lay.n_ghost_pad)), lay, b.backend)
+        return xv, norms
 
 
 def hpcg_cg_flat(mg, b: PVector, iterations: int = 50):
@@ -108,32 +111,34 @@ def hpcg_cg_flat(mg, b: PVector, iterations: int = 50):
     core SpMV (kernel K4), the preconditioner runs through ``apply_flat``,
     and dots and axpys run on the cores directly, since they do not depend
     on the order of the entries and the padding stays zero.  Standard
-    order appears twice per solve: b in, x out."""
+    order appears twice per solve: b in, x out.  A profiled set records
+    the span ``hpcg.cg``."""
     gs = mg.gss[-1]
     lay = b.layout
 
-    bf = gs.make_bd(b)
-    x = torch.zeros_like(bf)
-    r = bf
-    norms = bf.new_zeros(iterations + 1)
-    norms[0] = torch.sqrt(_core_dot(r, r))
-    z = mg.apply_flat(r)
-    p = z
-    rz = _core_dot(r, z)
-    for k in range(iterations):
-        Ap = gs.flat_ax(p)
-        alpha = rz / _core_dot(p, Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
+    with span("hpcg.cg"):
+        bf = gs.make_bd(b)
+        x = torch.zeros_like(bf)
+        r = bf
+        norms = bf.new_zeros(iterations + 1)
+        norms[0] = torch.sqrt(_core_dot(r, r))
         z = mg.apply_flat(r)
-        rz_new = _core_dot(r, z)
-        beta = rz_new / rz
-        p = z + beta * p
-        rz = rz_new
-        norms[k + 1] = torch.sqrt(_core_dot(r, r))
-    x_own = gs.flat_interleave(x)
-    xv = PVector(x_own, x_own.new_zeros((x_own.shape[0], lay.n_ghost_pad)), lay, b.backend)
-    return xv, norms
+        p = z
+        rz = _core_dot(r, z)
+        for k in range(iterations):
+            Ap = gs.flat_ax(p)
+            alpha = rz / _core_dot(p, Ap)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = mg.apply_flat(r)
+            rz_new = _core_dot(r, z)
+            beta = rz_new / rz
+            p = z + beta * p
+            rz = rz_new
+            norms[k + 1] = torch.sqrt(_core_dot(r, r))
+        x_own = gs.flat_interleave(x)
+        xv = PVector(x_own, x_own.new_zeros((x_own.shape[0], lay.n_ghost_pad)), lay, b.backend)
+        return xv, norms
 
 
 def hpcg_cg_df64(

@@ -34,6 +34,7 @@ from ...config import values_dtype
 from ...psparse import PSparseMatrix
 from ...pvector import PVector
 from ...solvers.smoothers import GaussSeidel
+from ...utils.profiling import span
 from .problem import build_hpcg_problem
 
 
@@ -54,7 +55,9 @@ class HPCGMGPreconditioner:
     0 is the coarsest level.  ``precond_dtype``: None, bfloat16, float16 or
     float32 (a torch or numpy dtype, or its name), the storage of the
     smoothers' values; a pair without a kernel (float32 values under float32 vectors
-    are the plain case) raises TypeError."""
+    are the plain case) raises TypeError.  A profiled cycle records the span
+    ``mg.level`` (attribute ``level``, 0 the coarsest) around each level's
+    visit."""
 
     def __init__(
         self,
@@ -146,7 +149,8 @@ class HPCGMGPreconditioner:
     def _cycle(self, l: int, b: PVector) -> PVector:
         gs = self.gss[l]
         if l == 0:
-            return gs(b)  # coarsest: smoothing is the solve
+            with span("mg.level", level=0):
+                return gs(b)  # coarsest: smoothing is the solve
         if gs.flat_viable():
             xflat = self._cycle_flat_bd(l, gs.make_bd(b))
         else:
@@ -162,19 +166,20 @@ class HPCGMGPreconditioner:
         smoother application (hybrid GS, as the generic path).  Two
         exchanges per level per cycle: the pre-smooth starts from a zero
         guess whose ghosts are zero, so it needs none."""
-        gs = self.gss[l]
-        bd0 = gs.make_bd(b)
-        xflat = gs.smooth_bd(None, bd0)  # pre-smooth
-        # the true level residual r = b - A_oo x - A_oh g, with fresh ghosts
-        gc = gs.ghost_contrib(gs.flat_interleave(xflat))
-        r_std = gs.flat_interleave(gs.flat_residual(xflat, bd0)) - gc
-        rc = self._restrict(l, r_std)
-        xc = self._cycle(l - 1, rc)
-        corr = self._prolong(l, xc.own, r_std.shape[1])
-        xflat = gs.flat_add_std(xflat, corr)
-        # post-smooth with refreshed frozen ghosts
-        gc2 = gs.ghost_contrib(gs.flat_interleave(xflat))
-        return gs.smooth_bd(xflat, gs.flat_deinterleave(b.own - gc2))
+        with span("mg.level", level=l):
+            gs = self.gss[l]
+            bd0 = gs.make_bd(b)
+            xflat = gs.smooth_bd(None, bd0)  # pre-smooth
+            # the true level residual r = b - A_oo x - A_oh g, with fresh ghosts
+            gc = gs.ghost_contrib(gs.flat_interleave(xflat))
+            r_std = gs.flat_interleave(gs.flat_residual(xflat, bd0)) - gc
+            rc = self._restrict(l, r_std)
+            xc = self._cycle(l - 1, rc)
+            corr = self._prolong(l, xc.own, r_std.shape[1])
+            xflat = gs.flat_add_std(xflat, corr)
+            # post-smooth with refreshed frozen ghosts
+            gc2 = gs.ghost_contrib(gs.flat_interleave(xflat))
+            return gs.smooth_bd(xflat, gs.flat_deinterleave(b.own - gc2))
 
     def flat_viable(self) -> bool:
         """True when the finest level smooths without ghost exchanges."""
@@ -191,18 +196,21 @@ class HPCGMGPreconditioner:
         return self._cycle_flat_bd(self.n_levels - 1, bd)
 
     def _cycle_flat_bd(self, l: int, bd: torch.Tensor) -> torch.Tensor:
-        gs = self.gss[l]
-        xflat = gs.smooth_bd(None, bd)  # zero-guess pre-smooth
-        if l == 0:
-            return xflat  # coarsest: smooth only
-        rd = gs.flat_residual(xflat, bd)
-        r_std = gs.flat_interleave(rd)
-        rc = self._restrict(l, r_std)
-        gs_c = self.gss[l - 1]
-        xc_own = gs_c.flat_interleave(self._cycle_flat_bd(l - 1, gs_c.make_bd(rc)))
-        corr = self._prolong(l, xc_own, r_std.shape[1])
-        xflat = gs.flat_add_std(xflat, corr)
-        return gs.smooth_bd(xflat, bd)  # post-smooth
+        """The V-cycle from level ``l`` on the core rhs ``bd``; returns the
+        core x."""
+        with span("mg.level", level=l):
+            gs = self.gss[l]
+            xflat = gs.smooth_bd(None, bd)  # zero-guess pre-smooth
+            if l == 0:
+                return xflat  # coarsest: smooth only
+            rd = gs.flat_residual(xflat, bd)
+            r_std = gs.flat_interleave(rd)
+            rc = self._restrict(l, r_std)
+            gs_c = self.gss[l - 1]
+            xc_own = gs_c.flat_interleave(self._cycle_flat_bd(l - 1, gs_c.make_bd(rc)))
+            corr = self._prolong(l, xc_own, r_std.shape[1])
+            xflat = gs.flat_add_std(xflat, corr)
+            return gs.smooth_bd(xflat, bd)  # post-smooth
 
     def __call__(self, r: PVector) -> PVector:
         return self._cycle(self.n_levels - 1, r)

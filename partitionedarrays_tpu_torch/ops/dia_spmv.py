@@ -102,12 +102,8 @@ def dia_spmv(offsets: Tuple[int, ...], vals: torch.Tensor, x: torch.Tensor) -> t
         vals.data_ptr(), x.data_ptr(), y.data_ptr(), _offsets_arg(offsets), len(offsets),
         R, x.shape[1], P, _build.stream_of(vals),
     )
-    dia_spmv.launches += 1
     _build.check(code, "dia_spmv")
     return y
-
-
-dia_spmv.launches = 0
 
 
 def dia_spmv_strided(
@@ -141,12 +137,8 @@ def dia_spmv_strided(
         vals.data_ptr(), x.data_ptr(), y.data_ptr(), _offsets_arg(offsets), len(offsets),
         R, x.shape[1], P, vals.stride(0), x.stride(0), lanes, _build.stream_of(vals),
     )
-    dia_spmv_strided.launches += 1
     _build.check(code, "dia_spmv_strided")
     return y
-
-
-dia_spmv_strided.launches = 0
 
 
 def dia_spmv_df(
@@ -180,9 +172,5 @@ def dia_spmv_df(
         yh.data_ptr(), yl.data_ptr(), _offsets_arg(offsets), len(offsets),
         R, xh.shape[1], P, _build.stream_of(vals_hi),
     )
-    dia_spmv_df.launches += 1
     _build.check(code, "dia_spmv_df")
     return yh, yl
-
-
-dia_spmv_df.launches = 0

@@ -181,12 +181,8 @@ def ax_core(
         vals.data_ptr(), xcore.data_ptr(), out.data_ptr(),
         tap.on(vals.device).data_ptr(), P, m, n_off, Lq, plan.lanes, _build.stream_of(vals),
     )
-    ax_core.launches += 1
     _build.check(code, "ax_core")
     return out
-
-
-ax_core.launches = 0
 
 
 def gs_sweeps(
@@ -226,9 +222,5 @@ def gs_sweeps(
         len(order), int(xcore is None), plan.lanes, plan.width,
         P, m, n_off, Lq, _build.stream_of(vals),
     )
-    gs_sweeps.launches += 1
     _build.check(code, "gs_sweeps")
     return x
-
-
-gs_sweeps.launches = 0

@@ -194,9 +194,5 @@ def tile_gs_sweeps(
         x.data_ptr(), steps.numel(), nt, D, B, W, Nr, K, P,
         -1 if _x_in_smem is None else int(_x_in_smem), _build.stream_of(x),
     )
-    tile_gs_sweeps.launches += 1
     _build.check(code, "tile_gs_sweeps")
     return x
-
-
-tile_gs_sweeps.launches = 0

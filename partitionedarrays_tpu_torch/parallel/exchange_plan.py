@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..backends import SerialBackend, stage
+from ..utils import profiling
 from .partition import PRange, find_owner
 
 # the reference's padding index: any index >= 2**31 - 2**8
@@ -103,7 +104,8 @@ class ExchangePlan:
         ``backend`` (default: a serial backend, every part): pairs inside the
         process are one index op, and on a multi-process backend the pairs
         across processes travel as the padded rounds' messages
-        (``_CrossPlan``)."""
+        (``_CrossPlan``).  An exchange with a round is counted, with the
+        bytes this process sends, in ``profiling.COUNTS``."""
         if combine not in ("add", "set"):
             raise ValueError(combine)
         if self.n_rounds == 0:
@@ -116,6 +118,7 @@ class ExchangePlan:
         if got is None:
             got = self._per_process[key] = _CrossPlan(self, backend, src_vals.shape[1],
                                                dst_vals.shape[1], src_vals.device)
+        profiling.count_exchange(combine, got.sent_entries * src_vals.element_size())
         return got.apply(src_vals, dst_vals, combine)
 
 
@@ -193,6 +196,9 @@ class _CrossPlan:
         self.dst = cat([dst_local] + recv_dst)
         self.n_recv = n_recv
         self.wire_entries = int(sum(k for _, _, k in self.sends) + n_recv)
+        # the entries this process's parts send: to local parts, and the
+        # messages' lanes (padding included) to other processes
+        self.sent_entries = int(src.size + sum(k for _, _, k in self.sends))
 
     def apply(self, src_vals: torch.Tensor, dst_vals: torch.Tensor, combine: str) -> torch.Tensor:
         flat_src = src_vals.reshape(-1)

@@ -84,6 +84,7 @@ from .parallel.exchange_plan import VectorLayout, layout_of
 from .parallel.partition import (INT, PRange, find_owner, map_local_to_global,
                                  matching_own_indices, renumber_partition)
 from .pvector import PVector, Task, pvector_from_own, repartition
+from .utils.profiling import span
 
 _BLOCK_NAMES = ("oo", "oh", "ho", "hh")
 
@@ -208,24 +209,27 @@ class PSparseMatrix:
         """The frozen blocks; a matrix built from host blocks freezes them
         on first call (``freeze_block``: DIA when banded, else compressed
         rows), and after ``invalidate_device`` restacks the new values into
-        the structure of the blocks it dropped (``refreeze_block``)."""
+        the structure of the blocks it dropped (``refreeze_block``).  A
+        profiled freeze records the span ``psparse.freeze``."""
         if self._device is None:
-            old = self._frozen_structure[0]
-            rlay, clay = self.row_layout(), self.col_layout()
-            ngc = max(clay.n_ghost_pad, 1)
-            ngr = max(rlay.n_ghost_pad, 1)
-            shapes = {"oo": (rlay.n_own_pad, clay.n_own_pad), "oh": (rlay.n_own_pad, ngc),
-                      "ho": (ngr, clay.n_own_pad), "hh": (ngr, ngc)}
-            names = _BLOCK_NAMES if not self.assembled else ("oo", "oh")
-            frozen = {}
-            for name in names:
-                parts = self._local_blocks(name)
-                if old is not None:
-                    frozen[name] = refreeze_block(getattr(old, name), parts)
-                else:
-                    frozen[name] = self._freeze(parts, *shapes[name], self._target)
-            self._device = DeviceSpMat(**frozen)
-            self._frozen_structure = (None, self._frozen_structure[1])  # free the old values
+            with span("psparse.freeze"):
+                old = self._frozen_structure[0]
+                rlay, clay = self.row_layout(), self.col_layout()
+                ngc = max(clay.n_ghost_pad, 1)
+                ngr = max(rlay.n_ghost_pad, 1)
+                shapes = {"oo": (rlay.n_own_pad, clay.n_own_pad), "oh": (rlay.n_own_pad, ngc),
+                          "ho": (ngr, clay.n_own_pad), "hh": (ngr, ngc)}
+                names = _BLOCK_NAMES if not self.assembled else ("oo", "oh")
+                frozen = {}
+                for name in names:
+                    parts = self._local_blocks(name)
+                    if old is not None:
+                        frozen[name] = refreeze_block(getattr(old, name), parts)
+                    else:
+                        frozen[name] = self._freeze(parts, *shapes[name], self._target)
+                self._device = DeviceSpMat(**frozen)
+                # free the old values
+                self._frozen_structure = (None, self._frozen_structure[1])
         return self._device
 
     def device_transpose(self) -> Tuple[DeviceBlock, Optional[DeviceBlock]]:
@@ -507,43 +511,45 @@ def psparse(
     frozen on ``device`` at first use, in ``device_dtype`` (default: the
     host dtype).  ``reuse=True`` returns ``(A, cache)``: the cache routes
     new values of the same triplets into A (``psparse_refill``,
-    ``device_refill_plan``)."""
-    if indices not in ("global", "local"):
-        raise ValueError(f"indices must be 'global' or 'local', got {indices!r}")
-    if backend.is_multiprocess:
-        if indices != "global" or not (assembled or assemble):
-            raise ValueError("psparse on several processes: global ids into an assembled "
-                             "matrix (psparse_local)")
-        return psparse_local(I_parts, J_parts, V_parts, rows, cols, backend, dtype=dtype,
-                             reuse=reuse, device=device, device_dtype=device_dtype)
-    rows_pr = as_prange(rows)
-    cols_pr = as_prange(cols)
-    P = rows_pr.n_parts
-    dtype = numpy_dtype(np.asarray(V_parts[0]).dtype if dtype is None else dtype)
-    if indices == "local":
-        I_parts = [map_local_to_global(I_parts[p], rows_pr.parts[p]) for p in range(P)]
-        J_parts = [map_local_to_global(J_parts[p], cols_pr.parts[p]) for p in range(P)]
-    if assembled or not assemble:
-        tri = [(I_parts[p], J_parts[p], np.asarray(V_parts[p], dtype=dtype)) for p in range(P)]
-        origins = [(np.full(len(tri[p][0]), p, dtype=INT), np.arange(len(tri[p][0]), dtype=INT))
-                   for p in range(P)]
-    else:
-        tri, origins = _shuffle_to_owners(rows_pr, I_parts, J_parts, V_parts, dtype)
-    subassembled = not (assembled or assemble)
-    built = [
-        _build_part_blocks(rows_pr.parts[p], cols_pr.parts[p], *tri[p], subassembled, dtype)
-        for p in range(P)
-    ]
-    A = PSparseMatrix(
-        None, PRange([b[1] for b in built]) if subassembled else rows_pr,
-        PRange([b[2] for b in built]), backend, blocks=[b[0] for b in built],
-        device=device, device_dtype=None if device_dtype is None else torch_dtype(device_dtype),
-        assembled=not subassembled,
-    )
-    if not reuse:
-        return A
-    n_orig = [len(np.asarray(I_parts[q])) for q in range(P)]
-    return A, _build_reuse_cache(A.blocks, origins, [b[3] for b in built], n_orig)
+    ``device_refill_plan``).  A profiled call records the span
+    ``psparse``."""
+    with span("psparse"):
+        if indices not in ("global", "local"):
+            raise ValueError(f"indices must be 'global' or 'local', got {indices!r}")
+        if backend.is_multiprocess:
+            if indices != "global" or not (assembled or assemble):
+                raise ValueError("psparse on several processes: global ids into an assembled "
+                                 "matrix (psparse_local)")
+            return psparse_local(I_parts, J_parts, V_parts, rows, cols, backend, dtype=dtype,
+                                 reuse=reuse, device=device, device_dtype=device_dtype)
+        rows_pr = as_prange(rows)
+        cols_pr = as_prange(cols)
+        P = rows_pr.n_parts
+        dtype = numpy_dtype(np.asarray(V_parts[0]).dtype if dtype is None else dtype)
+        if indices == "local":
+            I_parts = [map_local_to_global(I_parts[p], rows_pr.parts[p]) for p in range(P)]
+            J_parts = [map_local_to_global(J_parts[p], cols_pr.parts[p]) for p in range(P)]
+        if assembled or not assemble:
+            tri = [(I_parts[p], J_parts[p], np.asarray(V_parts[p], dtype=dtype)) for p in range(P)]
+            origins = [(np.full(len(tri[p][0]), p, dtype=INT), np.arange(len(tri[p][0]), dtype=INT))
+                       for p in range(P)]
+        else:
+            tri, origins = _shuffle_to_owners(rows_pr, I_parts, J_parts, V_parts, dtype)
+        subassembled = not (assembled or assemble)
+        built = [
+            _build_part_blocks(rows_pr.parts[p], cols_pr.parts[p], *tri[p], subassembled, dtype)
+            for p in range(P)
+        ]
+        A = PSparseMatrix(
+            None, PRange([b[1] for b in built]) if subassembled else rows_pr,
+            PRange([b[2] for b in built]), backend, blocks=[b[0] for b in built],
+            device=device, device_dtype=None if device_dtype is None else torch_dtype(device_dtype),
+            assembled=not subassembled,
+        )
+        if not reuse:
+            return A
+        n_orig = [len(np.asarray(I_parts[q])) for q in range(P)]
+        return A, _build_reuse_cache(A.blocks, origins, [b[3] for b in built], n_orig)
 
 
 def _build_reuse_cache(blocks, origins, infos, n_orig):

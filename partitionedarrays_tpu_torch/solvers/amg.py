@@ -83,6 +83,7 @@ from ..psparse import (
     spmv,
 )
 from ..pvector import PVector
+from ..utils.profiling import span
 from .smoothers import AdditiveSchwarz, GaussSeidel
 
 
@@ -545,63 +546,76 @@ class AMGPreconditioner:
         aggregates of the last one (no aggregation; the power method, the
         products and the smoothers run anew), for a matrix of another
         sparsity on the same partition, where ``update``'s refill does not
-        apply."""
-        params = self.params
-        if params.smoother not in ("gs", "schwarz"):
-            raise ValueError(f"AMG smoother {params.smoother!r}: 'gs' or 'schwarz'")
-        old_aggs = self._aggs if reuse_aggregates else None
-        self.levels: List[AMGLevel] = []
-        self._galerkin: List[_GalerkinCache] = []
-        self._aggs = []  # (aggregates, coarse PRange, box shapes) per level
-        self.omegas = []
-        current = A
-        ns = self.nullspace
-        bs = params.block_size if ns is not None else 1
-        for level in range(params.max_levels - 1):
-            if current.shape[0] <= params.coarse_size:
-                break
-            if old_aggs is not None:
-                if level >= len(old_aggs):
+        apply.  A profiled setup records the span ``amg.setup`` and in it
+        one per phase of each level (``amg.aggregate``, ``amg.tentative``,
+        ``amg.spectral_radius``, ``amg.galerkin``, ``amg.smoother_build``),
+        then ``amg.coarse_factorize`` and ``amg.freeze``."""
+        with span("amg.setup"):
+            params = self.params
+            if params.smoother not in ("gs", "schwarz"):
+                raise ValueError(f"AMG smoother {params.smoother!r}: 'gs' or 'schwarz'")
+            old_aggs = self._aggs if reuse_aggregates else None
+            self.levels: List[AMGLevel] = []
+            self._galerkin: List[_GalerkinCache] = []
+            self._aggs = []  # (aggregates, coarse PRange, box shapes) per level
+            self.omegas = []
+            current = A
+            ns = self.nullspace
+            bs = params.block_size if ns is not None else 1
+            for level in range(params.max_levels - 1):
+                if current.shape[0] <= params.coarse_size:
                     break
-                aggs, coarse, shapes = old_aggs[level]
-            else:
-                box = (
-                    box_aggregate_psparse(current)
-                    if params.epsilon == 0 and bs == 1 and ns is None
-                    else None
-                )
-                if box is not None:
-                    aggs, coarse, shapes = box
+                if old_aggs is not None:
+                    if level >= len(old_aggs):
+                        break
+                    aggs, coarse, shapes = old_aggs[level]
                 else:
-                    (aggs, coarse), shapes = aggregate_psparse(current, params.epsilon, bs), None
-            self._aggs.append((aggs, coarse, shapes))
-            P0, ns, _ = tentative_prolongator(current, aggs, coarse, ns)
-            # the coarse level has n_modes dofs per aggregate
-            bs = len(next(m for m in ns if m is not None)) if ns is not None else 1
-            if params.omega is not None:
-                omega = float(params.omega)
-            else:
-                omega = 4.0 / (3.0 * max(spectral_radius(current, _dinv_parts(current)), 1e-12))
-            self.omegas.append(omega)
-            gk = _GalerkinCache(current, P0, omega)
-            self._galerkin.append(gk)
-            struct = None
-            if params.smoother == "schwarz":
-                # the structured transfers assume a Gauss-Seidel smoother:
-                # a box level then applies P as a matrix
-                smoother = AdditiveSchwarz(current, iterations=params.smoother_iters)
-            else:
-                if shapes is not None:
-                    struct = BoxTransfer(*shapes, omega, _box_dinv(current))
-                smoother = GaussSeidel(current, params.smoother_iters, "symmetric")
-            self.levels.append(AMGLevel(current, gk.P, smoother, struct))
-            current = gk.Ac
-            if current.shape[0] >= self.levels[-1].A.shape[0]:
-                break  # aggregation stalled
-        self.levels.append(AMGLevel(current, None, None))
-        self.backend = A.backend
-        self._coarse_factorize(current)
-        self._freeze_levels()
+                    with span("amg.aggregate", level=level):
+                        box = (
+                            box_aggregate_psparse(current)
+                            if params.epsilon == 0 and bs == 1 and ns is None
+                            else None
+                        )
+                        if box is not None:
+                            aggs, coarse, shapes = box
+                        else:
+                            aggs, coarse = aggregate_psparse(current, params.epsilon, bs)
+                            shapes = None
+                self._aggs.append((aggs, coarse, shapes))
+                with span("amg.tentative", level=level):
+                    P0, ns, _ = tentative_prolongator(current, aggs, coarse, ns)
+                # the coarse level has n_modes dofs per aggregate
+                bs = len(next(m for m in ns if m is not None)) if ns is not None else 1
+                if params.omega is not None:
+                    omega = float(params.omega)
+                else:
+                    with span("amg.spectral_radius", level=level):
+                        rho = spectral_radius(current, _dinv_parts(current))
+                    omega = 4.0 / (3.0 * max(rho, 1e-12))
+                self.omegas.append(omega)
+                with span("amg.galerkin", level=level):
+                    gk = _GalerkinCache(current, P0, omega)
+                self._galerkin.append(gk)
+                struct = None
+                with span("amg.smoother_build", level=level):
+                    if params.smoother == "schwarz":
+                        # the structured transfers assume a Gauss-Seidel smoother:
+                        # a box level then applies P as a matrix
+                        smoother = AdditiveSchwarz(current, iterations=params.smoother_iters)
+                    else:
+                        if shapes is not None:
+                            struct = BoxTransfer(*shapes, omega, _box_dinv(current))
+                        smoother = GaussSeidel(current, params.smoother_iters, "symmetric")
+                self.levels.append(AMGLevel(current, gk.P, smoother, struct))
+                current = gk.Ac
+                if current.shape[0] >= self.levels[-1].A.shape[0]:
+                    break  # aggregation stalled
+            self.levels.append(AMGLevel(current, None, None))
+            self.backend = A.backend
+            with span("amg.coarse_factorize"):
+                self._coarse_factorize(current)
+            with span("amg.freeze"):
+                self._freeze_levels()
 
     def _freeze_levels(self) -> None:
         """Freeze every level now, as the reference (a box level never
@@ -780,23 +794,19 @@ class AMGPreconditioner:
         returns the core x."""
         level = self.levels[l]
         gs = level.smoother
-        xflat = gs.smooth_bd(None, bd)  # zero-guess pre-smooth
+        with span("amg.smooth", level=l, phase="pre"):
+            xflat = gs.smooth_bd(None, bd)  # zero-guess pre-smooth
         rd = gs.flat_residual(xflat, bd)
         nxt = self.levels[l + 1]
-        cl = nxt.A.row_layout()
-        rc = self._restrict_flat(level, rd, cl)
-        if nxt.P is None:
-            ec = self._coarse_solve(rc)
-        elif self._flat_ok(l + 1):
-            xfc = self._cycle_flat(l + 1, nxt.smoother.make_bd(rc), w)
-            ec = _own_vec(nxt.smoother.flat_interleave(xfc), cl, rc.backend)
-        else:
-            ec = self._cycle(l + 1, rc, w)
+        rc = self._restrict_flat(level, rd, nxt.A.row_layout())
+        ec = self._cycle(l + 1, rc, w)
         if w and nxt.P is not None:
             rc2 = _residual_vec(nxt.A, rc, ec)
             ec2 = self._cycle(l + 1, rc2, w)
             ec = PVector(ec.own + ec2.own, ec.ghost, ec.layout, ec.backend)
-        return gs.smooth_bd(xflat + self._prolong_flat(level, ec), bd)  # post-smooth
+        xflat = xflat + self._prolong_flat(level, ec)
+        with span("amg.smooth", level=l, phase="post"):
+            return gs.smooth_bd(xflat, bd)
 
     def _cycle_flat_g(self, l: int, b: PVector, w: bool) -> torch.Tensor:
         """The flat cycle of a box level with ghost columns (the hybrid
@@ -809,7 +819,8 @@ class AMGPreconditioner:
         level = self.levels[l]
         gs = level.smoother
         bd0 = gs.make_bd(b)
-        xflat = gs.smooth_bd(None, bd0)  # zero-guess pre-smooth
+        with span("amg.smooth", level=l, phase="pre"):
+            xflat = gs.smooth_bd(None, bd0)  # zero-guess pre-smooth
         gc = gs.ghost_contrib(gs.flat_interleave(xflat))
         r_own = gs.flat_interleave(gs.flat_residual(xflat, bd0)) - gc
         nxt = self.levels[l + 1]
@@ -822,7 +833,9 @@ class AMGPreconditioner:
             ec = PVector(ec.own + ec2.own, ec.ghost, ec.layout, ec.backend)
         xflat = gs.flat_add_std(xflat, self._prolong_struct(level, ec))
         gc2 = gs.ghost_contrib(gs.flat_interleave(xflat))
-        return gs.smooth_bd(xflat, gs.flat_deinterleave(b.own - gc2))  # post-smooth
+        bd2 = gs.flat_deinterleave(b.own - gc2)
+        with span("amg.smooth", level=l, phase="post"):
+            return gs.smooth_bd(xflat, bd2)
 
     def _cycle(self, l: int, b: PVector, w: bool) -> PVector:
         """One cycle from level ``l`` (twice into the coarser level for a
@@ -830,35 +843,40 @@ class AMGPreconditioner:
         (the ghosted flat cycle where the level has ghost columns); else
         zero-guess pre-smooth, residual, restriction (the structured one
         on a box level, P^T elsewhere), the coarser cycle, prolongation,
-        post-smooth."""
-        level = self.levels[l]
-        if level.P is None:
-            return self._coarse_solve(b)
-        if level.struct is not None and level.smoother.colored is not None:
-            gs = level.smoother
-            if self._flat_ok(l):
-                xflat = self._cycle_flat(l, gs.make_bd(b), w)
+        post-smooth.  Every level is entered here: a profiled cycle records
+        the span ``amg.cycle`` of each level (the coarsest's is its solve)
+        and ``amg.smooth`` around each smoother call."""
+        with span("amg.cycle", level=l):
+            level = self.levels[l]
+            if level.P is None:
+                return self._coarse_solve(b)
+            if level.struct is not None and level.smoother.colored is not None:
+                gs = level.smoother
+                if self._flat_ok(l):
+                    xflat = self._cycle_flat(l, gs.make_bd(b), w)
+                else:
+                    xflat = self._cycle_flat_g(l, b, w)
+                return _own_vec(gs.flat_interleave(xflat), level.A.row_layout(), b.backend)
+            with span("amg.smooth", level=l, phase="pre"):
+                x = level.smoother(b)
+            r = _residual_vec(level.A, b, x)
+            cl = self.levels[l + 1].A.row_layout()
+            if level.struct is not None:
+                rc = self._restrict_struct(level, r, cl)
             else:
-                xflat = self._cycle_flat_g(l, b, w)
-            return _own_vec(gs.flat_interleave(xflat), level.A.row_layout(), b.backend)
-        x = level.smoother(b)
-        r = _residual_vec(level.A, b, x)
-        cl = self.levels[l + 1].A.row_layout()
-        if level.struct is not None:
-            rc = self._restrict_struct(level, r, cl)
-        else:
-            rc = _view(cl, spmtv(level.P, _row_view(level.P, r)))
-        ec = self._cycle(l + 1, rc, w)
-        if w and self.levels[l + 1].P is not None:
-            rc2 = _residual_vec(self.levels[l + 1].A, rc, ec)
-            ec2 = self._cycle(l + 1, rc2, w)
-            ec = PVector(ec.own + ec2.own, ec.ghost, ec.layout, ec.backend)
-        if level.struct is not None:
-            e_own = self._prolong_struct(level, ec)
-        else:
-            e_own = spmv(level.P, _col_view(level.P, ec)).own
-        x = PVector(x.own + e_own, x.ghost, x.layout, x.backend)
-        return level.smoother.apply(x, b)
+                rc = _view(cl, spmtv(level.P, _row_view(level.P, r)))
+            ec = self._cycle(l + 1, rc, w)
+            if w and self.levels[l + 1].P is not None:
+                rc2 = _residual_vec(self.levels[l + 1].A, rc, ec)
+                ec2 = self._cycle(l + 1, rc2, w)
+                ec = PVector(ec.own + ec2.own, ec.ghost, ec.layout, ec.backend)
+            if level.struct is not None:
+                e_own = self._prolong_struct(level, ec)
+            else:
+                e_own = spmv(level.P, _col_view(level.P, ec)).own
+            x = PVector(x.own + e_own, x.ghost, x.layout, x.backend)
+            with span("amg.smooth", level=l, phase="post"):
+                return level.smoother.apply(x, b)
 
     def __call__(self, r: PVector) -> PVector:
         return self._cycle(0, r, self.params.cycle == "w")

@@ -17,6 +17,7 @@ import torch
 from ..ops import df64 as df
 from ..psparse import PSparseMatrix, device_df64, spmv, spmv_df64
 from ..pvector import PVector, axpy, pdot, pnorm, pvector_split_df64, pzeros
+from ..utils.profiling import span
 
 
 class CGInfo(NamedTuple):
@@ -53,29 +54,38 @@ def cg(
 ):
     """Preconditioned conjugate gradient; ``M`` applies the preconditioner
     (z = M(r)).  Iterates while ``|r| > max(rtol |r0|, atol)`` and fewer
-    than ``maxiter`` iterations ran.  Returns (x, CGInfo)."""
-    x = _x0_on_rows(A, b, x0)
-    Mfn = M if M is not None else _identity
-    r = _residual(A, b, x)
-    z = Mfn(r)
-    p = z.copy()
-    rz = pdot(r, z)
-    rnorm = pnorm(r)
-    tol = _tolerance(rtol, atol, rnorm)
-    k = 0
-    while k < maxiter and bool(rnorm > tol):
-        Ap = _as_row_vector(A, spmv(A, _as_col_vector(A, p)))
-        alpha = rz / pdot(p, Ap)
-        x = axpy(alpha, p, x)
-        r = axpy(-alpha, Ap, r)
+    than ``maxiter`` iterations ran.  Returns (x, CGInfo).  A profiled
+    solve records the span ``cg`` and one ``cg.converged`` around each
+    convergence test (the read-back)."""
+    with span("cg"):
+        x = _x0_on_rows(A, b, x0)
+        Mfn = M if M is not None else _identity
+        r = _residual(A, b, x)
         z = Mfn(r)
-        rz_new = pdot(r, z)
-        beta = rz_new / rz
-        p = _combine(z, beta, p)
-        rz = rz_new
+        p = z.copy()
+        rz = pdot(r, z)
         rnorm = pnorm(r)
-        k += 1
-    return x, CGInfo(k, rnorm)
+        tol = _tolerance(rtol, atol, rnorm)
+        k = 0
+        while k < maxiter and _above(rnorm, tol):
+            Ap = _as_row_vector(A, spmv(A, _as_col_vector(A, p)))
+            alpha = rz / pdot(p, Ap)
+            x = axpy(alpha, p, x)
+            r = axpy(-alpha, Ap, r)
+            z = Mfn(r)
+            rz_new = pdot(r, z)
+            beta = rz_new / rz
+            p = _combine(z, beta, p)
+            rz = rz_new
+            rnorm = pnorm(r)
+            k += 1
+        return x, CGInfo(k, rnorm)
+
+
+def _above(rnorm: torch.Tensor, tol: torch.Tensor) -> bool:
+    """``rnorm > tol`` on the host: the iteration's one read-back."""
+    with span("cg.converged"):
+        return bool(rnorm > tol)
 
 
 def cg_df64(

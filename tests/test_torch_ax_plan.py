@@ -17,6 +17,7 @@ from partitionedarrays_tpu_torch.ops.dia_rows import (
     AX_CHUNK, AX_TARGET_THREADS, LANES_MAX, AxPlan, ax_plan, check_rows, row_lanes, vec_of,
 )
 from partitionedarrays_tpu_torch.ops.gs_dia_kernels import TapTable, ax_core
+from partitionedarrays_tpu_torch.utils import profiling
 
 # (P, m, n_off, Lq, itemsize) of every level K4 runs on the paths, and the
 # lanes of the rule: row_lanes over every color's row groups at K4's own
@@ -141,7 +142,7 @@ def test_k4_refuses_operands_its_loads_cannot_read(launch, values, vectors):
         buf = torch.zeros(t.numel() + 1, dtype=t.dtype)
         return buf[1:].view(t.shape)
 
-    launches = ax_core.launches
+    launches = profiling.launches("ax_core")
     for bad_vals, bad_x in ((shifted(vals), x), (vals, shifted(x))):
         with pytest.raises(ValueError, match="no scalar form"):
             check_rows("ax_core", 64, (bad_vals, bad_x), vec)
@@ -151,4 +152,4 @@ def test_k4_refuses_operands_its_loads_cannot_read(launch, values, vectors):
     bad_vals, bad_x, _ = _operands(values, vectors, P=2, m=3, n_off=5, Lq=rows)
     with pytest.raises(ValueError, match="ax_core"):
         ax_core(bad_vals, bad_x, taps)
-    assert ax_core.launches == launches and len(launch.calls) == 1
+    assert profiling.launches("ax_core") == launches and len(launch.calls) == 1

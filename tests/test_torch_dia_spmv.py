@@ -30,6 +30,7 @@ from partitionedarrays_tpu_torch.ops.dia import csr_diagonals, dia_spmv_plain, s
 from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv
 from partitionedarrays_tpu_torch.psparse import spmv
 from partitionedarrays_tpu_torch.pvector import PVector
+from partitionedarrays_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -95,11 +96,11 @@ def test_stack_dia_matches_jax(dtype):
 
 def test_dia_spmv_wrapper_runs_the_plain_version_on_cpu():
     offsets, vals, x = _random_dia(2, np.float64)
-    before = dia_spmv.launches
+    before = profiling.launches("dia_spmv")
     got = dia_spmv(offsets, torch.from_numpy(vals), torch.from_numpy(x))
     ref = dia_spmv_plain(offsets, torch.from_numpy(vals), torch.from_numpy(x))
     assert torch.equal(got, ref)
-    assert dia_spmv.launches == before  # no kernel launch for CPU tensors
+    assert profiling.launches("dia_spmv") == before  # no kernel launch for CPU tensors
 
 
 def test_dia_spmv_wrapper_refuses_mixed_dtypes():

@@ -74,6 +74,7 @@ from partitionedarrays_tpu_torch.ops.gs_dia_kernels import (
 )
 from partitionedarrays_tpu_torch.solvers.gs_dia import ColoredDIAGS
 from partitionedarrays_tpu_torch.solvers.smoothers import GaussSeidel
+from partitionedarrays_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -108,9 +109,9 @@ def test_dia_spmv_kernel_matches_plain(cuda, dtype):
     oo = A.device().oo
     g = torch.Generator().manual_seed(5)
     x = torch.randn(oo.vals.shape[0], oo.n_cols_pad, generator=g, dtype=dtype).to(cuda)
-    before = dia_spmv.launches
+    before = profiling.launches("dia_spmv")
     got = dia_spmv(oo.offsets, oo.vals, x)
-    assert dia_spmv.launches == before + 1
+    assert profiling.launches("dia_spmv") == before + 1
     _assert_close(got, dia_spmv_plain(oo.offsets, oo.vals, x), dtype)
 
 
@@ -121,9 +122,9 @@ def _hold_ax(col, dtype, device, seed, plans=(None,)):
     x = torch.randn(col.vals_d.shape[0], col.m, col.Lq, generator=g, dtype=dtype).to(device)
     want = ax_core_plain(col.vals_d, x, col.taps)
     for plan in plans:
-        before = ax_core.launches
+        before = profiling.launches("ax_core")
         got = ax_core(col.vals_d, x, col.taps, _plan=plan)
-        assert ax_core.launches == before + 1 and got.dtype == dtype
+        assert profiling.launches("ax_core") == before + 1 and got.dtype == dtype
         _assert_close(got, want, dtype)
 
 
@@ -149,9 +150,9 @@ def test_gs_sweeps_kernel_matches_plain(cuda, dtype):
     x = torch.randn(1, col.m, col.Lq, generator=g, dtype=dtype).to(cuda)
     bd = gs.make_bd(b)
     order = gs._order_seq()
-    before = gs_sweeps.launches
+    before = profiling.launches("gs_sweeps")
     got = gs_sweeps(col.vals_d, bd, col.invd_d, x, col.taps, order)
-    assert gs_sweeps.launches == before + 1  # one launch per color sequence
+    assert profiling.launches("gs_sweeps") == before + 1  # one launch per color sequence
     _assert_close(got, gs_sweeps_plain(col.vals_d, bd, col.invd_d, x, col.taps, order), dtype)
 
 
@@ -182,9 +183,9 @@ def _hold_sweeps(col, dtype, device, seed, plans=(None,)):
             want = gs_sweeps_plain(col.vals_d, bd, col.invd_d,
                                    torch.zeros_like(x) if start is None else start, col.taps, order)
             for plan in plans:
-                before = gs_sweeps.launches
+                before = profiling.launches("gs_sweeps")
                 got = gs_sweeps(col.vals_d, bd, col.invd_d, start, col.taps, order, _plan=plan)
-                assert gs_sweeps.launches == before + 1
+                assert profiling.launches("gs_sweeps") == before + 1
                 _assert_close(got, want, dtype)
 
 
@@ -232,9 +233,9 @@ def test_gs_sweeps_and_ax_core_on_the_box_amg_levels(cuda, dtype, n, boxes):
     g = torch.Generator().manual_seed(40)
     oo = A.device().oo
     x = torch.randn(1, oo.n_cols_pad, generator=g, dtype=dtype).to(cuda)
-    before = dia_spmv.launches
+    before = profiling.launches("dia_spmv")
     got = dia_spmv(oo.offsets, oo.vals, x)
-    assert dia_spmv.launches == before + 1
+    assert profiling.launches("dia_spmv") == before + 1
     _assert_close(got, dia_spmv_plain(oo.offsets, oo.vals, x), dtype)
     for i, lev in enumerate(levels):
         col = lev.smoother.colored
@@ -286,9 +287,9 @@ def test_ghost_spmv_kernel_matches_plain(cuda, dtype):
     g = torch.Generator().manual_seed(16)
     x = torch.randn(8, A.col_layout().n_ghost_pad, generator=g, dtype=dtype).to(cuda)
     y0 = torch.randn(8, oh.n_rows, generator=g, dtype=dtype).to(cuda)
-    before = ghost_spmv.launches
+    before = profiling.launches("ghost_spmv")
     got = ghost_spmv(oh.rows, oh.cols, oh.vals, x, y0.clone())
-    assert ghost_spmv.launches == before + 1
+    assert profiling.launches("ghost_spmv") == before + 1
     _assert_close(got, ghost_spmv_plain(oh.rows, oh.cols, oh.vals, x, y0.clone()), dtype)
 
 
@@ -299,13 +300,13 @@ def test_dia_spmv_strided_kernel_matches_plain(cuda, dtype):
     g = torch.Generator().manual_seed(17)
     core = torch.randn(8, col.m * col.Lq, generator=g, dtype=dtype).to(cuda)
     for c in range(col.m):
-        before = dia_spmv_strided.launches
+        before = profiling.launches("dia_spmv_strided")
         got = dia_spmv_strided(col.taps.host[c], col.vals_d[:, c], core)
-        assert dia_spmv_strided.launches == before + 1
+        assert profiling.launches("dia_spmv_strided") == before + 1
         _assert_close(got, dia_spmv_plain(col.taps.host[c], col.vals_d[:, c], core), dtype)
     # copies that start 1 element into their storage are not 16-byte
     # aligned: the row engine refuses them in K2, K3 and K4 (no scalar form)
-    launches = dia_spmv_strided.launches, gs_sweeps.launches, ax_core.launches
+    launches = profiling.launches("dia_spmv_strided"), profiling.launches("gs_sweeps"), profiling.launches("ax_core")
     with pytest.raises(ValueError):
         dia_spmv_strided(col.taps.host[1], _misaligned(col.vals_d[:, 1]), core)
     with pytest.raises(ValueError):
@@ -314,7 +315,7 @@ def test_dia_spmv_strided_kernel_matches_plain(cuda, dtype):
         ax_core(_misaligned(col.vals_d), core.view(8, col.m, col.Lq), col.taps)
     with pytest.raises(ValueError):
         ax_core(col.vals_d, _misaligned(core.view(8, col.m, col.Lq)), col.taps)
-    assert (dia_spmv_strided.launches, gs_sweeps.launches, ax_core.launches) == launches
+    assert (profiling.launches("dia_spmv_strided"), profiling.launches("gs_sweeps"), profiling.launches("ax_core")) == launches
 
 
 def _misaligned(t):
@@ -351,9 +352,9 @@ def test_dia_spmv_df_kernel_matches_plain(cuda, shape, parts):
     g = torch.Generator().manual_seed(19)
     x64 = torch.randn(P, oo.n_cols_pad, generator=g, dtype=torch.float64).to(cuda)
     x = df.from_f64(x64)
-    before = dia_spmv_df.launches
+    before = profiling.launches("dia_spmv_df")
     got = dia_spmv_df(oo.offsets, vh, vl, x)
-    assert dia_spmv_df.launches == before + 1
+    assert profiling.launches("dia_spmv_df") == before + 1
     want = df.dia_spmv_df_plain(oo.offsets, vh, vl, x)
     torch.cuda.synchronize()
     scale = dia_spmv(oo.offsets, oo.vals.abs(), x64.abs()) + 1e-30
@@ -373,9 +374,9 @@ def test_dia_spmv_df_kernel_on_the_7_point_laplacian(cuda):
     g = torch.Generator().manual_seed(20)
     x64 = torch.randn(1, oo.n_cols_pad, generator=g, dtype=torch.float64).to(cuda)
     x = df.from_f64(x64)
-    before = dia_spmv_df.launches
+    before = profiling.launches("dia_spmv_df")
     got = df.to_f64(*dia_spmv_df(oo.offsets, vh, vl, x))
-    assert dia_spmv_df.launches == before + 1
+    assert profiling.launches("dia_spmv_df") == before + 1
     want = df.to_f64(*df.dia_spmv_df_plain(oo.offsets, vh, vl, x))
     torch.cuda.synchronize()
     scale = dia_spmv(oo.offsets, oo.vals.abs(), x64.abs()) + 1e-30
@@ -400,9 +401,9 @@ def test_dia_spmv_kernel_at_99_diagonals(cuda, dtype):
     assert oo.kind == "dia" and len(oo.offsets) == 99
     g = torch.Generator().manual_seed(6)
     x = torch.randn(1, oo.n_cols_pad, generator=g, dtype=dtype).to(cuda)
-    before = dia_spmv.launches
+    before = profiling.launches("dia_spmv")
     got = dia_spmv(oo.offsets, oo.vals, x)
-    assert dia_spmv.launches == before + 1
+    assert profiling.launches("dia_spmv") == before + 1
     _assert_close(got, dia_spmv_plain(oo.offsets, oo.vals, x), dtype)
 
 
@@ -504,10 +505,10 @@ def _hold_tile(ops, dtype, device, seed):
             start = torch.zeros_like(x0) if zero else x0
             want = tile_gs_sweeps_plain(*args, start.clone(), b, dirs, zero_guess=zero)
             for x_in_smem in (True, False):
-                before = tile_gs_sweeps.launches
+                before = profiling.launches("tile_gs_sweeps")
                 got = tile_gs_sweeps(*args, start.clone(), b, dirs, zero_guess=zero,
                                      tile_lanes=ops["tile_lanes"], _x_in_smem=x_in_smem)
-                assert tile_gs_sweeps.launches == before + 1  # one launch per sequence
+                assert profiling.launches("tile_gs_sweeps") == before + 1  # one launch per sequence
                 _assert_close(got, want, dtype)
             # without its lane counts the wrapper derives them
             got = tile_gs_sweeps(*args, start.clone(), b, dirs, zero_guess=zero)
@@ -588,9 +589,9 @@ def test_ghost_spmv_kernel_on_amg_blocks_every_g(cuda, dtype):
         want = ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, y0.clone())
         lanes = [1 << i for i in range(LANES_MAX.bit_length())]
         for plan in [blk.plan] + [blk.plan._replace(lanes=G) for G in lanes]:
-            before = ghost_spmv.launches
+            before = profiling.launches("ghost_spmv")
             got = ghost_spmv(blk.rows, blk.cols, blk.vals, x, y0.clone(), plan)
-            assert ghost_spmv.launches == before + 1
+            assert profiling.launches("ghost_spmv") == before + 1
             _assert_close(got, want, dtype)
 
 
@@ -635,11 +636,11 @@ def test_tile_gs_kernel_triangular_solves(cuda, dtype):
             want = tile_gs_sweeps_plain(*tg.operands(), torch.zeros_like(b), b, (d,),
                                         zero_guess=True)
             for x_in_smem in (True, False):
-                before = tile_gs_sweeps.launches
+                before = profiling.launches("tile_gs_sweeps")
                 got = tile_gs_sweeps(*tg.operands(), torch.zeros_like(b), b, (d,),
                                      zero_guess=True, tile_lanes=tg.tile_lanes,
                                      _x_in_smem=x_in_smem)
-                assert tile_gs_sweeps.launches == before + 1
+                assert profiling.launches("tile_gs_sweeps") == before + 1
                 _assert_close(got, want, dtype)
         if dtype != torch.float64:
             continue
@@ -731,9 +732,9 @@ def test_ghost_spmv_kernel_across_parts(cuda, dtype):
         x = torch.randn(P, blk.n_cols_pad, generator=g, dtype=dtype).to(cuda)
         y0 = torch.randn(P, blk.n_rows, generator=g, dtype=dtype).to(cuda)
         want = ghost_spmv_plain(blk.rows, blk.cols, blk.vals, x, y0.clone())
-        before = ghost_spmv.launches
+        before = profiling.launches("ghost_spmv")
         got = ghost_spmv(blk.rows, blk.cols, blk.vals, x, y0.clone(), blk.plan)
-        assert ghost_spmv.launches == before + 1
+        assert profiling.launches("ghost_spmv") == before + 1
         _assert_close(got, want, dtype)
 
 
@@ -890,9 +891,9 @@ def test_narrow_values_kernels_match_plain(cuda, pair):
     _hold_ax(col, dtype, cuda, 39, [None] + AX_PLANS)
     core = torch.randn(8, col.m * col.Lq, generator=g, dtype=dtype).to(cuda)
     for c in range(col.m):
-        before = dia_spmv_strided.launches
+        before = profiling.launches("dia_spmv_strided")
         got = dia_spmv_strided(col.taps.host[c], col.vals_d[:, c], core)
-        assert dia_spmv_strided.launches == before + 1 and got.dtype == dtype
+        assert profiling.launches("dia_spmv_strided") == before + 1 and got.dtype == dtype
         _assert_close(got, dia_spmv_plain(col.taps.host[c], col.vals_d[:, c], core), dtype)
     plans = [SweepPlan(lanes, width) for lanes in (1, 2, 4, 8, 16) for width in (1, 64)]
     _hold_sweeps(col, dtype, cuda, 35, plans)
@@ -905,7 +906,7 @@ def test_narrow_values_refuse_what_the_engine_cannot_read(cuda, pair):
     values, dtype = pair
     col = _random_colored(cuda, pair, (16, 16, 16), (2, 2, 2), 36)
     bd = torch.zeros(8, col.m, col.Lq, dtype=dtype, device=cuda)
-    launches = dia_spmv_strided.launches, gs_sweeps.launches, ax_core.launches
+    launches = profiling.launches("dia_spmv_strided"), profiling.launches("gs_sweeps"), profiling.launches("ax_core")
     core = torch.zeros(8, col.m * col.Lq, dtype=dtype, device=cuda)
     with pytest.raises(ValueError):
         dia_spmv_strided(col.taps.host[1], _misaligned(col.vals_d[:, 1]), core)
@@ -915,7 +916,7 @@ def test_narrow_values_refuse_what_the_engine_cannot_read(cuda, pair):
         ax_core(_misaligned(col.vals_d), bd, col.taps)
     with pytest.raises(ValueError):
         ax_core(col.vals_d, _misaligned(bd), col.taps)
-    assert (dia_spmv_strided.launches, gs_sweeps.launches, ax_core.launches) == launches
+    assert (profiling.launches("dia_spmv_strided"), profiling.launches("gs_sweeps"), profiling.launches("ax_core")) == launches
 
 
 @pytest.mark.parametrize("pair", NARROW, ids=NARROW_IDS)
@@ -977,9 +978,9 @@ def test_kernels_on_unequal_part_boxes(cuda, dtype):
     assert len(oo.offsets) == 13 and len({li.n_own for li in A.row_prange.parts}) == 4
     g = torch.Generator().manual_seed(41)
     x = torch.randn(8, oo.n_cols_pad, generator=g, dtype=dtype).to(cuda)
-    before = dia_spmv.launches
+    before = profiling.launches("dia_spmv")
     got = dia_spmv(oo.offsets, oo.vals, x)
-    assert dia_spmv.launches == before + 1
+    assert profiling.launches("dia_spmv") == before + 1
     _assert_close(got, dia_spmv_plain(oo.offsets, oo.vals, x), dtype)
     col = GaussSeidel(A).colored
     assert col.m == 5 and not col.interleave_core(col.invd_d)[0, 512:].any()
@@ -1016,9 +1017,9 @@ def test_block_cg_on_the_card_runs_k1_and_k5(cuda, dtype):
         own = [[rng.standard_normal(li.n_own).astype(npdtype) for li in A.row_prange.parts]
                for _ in range(2)]
         b = BVector([pvector_from_own(o, A.row_prange, A.backend, device=device) for o in own])
-        before = dia_spmv.launches, ghost_spmv.launches
+        before = profiling.launches("dia_spmv"), profiling.launches("ghost_spmv")
         x, iters, relres = b_cg(BMatrix([[A, C], [C, S]]), b, rtol=1e-8)
-        launched = dia_spmv.launches - before[0], ghost_spmv.launches - before[1]
+        launched = profiling.launches("dia_spmv") - before[0], profiling.launches("ghost_spmv") - before[1]
         out[str(device)] = (b_collect(x), iters, launched)
     (x_cpu, it_cpu, _), (x_gpu, it_gpu, (k1, k5)) = out["cpu"], out[str(cuda)]
     assert it_gpu == it_cpu > 10 and (k1, k5) == (4 * it_gpu, 2 * it_gpu)
@@ -1039,18 +1040,18 @@ def test_block_products_tangents_are_the_kernels(cuda, dtype):
                               device=cuda)
     dev = A.device()
     g = torch.Generator().manual_seed(21)
-    for block, counter in ((dev.oo, dia_spmv), (dev.oh, ghost_spmv)):
+    for block, entry in ((dev.oo, "dia_spmv"), (dev.oh, "ghost_spmv")):
         P = block.vals.shape[0]
         x = torch.randn(P, block.n_cols_pad, generator=g, dtype=dtype).to(cuda)
         v = torch.randn(P, block.n_cols_pad, generator=g, dtype=dtype).to(cuda)
         y = torch.randn(P, block.n_rows, generator=g, dtype=dtype).to(cuda)
         w = torch.randn(P, block.n_rows, generator=g, dtype=dtype).to(cuda)
-        before = counter.launches
+        before = profiling.launches(entry)
         with fwAD.dual_level():
             t1 = fwAD.unpack_dual(block.spmv(fwAD.make_dual(x, v))).tangent
             out = block.spmv_add(fwAD.make_dual(x, v), fwAD.make_dual(y.clone(), w.clone()))
             p2, t2 = fwAD.unpack_dual(out)
-        assert counter.launches == before + 4
+        assert profiling.launches(entry) == before + 4
         if block.kind == "dia":
             plain = dia_spmv_plain(block.offsets, block.vals, v)
         else:
@@ -1124,10 +1125,10 @@ def test_sorted_tier_sweep_matches_plain(cuda, dtype, case):
     b = PVector(torch.where(_own_mask(lay, cuda), own, 0),
                 torch.zeros((lay.n_parts, lay.n_ghost_pad), dtype=dtype, device=cuda), lay,
                 A.backend)
-    before = ghost_spmv.launches
+    before = profiling.launches("ghost_spmv")
     got = gs(b).own
     per_color = sum(1 for oo, oh in gs.sorted.blocks if oo is not None) + sum(
         1 for oo, oh in gs.sorted.blocks if oh is not None)
-    assert ghost_spmv.launches - before == 2 * per_color
+    assert profiling.launches("ghost_spmv") - before == 2 * per_color
     zero = PVector(torch.zeros_like(b.own), b.ghost, lay, A.backend)
     _assert_close(got, gs._apply_sorted(zero, b, plain=True).own, dtype)

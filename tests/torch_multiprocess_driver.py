@@ -82,26 +82,21 @@ def _shards_vs(x_local, x_ref_local, tol, what):
     return err
 
 
-def _kernels():
-    """The kernel wrappers, whose ``launches`` count their launches."""
-    from partitionedarrays_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_df, dia_spmv_strided
-    from partitionedarrays_tpu_torch.ops.ghost_spmv import ghost_spmv
-    from partitionedarrays_tpu_torch.ops.gs_dia_kernels import ax_core, gs_sweeps
-    from partitionedarrays_tpu_torch.ops.tile_gs import tile_gs_sweeps
-
-    return {"dia_spmv": dia_spmv, "ax_core": ax_core, "gs_sweeps": gs_sweeps,
-            "dia_spmv_strided": dia_spmv_strided, "ghost_spmv": ghost_spmv,
-            "dia_spmv_df": dia_spmv_df, "tile_gs_sweeps": tile_gs_sweeps}
+KERNELS = ("dia_spmv", "ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv", "dia_spmv_df",
+           "tile_gs_sweeps")  # the C entries, counted by profiling.COUNTS
 
 
 def _count_from_zero():
-    for fn in _kernels().values():
-        fn.launches = 0
+    from partitionedarrays_tpu_torch.utils import profiling
+
+    profiling.reset_counts()
 
 
 def _counts():
     """The launches of each kernel since ``_count_from_zero``."""
-    return {k: fn.launches for k, fn in _kernels().items()}
+    from partitionedarrays_tpu_torch.utils import profiling
+
+    return {k: profiling.launches(k) for k in KERNELS}
 
 
 def _local_own(v):
