@@ -330,6 +330,7 @@ class VectorLayout:
         self.n_own_pad = _round_up(int(self.n_own.max()), pad)
         self.n_ghost_pad = _round_up(int(self.n_ghost.max()), pad)
         self.assemble_plan, self.consistent_plan = vector_exchange_plans(pr)
+        self.own_masks = {}  # pvector._own_mask's, by device and parts
 
     def __repr__(self):
         return (

@@ -469,10 +469,17 @@ def collect(x: PVector) -> np.ndarray:
 
 def _own_mask(layout: VectorLayout, device, backend=None) -> torch.Tensor:
     """[P_local, n_own_pad] True on the own lanes, False on the padding
-    (every part's without a backend)."""
-    n = layout.n_own if backend is None else layout.n_own[backend.part_slice]
-    n = torch.as_tensor(n, device=device)
-    return torch.arange(layout.n_own_pad, device=device)[None, :] < n[:, None]
+    (every part's without a backend); built once a layout, device and set
+    of parts and kept on the layout (its host copy of the sizes cannot be
+    captured into a CUDA graph).  Callers only read it."""
+    parts = None if backend is None else backend.part_slice
+    key = (torch.device(device), None if parts is None else (parts.start, parts.stop))
+    m = layout.own_masks.get(key)
+    if m is None:
+        n = layout.n_own if parts is None else layout.n_own[parts]
+        n = torch.as_tensor(n, device=device)
+        m = layout.own_masks[key] = torch.arange(layout.n_own_pad, device=device)[None, :] < n[:, None]
+    return m
 
 
 def _ghost_mask(layout: VectorLayout, device, backend=None) -> torch.Tensor:

@@ -52,12 +52,22 @@ sets up anew on the same aggregates and counts that in ``n_resetups``: the
 re-setup that the reference's ``update`` promises (:727, :913) and never
 takes.
 
+On a CUDA device and one process, ``__call__`` replays the whole cycle
+(every level's smoothing, residual, transfers and the coarsest solve) as
+one captured CUDA graph (``graph_engages``): a key (the input's layout,
+dtype and device, the cycle kind, the identity and values version of
+each level's objects) is captured at its first call and replayed from then
+on; setup and ``update`` drop every graph.  The level-0 ``amg.cycle`` span says which
+("capture", "replay" or "eager"), and each replay credits the launches
+and exchanges its capture recorded.
+
 The reference's ``zsel`` (its z-axis pool as a TPU matmul) is not ported:
 the pool pads all three axes.
 """
 from __future__ import annotations
 
 import warnings
+from collections import Counter
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple, Union
 
@@ -65,6 +75,7 @@ import numpy as np
 import scipy.linalg as sla
 import scipy.sparse as sp
 import torch
+from torch.autograd import forward_ad
 
 from ..ops.native import vanek_aggregate_native
 from ..ops.sparse_host import compresscoo, precompute_nzindex
@@ -83,7 +94,7 @@ from ..psparse import (
     spmv,
 )
 from ..pvector import PVector
-from ..utils.profiling import span
+from ..utils.profiling import COUNTS, span
 from .smoothers import AdditiveSchwarz, GaussSeidel
 
 
@@ -527,6 +538,36 @@ class AMGParams:
     smoother: str = "gs"
 
 
+_EAGER = "eager"  # a key whose capture failed
+
+
+class _CycleGraph(NamedTuple):
+    """A captured cycle: the graph, its static input and output, the
+    launches and exchanges of one cycle (credited to ``COUNTS`` a replay),
+    and the hierarchy's objects whose identities its key holds (kept alive,
+    so that no new object takes one of their ids)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    x: PVector
+    z: PVector
+    counts: Counter
+    hierarchy: tuple
+
+
+def graph_engages(r: PVector) -> bool:
+    """Whether the cycle on ``r`` is replayed from a CUDA graph: ``r`` on a
+    CUDA device, a backend of one process (a collective across processes is
+    staged on the host), no forward-AD level and no gradient, and no stream
+    capture already running (an outer capture records the cycle inline)."""
+    return (
+        r.own.device.type == "cuda"
+        and not getattr(r.backend, "is_multiprocess", False)
+        and forward_ad._current_level < 0
+        and not (r.own.requires_grad or r.ghost.requires_grad)
+        and not torch.cuda.is_current_stream_capturing()
+    )
+
+
 class AMGPreconditioner:
     """Callable preconditioner: one cycle on A z = r from z = 0."""
 
@@ -550,6 +591,7 @@ class AMGPreconditioner:
         one per phase of each level (``amg.aggregate``, ``amg.tentative``,
         ``amg.spectral_radius``, ``amg.galerkin``, ``amg.smoother_build``),
         then ``amg.coarse_factorize`` and ``amg.freeze``."""
+        self._drop_graphs()
         with span("amg.setup"):
             params = self.params
             if params.smoother not in ("gs", "schwarz"):
@@ -645,6 +687,7 @@ class AMGPreconditioner:
         collective steps."""
         if len(self._galerkin) != len(self.levels) - 1:
             raise RuntimeError("AMGPreconditioner.update: the hierarchy has no reuse plans")
+        self._drop_graphs()
         outside: list = []
         current = A
         coarse = []
@@ -837,16 +880,17 @@ class AMGPreconditioner:
         with span("amg.smooth", level=l, phase="post"):
             return gs.smooth_bd(xflat, bd2)
 
-    def _cycle(self, l: int, b: PVector, w: bool) -> PVector:
+    def _cycle(self, l: int, b: PVector, w: bool, graph: Optional[str] = None) -> PVector:
         """One cycle from level ``l`` (twice into the coarser level for a
         W-cycle): the flat cycle on a box level whose smoother is colored
         (the ghosted flat cycle where the level has ghost columns); else
         zero-guess pre-smooth, residual, restriction (the structured one
         on a box level, P^T elsewhere), the coarser cycle, prolongation,
         post-smooth.  Every level is entered here: a profiled cycle records
-        the span ``amg.cycle`` of each level (the coarsest's is its solve)
-        and ``amg.smooth`` around each smoother call."""
-        with span("amg.cycle", level=l):
+        the span ``amg.cycle`` of each level (the coarsest's is its solve;
+        ``graph`` tags the level-0 span of ``__call__``) and ``amg.smooth``
+        around each smoother call."""
+        with span("amg.cycle", level=l, **({} if graph is None else {"graph": graph})):
             level = self.levels[l]
             if level.P is None:
                 return self._coarse_solve(b)
@@ -879,7 +923,94 @@ class AMGPreconditioner:
                 return level.smoother.apply(x, b)
 
     def __call__(self, r: PVector) -> PVector:
-        return self._cycle(0, r, self.params.cycle == "w")
+        """One cycle on ``r``, replayed from a CUDA graph where
+        ``graph_engages(r)``: a key's first call warms up on a side stream
+        (the cycle that it returns; it fills the kernels' lazy device
+        tables) and captures the whole cycle; every later call copies r into
+        the graph's input and replays.  Each call returns a fresh vector and
+        counts one cycle's launches.  A capture the card refuses warns once
+        and leaves that key eager.  The level-0 ``amg.cycle`` span carries
+        ``graph`` ("capture", "replay" or "eager")."""
+        w = self.params.cycle == "w"
+        if not graph_engages(r):
+            return self._cycle(0, r, w, graph="eager")
+        key = self._graph_key(r, w)
+        g = self._graphs.get(key)
+        if g is None:
+            # a refilled or swapped level: no graph of the older hierarchy replays
+            self._graphs = {k: v for k, v in self._graphs.items() if k[4] == key[4]}
+            with span("amg.cycle", level=0, graph="capture"):
+                self._graphs[key], z = self._capture(r, w)
+            return z
+        if g is _EAGER:
+            return self._cycle(0, r, w, graph="eager")
+        with span("amg.cycle", level=0, graph="replay"):
+            return self._replay(g, r)
+
+    def _hierarchy(self) -> tuple:
+        """What a captured cycle reads: each level's matrix, transfer,
+        smoother and box transfer, and the coarsest level's factor."""
+        return tuple(o for lev in self.levels for o in (lev.A, lev.P, lev.smoother, lev.struct)
+                     if o is not None) + (self._coarse,)
+
+    def _graph_key(self, r: PVector, w: bool) -> tuple:
+        """The input's layout, dtype and device, the cycle kind, then the
+        hierarchy: the identity of each object of ``_hierarchy`` (a swapped
+        smoother is another cycle) and each matrix's ``values_version`` (a
+        refill not followed by ``update`` leaves the frozen blocks anew)."""
+        hierarchy = tuple((id(o), getattr(o, "values_version", None)) for o in self._hierarchy())
+        return (r.layout, r.own.dtype, r.own.device, w, hierarchy)
+
+    def _drop_graphs(self) -> None:
+        """A new hierarchy: no captured cycle may replay the old addresses.
+        ``_graphs`` maps a graph key to a ``_CycleGraph`` or ``_EAGER``."""
+        self._graphs = {}
+
+    def _capture(self, r: PVector, w: bool):
+        """Warm up on a side stream (a real cycle, counted as one), then
+        capture the cycle on it into a private memory pool.  The launches
+        and exchanges that the capture recorded are taken back out of
+        ``COUNTS`` (nothing ran) and kept, to be credited at each replay.
+        Returns the graph (``_EAGER`` where the capture fails) and the
+        warm-up's cycle."""
+        dev = r.own.device
+        x = PVector(r.own.clone(), r.ghost.clone(), r.layout, r.backend)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            out = self._cycle(0, x, w)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for t in (out.own, out.ghost):
+            t.record_stream(torch.cuda.current_stream(dev))  # the caller's stream reads it
+        graph = torch.cuda.CUDAGraph()
+        before = COUNTS.copy()
+        # capture_begin/end by hand: torch.cuda.graph's exit leaves the side
+        # stream current when capture_end raises
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                try:
+                    z = self._cycle(0, x, w)
+                finally:
+                    graph.capture_end()
+        except RuntimeError as err:  # a launch that stream capture refuses
+            warnings.warn(f"AMG cycle: CUDA graph capture failed, the cycle runs eagerly "
+                          f"on this input layout: {err}", RuntimeWarning, stacklevel=3)
+            return _EAGER, out
+        finally:
+            recorded = Counter({k: n - before[k] for k, n in COUNTS.items()
+                                if k.startswith(("launches", "exchange")) and n != before[k]})
+            COUNTS.subtract(recorded)
+        return _CycleGraph(graph, x, z, recorded, self._hierarchy()), out
+
+    @staticmethod
+    def _replay(g: "_CycleGraph", r: PVector) -> PVector:
+        g.x.own.copy_(r.own)
+        g.x.ghost.copy_(r.ghost)
+        g.graph.replay()
+        COUNTS.update(g.counts)
+        z = g.z
+        return PVector(z.own.clone(), z.ghost.clone(), z.layout, z.backend)
 
     def statistics(self) -> dict:
         nnzs = [lev.A.nnz() for lev in self.levels]
