@@ -57,7 +57,8 @@ class HPCGMGPreconditioner:
     smoothers' values; a pair without a kernel (float32 values under float32 vectors
     are the plain case) raises TypeError.  A profiled cycle records the span
     ``mg.level`` (attribute ``level``, 0 the coarsest) around each level's
-    visit."""
+    visit, and each ghost coupling of a level's smoother the span ``ghost``
+    with the same ``level``."""
 
     def __init__(
         self,
@@ -104,6 +105,8 @@ class HPCGMGPreconditioner:
         self.As = list(As)
         self.bs = list(bs)
         self.gss = list(gss)
+        for l, gs in enumerate(self.gss):
+            gs.level = l  # the ghost coupling's spans carry mg.level's index
         self.level_shapes = [tuple(int(v) for v in s) for s in level_shapes]
         self.backend = backend
 

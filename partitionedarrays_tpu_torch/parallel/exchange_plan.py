@@ -105,7 +105,8 @@ class ExchangePlan:
         process are one index op, and on a multi-process backend the pairs
         across processes travel as the padded rounds' messages
         (``_CrossPlan``).  An exchange with a round is counted, with the
-        bytes this process sends, in ``profiling.COUNTS``."""
+        bytes this process sends, in ``profiling.COUNTS``, and a profiled one
+        records the span ``exchange`` (attribute ``combine``)."""
         if combine not in ("add", "set"):
             raise ValueError(combine)
         if self.n_rounds == 0:
@@ -119,7 +120,8 @@ class ExchangePlan:
             got = self._per_process[key] = _CrossPlan(self, backend, src_vals.shape[1],
                                                dst_vals.shape[1], src_vals.device)
         profiling.count_exchange(combine, got.sent_entries * src_vals.element_size())
-        return got.apply(src_vals, dst_vals, combine)
+        with profiling.span("exchange", combine=combine):
+            return got.apply(src_vals, dst_vals, combine)
 
 
 def _scatter(dst_vals: torch.Tensor, dst: torch.Tensor, moved: torch.Tensor,

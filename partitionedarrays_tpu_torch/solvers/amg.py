@@ -648,6 +648,7 @@ class AMGPreconditioner:
                         if shapes is not None:
                             struct = BoxTransfer(*shapes, omega, _box_dinv(current))
                         smoother = GaussSeidel(current, params.smoother_iters, "symmetric")
+                        smoother.level = level
                 self.levels.append(AMGLevel(current, gk.P, smoother, struct))
                 current = gk.Ac
                 if current.shape[0] >= self.levels[-1].A.shape[0]:

@@ -49,6 +49,7 @@ from ..ops.tile_gs import TILE
 from ..psparse import (PSparseMatrix, _agree_max_i32, _agreed_ell_groups, dense_diag, host_blocks,
                        spmv)
 from ..pvector import PVector, _own_mask
+from ..utils.profiling import span
 from .gs_dia import ColoredDIAGS, find_mod_coloring
 from .gs_slot import NaturalTileGS
 
@@ -289,6 +290,7 @@ class GaussSeidel:
         self.A = A
         self.iterations = iterations
         self.sweep = sweep
+        self.level = None  # the owning hierarchy's level, set by its builder
         self.colored = self.tile_gs = self.sorted = None
         oo = A.device().oo
         if _sorted is not False:
@@ -367,13 +369,15 @@ class GaussSeidel:
     def ghost_contrib(self, x_own: torch.Tensor) -> torch.Tensor:
         """``A_oh @ consistent(x)`` in standard own order [P, n_own_pad]:
         the ghost-column contribution that the hybrid sweep freezes per
-        application.  One exchange and one own-ghost SpMV (K5)."""
+        application.  One exchange and one own-ghost SpMV (K5).  A profiled
+        call records the span ``ghost`` (attribute ``level``)."""
         A = self.A
         clay = A.col_layout()
-        g = clay.consistent_plan.apply(
-            x_own, x_own.new_zeros((x_own.shape[0], clay.n_ghost_pad)), "set", A.backend
-        )
-        return A.device().oh.spmv(g)
+        with span("ghost", level=self.level):
+            g = clay.consistent_plan.apply(
+                x_own, x_own.new_zeros((x_own.shape[0], clay.n_ghost_pad)), "set", A.backend
+            )
+            return A.device().oh.spmv(g)
 
     def apply(self, x: PVector, b: PVector) -> PVector:
         """In-solver smoothing: improve x for ``A x = b``.  With ghost

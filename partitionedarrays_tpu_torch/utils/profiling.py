@@ -10,7 +10,7 @@ enclosed launches, and the card's allocator statistics.
 The port's own instruments, one recorder:
 
 - ``span(name, **attrs)`` marks a layer boundary of the port (a solve, a
-  cycle level, a set-up phase).  It records only while a ``torch.profiler``
+  cycle level, a ghost exchange, a set-up phase).  It records only while a ``torch.profiler``
   session is active: whoever profiles gets the spans, and an unprofiled
   run pays one flag test and a shared no-op context.  A recorded span
   keeps its name, its attributes, its start and end on ``time.time_ns()``

@@ -161,9 +161,13 @@ def test_trace_writes_spans_on_the_trace_clock(tmp_path):
     assert all(e["args"]["level"] == 7 and e["args"]["launches"] == 0 for e in spans)
     assert [e["args"]["index"] for e in spans] == [0, 1, 2]  # trace() starts with none
     by_start = lambda e: e["ts"]  # noqa: E731
+    # each region inside its span on the trace's clock, with 50 us of slack
+    # for the two clocks' offset (under ~5 us on the card's host): a thread
+    # delayed between the span's and the region's edges only widens the margin
+    slack = 50.0
     for s, r in zip(sorted(spans, key=by_start), sorted(regions, key=by_start)):
-        assert abs(s["ts"] - r["ts"]) < 1000.0  # us: within 1 ms
-        assert abs(s["ts"] + s["dur"] - r["ts"] - r["dur"]) < 1000.0
+        assert s["ts"] - slack <= r["ts"]
+        assert r["ts"] + r["dur"] <= s["ts"] + s["dur"] + slack
 
 
 def test_launch_counter_at_the_c_entry_check():
