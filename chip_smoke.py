@@ -12,7 +12,9 @@ Phases, one output line each:
 3. each kernel against its plain PyTorch version on the card, in float32
    and float64: K1 dia_spmv, K4 ax_core and K3 gs_sweeps at the shapes of
    the 128^3 one-part fine level, K5 ghost_spmv and K2 dia_spmv_strided at
-   those of the (2,2,2) x 64^3 fine level; largest difference, tolerance,
+   those of the (2,2,2) x 64^3 fine level (K5 also subtracting into the
+   de-interleaved core through the core rows, as the ghosted V-cycle
+   does); largest difference, tolerance,
    the time of each (CUDA events), its bound (the larger of its bytes over
    the card's memory rate and its operations over its float32 rate) and,
    for K1, K2, K4 and K5, the time of the same product as one
@@ -928,7 +930,8 @@ def _hold_k7(results, where, oo, g, device):
 
 def phase_kernels(device):
     """Each kernel against its plain version: K1, K4, K3 at the 128^3
-    one-part fine-level shapes, K5 and K2 at the (2,2,2) x 64^3 ones."""
+    one-part fine-level shapes, K5 (adding in standard order, subtracting
+    into a core) and K2 at the (2,2,2) x 64^3 ones."""
     import torch
 
     from partitionedarrays_tpu_torch.backends import SerialBackend
@@ -981,7 +984,8 @@ def phase_kernels(device):
         P = 8
         A, _ = build_hpcg_problem(GHOST_LOCAL, GHOST_PARTS, SerialBackend(P), dtype=dtype, device=device)
         oh = A.device().oh
-        col = GaussSeidel(A).colored
+        gs = GaussSeidel(A)
+        col = gs.colored
         g_vals = torch.randn(P, A.col_layout().n_ghost_pad, generator=g, dtype=dtype).to(device)
         y0 = torch.randn(P, oh.n_rows, generator=g, dtype=dtype).to(device)
         core = torch.randn(P, col.m * col.Lq, generator=g, dtype=dtype).to(device)
@@ -1020,6 +1024,24 @@ def phase_kernels(device):
               flushed=True)
         results[-1].update(where="own-ghost block, (2,2,2)x64^3", lanes=oh.plan.lanes,
                            every_g_ms_flushed=_every_g(oh, g_vals, y_t))
+        # the same block's rows in core slots, subtracted from a core: the
+        # ghosted V-cycle's residual and post-smooth rhs (the SUB entries)
+        rows_c, core_t = gs.core_rows(), core.clone()
+        _hold(results, "ghost_spmv", name,
+              lambda: ghost_spmv(rows_c, oh.cols, oh.vals, g_vals, core.clone(), oh.plan,
+                                 subtract=True),
+              lambda: ghost_spmv_plain(rows_c, oh.cols, oh.vals, g_vals, core.clone(),
+                                       subtract=True),
+              timed=(lambda: ghost_spmv(rows_c, oh.cols, oh.vals, g_vals, core_t, oh.plan,
+                                        subtract=True),
+                     lambda: ghost_spmv_plain(rows_c, oh.cols, oh.vals, g_vals, core_t,
+                                              subtract=True)),
+              work=(4 * (rows_c.numel() + oh.cols.numel())
+                    + isz * (oh.cols.numel() + g_vals.numel() + 2 * n_live),
+                    2 * int((oh.cols >= 0).sum()), _flops(name)),
+              flushed=True)
+        results[-1].update(where="own-ghost block into a core, subtract, (2,2,2)x64^3",
+                           lanes=oh.plan.lanes)
         _hold(results, "dia_spmv_strided", name,
               lambda: dia_spmv_strided(taps, vals_c, core),
               lambda: dia_spmv_plain(taps, vals_c, core),
@@ -1029,7 +1051,7 @@ def phase_kernels(device):
               # 31 MB arrive cold; back to back they stay in the 50 MB L2
               flushed=True)
         results[-1].update(shape=list(vals_c.shape), m=col.m, Lq=Lq, color=c)
-        del y_t, A, oh, col, g_vals, y0, core, vals_c, lib
+        del y_t, core_t, rows_c, A, oh, gs, col, g_vals, y0, core, vals_c, lib
         torch.cuda.empty_cache()
     emit("3 kernels", results)
     return results

@@ -55,6 +55,10 @@ _SIGNATURES = {
     "pat_ghost_spmv": [
         _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _I64, _I64, _INT, _INT, _VP,
     ],
+    # as pat_ghost_spmv, subtracting each row's sum from y
+    "pat_ghost_spmv_sub": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _I64, _I64, _INT, _INT, _VP,
+    ],
     # vals, x, out, tap (device int [m, n_off]), P, m, n_off, Lq, lanes per
     # row group, stream
     "pat_ax_core": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _I64, _INT, _VP],

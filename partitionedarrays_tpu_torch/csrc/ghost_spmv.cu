@@ -13,8 +13,10 @@
 // once per part, and the row's one sum is added by one thread, so the +=
 // has no race and needs no atomics; accumulating into y lets the caller
 // fuse "A_oo x + A_oh g" into the K1 output with the same rounding as
-// adding the two products.  Plain PyTorch version: ops/ghost_spmv.py::
-// ghost_spmv_plain; wrapper: ghost_spmv.
+// adding the two products.  The SUB instances (entries pat_ghost_spmv_sub_*)
+// subtract the sum instead, y[p, rows[p, i]] -= sum: "b - A_oh g" in one
+// rounding, as b minus a zero-filled product.  Plain PyTorch version:
+// ops/ghost_spmv.py::ghost_spmv_plain; wrapper: ghost_spmv.
 //
 // The TPU kernel's slot format (128-lane windows, int8 lane indices, a
 // one-hot routing matmul) exists because the TPU has no general gather; the
@@ -50,7 +52,7 @@ struct Warps {  // warps per CTA
   static constexpr int value = G > 8 ? G : 8;
 };
 
-template <typename T, int G>
+template <typename T, int G, bool SUB>
 __global__ void __launch_bounds__(Warps<G>::value * 32)
     ghost_spmv_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
                       const T* __restrict__ vals, const int* __restrict__ glanes,
@@ -77,7 +79,12 @@ __global__ void __launch_bounds__(Warps<G>::value * 32)
   if constexpr (G == 1) {
     if (on) {
       const int row = __ldg(rows + c);
-      if (row >= 0 && row < R) y[row] += acc;
+      if (row >= 0 && row < R) {
+        if constexpr (SUB)
+          y[row] -= acc;
+        else
+          y[row] += acc;
+      }
     }
   } else {
     __shared__ T red[W * 32];
@@ -86,23 +93,28 @@ __global__ void __launch_bounds__(Warps<G>::value * 32)
     if (on && j == 0) {
       const T s = pat::ell_group_sum(red, warp, G, lane);
       const int row = __ldg(rows + c);
-      if (row >= 0 && row < R) y[row] += s;
+      if (row >= 0 && row < R) {
+        if constexpr (SUB)
+          y[row] -= s;
+        else
+          y[row] += s;
+      }
     }
   }
 }
 
-template <typename T, int G>
+template <typename T, int G, bool SUB>
 void launch_g(const int* rows, const int* cols, const T* vals, const int* glanes,
               const T* x, T* y, int Nr, int K, int n_cols, int R, int P,
               cudaStream_t stream) {
   constexpr int W = Warps<G>::value;
   const int n_groups = (Nr + 31) / 32;
   const dim3 grid((n_groups + W / G - 1) / (W / G), P);
-  ghost_spmv_kernel<T, G><<<grid, W * 32, 0, stream>>>(rows, cols, vals, glanes, x, y,
-                                                       Nr, K, n_groups, n_cols, R);
+  ghost_spmv_kernel<T, G, SUB><<<grid, W * 32, 0, stream>>>(
+      rows, cols, vals, glanes, x, y, Nr, K, n_groups, n_cols, R);
 }
 
-template <typename T>
+template <typename T, bool SUB>
 int launch(const int* rows, const int* cols, const T* vals, const int* glanes,
            const T* x, T* y, int Nr, int K, long long n_cols, long long R,
            int P, int lanes, cudaStream_t stream) {
@@ -112,8 +124,8 @@ int launch(const int* rows, const int* cols, const T* vals, const int* glanes,
   if (Nr == 0 || K == 0 || P == 0) return (int)cudaGetLastError();
 #define PAT_ELL_LANES(G)                                                   \
   case G:                                                                  \
-    launch_g<T, G>(rows, cols, vals, glanes, x, y, Nr, K, (int)n_cols,     \
-                   (int)R, P, stream);                                     \
+    launch_g<T, G, SUB>(rows, cols, vals, glanes, x, y, Nr, K, (int)n_cols, \
+                        (int)R, P, stream);                                \
     break;
   switch (lanes) {
     PAT_ELL_LANES(1)
@@ -137,18 +149,36 @@ int pat_ghost_spmv_f32(const void* rows, const void* cols, const void* vals,
                        const void* glanes, const void* x, void* y, int Nr, int K,
                        long long n_cols, long long R, int P, int lanes,
                        void* stream) {
-  return launch<float>((const int*)rows, (const int*)cols, (const float*)vals,
-                       (const int*)glanes, (const float*)x, (float*)y, Nr, K,
-                       n_cols, R, P, lanes, (cudaStream_t)stream);
+  return launch<float, false>((const int*)rows, (const int*)cols, (const float*)vals,
+                              (const int*)glanes, (const float*)x, (float*)y, Nr, K,
+                              n_cols, R, P, lanes, (cudaStream_t)stream);
 }
 
 int pat_ghost_spmv_f64(const void* rows, const void* cols, const void* vals,
                        const void* glanes, const void* x, void* y, int Nr, int K,
                        long long n_cols, long long R, int P, int lanes,
                        void* stream) {
-  return launch<double>((const int*)rows, (const int*)cols, (const double*)vals,
-                        (const int*)glanes, (const double*)x, (double*)y, Nr, K,
-                        n_cols, R, P, lanes, (cudaStream_t)stream);
+  return launch<double, false>((const int*)rows, (const int*)cols, (const double*)vals,
+                               (const int*)glanes, (const double*)x, (double*)y, Nr, K,
+                               n_cols, R, P, lanes, (cudaStream_t)stream);
+}
+
+int pat_ghost_spmv_sub_f32(const void* rows, const void* cols, const void* vals,
+                           const void* glanes, const void* x, void* y, int Nr, int K,
+                           long long n_cols, long long R, int P, int lanes,
+                           void* stream) {
+  return launch<float, true>((const int*)rows, (const int*)cols, (const float*)vals,
+                             (const int*)glanes, (const float*)x, (float*)y, Nr, K,
+                             n_cols, R, P, lanes, (cudaStream_t)stream);
+}
+
+int pat_ghost_spmv_sub_f64(const void* rows, const void* cols, const void* vals,
+                           const void* glanes, const void* x, void* y, int Nr, int K,
+                           long long n_cols, long long R, int P, int lanes,
+                           void* stream) {
+  return launch<double, true>((const int*)rows, (const int*)cols, (const double*)vals,
+                              (const int*)glanes, (const double*)x, (double*)y, Nr, K,
+                              n_cols, R, P, lanes, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -61,9 +61,10 @@ def hpcg_cg_flat_g(mg, b: PVector, iterations: int = 50):
     """PCG in the core layout for an operator with ghost columns (many
     parts).  Vectors, dots and axpys live in the finest level's core, as in
     ``hpcg_cg_flat``; the A-apply is the core SpMV (K4) plus the
-    ghost-column contribution (one exchange and K5, in standard order);
-    the preconditioner is the ghosted V-cycle.  Standard order appears at
-    the exchange and the level transfers.  A profiled set records the span
+    ghost-column contribution added into it (one exchange and K5, both on
+    the core: ``GaussSeidel.ghost_couple_core``); the preconditioner is the
+    ghosted V-cycle on the core residual (``_cycle_flat_gd``).  Standard
+    order appears at the level transfers.  A profiled set records the span
     ``hpcg.cg``."""
     gs = mg.gss[-1]
     lay = b.layout
@@ -72,13 +73,10 @@ def hpcg_cg_flat_g(mg, b: PVector, iterations: int = 50):
         return b.backend.allreduce(_core_dot(u, v))
 
     def a_apply(p):
-        gc = gs.ghost_contrib(gs.flat_interleave(p))
-        return gs.flat_ax(p) + gs.flat_deinterleave(gc)
+        return gs.ghost_couple_core(p, gs.flat_ax(p))
 
     def m_apply(r):
-        r_std = gs.flat_interleave(r)
-        rv = PVector(r_std, r_std.new_zeros((r_std.shape[0], lay.n_ghost_pad)), lay, b.backend)
-        return mg._cycle_flat_g(mg.n_levels - 1, rv)
+        return mg._cycle_flat_gd(mg.n_levels - 1, r.clone())  # r outlives the cycle
 
     with span("hpcg.cg"):
         bf = gs.make_bd(b)

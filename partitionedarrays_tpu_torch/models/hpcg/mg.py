@@ -9,10 +9,11 @@ the coarsest level.
 Within a level, x and the smoothing stay in the de-interleaved core layout
 of the colored Gauss-Seidel; standard order appears only for the level
 transfers.  With ghost columns (many parts) the frozen ghost contribution
-of each smoother application is folded into the core rhs
-(``_cycle_flat_g``).  Restriction is a stride-2 slice of the C-ordered box and
-prolongation writes the coarse values at the even points of a zero box:
-the reference's selection matmul and dilated pad were TPU layout devices.
+of each smoother application is folded into the core rhs, in the core
+layout (``_cycle_flat_gd``).  Restriction is a stride-2 slice of the
+C-ordered box and prolongation writes the coarse values at the even points
+of a zero box: the reference's selection matmul and dilated pad were TPU
+layout devices.
 ``restrict_operator`` (reference ``mg.py:31-43``) is copied for callers
 that want the injection as an index table.
 
@@ -164,25 +165,30 @@ class HPCGMGPreconditioner:
         return PVector(x_own, ghost, rlay, self.backend)
 
     def _cycle_flat_g(self, l: int, b: PVector) -> torch.Tensor:
-        """Ghosted V-cycle level with the level state in the core layout.
+        """Ghosted V-cycle level on a standard-order rhs: ``_cycle_flat_gd``
+        on its core (the generic ``_cycle``'s callers)."""
+        return self._cycle_flat_gd(l, self.gss[l].make_bd(b))
+
+    def _cycle_flat_gd(self, l: int, bd0: torch.Tensor) -> torch.Tensor:
+        """Ghosted V-cycle level on the core rhs ``bd0``; returns the core x.
         The frozen ghost contribution is folded into the core rhs per
-        smoother application (hybrid GS, as the generic path).  Two
-        exchanges per level per cycle: the pre-smooth starts from a zero
-        guess whose ghosts are zero, so it needs none."""
+        smoother application (hybrid GS, as the generic path), in the core
+        layout (``GaussSeidel.ghost_couple_core``).  Two exchanges per level
+        per cycle: the pre-smooth starts from a zero guess whose ghosts are
+        zero, so it needs none.  ``bd0`` is consumed: the post-smooth's rhs
+        is built in it."""
         with span("mg.level", level=l):
             gs = self.gss[l]
-            bd0 = gs.make_bd(b)
             xflat = gs.smooth_bd(None, bd0)  # pre-smooth
             # the true level residual r = b - A_oo x - A_oh g, with fresh ghosts
-            gc = gs.ghost_contrib(gs.flat_interleave(xflat))
-            r_std = gs.flat_interleave(gs.flat_residual(xflat, bd0)) - gc
+            rd = gs.ghost_couple_core(xflat, gs.flat_residual(xflat, bd0), subtract=True)
+            r_std = gs.flat_interleave(rd)
             rc = self._restrict(l, r_std)
             xc = self._cycle(l - 1, rc)
             corr = self._prolong(l, xc.own, r_std.shape[1])
             xflat = gs.flat_add_std(xflat, corr)
             # post-smooth with refreshed frozen ghosts
-            gc2 = gs.ghost_contrib(gs.flat_interleave(xflat))
-            return gs.smooth_bd(xflat, gs.flat_deinterleave(b.own - gc2))
+            return gs.smooth_bd(xflat, gs.ghost_couple_core(xflat, bd0, subtract=True))
 
     def flat_viable(self) -> bool:
         """True when the finest level smooths without ghost exchanges."""

@@ -14,6 +14,8 @@ The product accumulates into an output ``y[P, R]``:
 
     y[p, rows[p, i]] += sum_k vals[p, k, i] * x[p, cols[p, k, i]]  (cols >= 0)
 
+or, with ``subtract``, is taken from it (``-=``, the kernel's SUB entries).
+
 The CUDA kernel is ``csrc/ghost_spmv.cu`` over the compressed-row engine
 ``csrc/ell_rows.cuh``; its source note says what bounds it (device-memory
 bandwidth) and how the design meets the paths' two regimes, many short rows
@@ -38,13 +40,13 @@ _DTYPES = (torch.float32, torch.float64)
 
 def ghost_spmv_plain(
     rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
-    y: torch.Tensor,
+    y: torch.Tensor, subtract: bool = False,
 ) -> torch.Tensor:
     """``y[p, rows[p, i]] += sum_k vals[p, k, i] * x[p, cols[p, k, i]]`` over
-    the lanes with ``cols >= 0``, in place on ``y``; returns y.  A gather, a
-    masked sum over the lanes and an ``index_add_``: padding columns and
-    rows are clamped to slot 0, and a padding row (all lanes padding)
-    adds an exact zero."""
+    the lanes with ``cols >= 0`` (``-=`` with ``subtract``), in place on
+    ``y``; returns y.  A gather, a masked sum over the lanes and an
+    ``index_add_``: padding columns and rows are clamped to slot 0, and a
+    padding row (all lanes padding) adds an exact zero."""
     P, K, Nr = cols.shape
     if Nr == 0 or K == 0:
         return y
@@ -53,17 +55,18 @@ def ghost_spmv_plain(
     contrib = torch.where(live, vals * xg, torch.zeros_like(xg)).sum(dim=1)
     R = y.shape[1]
     part = torch.arange(P, device=rows.device).unsqueeze(1) * R
-    y.view(-1).index_add_(0, (part + rows.clamp(min=0)).reshape(-1), contrib.reshape(-1))
+    y.view(-1).index_add_(0, (part + rows.clamp(min=0)).reshape(-1), contrib.reshape(-1),
+                          alpha=-1 if subtract else 1)
     return y
 
 
 def ghost_spmv(
     rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
-    y: torch.Tensor, plan: Optional[EllPlan] = None,
+    y: torch.Tensor, plan: Optional[EllPlan] = None, subtract: bool = False,
 ) -> torch.Tensor:
-    """K5.  Accumulate the block product into ``y`` (in place) and return
-    it.  rows [P, Nr] int32; cols, vals [P, K, Nr]; x [P, n_cols]; y
-    [P, R] contiguous.  ``plan``: the block's ``ell_rows.plan_of(cols)``
+    """K5.  Accumulate the block product into ``y`` (in place; ``subtract``:
+    take it from ``y``) and return it.  rows [P, Nr] int32; cols, vals [P,
+    K, Nr]; x [P, n_cols]; y [P, R] contiguous.  ``plan``: the block's ``ell_rows.plan_of(cols)``
     (``DeviceBlock.plan``); None computes it here, which copies the columns
     to the host.
 
@@ -83,7 +86,7 @@ def ghost_spmv(
     if len(devices) != 1:
         raise ValueError(f"ghost_spmv: operands on {sorted(map(str, devices))}")
     if vals.device.type == "cpu":
-        return ghost_spmv_plain(rows, cols, vals, x, y)
+        return ghost_spmv_plain(rows, cols, vals, x, y, subtract)
     if vals.device.type != "cuda":
         raise ValueError(f"ghost_spmv: no kernel for device {vals.device}")
     if vals.dtype not in _DTYPES:
@@ -103,7 +106,7 @@ def ghost_spmv(
             or glanes.device != cols.device:
         raise ValueError(f"ghost_spmv: the plan's lane counts {tuple(glanes.shape)} do not "
                          f"fit cols {tuple(cols.shape)}")
-    code = _build.entry("pat_ghost_spmv", vals.dtype)(
+    code = _build.entry("pat_ghost_spmv_sub" if subtract else "pat_ghost_spmv", vals.dtype)(
         rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), glanes.data_ptr(), x.data_ptr(),
         y.data_ptr(), Nr, K, x.shape[1], y.shape[1], P, plan.lanes, _build.stream_of(vals),
     )

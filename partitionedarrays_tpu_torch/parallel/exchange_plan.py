@@ -39,6 +39,17 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m if x > 0 else 0
 
 
+def core_slot(pos, core):
+    """Standard own slots ``pos`` (an array or tensor) -> their slots in a
+    de-interleaved core of shape ``core = (m, Lq)`` flattened,
+    ``(pos mod m) * Lq + pos // m`` (``ColoredDIAGS.deinterleave``'s map);
+    ``core=None``: the slots themselves."""
+    if core is None:
+        return pos
+    m, Lq = core
+    return (pos % m) * Lq + pos // m
+
+
 def color_edges(edges: Sequence[Tuple[int, int]]) -> List[int]:
     """Greedy directed edge coloring: within one color, each node has at
     most one outgoing and at most one incoming edge."""
@@ -95,12 +106,16 @@ class ExchangePlan:
         return len(self.perms)
 
     def apply(
-        self, src_vals: torch.Tensor, dst_vals: torch.Tensor, combine: str, backend=None
+        self, src_vals: torch.Tensor, dst_vals: torch.Tensor, combine: str, backend=None,
+        src_core=None,
     ) -> torch.Tensor:
         """All rounds at once: the source slots' values of ``src_vals[P,
         n_src]`` are set into ("set", consistent) or added to ("add",
         assemble) the destination slots of a copy of ``dst_vals[P, n_dst]``,
-        which is returned.  The tensors hold the parts of this process of
+        which is returned.  ``src_core=(m, Lq)``: ``src_vals`` is instead a
+        de-interleaved core ``[P, m, Lq]`` (``solvers/gs_dia.py``), whose
+        slot ``(i mod m) * Lq + i // m`` holds standard slot i; the gathers
+        read the core directly.  The tensors hold the parts of this process of
         ``backend`` (default: a serial backend, every part): pairs inside the
         process are one index op, and on a multi-process backend the pairs
         across processes travel as the padded rounds' messages
@@ -113,12 +128,16 @@ class ExchangePlan:
             return dst_vals
         if backend is None:
             backend = SerialBackend(self.snd_idx[0].shape[0])
+        core = None if src_core is None else tuple(int(v) for v in src_core)
+        n_src = int(src_vals.shape[1]) if core is None else core[0] * core[1]
+        if src_vals.numel() != src_vals.shape[0] * n_src:
+            raise ValueError(f"exchange: source {tuple(src_vals.shape)} for a core {core}")
         key = (tuple(backend.local_parts()), getattr(backend, "n_procs", 1),
-               int(src_vals.shape[1]), int(dst_vals.shape[1]), src_vals.device)
+               n_src, int(dst_vals.shape[1]), src_vals.device, core)
         got = self._per_process.get(key)
         if got is None:
-            got = self._per_process[key] = _CrossPlan(self, backend, src_vals.shape[1],
-                                               dst_vals.shape[1], src_vals.device)
+            got = self._per_process[key] = _CrossPlan(self, backend, n_src, dst_vals.shape[1],
+                                                      src_vals.device, core)
         profiling.count_exchange(combine, got.sent_entries * src_vals.element_size())
         with profiling.span("exchange", combine=combine):
             return got.apply(src_vals, dst_vals, combine)
@@ -155,9 +174,12 @@ class _CrossPlan:
     point-to-point calls take no CUDA tensors; the tags are ``round * P +
     destination part`` (a part receives at most one message a round)."""
 
-    def __init__(self, plan: ExchangePlan, backend, n_src: int, n_dst: int, device):
+    def __init__(self, plan: ExchangePlan, backend, n_src: int, n_dst: int, device,
+                 src_core=None):
+        # a core's n_src is m * Lq, so a standard slot below it maps below it
         if plan.src_pos.size and (plan.src_pos.max() >= n_src or plan.dst_pos.max() >= n_dst):
             raise ValueError(f"exchange plan: slots beyond the tensors ({n_src}, {n_dst})")
+        src_pos = core_slot(plan.src_pos, src_core)
         self.backend = backend
         P = backend.n_parts
         local = backend.local_parts()
@@ -165,7 +187,7 @@ class _CrossPlan:
         is_local = np.zeros(P, dtype=bool)
         is_local[local] = True
         both = is_local[plan.src_part] & is_local[plan.dst_part]
-        src = (plan.src_part[both] - lo) * n_src + plan.src_pos[both]
+        src = (plan.src_part[both] - lo) * n_src + src_pos[both]
         dst_local = (plan.dst_part[both] - lo) * n_dst + plan.dst_pos[both]
         send_idx, self.sends = [], []  # (destination rank, tag, lanes)
         recv_valid, recv_dst, self.recvs = [], [], []  # (source rank, tag, lanes)
@@ -181,7 +203,7 @@ class _CrossPlan:
                     continue
                 tag = r * P + d
                 if is_local[s]:
-                    lanes = plan.snd_idx[r][s][valid].astype(np.int64)
+                    lanes = core_slot(plan.snd_idx[r][s][valid].astype(np.int64), src_core)
                     lanes = np.concatenate([lanes, np.full(K - nv, lanes[0], dtype=np.int64)])
                     send_idx.append((s - lo) * n_src + lanes)
                     self.sends.append((backend.rank_of(d), tag, K))

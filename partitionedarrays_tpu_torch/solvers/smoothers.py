@@ -44,8 +44,10 @@ from ..backends import stack_parts
 from ..config import values_dtype as _values_dtype
 from ..ops.blocks import freeze_block
 from ..ops.ell import ell_spmv, stack_ell
+from ..ops.ghost_spmv import ghost_spmv
 from ..ops.native import greedy_coloring_native, ilu0
 from ..ops.tile_gs import TILE
+from ..parallel.exchange_plan import core_slot
 from ..psparse import (PSparseMatrix, _agree_max_i32, _agreed_ell_groups, dense_diag, host_blocks,
                        spmv)
 from ..pvector import PVector, _own_mask
@@ -291,6 +293,7 @@ class GaussSeidel:
         self.iterations = iterations
         self.sweep = sweep
         self.level = None  # the owning hierarchy's level, set by its builder
+        self._core_rows = None  # core_rows(), built at first use
         self.colored = self.tile_gs = self.sorted = None
         oo = A.device().oo
         if _sorted is not False:
@@ -370,14 +373,53 @@ class GaussSeidel:
         """``A_oh @ consistent(x)`` in standard own order [P, n_own_pad]:
         the ghost-column contribution that the hybrid sweep freezes per
         application.  One exchange and one own-ghost SpMV (K5).  A profiled
-        call records the span ``ghost`` (attribute ``level``)."""
+        call records the span ``ghost`` (attributes ``level``,
+        ``layout="std"``)."""
         A = self.A
         clay = A.col_layout()
-        with span("ghost", level=self.level):
+        with span("ghost", level=self.level, layout="std"):
             g = clay.consistent_plan.apply(
                 x_own, x_own.new_zeros((x_own.shape[0], clay.n_ghost_pad)), "set", A.backend
             )
             return A.device().oh.spmv(g)
+
+    def ghost_couple_core(self, xcore: torch.Tensor, ycore: torch.Tensor,
+                          subtract: bool = False) -> torch.Tensor:
+        """``ycore += A_oh @ consistent(x)`` (``-=`` with ``subtract``) in
+        place, x and y cores ``[P, m, Lq]`` of the colored tier; returns
+        ycore.  The ghost coupling of ``ghost_contrib`` without standard
+        order: the exchange gathers the owners' values from the core
+        (``ExchangePlan.apply(src_core=...)``) and K5 adds each row's sum
+        into its core slot (``core_rows``), one rounding per row, so y ends
+        as the standard-order composition's (a banded own-ghost block, as
+        on small coarse parts, adds its de-interleaved product).  A profiled
+        call records the span ``ghost`` (attributes ``level``,
+        ``layout="core"``)."""
+        A = self.A
+        clay = A.col_layout()
+        oh = A.device().oh
+        col = self.colored
+        P = xcore.shape[0]
+        with span("ghost", level=self.level, layout="core"):
+            g = clay.consistent_plan.apply(xcore, xcore.new_zeros((P, clay.n_ghost_pad)), "set",
+                                           A.backend, src_core=(col.m, col.Lq))
+            if oh.kind != "ell":  # a banded own-ghost block (K1): add its core
+                s = col.deinterleave(oh.spmv(g))
+                return ycore.sub_(s) if subtract else ycore.add_(s)
+            ghost_spmv(self.core_rows(), oh.cols, oh.vals, g, ycore.view(P, col.m * col.Lq),
+                       oh.plan, subtract=subtract)
+        return ycore
+
+    def core_rows(self) -> torch.Tensor:
+        """The own-ghost block's compressed rows in core slots (int32 [P,
+        Nr], the padding rows kept at -1): K5's output rows when it writes
+        into a core.  Built once: the sparsity is fixed, so a value refresh
+        leaves it valid."""
+        if self._core_rows is None:
+            rows, col = self.A.device().oh.rows, self.colored
+            self._core_rows = torch.where(rows >= 0, core_slot(rows, (col.m, col.Lq)),
+                                          rows).to(torch.int32).contiguous()
+        return self._core_rows
 
     def apply(self, x: PVector, b: PVector) -> PVector:
         """In-solver smoothing: improve x for ``A x = b``.  With ghost
