@@ -57,86 +57,50 @@ def _core_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.vdot(u.reshape(-1), v.reshape(-1))
 
 
-def hpcg_cg_flat_g(mg, b: PVector, iterations: int = 50):
-    """PCG in the core layout for an operator with ghost columns (many
-    parts).  Vectors, dots and axpys live in the finest level's core, as in
-    ``hpcg_cg_flat``; the A-apply is the core SpMV (K4) plus the
-    ghost-column contribution added into it (one exchange and K5, both on
-    the core: ``GaussSeidel.ghost_couple_core``); the preconditioner is the
-    ghosted V-cycle on the core residual (``_cycle_flat_gd``).  Standard
-    order appears at the level transfers.  A profiled set records the span
+def hpcg_cg_flat(mg, b: PVector, iterations: int = 50):
+    """PCG with every vector in the de-interleaved core layout of the
+    finest level's Gauss-Seidel, for one part and for many: the A-apply is
+    the core SpMV (kernel K4) with the ghost-column contribution added into
+    it (``GaussSeidel.ghost_couple_core``: one exchange and K5 on the core
+    across parts, nothing on one part), the preconditioner runs through
+    ``apply_flat``, and dots and axpys run on the cores directly, since they
+    do not depend on the order of the entries and the padding stays zero;
+    the dots are summed over every process's parts.  Standard order appears
+    twice per solve: b in, x out.  A profiled set records the span
     ``hpcg.cg``."""
     gs = mg.gss[-1]
     lay = b.layout
 
-    def _dot(u, v):  # over every process's parts
+    def dot(u, v):
         return b.backend.allreduce(_core_dot(u, v))
 
-    def a_apply(p):
-        return gs.ghost_couple_core(p, gs.flat_ax(p))
-
-    def m_apply(r):
-        return mg._cycle_flat_gd(mg.n_levels - 1, r.clone())  # r outlives the cycle
-
     with span("hpcg.cg"):
         bf = gs.make_bd(b)
         x = torch.zeros_like(bf)
         r = bf
         norms = bf.new_zeros(iterations + 1)
-        norms[0] = torch.sqrt(_dot(r, r))
-        z = m_apply(r)
-        p = z
-        rz = _dot(r, z)
-        for k in range(iterations):
-            Ap = a_apply(p)
-            alpha = rz / _dot(p, Ap)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            z = m_apply(r)
-            rz_new = _dot(r, z)
-            beta = rz_new / rz
-            p = z + beta * p
-            rz = rz_new
-            norms[k + 1] = torch.sqrt(_dot(r, r))
-        x_own = gs.flat_interleave(x)
-        xv = PVector(x_own, x_own.new_zeros((x_own.shape[0], lay.n_ghost_pad)), lay, b.backend)
-        return xv, norms
-
-
-def hpcg_cg_flat(mg, b: PVector, iterations: int = 50):
-    """PCG with every vector in the de-interleaved core layout of the
-    finest level's Gauss-Seidel (one part, no ghosts): the A-apply is the
-    core SpMV (kernel K4), the preconditioner runs through ``apply_flat``,
-    and dots and axpys run on the cores directly, since they do not depend
-    on the order of the entries and the padding stays zero.  Standard
-    order appears twice per solve: b in, x out.  A profiled set records
-    the span ``hpcg.cg``."""
-    gs = mg.gss[-1]
-    lay = b.layout
-
-    with span("hpcg.cg"):
-        bf = gs.make_bd(b)
-        x = torch.zeros_like(bf)
-        r = bf
-        norms = bf.new_zeros(iterations + 1)
-        norms[0] = torch.sqrt(_core_dot(r, r))
+        norms[0] = torch.sqrt(dot(r, r))
         z = mg.apply_flat(r)
         p = z
-        rz = _core_dot(r, z)
+        rz = dot(r, z)
         for k in range(iterations):
-            Ap = gs.flat_ax(p)
-            alpha = rz / _core_dot(p, Ap)
+            Ap = gs.ghost_couple_core(p, gs.flat_ax(p))
+            alpha = rz / dot(p, Ap)
             x = x + alpha * p
             r = r - alpha * Ap
             z = mg.apply_flat(r)
-            rz_new = _core_dot(r, z)
+            rz_new = dot(r, z)
             beta = rz_new / rz
             p = z + beta * p
             rz = rz_new
-            norms[k + 1] = torch.sqrt(_core_dot(r, r))
+            norms[k + 1] = torch.sqrt(dot(r, r))
         x_own = gs.flat_interleave(x)
         xv = PVector(x_own, x_own.new_zeros((x_own.shape[0], lay.n_ghost_pad)), lay, b.backend)
         return xv, norms
+
+
+# the reference's name of the ghosted route (``cg_route`` "flat_g"): the same loop
+hpcg_cg_flat_g = hpcg_cg_flat
 
 
 def hpcg_cg_df64(

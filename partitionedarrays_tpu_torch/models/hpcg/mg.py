@@ -8,9 +8,10 @@ the coarsest level.
 
 Within a level, x and the smoothing stay in the de-interleaved core layout
 of the colored Gauss-Seidel; standard order appears only for the level
-transfers.  With ghost columns (many parts) the frozen ghost contribution
-of each smoother application is folded into the core rhs, in the core
-layout (``_cycle_flat_gd``).  Restriction is a stride-2 slice of the
+transfers.  One recursion (``_vcycle``) serves one part and many: with
+ghost columns the frozen ghost contribution of each smoother application
+is folded into the core rhs (``GaussSeidel.ghost_couple_core``, a no-op
+without them).  Restriction is a stride-2 slice of the
 C-ordered box and prolongation writes the coarse values at the even points
 of a zero box: the reference's selection matmul and dilated pad were TPU
 layout devices.
@@ -151,44 +152,40 @@ class HPCGMGPreconditioner:
 
     # -- V-cycle -------------------------------------------------------
     def _cycle(self, l: int, b: PVector) -> PVector:
-        gs = self.gss[l]
-        if l == 0:
-            with span("mg.level", level=0):
-                return gs(b)  # coarsest: smoothing is the solve
-        if gs.flat_viable():
-            xflat = self._cycle_flat_bd(l, gs.make_bd(b))
-        else:
-            xflat = self._cycle_flat_g(l, b)
-        x_own = gs.flat_interleave(xflat)
+        """The V-cycle from level ``l`` on a standard-order rhs, to a
+        standard-order x (``__call__``: the generic and df64 routes)."""
+        x_own = self.gss[l].flat_interleave(self._cycle_flat_g(l, b))
         rlay = self.As[l].row_layout()
         ghost = x_own.new_zeros((x_own.shape[0], rlay.n_ghost_pad))
         return PVector(x_own, ghost, rlay, self.backend)
 
     def _cycle_flat_g(self, l: int, b: PVector) -> torch.Tensor:
-        """Ghosted V-cycle level on a standard-order rhs: ``_cycle_flat_gd``
-        on its core (the generic ``_cycle``'s callers)."""
-        return self._cycle_flat_gd(l, self.gss[l].make_bd(b))
+        """The V-cycle from level ``l`` on a standard-order rhs; returns the
+        core x.  ``_cycle`` and every coarser visit enter here."""
+        return self._vcycle(l, self.gss[l].make_bd(b))
 
-    def _cycle_flat_gd(self, l: int, bd0: torch.Tensor) -> torch.Tensor:
-        """Ghosted V-cycle level on the core rhs ``bd0``; returns the core x.
-        The frozen ghost contribution is folded into the core rhs per
-        smoother application (hybrid GS, as the generic path), in the core
-        layout (``GaussSeidel.ghost_couple_core``).  Two exchanges per level
-        per cycle: the pre-smooth starts from a zero guess whose ghosts are
-        zero, so it needs none.  ``bd0`` is consumed: the post-smooth's rhs
-        is built in it."""
+    def _vcycle(self, l: int, bd: torch.Tensor) -> torch.Tensor:
+        """The V-cycle from level ``l`` on the core rhs ``bd``, for one part
+        and for many; returns the core x.  Across parts each smoother
+        application folds the frozen ghost contribution into its rhs and
+        the level residual subtracts it with fresh ghosts
+        (``GaussSeidel.ghost_couple_core``, which does nothing without
+        ghosts): the hybrid Gauss-Seidel, in the core layout.  A zero-guess
+        pre-smooth has zero ghosts and couples nothing; the coarsest level
+        smooths only, from a zero guess whose coupling still exchanges, as
+        the reference's.  Where a level couples, ``bd`` is consumed: the
+        post-smooth's rhs is built in it."""
         with span("mg.level", level=l):
             gs = self.gss[l]
-            xflat = gs.smooth_bd(None, bd0)  # pre-smooth
-            # the true level residual r = b - A_oo x - A_oh g, with fresh ghosts
-            rd = gs.ghost_couple_core(xflat, gs.flat_residual(xflat, bd0), subtract=True)
+            if l == 0:
+                return gs.smooth_bd(None, gs.ghost_couple_core(None, bd, subtract=True))
+            xflat = gs.smooth_bd(None, bd)  # pre-smooth
+            rd = gs.ghost_couple_core(xflat, gs.flat_residual(xflat, bd), subtract=True)
             r_std = gs.flat_interleave(rd)
-            rc = self._restrict(l, r_std)
-            xc = self._cycle(l - 1, rc)
-            corr = self._prolong(l, xc.own, r_std.shape[1])
+            xc = self._cycle_flat_g(l - 1, self._restrict(l, r_std))
+            corr = self._prolong(l, self.gss[l - 1].flat_interleave(xc), r_std.shape[1])
             xflat = gs.flat_add_std(xflat, corr)
-            # post-smooth with refreshed frozen ghosts
-            return gs.smooth_bd(xflat, gs.ghost_couple_core(xflat, bd0, subtract=True))
+            return gs.smooth_bd(xflat, gs.ghost_couple_core(xflat, bd, subtract=True))
 
     def flat_viable(self) -> bool:
         """True when the finest level smooths without ghost exchanges."""
@@ -201,25 +198,10 @@ class HPCGMGPreconditioner:
 
     def apply_flat(self, bd: torch.Tensor) -> torch.Tensor:
         """The preconditioner in the de-interleaved layout: residual core
-        [P, m, Lq] in, correction core out."""
-        return self._cycle_flat_bd(self.n_levels - 1, bd)
-
-    def _cycle_flat_bd(self, l: int, bd: torch.Tensor) -> torch.Tensor:
-        """The V-cycle from level ``l`` on the core rhs ``bd``; returns the
-        core x."""
-        with span("mg.level", level=l):
-            gs = self.gss[l]
-            xflat = gs.smooth_bd(None, bd)  # zero-guess pre-smooth
-            if l == 0:
-                return xflat  # coarsest: smooth only
-            rd = gs.flat_residual(xflat, bd)
-            r_std = gs.flat_interleave(rd)
-            rc = self._restrict(l, r_std)
-            gs_c = self.gss[l - 1]
-            xc_own = gs_c.flat_interleave(self._cycle_flat_bd(l - 1, gs_c.make_bd(rc)))
-            corr = self._prolong(l, xc_own, r_std.shape[1])
-            xflat = gs.flat_add_std(xflat, corr)
-            return gs.smooth_bd(xflat, bd)  # post-smooth
+        [P, m, Lq] in, correction core out, ``bd`` left as it was.  The
+        cycle consumes its rhs only where the finest level couples ghosts,
+        so only there does it run on a copy."""
+        return self._vcycle(self.n_levels - 1, bd if self.flat_viable() else bd.clone())
 
     def __call__(self, r: PVector) -> PVector:
         return self._cycle(self.n_levels - 1, r)

@@ -36,10 +36,10 @@ Every step runs on any number of parts of the serial backend: aggregation
 is uncoupled per part, the power method exchanges ghosts on the host, the
 Galerkin products are the distributed ``spmm``/``spmtm``, the restriction
 ``spmtv`` assembles its cross-part contributions back to their owners, and
-a box level with ghost columns takes the ghosted flat cycle
-(``_cycle_flat_g``: the frozen ghost contribution folded into the core
-rhs).  Per-part boxes of unequal shape fall back to generic aggregation,
-as in the reference.  On a multi-process backend each process aggregates
+a box level with ghost columns takes the flat cycle with the frozen ghost
+contribution folded into the core rhs (``GaussSeidel.ghost_couple_core``)
+and the structured transfers in standard order.  Per-part boxes of unequal
+shape fall back to generic aggregation, as in the reference.  On a multi-process backend each process aggregates
 and multiplies its own parts (the counts and the products' messages
 cross processes), and the coarsest operator is gathered on every process.
 
@@ -808,8 +808,9 @@ class AMGPreconditioner:
     # -- the flat cycle: a box level whose smoother is colored runs in the
     #    smoother's de-interleaved core, from the pre-smooth to the
     #    post-smooth; one interleave (the restricted residual) and one
-    #    de-interleave (the prolongated correction) per level, the
-    #    transfers' A-apply by K4 with the smoother's own D^-1
+    #    de-interleave (the prolongated correction) per level; without
+    #    ghosts (``_flat_ok``) the transfers' A-apply is K4 with the
+    #    smoother's own D^-1
     def _flat_ok(self, l: int) -> bool:
         level = self.levels[l]
         return (
@@ -834,59 +835,48 @@ class AMGPreconditioner:
         return w_core - st.omega * (gs.colored.invd_d * gs.flat_ax(w_core))
 
     def _cycle_flat(self, l: int, bd: torch.Tensor, w: bool) -> torch.Tensor:
-        """The V- or W-cycle from level ``l`` on the core rhs ``bd``;
-        returns the core x."""
+        """The V- or W-cycle from a box level whose smoother is colored, on
+        the core rhs ``bd``, for one part and for many; returns the core x.
+        The sweeps stay in the core; across parts each smoother application
+        folds the frozen ghost contribution into its rhs and the residual
+        subtracts it with fresh ghosts (``GaussSeidel.ghost_couple_core``,
+        which does nothing without ghosts; the zero-guess pre-smooth's
+        ghosts are zero), so ``bd`` is consumed there.  The transfers are
+        the core ones where ``_flat_ok(l)``, else the structured ones in
+        standard order, whose SpMV exchanges."""
         level = self.levels[l]
         gs = level.smoother
         with span("amg.smooth", level=l, phase="pre"):
             xflat = gs.smooth_bd(None, bd)  # zero-guess pre-smooth
-        rd = gs.flat_residual(xflat, bd)
-        nxt = self.levels[l + 1]
-        rc = self._restrict_flat(level, rd, nxt.A.row_layout())
-        ec = self._cycle(l + 1, rc, w)
-        if w and nxt.P is not None:
-            rc2 = _residual_vec(nxt.A, rc, ec)
-            ec2 = self._cycle(l + 1, rc2, w)
-            ec = PVector(ec.own + ec2.own, ec.ghost, ec.layout, ec.backend)
-        xflat = xflat + self._prolong_flat(level, ec)
+        rd = gs.ghost_couple_core(xflat, gs.flat_residual(xflat, bd), subtract=True)
+        cl = self.levels[l + 1].A.row_layout()
+        if self._flat_ok(l):
+            ec = self._coarser(l, self._restrict_flat(level, rd, cl), w)
+            xflat = xflat + self._prolong_flat(level, ec)
+        else:
+            r = _own_vec(gs.flat_interleave(rd), level.A.row_layout(), level.A.backend)
+            ec = self._coarser(l, self._restrict_struct(level, r, cl), w)
+            xflat = gs.flat_add_std(xflat, self._prolong_struct(level, ec))
+        bd = gs.ghost_couple_core(xflat, bd, subtract=True)
         with span("amg.smooth", level=l, phase="post"):
             return gs.smooth_bd(xflat, bd)
 
-    def _cycle_flat_g(self, l: int, b: PVector, w: bool) -> torch.Tensor:
-        """The flat cycle of a box level with ghost columns (the hybrid
-        Gauss-Seidel across parts): the sweeps stay in the core with the
-        ghost-column contribution, frozen per application, folded into the
-        core rhs; the structured transfers run in standard order, their
-        SpMV doing the exchange.  Two ghost exchanges per level per cycle
-        for the smoothing (the zero-guess pre-smooth needs none), one in
-        each transfer.  Returns the core x."""
-        level = self.levels[l]
-        gs = level.smoother
-        bd0 = gs.make_bd(b)
-        with span("amg.smooth", level=l, phase="pre"):
-            xflat = gs.smooth_bd(None, bd0)  # zero-guess pre-smooth
-        gc = gs.ghost_contrib(gs.flat_interleave(xflat))
-        r_own = gs.flat_interleave(gs.flat_residual(xflat, bd0)) - gc
-        nxt = self.levels[l + 1]
-        rc = self._restrict_struct(level, _own_vec(r_own, level.A.row_layout(), b.backend),
-                                   nxt.A.row_layout())
+    def _coarser(self, l: int, rc: PVector, w: bool) -> PVector:
+        """The coarse correction of level ``l`` for its restricted residual
+        ``rc``: one cycle from level l + 1, and for a W-cycle a second one
+        on the residual that the first leaves, added to it."""
         ec = self._cycle(l + 1, rc, w)
+        nxt = self.levels[l + 1]
         if w and nxt.P is not None:
-            rc2 = _residual_vec(nxt.A, rc, ec)
-            ec2 = self._cycle(l + 1, rc2, w)
+            ec2 = self._cycle(l + 1, _residual_vec(nxt.A, rc, ec), w)
             ec = PVector(ec.own + ec2.own, ec.ghost, ec.layout, ec.backend)
-        xflat = gs.flat_add_std(xflat, self._prolong_struct(level, ec))
-        gc2 = gs.ghost_contrib(gs.flat_interleave(xflat))
-        bd2 = gs.flat_deinterleave(b.own - gc2)
-        with span("amg.smooth", level=l, phase="post"):
-            return gs.smooth_bd(xflat, bd2)
+        return ec
 
     def _cycle(self, l: int, b: PVector, w: bool, graph: Optional[str] = None) -> PVector:
         """One cycle from level ``l`` (twice into the coarser level for a
-        W-cycle): the flat cycle on a box level whose smoother is colored
-        (the ghosted flat cycle where the level has ghost columns); else
-        zero-guess pre-smooth, residual, restriction (the structured one
-        on a box level, P^T elsewhere), the coarser cycle, prolongation,
+        W-cycle): the flat cycle on a box level whose smoother is colored;
+        else zero-guess pre-smooth, residual, restriction (the structured
+        one on a box level, P^T elsewhere), the coarser cycle, prolongation,
         post-smooth.  Every level is entered here: a profiled cycle records
         the span ``amg.cycle`` of each level (the coarsest's is its solve;
         ``graph`` tags the level-0 span of ``__call__``) and ``amg.smooth``
@@ -897,10 +887,7 @@ class AMGPreconditioner:
                 return self._coarse_solve(b)
             if level.struct is not None and level.smoother.colored is not None:
                 gs = level.smoother
-                if self._flat_ok(l):
-                    xflat = self._cycle_flat(l, gs.make_bd(b), w)
-                else:
-                    xflat = self._cycle_flat_g(l, b, w)
+                xflat = self._cycle_flat(l, gs.make_bd(b), w)
                 return _own_vec(gs.flat_interleave(xflat), level.A.row_layout(), b.backend)
             with span("amg.smooth", level=l, phase="pre"):
                 x = level.smoother(b)
@@ -910,11 +897,7 @@ class AMGPreconditioner:
                 rc = self._restrict_struct(level, r, cl)
             else:
                 rc = _view(cl, spmtv(level.P, _row_view(level.P, r)))
-            ec = self._cycle(l + 1, rc, w)
-            if w and self.levels[l + 1].P is not None:
-                rc2 = _residual_vec(self.levels[l + 1].A, rc, ec)
-                ec2 = self._cycle(l + 1, rc2, w)
-                ec = PVector(ec.own + ec2.own, ec.ghost, ec.layout, ec.backend)
+            ec = self._coarser(l, rc, w)
             if level.struct is not None:
                 e_own = self._prolong_struct(level, ec)
             else:

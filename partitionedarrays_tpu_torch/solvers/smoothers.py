@@ -16,8 +16,11 @@ reference's "flat" although the state is the ``[P, m, Lq]`` core.
 Across parts the smoother is the reference's hybrid "processor-block" GS:
 the ghost values are frozen once per application (one consistent exchange)
 and their contribution ``A_oh g`` is subtracted from the rhs before the
-sweeps.  An own block that is a DIA band with a mod-m coloring takes the
-colored tier (kernels K3, K4); any other takes the tile tier
+sweeps: by the colored tier in its de-interleaved core
+(``GaussSeidel.ghost_couple_core``, which alone decides whether a level
+couples), by the tile tier in standard order (``ghost_contrib``).  An own
+block that is a DIA band with a mod-m coloring takes the colored tier
+(kernels K3, K4); any other takes the tile tier
 (``solvers/gs_slot.py::NaturalTileGS``, kernel K6), built from the host
 blocks, unless K6's packed planes would pass ``MAX_TILE_PACK_BYTES``: then
 it takes the reference's tier 2, the sorted-by-color sweep
@@ -383,7 +386,7 @@ class GaussSeidel:
             )
             return A.device().oh.spmv(g)
 
-    def ghost_couple_core(self, xcore: torch.Tensor, ycore: torch.Tensor,
+    def ghost_couple_core(self, xcore: Optional[torch.Tensor], ycore: torch.Tensor,
                           subtract: bool = False) -> torch.Tensor:
         """``ycore += A_oh @ consistent(x)`` (``-=`` with ``subtract``) in
         place, x and y cores ``[P, m, Lq]`` of the colored tier; returns
@@ -394,11 +397,20 @@ class GaussSeidel:
         as the standard-order composition's (a banded own-ghost block, as
         on small coarse parts, adds its de-interleaved product).  A profiled
         call records the span ``ghost`` (attributes ``level``,
-        ``layout="core"``)."""
+        ``layout="core"``).
+
+        The one place that decides whether the colored tier couples: where
+        ``flat_viable()`` it returns ycore untouched (no launch, no exchange,
+        no span).  ``xcore=None`` is the zero guess: a zero core is exchanged
+        all the same, as the reference does."""
+        if self.flat_viable():
+            return ycore
         A = self.A
         clay = A.col_layout()
         oh = A.device().oh
         col = self.colored
+        if xcore is None:
+            xcore = torch.zeros_like(ycore)
         P = xcore.shape[0]
         with span("ghost", level=self.level, layout="core"):
             g = clay.consistent_plan.apply(xcore, xcore.new_zeros((P, clay.n_ghost_pad)), "set",
@@ -430,15 +442,14 @@ class GaussSeidel:
     def _apply(self, x: PVector, b: PVector, zero_guess: bool) -> PVector:
         if self.sorted is not None:
             return self._apply_sorted(x, b)
-        col = self.colored
-        bo = b.own
-        if not self.flat_viable():
-            bo = bo - self.ghost_contrib(x.own)
-        if self.tile_gs is not None:
+        if self.tile_gs is not None:  # K6 sweeps in natural order: couple there
+            bo = b.own if self.flat_viable() else b.own - self.ghost_contrib(x.own)
             xo = self.tile_gs.sweeps(None if zero_guess else x.own, bo, self._dir_seq())
             return PVector(xo, x.ghost, x.layout, x.backend)
+        col = self.colored
         xc = None if zero_guess else col.deinterleave(x.own)
-        xc = col.sweeps_core(xc, col.deinterleave(bo), col.vals_d, col.invd_d, self._order_seq())
+        bd = self.ghost_couple_core(xc, col.deinterleave(b.own), subtract=True)
+        xc = col.sweeps_core(xc, bd, col.vals_d, col.invd_d, self._order_seq())
         return PVector(col.interleave_core(xc), x.ghost, x.layout, x.backend)
 
     def _apply_sorted(self, x: PVector, b: PVector, plain: bool = False) -> PVector:

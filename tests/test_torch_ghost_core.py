@@ -1,9 +1,10 @@
-"""The HPCG ghost coupling in the core layout
+"""The ghost coupling in the core layout
 (``GaussSeidel.ghost_couple_core``, ``ExchangePlan.apply(src_core=...)``,
-``hpcg_cg_flat_g``, ``HPCGMGPreconditioner._cycle_flat_gd``) against the
-standard-order composition it replaces (``tests/torch_ghost_core_cases.py``),
-bit for bit, on (2,2,2) and (1,1,4) parts of 16^3 in float64 and float32 at
-every level of the MG, on the CPU (K5's plain version); the core rows table,
+``GaussSeidel.apply`` and ``__call__``, ``hpcg_cg_flat_g``, the MG's
+``_vcycle``, the AMG flat cycle) against the standard-order composition it
+replaces (``tests/torch_ghost_core_cases.py``), bit for bit, on (2,2,2) and
+(1,1,4) parts in float64 and float32 at every level of the MG and of a
+box-aggregated AMG, on the CPU (K5's plain version); the core rows table,
 the spans' ``layout`` attribute and the exchange count."""
 from collections import Counter
 from functools import lru_cache
@@ -15,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 import torch_ghost_core_cases as cases
 from partitionedarrays_tpu_torch.models.hpcg.cg import hpcg_cg_flat_g
 from partitionedarrays_tpu_torch.parallel.exchange_plan import core_slot
+from partitionedarrays_tpu_torch.pvector import PVector
 from partitionedarrays_tpu_torch.utils import profiling
 
 N = 16
@@ -130,13 +132,60 @@ def test_cg_equals_std_composition(parts, dtype):
 
 @pytest.mark.parametrize("parts", cases.PARTS)
 def test_mg_cycle_on_pvector_equals_std_composition(parts):
-    """The generic ``_cycle`` callers (through the ``_cycle_flat_g``
-    wrapper) get the standard-order cycle's result, bit for bit."""
+    """The generic ``_cycle`` callers (through ``_cycle_flat_g``, the
+    V-cycle on a standard-order rhs) get the standard-order cycle's result,
+    bit for bit."""
     mg = _mg(parts, torch.float64)
     b = cases.random_rhs(mg, 8)
     got = mg(b)
     want = cases._std_cycle(mg, mg.n_levels - 1, b)
     assert torch.equal(got.own, want.own)
+
+
+@pytest.mark.parametrize("level", range(LEVELS))
+@pytest.mark.parametrize("dtype", cases.DTYPES)
+@pytest.mark.parametrize("parts", cases.PARTS)
+def test_gauss_seidel_apply_and_call_equal_std_composition(parts, dtype, level):
+    """``apply`` from a random x and ``__call__`` from the zero guess, on a
+    colored level with ghost columns: ``b.own - ghost_contrib(x.own)``'s
+    sweeps, bit for bit."""
+    mg = _mg(parts, dtype)
+    gs = mg.gss[level]
+    assert gs.colored is not None and not gs.flat_viable()
+    lay = gs.A.row_layout()
+    g = torch.Generator().manual_seed(50 + level)
+    x_own, b_own = (torch.randn(lay.n_parts, lay.n_own_pad, generator=g,
+                                dtype=torch.float64).to(dtype) for _ in range(2))
+    x = PVector(x_own, x_own.new_zeros((lay.n_parts, lay.n_ghost_pad)), lay, mg.backend)
+    b = PVector(b_own, torch.zeros_like(x.ghost), lay, mg.backend)
+    assert torch.equal(gs.apply(x, b).own, cases.std_gs(gs, x_own, b_own, False))
+    assert torch.equal(gs(b).own, cases.std_gs(gs, torch.zeros_like(b_own), b_own, True))
+
+
+@lru_cache(maxsize=None)
+def _amg(parts, dtype):
+    return cases.build_amg_box(parts, dtype)
+
+
+@pytest.mark.parametrize("w", [False, True], ids=["v", "w"])
+@pytest.mark.parametrize("dtype", cases.DTYPES)
+@pytest.mark.parametrize("parts", cases.PARTS)
+def test_amg_flat_cycle_equals_std_composition(parts, dtype, w):
+    """The AMG cycle whose box levels couple in the core equals the
+    standard-order ghosted flat cycle, V and W, from every level."""
+    A, M = _amg(parts, dtype)
+    smoothed = M.levels[:-1]
+    assert len(smoothed) >= 2
+    assert all(lev.struct is not None and lev.smoother.colored is not None
+               and not lev.smoother.flat_viable() for lev in smoothed)
+    for l in range(len(smoothed)):
+        lev = M.levels[l]
+        b = cases.amg_rhs(lev.A, 60 + l)
+        want = cases.std_amg_cycle(M, l, b, w)
+        assert torch.equal(M._cycle(l, b, w).own, want.own), l
+    if not w:  # the preconditioner's own call: a V-cycle on the CPU, eager
+        b = cases.amg_rhs(A, 70)
+        assert torch.equal(M(b).own, cases.std_amg_cycle(M, 0, b, False).own)
 
 
 def test_span_layout_and_exchange_count():
@@ -148,10 +197,9 @@ def test_span_layout_and_exchange_count():
         hpcg_cg_flat_g(mg, mg.b, iterations=its)
         recorded = profiling.spans()
     cycles = its + 1
-    # per V-cycle two core couplings on each ghosted level above the
-    # coarsest, one per A-apply; the coarsest's zero-guess smoothing keeps
-    # the standard-order coupling
-    n_core = cycles * 2 * (LEVELS - 1) + its
+    # per V-cycle two couplings on each ghosted level above the coarsest and
+    # the coarsest's zero-guess one, one per A-apply: all in the core
+    n_core = cycles * (2 * (LEVELS - 1) + 1) + its
     tags = Counter(s.attrs.get("layout") for s in recorded if s.name == "ghost")
-    assert tags == {"core": n_core, "std": cycles}
-    assert profiling.COUNTS["exchanges.set"] == n_core + cycles
+    assert tags == {"core": n_core}
+    assert profiling.COUNTS["exchanges.set"] == n_core

@@ -7,7 +7,10 @@
   version's subtraction;
 - ``GaussSeidel.ghost_couple_core`` at every level of the (2,2,2)x32^3 MG,
   and a whole 50-iteration ``hpcg_cg_flat_g`` set there, bit for bit the
-  standard-order composition (``tests/torch_ghost_core_cases.py``).
+  standard-order composition (``tests/torch_ghost_core_cases.py``);
+- the box AMG on (2,2,2) parts of 18^3: V- and W-cycles from every level,
+  and the preconditioner's call (captured, then replayed from its CUDA
+  graph), bit for bit the standard-order ghosted flat cycle.
 
 Every test is marked ``gpu`` and skips without a CUDA card (decided in the
 fixture).  This module imports torch and the port only (no JAX):
@@ -108,3 +111,22 @@ def test_set_on_the_card_equals_std_composition(cuda, dtype):
     assert torch.equal(norms, n_want)
     assert torch.equal(x.own, x_want)
     assert float(norms[-1] / norms[0]) < 1e-4
+
+
+@pytest.mark.parametrize("w", [False, True], ids=["v", "w"])
+@pytest.mark.parametrize("dtype", cases.DTYPES)
+def test_amg_box_on_parts_on_the_card_equals_std_composition(cuda, dtype, w):
+    A, M = cases.build_amg_box((2, 2, 2), dtype, device=cuda)
+    for l in range(len(M.levels) - 1):
+        b = cases.amg_rhs(M.levels[l].A, 60 + l)
+        want = cases.std_amg_cycle(M, l, b, w)
+        got = M._cycle(l, b, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got.own, want.own), l
+    if not w:  # capture, then replay
+        b = cases.amg_rhs(A, 70)
+        want = cases.std_amg_cycle(M, 0, b, False)
+        for _ in range(2):
+            got = M(b)
+            torch.cuda.synchronize()
+            assert torch.equal(got.own, want.own)
