@@ -36,7 +36,12 @@ Phases, one output line each:
    other lane count, its time, device time, bound and plain time, the
    ``torch.sparse`` CSR call at the fine level, the device time under
    every other lane count, and on HPCG's own values (exact in bfloat16)
-   each narrow pair against the full-value kernel, bit for bit;
+   each narrow pair against the full-value kernel, bit for bit; then the
+   V-cycle's level transfers (``mg_restrict_core``, ``mg_prolong_core``,
+   ``csrc/mg_transfer.cu``) against their plain versions, bit for bit, at
+   the finest level pair of each HPCG cell (256^3 -> 128^3 on one part,
+   (2,2,2) x 128^3 -> 64^3), float32 and float64, on random cores: time,
+   device time, flushed time, bound and the plain version's time;
 4. thirty paths through the port, each with its kernels' launch counts
    set to 0 just before it and read just after (a-c: the HPCG benchmark, 4
    MG levels, 50 CG iterations; d-f and j: the AMG paths, counted over
@@ -339,12 +344,25 @@ KERNELS = {
         "partitionedarrays_tpu_torch/csrc/tile_gs.cu",
         "partitionedarrays_tpu/solvers/gs_slot.py:112",
     ),
+    "mg_restrict_core": (
+        "partitionedarrays_tpu_torch/csrc/mg_transfer.cu",
+        "none (the selection matmul of partitionedarrays_tpu/models/hpcg/mg.py, XLA)",
+    ),
+    "mg_prolong_core": (
+        "partitionedarrays_tpu_torch/csrc/mg_transfer.cu",
+        "none (the dilated pad of partitionedarrays_tpu/models/hpcg/mg.py, XLA)",
+    ),
 }
+# the V-cycle's level transfers: bit for bit their plain versions (copies,
+# and one add a slot)
+EXACT = {"float32": 0.0, "float64": 0.0}
+MG_TRANSFERS = ("mg_restrict_core", "mg_prolong_core")
 # the kernels each path of phase 4 must launch
 PATH_KERNELS = {
-    "one_part": ("dia_spmv", "ax_core", "gs_sweeps"),
-    "ghosted": ("dia_spmv", "ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv"),
-    "df64": ("dia_spmv_df", "ax_core", "gs_sweeps", "ghost_spmv"),
+    "one_part": ("dia_spmv", "ax_core", "gs_sweeps", *MG_TRANSFERS),
+    "ghosted": ("dia_spmv", "ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv",
+                *MG_TRANSFERS),
+    "df64": ("dia_spmv_df", "ax_core", "gs_sweeps", "ghost_spmv", *MG_TRANSFERS),
     "amg_elasticity": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
     "amg_box": ("dia_spmv", "ax_core", "gs_sweeps"),
     "amg_box_df64": ("dia_spmv_df", "ax_core", "gs_sweeps"),
@@ -356,10 +374,11 @@ PATH_KERNELS = {
     "schwarz_ilu0": ("dia_spmv", "tile_gs_sweeps"),
     "schwarz_ilu0_parts": ("dia_spmv", "ghost_spmv", "tile_gs_sweeps"),
     "amg_schwarz_elasticity": ("dia_spmv", "ghost_spmv", "tile_gs_sweeps"),
-    "precond_values": ("ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv", "dia_spmv_df"),
+    "precond_values": ("ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv", "dia_spmv_df",
+                       *MG_TRANSFERS),
     "amg_unequal_parts": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
     "repartitioned": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
-    "hpcg_float16": ("ax_core", "gs_sweeps", "dia_spmv_strided"),
+    "hpcg_float16": ("ax_core", "gs_sweeps", "dia_spmv_strided", *MG_TRANSFERS),
     "block_cg": ("dia_spmv", "ghost_spmv"),
     "newton_krylov": ("dia_spmv", "ghost_spmv", "gs_sweeps"),
     "mp_cg_2": ("dia_spmv", "ghost_spmv", "gs_sweeps"),
@@ -367,8 +386,8 @@ PATH_KERNELS = {
     "mp_fem_2": ("dia_spmv", "ghost_spmv"),
     "mp_gsslot_2": ("tile_gs_sweeps",),
     "mp_amg_2": ("dia_spmv", "gs_sweeps", "ghost_spmv"),
-    "mp_hpcg_2": ("ax_core", "gs_sweeps", "ghost_spmv"),
-    "mp_hpcg_df64_2": ("dia_spmv_df", "ax_core", "gs_sweeps", "ghost_spmv"),
+    "mp_hpcg_2": ("ax_core", "gs_sweeps", "ghost_spmv", *MG_TRANSFERS),
+    "mp_hpcg_df64_2": ("dia_spmv_df", "ax_core", "gs_sweeps", "ghost_spmv", *MG_TRANSFERS),
     "mp_folds_2": ("dia_spmv_df", "ghost_spmv"),
     "elasticity_update_24": ("dia_spmv", "gs_sweeps", "ghost_spmv", "tile_gs_sweeps"),
     "sorted_gs": ("dia_spmv", "gs_sweeps", "ghost_spmv"),
@@ -1270,6 +1289,69 @@ def phase_k3_levels(device):
     emit("3c kernel K3 levels", results)
     emit("3d kernel K4 levels", k4_results)
     return results, k4_results
+
+
+def _hpcg_core(box):
+    """(m, Lq) of the colored smoother of HPCG's 27-point own block on the
+    part box ``box``: ``ColoredDIAGS``'s geometry, with no operator built."""
+    from itertools import product
+
+    from partitionedarrays_tpu_torch.solvers.gs_dia import ColoredDIAGS
+
+    nx, ny, nz = box
+    col = ColoredDIAGS.__new__(ColoredDIAGS)
+    col._plan(sorted({(dx * ny + dy) * nz + dz for dx, dy, dz in product((-1, 0, 1), repeat=3)}),
+              nx * ny * nz)
+    return col.m, col.Lq
+
+
+def phase_transfers(device):
+    """The V-cycle's level transfers against their plain versions, bit for
+    bit (``EXACT``), at the finest level pair of each HPCG cell: 256^3 ->
+    128^3 on one part and (2,2,2) x 128^3 -> 64^3, float32 and float64, on
+    random cores (padding slots included).  Bound: what the injection needs,
+    each coarse point's fine value read once and the coarse core written
+    (restriction), each coarse value read and its fine value read and
+    written (prolongation); both kernels move whole 32-byte sectors of the
+    fine core, about a quarter of them (``csrc/mg_transfer.cu``)."""
+    import torch
+
+    from partitionedarrays_tpu_torch.ops.mg_transfer import (
+        prolong_add_core_, prolong_add_core_plain_, restrict_core, restrict_core_plain,
+    )
+
+    results = []
+    g = torch.Generator().manual_seed(4321)
+    for n, P in ((256, 1), (128, 8)):
+        box = (n, n, n)
+        fine, coarse = _hpcg_core(box), _hpcg_core((n // 2,) * 3)
+        nc = (n // 2) ** 3
+        where = f"{n}^3 -> {n // 2}^3, " + ("one part" if P == 1 else "(2,2,2) parts")
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).replace("torch.", "")
+            rd = torch.randn(P, *fine, generator=g, dtype=dtype).to(device)
+            xc = torch.randn(P, *coarse, generator=g, dtype=dtype).to(device)
+            isz = rd.element_size()
+            _hold(results, "mg_restrict_core", name,
+                  lambda: restrict_core(rd, box, coarse),
+                  lambda: restrict_core_plain(rd, box, coarse),
+                  work=(isz * P * (nc + coarse[0] * coarse[1]), 0, _flops(name)),
+                  flushed=True, rtol=EXACT)
+            results[-1].update(where=where, fine_core=list(fine), coarse_core=list(coarse))
+            # in place: compared on copies of the fine core, timed on one
+            xf_t = rd.clone()
+            _hold(results, "mg_prolong_core", name,
+                  lambda: prolong_add_core_(rd.clone(), xc, box),
+                  lambda: prolong_add_core_plain_(rd.clone(), xc, box),
+                  timed=(lambda: prolong_add_core_(xf_t, xc, box),
+                         lambda: prolong_add_core_plain_(xf_t, xc, box)),
+                  work=(isz * P * 3 * nc, P * nc, _flops(name)),
+                  flushed=True, rtol=EXACT)
+            results[-1].update(where=where, fine_core=list(fine), coarse_core=list(coarse))
+            del rd, xc, xf_t
+            torch.cuda.empty_cache()
+    emit("3e transfers", results)
+    return results
 
 
 def phase_hpcg(device):
@@ -4018,9 +4100,12 @@ def main() -> int:
     with timed("3c-3d K3, K4 levels"):
         k3_results, k4_results = phase_k3_levels(device)
         kernel_results += k3_results + k4_results
+    with timed("3e transfers"):
+        kernel_results += phase_transfers(device)
 
     counters = ("dia_spmv", "ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv",
-                "dia_spmv_df", "tile_gs_sweeps")  # C entries, counted by profiling.COUNTS
+                "dia_spmv_df", "tile_gs_sweeps",
+                *MG_TRANSFERS)  # C entries, counted by profiling.COUNTS
     launches = {}
     for path, run_path in (
         ("one_part", phase_hpcg), ("ghosted", phase_hpcg_ghosted), ("df64", phase_hpcg_df64),

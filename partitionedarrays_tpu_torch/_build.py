@@ -74,6 +74,12 @@ _SIGNATURES = {
     "pat_dia_spmv_df": [
         _VP, _VP, _VP, _VP, _VP, _VP, ctypes.POINTER(_INT), _INT, _I64, _I64, _INT, _VP,
     ],
+    # the HPCG V-cycle's level transfers (csrc/mg_transfer.cu): fine core
+    # (in for the restriction, in and out for the prolongation), coarse core,
+    # the fine box nx, ny, nz, the fine core's m, Lq, the coarse core's m,
+    # Lq, P, stream
+    "pat_mg_restrict_core": [_VP, _VP, _INT, _INT, _INT, _INT, _I64, _INT, _I64, _INT, _VP],
+    "pat_mg_prolong_core": [_VP, _VP, _INT, _INT, _INT, _INT, _I64, _INT, _I64, _INT, _VP],
     # pack, rows, cols, vals, tile_ptr, tile_lanes, wave_tiles, steps
     # (device int [n_steps]), b, x, n_steps, nt, D (planes per tile), B, W,
     # Nr, K, P, x in shared memory (1, 0, -1: where it fits), stream

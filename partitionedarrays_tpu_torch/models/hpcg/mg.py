@@ -6,15 +6,18 @@ by injection of the even-coordinate points; a V-cycle with symmetric
 Gauss-Seidel before and after the coarse correction, and smoothing only on
 the coarsest level.
 
-Within a level, x and the smoothing stay in the de-interleaved core layout
-of the colored Gauss-Seidel; standard order appears only for the level
-transfers.  One recursion (``_vcycle``) serves one part and many: with
-ghost columns the frozen ghost contribution of each smoother application
-is folded into the core rhs (``GaussSeidel.ghost_couple_core``, a no-op
-without them).  Restriction is a stride-2 slice of the
-C-ordered box and prolongation writes the coarse values at the even points
-of a zero box: the reference's selection matmul and dilated pad were TPU
-layout devices.
+The whole cycle stays in the de-interleaved core layout of the colored
+Gauss-Seidel, the level transfers included: restriction and prolongation
+map one level's core to the other's directly (``ops/mg_transfer.py``, two
+hand-written kernels on the card), so standard order appears only where a
+standard-order rhs enters (``_cycle``).  One recursion (``_vcycle``) serves
+one part and many: with ghost columns the frozen ghost contribution of each
+smoother application is folded into the core rhs
+(``GaussSeidel.ghost_couple_core``, a no-op without them).  The reference's
+selection matmul and dilated pad were TPU layout devices; ``_restrict`` and
+``_prolong`` keep the same injection in standard order (a stride-2 slice of
+the C-ordered box, the coarse values at the even points of a zero box), the
+composition the tests hold the core transfers to.
 ``restrict_operator`` (reference ``mg.py:31-43``) is copied for callers
 that want the injection as an index table.
 
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ...config import values_dtype
+from ...ops.mg_transfer import prolong_add_core_, restrict_core
 from ...psparse import PSparseMatrix
 from ...pvector import PVector
 from ...solvers.smoothers import GaussSeidel
@@ -129,9 +133,10 @@ class HPCGMGPreconditioner:
     def nnz_per_level(self) -> List[int]:
         return [A.nnz() for A in self.As]
 
-    # -- level transfers -----------------------------------------------
+    # -- level transfers in standard order (the tests' composition) ----
     def _restrict(self, l: int, r_own: torch.Tensor) -> PVector:
-        """Injection: the even-coordinate points of the level-l box."""
+        """Injection: the even-coordinate points of the level-l box, in
+        standard order (``restrict_core`` is the cycle's)."""
         nx, ny, nz = self.level_shapes[l]
         P = r_own.shape[0]
         clay = self.As[l - 1].row_layout()
@@ -142,7 +147,8 @@ class HPCGMGPreconditioner:
 
     def _prolong(self, l: int, xc_own: torch.Tensor, n_own_pad: int) -> torch.Tensor:
         """Injection transpose: the coarse values at the even points of a
-        zero level-l box, in standard order."""
+        zero level-l box, in standard order (``prolong_add_core_`` adds it
+        in the cycle)."""
         nx, ny, nz = self.level_shapes[l]
         nxc, nyc, nzc = self.level_shapes[l - 1]
         P = xc_own.shape[0]
@@ -161,7 +167,7 @@ class HPCGMGPreconditioner:
 
     def _cycle_flat_g(self, l: int, b: PVector) -> torch.Tensor:
         """The V-cycle from level ``l`` on a standard-order rhs; returns the
-        core x.  ``_cycle`` and every coarser visit enter here."""
+        core x.  ``_cycle`` enters here."""
         return self._vcycle(l, self.gss[l].make_bd(b))
 
     def _vcycle(self, l: int, bd: torch.Tensor) -> torch.Tensor:
@@ -174,17 +180,19 @@ class HPCGMGPreconditioner:
         pre-smooth has zero ghosts and couples nothing; the coarsest level
         smooths only, from a zero guess whose coupling still exchanges, as
         the reference's.  Where a level couples, ``bd`` is consumed: the
-        post-smooth's rhs is built in it."""
+        post-smooth's rhs is built in it.  The transfers run core to core:
+        the residual's restriction is the coarse rhs, and the coarse x's
+        prolongation is added into x in place."""
         with span("mg.level", level=l):
             gs = self.gss[l]
             if l == 0:
                 return gs.smooth_bd(None, gs.ghost_couple_core(None, bd, subtract=True))
             xflat = gs.smooth_bd(None, bd)  # pre-smooth
             rd = gs.ghost_couple_core(xflat, gs.flat_residual(xflat, bd), subtract=True)
-            r_std = gs.flat_interleave(rd)
-            xc = self._cycle_flat_g(l - 1, self._restrict(l, r_std))
-            corr = self._prolong(l, self.gss[l - 1].flat_interleave(xc), r_std.shape[1])
-            xflat = gs.flat_add_std(xflat, corr)
+            coarse = self.gss[l - 1].colored
+            xc = self._vcycle(l - 1, restrict_core(rd, self.level_shapes[l],
+                                                   (coarse.m, coarse.Lq)))
+            prolong_add_core_(xflat, xc, self.level_shapes[l])
             return gs.smooth_bd(xflat, gs.ghost_couple_core(xflat, bd, subtract=True))
 
     def flat_viable(self) -> bool:

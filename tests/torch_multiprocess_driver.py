@@ -83,7 +83,8 @@ def _shards_vs(x_local, x_ref_local, tol, what):
 
 
 KERNELS = ("dia_spmv", "ax_core", "gs_sweeps", "dia_spmv_strided", "ghost_spmv", "dia_spmv_df",
-           "tile_gs_sweeps")  # the C entries, counted by profiling.COUNTS
+           "tile_gs_sweeps", "mg_restrict_core",
+           "mg_prolong_core")  # the C entries, counted by profiling.COUNTS
 
 
 def _count_from_zero():
